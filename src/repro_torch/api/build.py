@@ -1,0 +1,61 @@
+"""``build_experiment(spec)`` — from a declarative ``ExperimentSpec`` to a
+runnable ``FLExperiment`` on one device."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.configs.base import FLConfig
+from repro_torch.configs.paper_cnn import CNN_CONFIGS
+from repro_torch.core.fedavg import FLExperiment
+from repro_torch.core.wireless import sample_fleet
+from repro_torch.data.partition import partition_bias
+from repro_torch.data.synthetic import make_dataset
+
+
+def fl_config_from_spec(spec: ExperimentSpec) -> FLConfig:
+    return FLConfig(num_devices=spec.clients,
+                    devices_per_round=spec.devices_per_round,
+                    local_iters=spec.local_iters,
+                    num_clusters=spec.num_clusters,
+                    selected_per_cluster=spec.selected_per_cluster,
+                    learning_rate=spec.learning_rate,
+                    sigma=spec.sigma,
+                    target_accuracy=spec.target_accuracy,
+                    max_rounds=spec.rounds,
+                    selection=spec.selection["name"],
+                    feature_layer=spec.feature_layer)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; a CUDA device
+    with no card raises — the port never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' to run its plain PyTorch paths")
+    return dev
+
+
+def build_experiment(spec: ExperimentSpec, device=None, *,
+                     draws=None) -> FLExperiment:
+    """Materialize dataset, partition, fleet and experiment from ``spec`` on
+    ``device`` (default ``cuda``). ``draws`` replaces the experiment's default
+    ``torch.Generator`` draws (``repro_torch.core.draws``)."""
+    dev = resolve_device(device)
+    model_cfg = CNN_CONFIGS[spec.dataset]
+    fleet = sample_fleet(spec.clients, seed=spec.resolved_fleet_seed)
+    ds = make_dataset(spec.dataset, spec.train_samples,
+                      seed=spec.resolved_data_seed)
+    test = make_dataset(spec.dataset, spec.test_samples,
+                        seed=spec.resolved_test_seed)
+    fed = partition_bias(ds, spec.clients, spec.samples_per_client,
+                         spec.sigma, seed=spec.resolved_partition_seed)
+    exp = FLExperiment(
+        model_cfg, fed, test.images, test.labels, fleet,
+        fl_config_from_spec(spec), device=dev,
+        bandwidth_mhz=spec.bandwidth_mhz, seed=spec.seed,
+        batch_size=spec.batch_size, selection=spec.selection,
+        allocator=spec.allocator, aggregator=spec.aggregator, draws=draws)
+    exp.spec = spec
+    return exp

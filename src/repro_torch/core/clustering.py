@@ -1,0 +1,110 @@
+"""K-means device clustering — paper §IV-A/B, Algorithms 2-3.
+
+The paper trains K-means on the weights of one late layer (``w_fc2``):
+faster (feature dim 2240 vs 113744) and more telling of a client's majority
+class than all weights (Fig. 4/8/9). Lloyd iterations with k-means++
+seeding, all on the features' device; the seeding choices come from the
+caller's draws object (``repro_torch.core.draws``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.utils.trees import StackFlattenSpec
+
+
+def resolve_feature_columns(spec: StackFlattenSpec, layer: str):
+    """The feature layer's column slice of a flat row (``None`` = the whole
+    row, i.e. ``layer="all"``); ``"auto"`` is the paper's ``w_fc2``."""
+    if layer == "all":
+        return None
+    if layer == "auto":
+        layer = "w_fc2" if "w_fc2" in spec.names else spec.names[-1]
+    elif layer not in spec.names:
+        raise KeyError(layer)
+    return spec.columns(layer)
+
+
+def extract_features_flat(client_flat: torch.Tensor, layer: str,
+                          spec: StackFlattenSpec) -> torch.Tensor:
+    """Feature matrix from the ``[N, P]`` plane: a zero-copy column slice
+    (``layer="all"`` is the plane itself)."""
+    cols = resolve_feature_columns(spec, layer)
+    return client_flat if cols is None else client_flat[:, cols]
+
+
+def kmeans_plus_plus_init(x: torch.Tensor, c: int, draws) -> torch.Tensor:
+    """k-means++ seeding: the first centroid is ``draws.kmeans_seed``, each
+    next one ``draws.kmeans_choice`` with probability ∝ the squared
+    distance to the nearest centroid chosen so far."""
+    n = x.shape[0]
+
+    def row(idx):       # a device-side gather: no read-back of the index
+        return x.index_select(0, idx.reshape(1).to(x.device))[0]
+
+    centroids = torch.zeros((c, x.shape[1]), dtype=x.dtype, device=x.device)
+    centroids[0] = row(draws.kmeans_seed(n, c))
+    cols = torch.arange(c, device=x.device)
+    for i in range(1, c):
+        d = ops.pairwise_sq_dists(x, centroids)
+        # unchosen centroids are zero rows: only the first i columns count
+        d = torch.where((cols < i)[None, :], d,
+                        torch.full_like(d, float("inf")))
+        dmin = torch.min(d, dim=1).values
+        p = dmin / torch.clamp(torch.sum(dmin), min=1e-12)
+        centroids[i] = row(draws.kmeans_choice(i, p))
+    return centroids
+
+
+def kmeans_fit(x: torch.Tensor, c: int, iters: int = 50, *, draws=None,
+               init_centroids: torch.Tensor = None):
+    """Lloyd's algorithm, eqs (13)-(14), from k-means++ seeds (``draws``)
+    or from ``init_centroids``. Returns (centroids, labels, inertia).
+    ``torch.argmin`` takes the first index on ties, like ``jnp.argmin``."""
+    x = x.to(torch.float32).contiguous()
+    if init_centroids is not None:
+        centroids = init_centroids.to(device=x.device, dtype=torch.float32)
+    elif draws is not None:
+        centroids = kmeans_plus_plus_init(x, c, draws)
+    else:
+        raise ValueError("kmeans_fit needs draws (k-means++ seeding) or "
+                         "init_centroids")
+    for _ in range(iters):
+        labels = torch.argmin(ops.pairwise_sq_dists(x, centroids), dim=1)
+        onehot = torch.nn.functional.one_hot(labels, c).to(torch.float32)
+        counts = onehot.sum(dim=0)
+        new = (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None]
+        # an empty cluster keeps its old centroid
+        centroids = torch.where((counts > 0)[:, None], new, centroids)
+    d = ops.pairwise_sq_dists(x, centroids)
+    labels = torch.argmin(d, dim=1)
+    return centroids, labels, torch.sum(torch.min(d, dim=1).values)
+
+
+def clusters_from_labels(labels, c: int):
+    """Algorithm 2 output form: list of index arrays {N_1..N_c}."""
+    labels = np.asarray(labels.cpu() if isinstance(labels, torch.Tensor)
+                        else labels)
+    return [np.flatnonzero(labels == i) for i in range(c)]
+
+
+def adjusted_rand_index(pred: np.ndarray, truth: np.ndarray) -> float:
+    """Standard ARI (Hubert & Arabie 1985) — the paper's eq. (24) metric."""
+    pred = np.asarray(pred)
+    truth = np.asarray(truth)
+    n = len(pred)
+    pv, pi = np.unique(pred, return_inverse=True)
+    tv, ti = np.unique(truth, return_inverse=True)
+    cont = np.zeros((len(pv), len(tv)), np.int64)
+    np.add.at(cont, (pi, ti), 1)
+    comb = lambda v: v * (v - 1) / 2.0
+    sum_ij = comb(cont).sum()
+    a = comb(cont.sum(axis=1)).sum()
+    b = comb(cont.sum(axis=0)).sum()
+    expected = a * b / comb(n)
+    max_index = 0.5 * (a + b)
+    if max_index == expected:
+        return 1.0
+    return float((sum_ij - expected) / (max_index - expected))

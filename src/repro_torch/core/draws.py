@@ -1,0 +1,48 @@
+"""The experiment's one source of randomness.
+
+Every random choice on the FL path comes from one draws object owned by
+the experiment: the initial parameters, each round's local-SGD batch
+indices and the k-means++ seeding choices — nothing else on this path
+draws. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
+experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
+give different numbers for one seed, so a parity test hands the experiment an
+object with the same four methods that replays the reference's key stream.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.registry import model_def_for
+
+
+class TorchDraws:
+    """Draws from ``torch.Generator(device)`` seeded with ``seed``; every
+    result is a tensor on ``device`` (no host round trip)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def init_params(self, model_cfg):
+        """One model's initial ``{name: tensor}``."""
+        return model_def_for(model_cfg).init(model_cfg, self.generator,
+                                             self.device)
+
+    def batch_indices(self, n: int, local_iters: int, batch_size: int,
+                      num_samples: int) -> torch.Tensor:
+        """``[n, L, batch]`` sample indices into each client's shard."""
+        return torch.randint(0, num_samples, (n, local_iters, batch_size),
+                             generator=self.generator, device=self.device)
+
+    def kmeans_seed(self, n: int, c: int) -> torch.Tensor:
+        """The first k-means++ centroid of a fit over ``n`` rows into ``c``
+        clusters (a 0-d index)."""
+        return torch.randint(0, n, (), generator=self.generator,
+                             device=self.device)
+
+    def kmeans_choice(self, i: int, p: torch.Tensor) -> torch.Tensor:
+        """Centroid ``i`` drawn with probabilities ``p`` (uniform when
+        every row already sits on a centroid)."""
+        p = torch.where(p.sum() > 0, p, torch.ones_like(p))
+        return torch.multinomial(p, 1, generator=self.generator)[0]

@@ -1,0 +1,96 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the repository root, named by a hash of its source
+and flags, then loaded with ``ctypes``. No PyTorch headers are involved,
+so a build takes seconds. Nothing is compiled when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``; raises if
+    neither exists."""
+    home = os.environ.get("CUDA_HOME")
+    if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+        return os.path.join(home, "bin", "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        return on_path
+    raise RuntimeError("nvcc not found in $CUDA_HOME/bin or on PATH: the "
+                       "CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str], ptxas_verbose: bool = False) -> Dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. Returns each compiled
+    kernel's compiler output (``-Xptxas -v`` adds register and shared
+    memory counts); raises on the first failed build."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if ptxas_verbose else ()
+    procs = {}
+    for n in todo:
+        # build to a private name, then rename: concurrent builds of the
+        # same source never see a half-written library
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        logs[n] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(n))
+        else:
+            failed.append(n)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load_function(name: str, symbol: str, argtypes: Tuple) -> ctypes._CFuncPtr:
+    """``symbol`` of library ``name`` with its ``argtypes`` declared (a
+    pointer passed without them is cut to 32 bits) and an ``int`` result,
+    building the library first if needed."""
+    build([name])
+    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def error_string(name: str, code: int) -> str:
+    """CUDA's text for error ``code`` (each library exports
+    ``<name>_error_string``)."""
+    fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_error_string")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(code).decode()

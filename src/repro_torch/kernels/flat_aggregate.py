@@ -1,0 +1,76 @@
+"""Weighted row sum over the flat client plane — FedAvg's eq.-(4) fold as
+one GEMV, ``[N, P] × [N] -> [P]`` in fp32.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flat_aggregate.py``
+(``flat_aggregate`` / ``_flat_aggregate_kernel``) with the hand-written
+CUDA kernel ``csrc/flat_aggregate.cu``. On the card it is bound by bytes:
+the plane is read once for two flops per element. The kernel gives each
+thread four consecutive columns (16-byte loads) and sums all N rows in a
+fixed order — no atomics, no split over N — so the fold is deterministic.
+
+Both versions skip rows whose weight is not positive, so a NaN row at
+weight 0 never reaches the fold (0·NaN = NaN); the kernel by not reading
+the row, the plain version by zeroing it first.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import error_string, load_function
+
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p)
+
+
+def flat_aggregate_plain(flat: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: zero the rows with ``w <= 0``, then the
+    naive multiply-and-reduce of ``ref.flat_aggregate_ref``."""
+    keep = (weights > 0.0)[:, None]
+    return ref.flat_aggregate_ref(
+        torch.where(keep, flat, torch.zeros((), dtype=flat.dtype,
+                                            device=flat.device)), weights)
+
+
+def flat_aggregate(flat: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``Σ_n w_n·flat[n, :]`` over the rows with ``w_n > 0``.
+
+    flat ``[N, P]`` fp32 and weights ``[N]`` fp32, both contiguous on one
+    device. A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`flat_aggregate_plain`.
+    """
+    if not flat.is_cuda:
+        return flat_aggregate_plain(flat, weights)
+    if flat.dim() != 2 or weights.shape != (flat.shape[0],):
+        raise ValueError(f"flat_aggregate: want flat [N, P] and weights [N]; "
+                         f"got {tuple(flat.shape)} and {tuple(weights.shape)}")
+    if flat.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"flat_aggregate: the kernel takes float32; got "
+                        f"{flat.dtype} and {weights.dtype}")
+    if weights.device != flat.device:
+        raise ValueError("flat_aggregate: flat and weights lie on different "
+                         f"devices ({flat.device}, {weights.device})")
+    if not (flat.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("flat_aggregate: the kernel takes contiguous tensors")
+    n, p = flat.shape
+    if flat.numel() >= 2 ** 31:
+        raise ValueError(f"flat_aggregate: {n}x{p} exceeds the kernel's "
+                         "32-bit sizes")
+    out = torch.empty((p,), dtype=torch.float32, device=flat.device)
+    fn = load_function("flat_aggregate", "flat_aggregate_f32", _ARGTYPES)
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    with torch.cuda.device(flat.device):
+        err = fn(flat.data_ptr(), weights.data_ptr(), out.data_ptr(), n, p,
+                 stream)
+    if err:
+        raise RuntimeError("flat_aggregate: kernel launch failed: "
+                           + error_string("flat_aggregate", err))
+    flat_aggregate.launches += 1
+    return out
+
+
+#: kernel launches so far (a plain count, reset by whoever reads it)
+flat_aggregate.launches = 0

@@ -1,0 +1,56 @@
+"""Public wrappers around the hand-written kernels, with the reference's
+guards (``repro/kernels/ops.py``).
+
+Dispatch goes by the tensor's device only: a CUDA tensor launches the
+hand kernel (or raises), a CPU tensor takes the plain PyTorch path, which
+spells each op as the reference does off-TPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flat_aggregate import flat_aggregate as _flat_agg
+from repro_torch.kernels.pairwise_l2 import pairwise_l2 as _pairwise
+
+
+def pairwise_sq_dists(x, c):
+    """[N, F] × [M, F] -> [N, M] squared L2 (K-means assignment).
+
+    CUDA: the direct-form kernel. CPU: the ‖x‖²+‖c‖²−2x·c expansion,
+    clamped at zero so no caller sees a negative squared distance.
+    """
+    x = x.to(torch.float32)
+    c = c.to(torch.float32)
+    if x.is_cuda:
+        return _pairwise(x, c)
+    xn = torch.sum(torch.square(x), dim=1, keepdim=True)
+    cn = torch.sum(torch.square(c), dim=1)[None, :]
+    return torch.clamp(xn + cn - 2.0 * x @ c.T, min=0.0)
+
+
+def flat_aggregate(flat, weights, *, mask=None, normalize: bool = True):
+    """Masked weighted row-reduction over the flat client plane:
+    ``[N, P] × [N] -> [P]`` — FedAvg aggregation (eq. 4) as one op.
+
+    ``mask`` zeroes padding lanes' weights; ``normalize`` divides by
+    ``max(Σw, 1e-12)`` (an all-masked call gives zeros, not 0/0). Rows
+    with ``w <= 0`` never reach the fold, so a NaN row at weight 0 cannot
+    poison it.
+    """
+    w = weights.to(torch.float32)
+    if mask is not None:
+        w = torch.where(mask, w, torch.zeros_like(w))
+    if normalize:
+        w = w / torch.clamp(torch.sum(w), min=1e-12)
+    return _flat_agg(flat, w)
+
+
+def client_divergence(flat, gvec):
+    """[N] weight divergences ‖flat_n − g‖₂ against the flat global row —
+    §IV-C's selection signal. CUDA: the pairwise kernel with the global
+    row as the one centroid. CPU: the direct subtract-square-reduce."""
+    if flat.is_cuda:
+        g = gvec.to(torch.float32).reshape(1, -1)
+        return torch.sqrt(_pairwise(flat.to(torch.float32), g)[:, 0])
+    diff = flat.to(torch.float32) - gvec.to(torch.float32)[None, :]
+    return torch.sqrt(torch.sum(torch.square(diff), dim=1))

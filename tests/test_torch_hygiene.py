@@ -1,0 +1,98 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package ``repro``,
+importing the port's entry point pulls neither in, and the entry point
+never falls back to the CPU on its own."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    assert path.exists()
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.core.fedavg, "
+            "repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_build_experiment_raises_without_cuda(monkeypatch):
+    from repro_torch.api import ExperimentSpec, build_experiment
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ExperimentSpec(dataset="fashion", clients=4, samples_per_client=4,
+                          train_samples=40, test_samples=8, local_iters=1,
+                          batch_size=2, devices_per_round=2, num_clusters=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_experiment(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_experiment(spec, device="cuda")
+    exp = build_experiment(spec, device="cpu")
+    assert exp.global_vec.device.type == "cpu"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("field,value", [
+    ("selection", "random"), ("allocator", "equal"), ("allocator", "sao:box"),
+    ("aggregator", "fedavgm:0.9"), ("compressor", "int8"),
+    ("store", "paged"), ("model", "tinyllama")])
+def test_spec_rejects_what_the_port_lacks(field, value):
+    """A strategy the port lacks raises ``ValueError`` naming what it
+    supports; a reference field that has one value in the port (compressor,
+    store, model) is not a field of the port's spec at all."""
+    from repro_torch.api import ExperimentSpec
+    if field in ("selection", "allocator", "aggregator"):
+        with pytest.raises(ValueError, match="port"):
+            ExperimentSpec(**{field: value})
+    else:
+        with pytest.raises(TypeError, match=field):
+            ExperimentSpec(**{field: value})
+
+
+def test_spec_stores_strategies_in_dict_form():
+    from repro_torch.api import ExperimentSpec
+    spec = ExperimentSpec(selection={"name": "divergence", "params": {}})
+    assert spec.selection == {"name": "divergence", "params": {}}
+    assert spec.allocator == {"name": "sao", "params": {}}
+    assert spec.aggregator == {"name": "fedavg", "params": {}}
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """No silent fallback: without nvcc the kernels cannot build, and the
+    build says where it looked."""
+    from repro_torch.kernels import build
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
