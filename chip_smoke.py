@@ -5,20 +5,27 @@
 
 from the root of a checkout. Phases, in order; any failure exits non-zero:
 
-1. the card's name and power limit, then both hand-written kernels built
-   from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, together);
-2. each kernel against its plain PyTorch version at the shapes the FL loop
-   gives it, with the max error against the tolerance and the kernel's,
-   the plain version's, one library call's and the bound's times
+1. the card's name and power limit, then the four hand-written kernels
+   built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
+   together);
+2. each kernel against its plain PyTorch version at the shapes the FL and
+   LM paths give it, with the max error against the tolerance and the
+   kernel's, the plain version's, one library call's and the bound's times
    (CUDA-event medians after warm-up, L2 flushed before every call);
-3. a tiny experiment run on the CPU and on the card from the same draws,
-   which must agree (selections, T_k, E_k, the global row);
+3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
+   LMs) run on the CPU and on the card from the same draws, which must
+   agree (selections, T_k, E_k, the global row);
 4. the main path: ``build_experiment(ExperimentSpec())`` — the paper's
    MNIST CNN at full width (P = 113,744), N = 40, S = 10, L = 20 — for the
    initial round and 3 rounds, with every kernel's launch count read from
    this run alone;
 5. where one more round's time goes (host clock, ``torch.profiler``);
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+6. the federated LM at full width: LoRA adapters over tinyllama-1.1b and
+   over mamba2-130m (published widths and depths, random base from a
+   seed), N = 10, S = 4, c = 4, L = 2, batch 8, 32-token windows, for the
+   initial round and 2 rounds each, with the launch counts read from each
+   run alone, then one more round broken down as in phase 5;
+7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -37,8 +44,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 AGG_TOL = dict(rtol=2e-5, atol=2e-5)
 L2_TOL = dict(rtol=1e-4, atol=1e-3)
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, another summation order
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's ssd_ref bound
 P_MNIST = 113_744
 DEVICE = "cuda"
+KERNELS = ("flat_aggregate", "pairwise_l2", "flash_attention", "ssd_scan")
 
 
 def fail(msg):
@@ -55,8 +65,9 @@ class Timer:
     """Per-call device time: CUDA events around one call, with a 256 MB
     write before each call so it finds L2 (50 MB) cold, as the round does
     after training; the median over ``reps`` calls after ``warm`` calls.
-    The flush keeps the device busy while the host enqueues the call, so
-    the events time the call's own device work."""
+    The flush and a spin of about 0.1 ms (``torch.cuda._sleep``) keep the
+    device busy while the host enqueues the call, so the events time the
+    call's own device work and not the host's Python around it."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -70,6 +81,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(200_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -170,12 +182,119 @@ def kernel_phase(torch, timer):
         check(ok, f"pairwise_l2 [{n},{f}]x[{m},{f}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("pairwise_l2", []).append(r)
+    rows["flash_attention"] = attention_rows(torch, timer, gen)
+    rows["ssd_scan"] = ssd_rows(torch, timer, gen)
     return rows
+
+
+def attention_rows(torch, timer, gen):
+    """``flash_attention`` against its plain version: the tinyllama FL path
+    (S = 32), long causal and windowed sequences, one query against a long
+    cache, Sq > Sk (rows with no key must be 0) and the smoke width D = 16.
+    Library yardstick: ``scaled_dot_product_attention`` on the same inputs
+    (heads first, KV heads repeated and the boolean mask built outside the
+    timed call)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for b, sq, sk, h, kv, d, window in (
+            (8, 32, 32, 32, 4, 64, None),      # the FL path (tinyllama)
+            (1, 2048, 2048, 32, 4, 64, None),
+            (1, 2048, 2048, 32, 4, 64, 512),
+            (1, 1, 2048, 32, 4, 64, None),
+            (2, 96, 40, 32, 4, 64, None),      # Sq > Sk
+            (8, 32, 32, 8, 2, 16, None)):      # the smoke width
+        q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE)
+        k = torch.randn((b, sk, kv, d), generator=gen, device=DEVICE)
+        v = torch.randn((b, sk, kv, d), generator=gen, device=DEVICE)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **ATTN_TOL))
+        if sq > sk:
+            ok = ok and int(torch.count_nonzero(got[:, :sq - sk])) == 0
+        qpos = torch.arange(sq, device=DEVICE)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=DEVICE)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        pairs = int(mask.sum())               # the unmasked (q, k) pairs
+        b_ms, b_by = bound(4 * (2 * b * sq * h * d + 2 * b * sk * kv * d),
+                           4 * d * b * h * pairs)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+        causal_only = sq == sk and window is None
+        shape = f"q[{b},{sq},{h},{d}] kv[{b},{sk},{kv},{d}] " + (
+            f"window={window}" if window else "causal")
+        r = dict(shape=shape, max_abs_err=err, ok=ok,
+                 ms=timer(lambda: flash_attention(q, k, v, window=window)),
+                 plain_ms=timer(lambda: flash_attention_plain(
+                     q, k, v, window=window)),
+                 library_ms=timer(lambda: sdpa(
+                     qt, kt, vt, is_causal=causal_only,
+                     attn_mask=None if causal_only else mask)),
+                 bound_ms=b_ms, bound_by=b_by)
+        print(f"  flash_attention {shape} max_abs_err={err:.3e} (tol "
+              f"rtol/atol 2e-5{', masked rows 0' if sq > sk else ''}: "
+              f"{'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms(sdpa)="
+              f"{r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        check(ok, f"flash_attention {shape} disagrees with its plain "
+                  f"version: max_abs_err={err}")
+        out.append(r)
+        del q, k, v, qt, kt, vt, got, want
+    return out
+
+
+def ssd_rows(torch, timer, gen):
+    """``ssd_scan`` against its plain version (the token-by-token
+    recurrence): the mamba2-130m FL path (S = 32, so Q = 32), one sequence
+    at the published chunk (Q = 256) and a ragged S. No one PyTorch call
+    computes this function: ``library_ms`` is null."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    out = []
+    for b, s, h, p, n, chunk in ((8, 32, 24, 64, 128, 256),
+                                 (1, 2048, 24, 64, 128, 256),
+                                 (1, 300, 24, 64, 128, 256)):
+        x = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
+        a = -(torch.rand((b, s, h), generator=gen, device=DEVICE) + 1e-3)
+        bm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
+        cm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
+        y, st = ssd_scan(x, a, bm, cm, chunk=chunk)
+        y_p, st_p = ssd_scan_plain(x, a, bm, cm)
+        torch.cuda.synchronize()
+        err = max(float((y - y_p).abs().max()), float((st - st_p).abs().max()))
+        ok = bool(torch.allclose(y, y_p, **SSD_TOL)
+                  and torch.allclose(st, st_p, **SSD_TOL))
+        q = min(chunk, s)
+        lens = [min(q, s - t0) for t0 in range(0, s, q)]
+        flops = b * h * sum(2 * ql * ql * (n + p) + 4 * ql * p * n
+                            for ql in lens)
+        b_ms, b_by = bound(4 * (2 * b * s * h * p + b * s * h
+                                + 2 * b * s * n + b * h * p * n), flops)
+        shape = f"x[{b},{s},{h},{p}] bc[{b},{s},1,{n}] Q={q}"
+        r = dict(shape=shape, max_abs_err=err, ok=ok,
+                 ms=timer(lambda: ssd_scan(x, a, bm, cm, chunk=chunk)),
+                 plain_ms=timer(lambda: ssd_scan_plain(x, a, bm, cm),
+                                reps=5, warm=1),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        print(f"  ssd_scan {shape} max_abs_err={err:.3e} (tol rtol/atol "
+              f"1e-4: {'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms=null "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        check(ok, f"ssd_scan {shape} disagrees with its plain version: "
+                  f"max_abs_err={err}")
+        out.append(r)
+    return out
 
 
 class _CpuDraws:
     """The default draws made on the CPU and moved to ``device``, so one
-    seed gives the same numbers to a CPU run and a card run."""
+    seed gives the same numbers (a frozen LM base included) to a CPU run
+    and a card run."""
 
     def __init__(self, seed, device):
         from repro_torch.core.draws import TorchDraws
@@ -185,6 +304,10 @@ class _CpuDraws:
     def init_params(self, model_cfg):
         return {k: v.to(self.device)
                 for k, v in self.inner.init_params(model_cfg).items()}
+
+    def base_params(self, model_cfg):
+        return {k: v.to(self.device)
+                for k, v in self.inner.base_params(model_cfg).items()}
 
     def batch_indices(self, *args):
         return self.inner.batch_indices(*args).to(self.device)
@@ -197,53 +320,63 @@ class _CpuDraws:
 
 
 def agreement_phase(torch):
-    """A tiny experiment on the CPU (plain paths) and on the card (the
-    kernels), from the same draws: the card run must agree."""
+    """Tiny experiments on the CPU (plain paths) and on the card (the
+    kernels), from the same draws: the card runs must agree. The paper's
+    fashion CNN, then the LoRA LM over the tinyllama and mamba2 smoke
+    configs (``ExperimentSpec(model=...)``)."""
     from repro_torch.api import ExperimentSpec, build_experiment
-    spec = ExperimentSpec(dataset="fashion", clients=8, samples_per_client=16,
-                          train_samples=160, test_samples=80, local_iters=2,
-                          batch_size=8, devices_per_round=4, num_clusters=4,
-                          rounds=2)
-    out = {}
-    for dev in ("cpu", DEVICE):
-        exp = build_experiment(spec, device=dev, draws=_CpuDraws(0, dev))
-        out[dev] = (exp.run(), exp.global_vec.cpu())
-    (h_cpu, g_cpu), (h_gpu, g_gpu) = out["cpu"], out[DEVICE]
-    for k, (a, b) in enumerate(zip(h_cpu.selected, h_gpu.selected)):
-        check(list(a) == list(b), f"agreement: round {k} selected {list(b)} "
-                                  f"on the card, {list(a)} on the CPU")
-    for name in ("T_k", "E_k"):
-        a, b = getattr(h_cpu, name), getattr(h_gpu, name)
-        check(all(math.isclose(x, y, rel_tol=2e-3) for x, y in zip(a, b)),
-              f"agreement: {name} {b} on the card, {a} on the CPU")
-    err = float((g_cpu - g_gpu).abs().max())
-    print(f"  tiny fashion run, CPU vs card: selections equal, T_k/E_k "
-          f"within rtol 2e-3, global row max_abs_err={err:.3e} (tol 1e-4)")
-    check(err <= 1e-4, f"agreement: global row differs by {err}")
+    tiny = dict(clients=8, samples_per_client=16, train_samples=160,
+                test_samples=80, local_iters=2, batch_size=8,
+                devices_per_round=4, num_clusters=4, rounds=2)
+    for model in ("cnn", "tinyllama", "mamba2-130m"):
+        spec = ExperimentSpec(dataset="fashion", model=model, **tiny)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            exp = build_experiment(spec, device=dev, draws=_CpuDraws(0, dev))
+            out[dev] = (exp.run(), exp.global_vec.cpu())
+        (h_cpu, g_cpu), (h_gpu, g_gpu) = out["cpu"], out[DEVICE]
+        for k, (a, b) in enumerate(zip(h_cpu.selected, h_gpu.selected)):
+            check(list(a) == list(b), f"agreement ({model}): round {k} "
+                                      f"selected {list(b)} on the card, "
+                                      f"{list(a)} on the CPU")
+        for name in ("T_k", "E_k"):
+            a, b = getattr(h_cpu, name), getattr(h_gpu, name)
+            check(all(math.isclose(x, y, rel_tol=2e-3) for x, y in zip(a, b)),
+                  f"agreement ({model}): {name} {b} on the card, {a} on the "
+                  "CPU")
+        err = float((g_cpu - g_gpu).abs().max())
+        acc = max(abs(x - y) for x, y in zip(h_cpu.accuracy, h_gpu.accuracy))
+        print(f"  tiny {model} run (P={g_cpu.numel()}), CPU vs card: "
+              f"selections equal, T_k/E_k within rtol 2e-3, global row "
+              f"max_abs_err={err:.3e} (tol 1e-4), accuracy differs by "
+              f"{acc:.4f}")
+        check(err <= 1e-4, f"agreement ({model}): global row differs by "
+                           f"{err}")
 
 
-def main_path_phase(torch, spec):
-    """``spec`` on the card for the initial round and 3 rounds; the launch
-    counts are read from this run alone."""
-    from repro_torch.api import build_experiment
-    from repro_torch.core.sao import solve_sao
-    from repro_torch.core.wireless import fleet_arrays
+def kernel_fns():
+    """Each kernel's wrapper, which carries its launch count."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flat_aggregate import flat_aggregate
     from repro_torch.kernels.pairwise_l2 import pairwise_l2
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flat_aggregate": flat_aggregate, "pairwise_l2": pairwise_l2,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
-    t0 = time.perf_counter()
-    exp = build_experiment(spec, device=DEVICE)
+
+def drive(torch, exp, rounds, must_launch):
+    """The initial round and ``rounds`` rounds of ``exp`` on the card, with
+    every kernel's count set to 0 just before and read just after; checks
+    the history, SAO's band use and that each of ``must_launch`` ran."""
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays
+
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    hist = exp.run(rounds=rounds)
     torch.cuda.synchronize()
-    print(f"  build_experiment({spec.dataset} spec) on {exp.device}: "
-          f"{time.perf_counter() - t0:.2f} s; P={exp.global_vec.numel()}, "
-          f"N={spec.clients}, S={spec.devices_per_round}, "
-          f"L={spec.local_iters}")
-    flat_aggregate.launches = 0
-    pairwise_l2.launches = 0
-    hist = exp.run(rounds=3)
-    torch.cuda.synchronize()
-    launches = {"flat_aggregate": flat_aggregate.launches,
-                "pairwise_l2": pairwise_l2.launches}
+    launches = {name: fn.launches for name, fn in fns.items()}
     for k in range(len(hist.accuracy)):
         print(f"  round {k}: accuracy={hist.accuracy[k]:.4f} "
               f"T_k={hist.T_k[k]:.6f} s E_k={hist.E_k[k]:.6f} J "
@@ -256,43 +389,114 @@ def main_path_phase(torch, spec):
     check(all(0.0 <= a <= 1.0 for a in hist.accuracy), "accuracy outside "
                                                        "[0, 1]")
     check(bool(torch.isfinite(exp.global_vec).all()), "non-finite global row")
-    check(len(hist.accuracy) == 4, "expected the initial round + 3 rounds")
+    check(bool(torch.isfinite(exp.client_plane).all()),
+          "non-finite client plane")
+    check(len(hist.accuracy) == rounds + 1,
+          f"expected the initial round + {rounds} rounds")
     # (19c): where problem (19) is feasible the solve keeps Σb within B.
     # Where the set's least band (energy budgets met at f_min, computed
     # apart from the solver) exceeds B, no allocation fits: SAO must flag
     # it (converged=False, as the reference's solver does) and give each
-    # device its least band. Within 1e-3 of B either answer is accepted.
-    B = spec.bandwidth_mhz
+    # device its least band, capped at B (a device's band never exceeds
+    # B). Within 1e-3 of B either answer is accepted.
+    import numpy as np
+    B = exp.B
     need = least_band_mhz(exp.fleet)
     for k, (sel, band) in enumerate(zip(hist.selected, hist.band_mhz)):
         sol = solve_sao(fleet_arrays(exp.fleet.select(sel), exp.device), B)
         converged = bool(sol.converged)
         least = float(need[sel].sum())
+        capped = float(np.minimum(need[sel], B).sum())
         check(math.isclose(float(sol.b.sum()), band, rel_tol=1e-6),
               f"round {k}: the SAO re-solve differs from the run")
         if converged:
             check(band <= B * (1 + 1e-4), f"round {k}: SAO converged but "
                                           f"uses {band} MHz of {B}")
         else:
-            check(math.isclose(band, least, rel_tol=1e-4),
+            check(math.isclose(band, capped, rel_tol=1e-4),
                   f"round {k}: flagged, but Σb={band} MHz is not the least "
-                  f"band {least} MHz")
+                  f"band capped at B, {capped} MHz")
         if least <= B * (1 - 1e-3) or least > B:
             check(converged == (least <= B),
                   f"round {k}: converged={converged}, but the least band "
                   f"is {least} MHz of B={B}")
         print(f"  round {k}: Σb={band:.4f} MHz of B={B}, least band "
-              f"{least:.4f} MHz ("
+              f"{least:.4f} MHz, capped at B {capped:.4f} MHz ("
               f"{'within B' if converged else 'set infeasible at B: flagged'}"
               f")")
+    n = exp.fed.num_clients
     for sel in hist.selected[1:]:
-        check(0 < len(sel) <= spec.devices_per_round
+        check(0 < len(sel) <= exp.fl.devices_per_round
               and len(set(map(int, sel))) == len(sel)
-              and all(0 <= int(i) < spec.clients for i in sel),
+              and all(0 <= int(i) < n for i in sel),
               f"bad selection {sel}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in must_launch:
+        check(launches[name] > 0, f"{name} was not launched on this path")
+    return hist, launches
+
+
+def main_path_phase(torch, spec):
+    """``spec`` on the card for the initial round and 3 rounds; the launch
+    counts are read from this run alone."""
+    from repro_torch.api import build_experiment
+
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"  build_experiment({spec.dataset} spec) on {exp.device}: "
+          f"{time.perf_counter() - t0:.2f} s; P={exp.global_vec.numel()}, "
+          f"N={spec.clients}, S={spec.devices_per_round}, "
+          f"L={spec.local_iters}")
+    _, launches = drive(torch, exp, 3, ("flat_aggregate", "pairwise_l2"))
     return exp, launches
+
+
+def lm_phase(torch, arch, rounds=2):
+    """The federated LM at full width: LoRA adapters over ``arch``'s
+    published config, built from the port's own pieces as the reference's
+    ``FLExperiment`` takes any registered config. N = 10, S = 4, c = 4,
+    L = 2, batch 8, 32-token windows, 16 per client; 160 train and 64 test
+    windows. The initial round and ``rounds`` rounds, then one more round
+    broken down by phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.fedavg import FLExperiment
+    from repro_torch.core.wireless import sample_fleet
+    from repro_torch.data.partition import partition_bias
+    from repro_torch.models import lm
+
+    cfg = lm.LMConfig(model=get_config(arch))
+    t0 = time.perf_counter()
+    ds = lm.lm_make_dataset(cfg, 160, seed=0)
+    test = lm.lm_make_dataset(cfg, 64, seed=10_000)
+    fed = partition_bias(ds, 10, 16, 0.8, seed=1)
+    fl = FLConfig(num_devices=10, devices_per_round=4, local_iters=2,
+                  num_clusters=4, selected_per_cluster=1, max_rounds=rounds)
+    exp = FLExperiment(cfg, fed, test.images, test.labels,
+                       sample_fleet(10, seed=0), fl, device=DEVICE,
+                       batch_size=8, seed=0)
+    torch.cuda.synchronize()
+    p = exp.global_vec.numel()
+    n_base = sum(v.numel() for v in exp.base.values())
+    print(f"  {arch}: {cfg.model.num_layers} layers, d_model "
+          f"{cfg.model.d_model}, base {n_base} parameters on the card "
+          f"(analytic {cfg.model.num_params()}), P_adapter={p}; built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(p == lm.adapter_num_params(cfg), "adapter row width")
+    check(bool((abs(exp.fleet.z - p * 32 / 1e6) <= 1e-9).all()),
+          f"uploads not priced at P_adapter·32/1e6: {exp.fleet.z[:3]}")
+    own = "flash_attention" if cfg.model.family != "ssm" else "ssd_scan"
+    torch.cuda.reset_peak_memory_stats()
+    hist, launches = drive(torch, exp, rounds,
+                           ("flat_aggregate", "pairwise_l2", own))
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; per-dialect accuracy of the last round "
+          f"{[round(float(a), 4) for a in hist.per_class[-1]]}")
+    ms = profile_phase(torch, exp, reps=1)
+    del exp
+    lm.base_params.cache_clear()
+    torch.cuda.empty_cache()
+    return launches, ms
 
 
 def profile_phase(torch, exp, reps=3):
@@ -334,10 +538,12 @@ def profile_phase(torch, exp, reps=3):
               f"{k} {ms[k]:.1f}" for k in ("select", "allocate", "train",
                                            "aggregate", "evaluate")))
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         exp.round()
         torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
     kinds, by_name = defaultdict(int), defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -353,11 +559,17 @@ def profile_phase(torch, exp, reps=3):
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     launches = sum(n for n, _ in by_name.values())
     busy = sum(t for _, t in by_name.values())
+    ms["busy"] = busy
     print(f"  one profiled round: {launches} device launches, {busy:.2f} ms "
           f"busy; idle share vs the unprofiled wall "
-          f"{1 - busy / ms['round']:.4f} (device event kinds {dict(kinds)})")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
-        print(f"  kernel {name[:72]}: {n} launches, {t:.3f} ms")
+          f"{1 - busy / ms['round']:.4f} (device event kinds {dict(kinds)}; "
+          f"profiled round {t_round:.1f} s, reading the trace "
+          f"{time.perf_counter() - t0 - t_round:.1f} s)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    ours = ("flat_aggregate", "pairwise_l2", "flash_kernel", "ssd_kernel")
+    for i, (name, (n, t)) in enumerate(ranked):
+        if i < 6 or any(k in name for k in ours):
+            print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
     return ms
 
 
@@ -383,7 +595,7 @@ def main():
     print(card)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    names = ["flat_aggregate", "pairwise_l2"]
+    names = list(KERNELS)
     t0 = time.perf_counter()
     logs = build.build(names, ptxas_verbose=True)
     print(f"  built {names} in {time.perf_counter() - t0:.2f} s "
@@ -393,37 +605,57 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    print(f"  phase 1 done at {time.perf_counter() - t_start:.1f} s")
     print("== 2. kernels against their plain versions")
+    from repro_torch.core.fedavg import fp32_matmuls
+    fp32_matmuls()
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
-    print("== 3. CPU and card agree on a tiny run")
+    print(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 3. CPU and card agree on tiny runs")
     agreement_phase(torch)
 
+    print(f"  phase 3 done at {time.perf_counter() - t_start:.1f} s")
     print("== 4. main path: ExperimentSpec() on the card, 3 rounds")
     from repro_torch.api import ExperimentSpec
     exp, launches = main_path_phase(torch, ExperimentSpec())
+    by_path = {"ExperimentSpec()": dict(launches)}
 
+    print(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
     print("== 5. where one round's time goes")
     profile_phase(torch, exp)
+    del exp
+    torch.cuda.empty_cache()
 
-    source = {"flat_aggregate": "src/repro_torch/kernels/csrc/"
-                                "flat_aggregate.cu",
-              "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu"}
+    # each kernel's launches come from the path that runs it: the CNN main
+    # path for the FL kernels, the tinyllama / mamba2 LM runs for the others
+    for arch, own in (("tinyllama-1.1b", "flash_attention"),
+                      ("mamba2-130m", "ssd_scan")):
+        print(f"== 6. the federated LM at full width: {arch}, 2 rounds")
+        print(f"  phase 5 / 6 done at {time.perf_counter() - t_start:.1f} s")
+        lm_launches, _ = lm_phase(torch, arch)
+        launches[own] = lm_launches[own]
+        by_path[arch] = lm_launches
+
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
-                "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45"}
+                "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
+                "flash_attention": "src/repro/kernels/flash_attention.py:70",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:71"}
     kernels = []
     for name, per_shape in rows.items():
-        top = per_shape[0]     # the shape the main path launches most often
+        top = per_shape[0]     # the shape its path launches most often
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "shape": top["shape"],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "at_shapes": per_shape})
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)

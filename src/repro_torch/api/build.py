@@ -11,6 +11,7 @@ from repro_torch.core.fedavg import FLExperiment
 from repro_torch.core.wireless import sample_fleet
 from repro_torch.data.partition import partition_bias
 from repro_torch.data.synthetic import make_dataset
+from repro_torch.models.registry import model_def_for, workload_config
 
 
 def fl_config_from_spec(spec: ExperimentSpec) -> FLConfig:
@@ -41,14 +42,23 @@ def build_experiment(spec: ExperimentSpec, device=None, *,
                      draws=None) -> FLExperiment:
     """Materialize dataset, partition, fleet and experiment from ``spec`` on
     ``device`` (default ``cuda``). ``draws`` replaces the experiment's default
-    ``torch.Generator`` draws (``repro_torch.core.draws``)."""
+    ``torch.Generator`` draws (``repro_torch.core.draws``). A workload that
+    builds its own data (the LoRA LMs) ignores ``spec.dataset``."""
     dev = resolve_device(device)
-    model_cfg = CNN_CONFIGS[spec.dataset]
+    model_cfg = (CNN_CONFIGS[spec.dataset] if spec.model in ("auto", "cnn")
+                 else workload_config(spec.model))
+    mdef = model_def_for(model_cfg)
     fleet = sample_fleet(spec.clients, seed=spec.resolved_fleet_seed)
-    ds = make_dataset(spec.dataset, spec.train_samples,
-                      seed=spec.resolved_data_seed)
-    test = make_dataset(spec.dataset, spec.test_samples,
-                        seed=spec.resolved_test_seed)
+    if mdef.make_dataset is not None:
+        ds = mdef.make_dataset(model_cfg, spec.train_samples,
+                               seed=spec.resolved_data_seed)
+        test = mdef.make_dataset(model_cfg, spec.test_samples,
+                                 seed=spec.resolved_test_seed)
+    else:
+        ds = make_dataset(spec.dataset, spec.train_samples,
+                          seed=spec.resolved_data_seed)
+        test = make_dataset(spec.dataset, spec.test_samples,
+                            seed=spec.resolved_test_seed)
     fed = partition_bias(ds, spec.clients, spec.samples_per_client,
                          spec.sigma, seed=spec.resolved_partition_seed)
     exp = FLExperiment(

@@ -7,9 +7,11 @@ that the port reads, with the same names, defaults and seed derivation).
 
 Strategy fields take a bare name or a ``{"name", "params"}`` dict and are
 stored in the dict form; the port supports the defaults only
-(``repro_torch.strategies``). The reference's fields for which the port has
-a single value — ``model`` (the paper CNN), ``store`` (the dense plane),
-``compressor`` (none) — are left out, so passing one raises ``TypeError``.
+(``repro_torch.strategies``). ``model`` is ``"auto"``/``"cnn"`` (the paper
+CNN for ``dataset``) or a registered workload name (``"tinyllama"``,
+``"mamba2-130m"``: LoRA LM rows). The reference's fields for which the port
+has a single value — ``store`` (the dense plane), ``compressor`` (none) —
+are left out, so passing one raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ class ExperimentSpec:
     clients: int = 40                      # N
     samples_per_client: int = 128          # D_n
     sigma: Union[float, str] = 0.8         # non-iid bias; "H" = half-half
+
+    # ---- model -------------------------------------------------------
+    model: str = "auto"                    # "auto" | "cnn" → paper CNN for
+                                           # dataset; else a registered
+                                           # workload name
 
     # ---- wireless fleet (the paper's §VI single cell) ----------------
     bandwidth_mhz: float = 20.0            # B
@@ -61,6 +68,11 @@ class ExperimentSpec:
     aggregator: StrategyRef = "fedavg"
 
     def __post_init__(self):
+        if self.model not in ("auto", "cnn"):
+            from repro_torch.models.registry import workload_names
+            if self.model not in workload_names():
+                raise ValueError(f"unknown model {self.model!r}; known: "
+                                 f"{('auto', 'cnn') + workload_names()}")
         for name, kind in (("selection", "selector"),
                            ("allocator", "allocator"),
                            ("aggregator", "aggregator")):

@@ -15,15 +15,31 @@ from repro_torch.kernels import ops
 from repro_torch.utils.trees import StackFlattenSpec
 
 
+def _resolve_flat_layer(spec: StackFlattenSpec, layer: str):
+    """A leaf name as given, else the first leaf whose ``/``-path ends in
+    it (``"wv_b"`` -> ``"blocks/attn/wv_b"``), else ``None``."""
+    if layer in spec.names:
+        return layer
+    hits = [n for n in spec.names if n.endswith("/" + layer)]
+    return hits[0] if hits else None
+
+
 def resolve_feature_columns(spec: StackFlattenSpec, layer: str):
     """The feature layer's column slice of a flat row (``None`` = the whole
-    row, i.e. ``layer="all"``); ``"auto"`` is the paper's ``w_fc2``."""
+    row, i.e. ``layer="all"``). ``"auto"`` is the paper's ``w_fc2``, else
+    ``lm_head``, else the last leaf; a bare leaf name resolves through
+    nested paths as in the reference."""
     if layer == "all":
         return None
     if layer == "auto":
-        layer = "w_fc2" if "w_fc2" in spec.names else spec.names[-1]
-    elif layer not in spec.names:
-        raise KeyError(layer)
+        layer = (_resolve_flat_layer(spec, "w_fc2")
+                 or _resolve_flat_layer(spec, "lm_head")
+                 or spec.names[-1])
+    else:
+        resolved = _resolve_flat_layer(spec, layer)
+        if resolved is None:
+            raise KeyError(layer)
+        layer = resolved
     return spec.columns(layer)
 
 

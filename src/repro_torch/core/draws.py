@@ -3,10 +3,11 @@
 Every random choice on the FL path comes from one draws object owned by
 the experiment: the initial parameters, each round's local-SGD batch
 indices and the k-means++ seeding choices — nothing else on this path
-draws. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
+draws — plus, for a workload with frozen weights (the LoRA LM), that base.
+:class:`TorchDraws` is the default, a ``torch.Generator`` on the
 experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
-give different numbers for one seed, so a parity test hands the experiment an
-object with the same four methods that replays the reference's key stream.
+give different numbers for one seed, so a parity test hands the experiment
+an object with the same five methods that replays the reference's draws.
 """
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ class TorchDraws:
         """One model's initial ``{name: tensor}``."""
         return model_def_for(model_cfg).init(model_cfg, self.generator,
                                              self.device)
+
+    def base_params(self, model_cfg):
+        """The frozen weights of a workload that has them (the LoRA LM):
+        the model's own draw from its config's ``base_seed`` on a generator
+        of its own, not from this stream, cached per (config, device)."""
+        return model_def_for(model_cfg).base(model_cfg, self.device)
 
     def batch_indices(self, n: int, local_iters: int, batch_size: int,
                       num_samples: int) -> torch.Tensor:

@@ -7,7 +7,8 @@ Model weights travel on the FLAT PARAMETER PLANE: the global model is one
 once on stacked ``[S, ...]`` parameters, where the reference ``vmap``s one
 client's update; the eq.-(4) fold is the aggregator's, one
 ``ops.flat_aggregate`` row reduction (the hand-written CUDA kernel on the
-card).
+card). For the LoRA LM the plane holds adapter rows and the frozen base
+rides beside it (``base``).
 """
 from __future__ import annotations
 
@@ -32,19 +33,22 @@ def model_flat_spec(model_cfg) -> StackFlattenSpec:
 
 
 def make_local_update(model_cfg, lr: float, local_iters: int,
-                      batch_size: int):
+                      batch_size: int, base=None):
     """Local training of S clients at once: L SGD steps each on its own
     shard (Alg. 1 lines 6-10), all starting from the same global model.
 
     The returned ``local_update(params, images, labels, batch_idx)`` takes
-    the global ``{name: tensor}``, the clients' shards ``images [S, D, H,
-    W, C]`` / ``labels [S, D]`` and the sample indices ``batch_idx [S, L,
-    batch]`` (the experiment's draws), and returns ``{name: [S, ...]}``. Each
-    step differentiates Σ_s (client s's mean loss): client s's parameters
-    appear only in its own term, so its slice of the gradient is its own
-    gradient.
+    the global ``{name: tensor}``, the clients' shards ``images [S, D, ...]``
+    (CNN images, or LM token windows) / ``labels [S, D]`` and the sample
+    indices ``batch_idx [S, L, batch]`` (the experiment's draws), and
+    returns ``{name: [S, ...]}``. Each step differentiates Σ_s (client s's
+    mean loss): client s's parameters appear only in its own term, so its
+    slice of the gradient is its own gradient. ``base`` is the workload's
+    frozen weights, handed to its loss (``None`` for the paper CNN).
     """
     loss_fn = model_def_for(model_cfg).loss
+    if base is not None:
+        loss_fn = functools.partial(loss_fn, base=base)
 
     def local_update(params: Dict[str, torch.Tensor], images, labels,
                      batch_idx) -> Dict[str, torch.Tensor]:
@@ -72,15 +76,16 @@ def make_local_update(model_cfg, lr: float, local_iters: int,
 
 class RoundEngine:
     """The round compute for one model and its SGD hyper-parameters; holds
-    no state."""
+    no state but the workload's frozen ``base`` weights (if any)."""
 
     def __init__(self, model_cfg, learning_rate: float, local_iters: int,
-                 batch_size: int):
+                 batch_size: int, base=None):
         self.flat_spec = model_flat_spec(model_cfg)
         self._local_update = make_local_update(model_cfg, learning_rate,
-                                               local_iters, batch_size)
+                                               local_iters, batch_size, base)
+        frozen = {} if base is None else {"base": base}
         self._evaluate = functools.partial(model_def_for(model_cfg).evaluate,
-                                           cfg=model_cfg)
+                                           cfg=model_cfg, **frozen)
 
     def train_clients(self, global_vec, images, labels,
                       batch_idx) -> torch.Tensor:

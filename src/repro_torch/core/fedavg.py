@@ -18,6 +18,7 @@ from a declarative spec with ``repro_torch.api.build_experiment``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -35,6 +36,7 @@ from repro_torch.core.draws import TorchDraws
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.wireless import Fleet, fleet_arrays
 from repro_torch.data.partition import FederatedData
+from repro_torch.models.registry import model_def_for
 from repro_torch.strategies.allocators import Allocation
 from repro_torch.utils.trees import flatten_vector
 
@@ -46,7 +48,8 @@ class RoundResult:
     T_k: float                        # round delay [s]
     E_k: float                        # round energy [J]
     accuracy: float                   # test accuracy after aggregation
-    per_class: np.ndarray             # per-class test accuracy
+                                      # (next-token accuracy for the LM)
+    per_class: np.ndarray             # per-class (per-dialect) accuracy
     band_mhz: float = 0.0             # Σ b_n of the round's allocation
 
 
@@ -59,9 +62,11 @@ class FLHistory:
     rounds_to_target: Optional[int] = None
     band_mhz: List[float] = field(default_factory=list)   # Σ b_n per round
     seconds: List[float] = field(default_factory=list)    # host wall clock
+    per_class: List[np.ndarray] = field(default_factory=list)
 
     def append(self, res: RoundResult, seconds: float):
         self.accuracy.append(float(res.accuracy))
+        self.per_class.append(np.asarray(res.per_class))
         self.T_k.append(float(res.T_k))
         self.E_k.append(float(res.E_k))
         self.selected.append(np.asarray(res.selected))
@@ -84,7 +89,9 @@ class FLExperiment:
     ``seed``): a parity test hands in a replay of the reference's key
     stream. The client plane and the global row live on ``device``; the
     plane is updated in place each round, as the reference's donated
-    scatter does.
+    scatter does. A workload with frozen weights (the LoRA LM) gets them
+    from ``draws.base_params`` and, as it uploads only its trainable rows,
+    prices the fleet's payload at ``z = P·32/1e6`` Mbit.
     """
 
     def __init__(self, model_cfg, fed: FederatedData, test_images: np.ndarray,
@@ -105,24 +112,33 @@ class FLExperiment:
         self.aggregator = strategies.resolve("aggregator", aggregator)
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
+        mdef = model_def_for(model_cfg)
+        self.base = (self.draws.base_params(model_cfg)
+                     if mdef.base is not None else None)
         self.engine = RoundEngine(model_cfg, fl.learning_rate,
-                                  fl.local_iters, batch_size)
+                                  fl.local_iters, batch_size, self.base)
         self.batch_size = batch_size
 
         spec = self.engine.flat_spec
         params = self.draws.init_params(model_cfg)
         self.global_vec = flatten_vector(spec, params).to(self.device)
         self.client_plane = self.global_vec.repeat(fed.num_clients, 1)
+        if mdef.price_uploads:
+            self.fleet = dataclasses.replace(
+                fleet, z=np.full_like(fleet.z, spec.total * 32 / 1e6))
 
-        def put(x, dtype):
-            return torch.as_tensor(np.asarray(x), dtype=dtype,
-                                   device=self.device)
+        def put(x):
+            # token windows stay integer; images are float32
+            x = np.asarray(x)
+            dtype = (torch.long if np.issubdtype(x.dtype, np.integer)
+                     else torch.float32)
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-        self.test_images = put(test_images, torch.float32)
-        self.test_labels = put(test_labels, torch.long)
-        self._images = put(fed.images, torch.float32)
-        self._labels = put(fed.labels, torch.long)
-        self._sizes = put(fed.sizes, torch.float32)
+        self.test_images = put(test_images)
+        self.test_labels = put(test_labels)
+        self._images = put(fed.images)
+        self._labels = put(fed.labels)
+        self._sizes = put(fed.sizes)
         self.clusters: Optional[List[np.ndarray]] = None
         self.cluster_labels: Optional[np.ndarray] = None
 

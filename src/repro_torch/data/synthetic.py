@@ -61,3 +61,18 @@ def make_dataset(name: str, num_samples: int, seed: int = 0,
     images += rng.normal(0.0, noise, images.shape).astype(np.float32)
     images = np.clip(images, 0.0, 1.0)
     return Dataset(images=images, labels=labels, num_classes=cfg.num_classes)
+
+
+def make_token_stream(vocab_size: int, num_tokens: int, seed: int = 0,
+                      order: int = 2) -> np.ndarray:
+    """Markov token stream — gives LM training a learnable structure (a
+    copy of ``repro.data.synthetic.make_token_stream``, the same draws)."""
+    rng = np.random.default_rng(seed)
+    ctx = min(64, vocab_size)
+    trans = rng.dirichlet(np.ones(ctx) * 0.1, size=ctx)
+    toks = np.zeros(num_tokens, np.int64)
+    s = 0
+    for i in range(num_tokens):
+        s = rng.choice(ctx, p=trans[s])
+        toks[i] = s % vocab_size
+    return toks.astype(np.int32)

@@ -1,5 +1,5 @@
 """Public wrappers around the hand-written kernels, with the reference's
-guards (``repro/kernels/ops.py``).
+guards and layouts (``repro/kernels/ops.py``).
 
 Dispatch goes by the tensor's device only: a CUDA tensor launches the
 hand kernel (or raises), a CPU tensor takes the plain PyTorch path, which
@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flat_aggregate import flat_aggregate as _flat_agg
 from repro_torch.kernels.pairwise_l2 import pairwise_l2 as _pairwise
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
 def pairwise_sq_dists(x, c):
@@ -54,3 +56,23 @@ def client_divergence(flat, gvec):
         return torch.sqrt(_pairwise(flat.to(torch.float32), g)[:, 0])
     diff = flat.to(torch.float32) - gvec.to(torch.float32)[None, :]
     return torch.sqrt(torch.sum(torch.square(diff), dim=1))
+
+
+def attention(q, k, v, *, causal: bool = True, window=None):
+    """GQA attention. q: [B, S, H, D]; k, v: [B, S, K, D] -> [B, S, H, D].
+
+    CUDA: the flash-attention kernel, which reads KV head ``h // (H/K)``.
+    CPU: the plain dense version with the kernel's masking and clamp."""
+    return _flash(q, k, v, causal=causal, window=window)
+
+
+def ssd(x, a, b, c, *, chunk: int = 256, n_groups: int = 1):
+    """Mamba2 SSD. x: [B, S, H, P]; a: [B, S, H]; b, c: [B, S, G, N].
+
+    Returns (y: [B, S, H, P], state: [B, H, P, N]). CUDA: the chunked scan
+    kernel, which reads group ``h // (H/G)``. CPU: the token-by-token
+    recurrence."""
+    if b.shape[2] != n_groups or c.shape[2] != n_groups:
+        raise ValueError(f"ssd: b/c carry {b.shape[2]} groups; "
+                         f"n_groups={n_groups}")
+    return _ssd(x, a, b, c, chunk=chunk)

@@ -21,3 +21,45 @@ def flat_aggregate_ref(flat: torch.Tensor,
     as an elementwise multiply + axis-0 reduce (not a dot)."""
     w = weights.to(torch.float32)
     return torch.sum(flat.to(torch.float32) * w[:, None], dim=0)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """Plain softmax attention. q: [B, H, Sq, D]; k, v: [B, H, Sk, D].
+    Queries are right-aligned to keys; a row with no unmasked key gives NaN
+    (``softmax`` of all ``-inf``), as the reference's oracle does."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) / torch.sqrt(
+                              torch.tensor(float(D)))
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask, logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def ssd_ref(X, A, Bm, Cm):
+    """Token-by-token SSD recurrence. X: [B, S, H, P] (pre-scaled by dt);
+    A: [B, S, H] log-decay; Bm, Cm: [B, S, H, N] (already head-expanded).
+    Returns (Y [B, S, H, P], h [B, H, P, N]):
+
+      h_t = exp(A_t)·h_{t-1} + X_t ⊗ B_t ;   y_t = h_t · C_t
+    """
+    B, S, H, P = X.shape
+    N = Bm.shape[-1]
+    X, Bm, Cm = (t.to(torch.float32) for t in (X, Bm, Cm))
+    decay = torch.exp(A.to(torch.float32))[..., None, None]   # [B,S,H,1,1]
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=X.device)
+    ys = []
+    for t in range(S):       # three ops a step (the backward is a loop too)
+        h = torch.addcmul(h * decay[:, t], X[:, t, :, :, None],
+                          Bm[:, t, :, None, :])
+        ys.append(torch.matmul(h, Cm[:, t, :, :, None])[..., 0])
+    return torch.stack(ys, dim=1), h

@@ -1,18 +1,24 @@
 """Model registry — the seam between the round engine and the model.
 
-A federated workload is a :class:`ModelDef`: how to initialise one client's
-trainable state, compute the per-client local losses of a stacked batch,
-and evaluate a model on the held-out set. The port registers the paper CNN
-only; the engine dispatches on the type of the frozen model config.
+A federated workload is a :class:`ModelDef`: the shapes and initial values
+of one client's trainable state, the per-client local losses of a stacked
+batch, and the evaluation on the held-out set. The engine dispatches on the
+type of the frozen model config: ``CNNConfig`` (the paper CNN) or
+``LMConfig`` (LoRA adapters over a frozen LM). Spec-side, a workload name
+(``ExperimentSpec.model``) resolves to a config through
+:func:`workload_config`; ``"auto"``/``"cnn"`` stay on the paper-CNN path
+in ``build_experiment``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.models import lm
 from repro_torch.models.cnn import (cnn_forward, cnn_loss_stacked,
                                    cnn_param_shapes, init_cnn)
 
@@ -21,14 +27,23 @@ from repro_torch.models.cnn import (cnn_forward, cnn_loss_stacked,
 class ModelDef:
     """``shapes(cfg)`` -> ``{name: shape}``;
     ``init(cfg, generator, device)`` -> ``{name: tensor}``;
-    ``loss(stacked_params, images, labels, cfg)`` -> per-client mean loss
-    ``[S]``; ``evaluate(params, test_x, test_y, cfg=cfg)`` ->
-    ``(accuracy, per_class)`` tensors."""
+    ``loss(stacked_params, images, labels, cfg[, base=])`` -> per-client
+    mean loss ``[S]``; ``evaluate(params, test_x, test_y, cfg=cfg[,
+    base=])`` -> ``(accuracy, per_class)`` tensors.
+    ``base(cfg, device)`` (optional) gives the frozen weights that ride
+    outside the plane, passed to ``loss``/``evaluate`` as ``base=``.
+    ``price_uploads``: price the fleet's upload ``z`` at the trainable
+    parameter count (``P·32`` bits) instead of the paper CNN's default.
+    ``make_dataset(cfg, num_samples, seed=)`` (optional): the workload
+    builds its own data; ``None`` rides ``ExperimentSpec.dataset``."""
     name: str
     shapes: Callable
     init: Callable
     loss: Callable
     evaluate: Callable
+    base: Optional[Callable] = None
+    price_uploads: bool = False
+    make_dataset: Any = None
 
 
 def _cnn_evaluate(params, test_images, test_labels, *, cfg: CNNConfig):
@@ -45,10 +60,39 @@ def _cnn_evaluate(params, test_images, test_labels, *, cfg: CNNConfig):
 CNN_DEF = ModelDef(name="cnn", shapes=cnn_param_shapes, init=init_cnn,
                    loss=cnn_loss_stacked, evaluate=_cnn_evaluate)
 
+LORA_LM_DEF = ModelDef(name="lora-lm", shapes=lm.adapter_shapes,
+                       init=lm.init_adapter, loss=lm.lm_loss_stacked,
+                       evaluate=lm.lm_evaluate, base=lm.base_params,
+                       price_uploads=True, make_dataset=lm.lm_make_dataset)
+
+_DEFS = {CNNConfig: CNN_DEF, lm.LMConfig: LORA_LM_DEF}
+
+_WORKLOADS = {
+    "tinyllama": lambda: lm.LMConfig(
+        model=get_smoke_config("tinyllama-1.1b")),
+    "mamba2-130m": lambda: lm.LMConfig(
+        model=get_smoke_config("mamba2-130m")),
+}
+
 
 def model_def_for(model_cfg) -> ModelDef:
     """The :class:`ModelDef` for a config object."""
-    if isinstance(model_cfg, CNNConfig):
-        return CNN_DEF
-    raise TypeError(f"no ModelDef for config type {type(model_cfg).__name__}; "
-                    "the port runs the paper CNN (CNNConfig) only")
+    mdef = _DEFS.get(type(model_cfg))
+    if mdef is None:
+        raise TypeError(f"no ModelDef for config type "
+                        f"{type(model_cfg).__name__}; the port runs "
+                        "CNNConfig and LMConfig")
+    return mdef
+
+
+def workload_names() -> Tuple[str, ...]:
+    """The registered non-CNN workload names."""
+    return tuple(sorted(_WORKLOADS))
+
+
+def workload_config(name: str):
+    """Resolve an ``ExperimentSpec.model`` name to its frozen config."""
+    if name not in _WORKLOADS:
+        raise ValueError(f"unknown model {name!r}; known: "
+                         f"{('auto', 'cnn') + workload_names()}")
+    return _WORKLOADS[name]()

@@ -3,9 +3,11 @@
 The FL round treats every client model as one Euclidean point, so N client
 models live in a single ``[N, P]`` buffer and selection, K-means and
 aggregation are row operations on it. A port row is the SAME vector as a
-reference row: leaves are laid out in jax's pytree order for a flat dict,
-which is sorted-key order (``b_c1, b_c2, b_fc1, b_fc2, w_c1, ...``), not
-``nn.Module`` insertion order; each leaf is reshaped row-major.
+reference row: leaves are laid out in jax's pytree order, which sorts the
+keys of every dict level (``b_c1, b_c2, b_fc1, b_fc2, w_c1, ...``), not
+``nn.Module`` insertion order; each leaf is reshaped row-major. A nested
+reference tree is a flat port dict whose names are the ``/``-joined key
+paths (``blocks/attn/wq_a``), as the reference names its spec's leaves.
 """
 from __future__ import annotations
 
@@ -35,13 +37,19 @@ class StackFlattenSpec:
         return slice(self.offsets[i], self.offsets[i] + self.sizes[i])
 
 
+def tree_order(names):
+    """``/``-joined leaf names in jax's flatten order of the nested dict
+    they name: sorted by key at every level."""
+    return sorted(names, key=lambda n: n.split("/"))
+
+
 def stack_flatten_spec(template: Mapping[str, torch.Tensor]) -> StackFlattenSpec:
     """The flatten spec of a flat ``{name: tensor}`` model (only shapes and
-    dtypes are read). Leaves go in sorted-key order, as jax flattens a
-    dict, so offsets equal the reference's."""
+    dtypes are read). Leaves go in :func:`tree_order`, as jax flattens the
+    nested dict, so offsets equal the reference's."""
     names, shapes, dtypes, offsets, sizes = [], [], [], [], []
     off = 0
-    for name in sorted(template):
+    for name in tree_order(template):
         leaf = template[name]
         if not isinstance(leaf, torch.Tensor):
             raise TypeError(f"leaf {name!r} is {type(leaf).__name__}; "
@@ -95,15 +103,33 @@ def flatten_vector(spec: StackFlattenSpec,
                       for n in spec.names])
 
 
-def params_from_jax(np_params: Mapping[str, np.ndarray],
-                    device="cpu") -> Dict[str, torch.Tensor]:
-    """Reference parameters (numpy views of a jax dict) as port tensors.
-    Layouts are shared (HWIO conv weights), so values carry over as-is."""
-    return {k: torch.tensor(np.asarray(v), device=device)
-            for k, v in np_params.items()}
+def params_from_jax(np_params: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
+    """Reference parameters (a dict of arrays, nested or flat) as a flat
+    port dict named by ``/``-joined key paths. Layouts are shared (HWIO
+    conv weights, ``[d_in, d_out]`` projections), so values carry over
+    as-is."""
+    out = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            name = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(name, v)
+            else:
+                out[name] = torch.tensor(np.asarray(v), device=device)
+
+    walk("", np_params)
+    return out
 
 
-def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`params_from_jax`: numpy arrays, which the
-    reference's functions take as they are."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`params_from_jax`: the nested dict of numpy arrays
+    that the reference's functions take."""
+    out: Dict = {}
+    for name, v in params.items():
+        *path, leaf = name.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return out

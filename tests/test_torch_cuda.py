@@ -77,6 +77,92 @@ def test_ops_on_cuda_launch_the_kernels(cuda):
         flat[2:].cpu(), cpu), rtol=1e-5, atol=1e-5)
 
 
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)     # fp32, another summation order
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)      # the reference's ssd_ref bound
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
+    (8, 32, 32, 32, 4, 64, True, None),        # the FL path (tinyllama)
+    (2, 32, 32, 8, 2, 16, True, None),         # the smoke width
+    (1, 2048, 2048, 32, 4, 64, True, None),
+    (1, 2048, 2048, 32, 4, 64, True, 512),
+    (1, 1, 2048, 32, 4, 64, True, None),       # one query, right-aligned
+    (2, 96, 40, 4, 4, 32, True, None),         # Sq > Sk: masked rows give 0
+    (2, 70, 130, 4, 1, 128, False, 50),
+])
+def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal,
+                                       window):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.tensor(_normal(1, b, sq, h, d), device=cuda)
+    k = torch.tensor(_normal(2, b, sk, kv, d), device=cuda)
+    v = torch.tensor(_normal(3, b, sk, kv, d), device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+    if sq > sk:
+        assert torch.count_nonzero(got[:, :sq - sk]) == 0
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (8, 32, 24, 1, 64, 128, 256),              # the FL path (mamba2-130m)
+    (2, 32, 8, 1, 32, 16, 32),                 # the smoke width
+    (1, 2048, 24, 1, 64, 128, 256),
+    (1, 300, 24, 1, 64, 128, 256),             # ragged S
+    (2, 77, 4, 2, 8, 24, 16),                  # groups, ragged, odd N
+])
+def test_ssd_scan_matches_plain(cuda, b, s, h, g, p, n, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    rng = np.random.default_rng(s + n)
+    x = torch.tensor(rng.normal(size=(b, s, h, p)).astype(np.float32),
+                     device=cuda)
+    a = torch.tensor(-rng.uniform(0.01, 0.3, (b, s, h)).astype(np.float32),
+                     device=cuda)
+    bm = torch.tensor((rng.normal(size=(b, s, g, n)) / np.sqrt(n))
+                      .astype(np.float32), device=cuda)
+    cm = torch.tensor((rng.normal(size=(b, s, g, n)) / np.sqrt(n))
+                      .astype(np.float32), device=cuda)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    y_ref, state_ref = ssd_scan_plain(x, a, bm, cm)
+    torch.testing.assert_close(y, y_ref, **SSD_TOL)
+    torch.testing.assert_close(state, state_ref, **SSD_TOL)
+
+
+def test_kernel_gradients_are_the_plain_versions(cuda):
+    """The autograd Functions: values from the kernels, gradients from
+    differentiating the plain versions on the same inputs."""
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    rng = np.random.default_rng(0)
+
+    def leaf(*shape, scale=1.0):
+        return torch.tensor((rng.normal(size=shape) * scale)
+                            .astype(np.float32), device=cuda,
+                            requires_grad=True)
+
+    q, k, v = leaf(2, 32, 8, 16), leaf(2, 32, 2, 16), leaf(2, 32, 2, 16)
+    w = torch.tensor(_normal(9, 2, 32, 8, 16), device=cuda)
+    got = torch.autograd.grad((fa.flash_attention(q, k, v) * w).sum(),
+                              (q, k, v))
+    want = torch.autograd.grad((fa.flash_attention_plain(q, k, v) * w).sum(),
+                               (q, k, v))
+    for g1, g2 in zip(got, want):
+        torch.testing.assert_close(g1, g2, **ATTN_TOL)
+    x, bm, cm = leaf(2, 40, 4, 8), leaf(2, 40, 1, 16), leaf(2, 40, 1, 16)
+    a = (-torch.rand((2, 40, 4), device=cuda) * 0.3).requires_grad_(True)
+    got = torch.autograd.grad(ss.ssd_scan(x, a, bm, cm, chunk=16)[0].sum(),
+                              (x, a, bm, cm))
+    want = torch.autograd.grad(ss.ssd_scan_plain(x, a, bm, cm)[0].sum(),
+                               (x, a, bm, cm))
+    for g1, g2 in zip(got, want):
+        torch.testing.assert_close(g1, g2, **SSD_TOL)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(TypeError):
@@ -87,3 +173,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pairwise_l2(x, torch.zeros((2, 9), device=cuda))
     with pytest.raises(ValueError):
         pairwise_l2(x[:, ::2], torch.zeros((2, 4), device=cuda))
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q = torch.zeros((1, 4, 2, 24), device=cuda)          # D = 24: not built
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q[..., :16].double(), q[..., :16].double(),
+                        q[..., :16].double())
+    x = torch.zeros((1, 4, 2, 12), device=cuda)          # P = 12: no slice
+    with pytest.raises(ValueError):
+        ssd_scan(x, torch.zeros((1, 4, 2), device=cuda),
+                 torch.zeros((1, 4, 1, 8), device=cuda),
+                 torch.zeros((1, 4, 1, 8), device=cuda))

@@ -37,7 +37,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.core.fedavg, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.models.lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -66,14 +66,20 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("selection", "random"), ("allocator", "equal"), ("allocator", "sao:box"),
     ("aggregator", "fedavgm:0.9"), ("compressor", "int8"),
-    ("store", "paged"), ("model", "tinyllama")])
+    ("store", "paged"), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):
     """A strategy the port lacks raises ``ValueError`` naming what it
-    supports; a reference field that has one value in the port (compressor,
-    store, model) is not a field of the port's spec at all."""
+    supports, as does a model that is no registered workload; a reference
+    field that has one value in the port (compressor, store) is not a field
+    of the port's spec at all."""
     from repro_torch.api import ExperimentSpec
     if field in ("selection", "allocator", "aggregator"):
         with pytest.raises(ValueError, match="port"):
+            ExperimentSpec(**{field: value})
+    elif field == "model":
+        with pytest.raises(ValueError,
+                           match="unknown model 'gpt-17'.*mamba2-130m.*"
+                                 "tinyllama"):
             ExperimentSpec(**{field: value})
     else:
         with pytest.raises(TypeError, match=field):
