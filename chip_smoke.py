@@ -42,11 +42,14 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3   # TF32 tensor cores, three products each
 AGG_TOL = dict(rtol=2e-5, atol=2e-5)
 L2_TOL = dict(rtol=1e-4, atol=1e-3)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, another summation order
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's ssd_ref bound
 P_MNIST = 113_744
+P_TINYLLAMA, P_MAMBA2 = 563_200, 616_704      # the LM paths' adapter rows
+F_TINYLLAMA = 22_528             # its K-means features (the last LoRA leaf)
 DEVICE = "cuda"
 KERNELS = ("flat_aggregate", "pairwise_l2", "flash_attention", "ssd_scan")
 
@@ -93,10 +96,18 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+    """The least time [ms]: bytes over HBM's rate against operations over
+    ``flop_rate`` (fp32 outside the tensor cores unless a kernel says
+    otherwise), and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rate_name(flop_rate):
+    return {FP32_FLOP_PER_S: "fp32 67 TFLOP/s",
+            TF32X3_FLOP_PER_S: "3xTF32 495/3 TFLOP/s"}[flop_rate]
 
 
 def least_band_mhz(fleet):
@@ -128,9 +139,15 @@ def kernel_phase(torch, timer):
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
+    one = torch.zeros(1, device=DEVICE)
+    print(f"  timer floor: one-element add_ ms={timer(lambda: one.add_(1)):.4f}"
+          " (the least any call reads under this timer)")
 
-    for n in (10, 40, 100):
-        flat = torch.randn((n, P_MNIST), generator=gen, device=DEVICE)
+    # the CNN path's folds (N = 10 a round, 40 at the initial round), a
+    # wide fleet, and the LM paths' folds (S = 4 a round, N = 10 initially)
+    for n, p in ((10, P_MNIST), (40, P_MNIST), (100, P_MNIST),
+                 (4, P_TINYLLAMA), (10, P_TINYLLAMA), (4, P_MAMBA2)):
+        flat = torch.randn((n, p), generator=gen, device=DEVICE)
         w = torch.rand((n,), generator=gen, device=DEVICE) + 0.1
         flat[n // 2] = float("nan")              # a NaN row at weight 0
         w[n // 2] = 0.0
@@ -138,30 +155,34 @@ def kernel_phase(torch, timer):
         got, want = flat_aggregate(flat, w), flat_aggregate_plain(flat, w)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()),
-              f"flat_aggregate [{n},{P_MNIST}]: non-finite output")
+              f"flat_aggregate [{n},{p}]: non-finite output")
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, **AGG_TOL)
         live = int((w > 0).sum())                 # rows the kernel reads
-        b_ms, b_by = bound(live * P_MNIST * 4 + n * 4 + P_MNIST * 4,
-                           2 * live * P_MNIST)
+        b_ms, b_by = bound(live * p * 4 + n * 4 + p * 4, 2 * live * p)
         flat_lib = torch.where(w[:, None] > 0, flat,
                                torch.zeros((), device=DEVICE))
-        r = dict(shape=[n, P_MNIST], max_abs_err=err, ok=bool(ok),
+        r = dict(shape=[n, p], max_abs_err=err, ok=bool(ok),
                  ms=timer(lambda: flat_aggregate(flat, w)),
                  plain_ms=timer(lambda: flat_aggregate_plain(flat, w)),
                  library_ms=timer(lambda: torch.mv(flat_lib.t(), w)),
-                 bound_ms=b_ms, bound_by=b_by)
-        print(f"  flat_aggregate [{n},{P_MNIST}] max_abs_err={err:.3e} "
+                 bound_ms=b_ms, bound_by=b_by,
+                 bound_rate=rate_name(FP32_FLOP_PER_S))
+        print(f"  flat_aggregate [{n},{p}] max_abs_err={err:.3e} "
               f"(tol rtol/atol 2e-5: {'ok' if ok else 'FAIL'}) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms(torch.mv)={r['library_ms']:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
-        check(ok, f"flat_aggregate [{n},{P_MNIST}] disagrees with its "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"bound_share={b_ms / r['ms']:.3f}")
+        check(ok, f"flat_aggregate [{n},{p}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("flat_aggregate", []).append(r)
         del flat, flat_lib
 
-    for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST)):
+    # the CNN path's K-means (w_fc2) and divergence; the tinyllama path's
+    # divergence (S = 4 a round, N = 10 initially) and K-means (c = 4)
+    for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
+                    (10, 4, F_TINYLLAMA)):
         x = torch.randn((n, f), generator=gen, device=DEVICE)
         c = torch.randn((m, f), generator=gen, device=DEVICE)
         got, want = pairwise_l2(x, c), ref.pairwise_l2_ref(x, c)
@@ -173,7 +194,8 @@ def kernel_phase(torch, timer):
                  ms=timer(lambda: pairwise_l2(x, c)),
                  plain_ms=timer(lambda: ref.pairwise_l2_ref(x, c)),
                  library_ms=timer(lambda: torch.cdist(x, c).square()),
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by,
+                 bound_rate=rate_name(FP32_FLOP_PER_S))
         print(f"  pairwise_l2 [{n},{f}]x[{m},{f}] max_abs_err={err:.3e} "
               f"(tol rtol 1e-4 atol 1e-3: {'ok' if ok else 'FAIL'}) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -222,7 +244,7 @@ def attention_rows(torch, timer, gen):
             mask &= (qpos - kpos) < window
         pairs = int(mask.sum())               # the unmasked (q, k) pairs
         b_ms, b_by = bound(4 * (2 * b * sq * h * d + 2 * b * sk * kv * d),
-                           4 * d * b * h * pairs)
+                           4 * d * b * h * pairs, TF32X3_FLOP_PER_S)
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
@@ -236,12 +258,14 @@ def attention_rows(torch, timer, gen):
                  library_ms=timer(lambda: sdpa(
                      qt, kt, vt, is_causal=causal_only,
                      attn_mask=None if causal_only else mask)),
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by,
+                 bound_rate=rate_name(TF32X3_FLOP_PER_S))
         print(f"  flash_attention {shape} max_abs_err={err:.3e} (tol "
               f"rtol/atol 2e-5{', masked rows 0' if sq > sk else ''}: "
               f"{'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms(sdpa)="
-              f"{r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"{r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+              f"{r['bound_rate']})")
         check(ok, f"flash_attention {shape} disagrees with its plain "
                   f"version: max_abs_err={err}")
         out.append(r)
@@ -280,7 +304,8 @@ def ssd_rows(torch, timer, gen):
                  ms=timer(lambda: ssd_scan(x, a, bm, cm, chunk=chunk)),
                  plain_ms=timer(lambda: ssd_scan_plain(x, a, bm, cm),
                                 reps=5, warm=1),
-                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                 bound_rate=rate_name(FP32_FLOP_PER_S))
         print(f"  ssd_scan {shape} max_abs_err={err:.3e} (tol rtol/atol "
               f"1e-4: {'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms=null "

@@ -12,203 +12,479 @@
 // are read in their [B, S, heads, D] layout through the strides given.
 //
 // Bound on the card: operations at long S (4 D flops per unmasked (q, k)
-// pair), latency at the FL path's S = 32. Design: one block of 256 threads
-// per (b, h, 64-query tile); the TPU's sequential key-tile grid axis becomes
-// a loop inside the block over 64-key tiles staged in shared memory (with a
-// padded row stride, so the column reads hit distinct banks). Each thread
-// keeps a 4 x 4 tile of scores and a 4 x D/16 tile of the output
-// accumulator in registers; a warp per row does the max / exp / sum. Key
-// tiles that the mask empties entirely are skipped (they would leave m, l
-// and the accumulator unchanged). fp32 FMA throughout, no atomics, so the
-// result is the same bit for bit on every run.
+// pair, on the tensor cores in 3xTF32, so 495/3 TFLOP/s), bytes and latency
+// at the FL path's S = 32. Design:
+// - Both products run on the tensor cores (mma.sync m16n8k8 TF32, fp32
+//   accumulators) in 3xTF32: each fp32 operand x is split into
+//   hi = tf32(x) and lo = tf32(x - hi), and a product is lo*hi + hi*lo +
+//   hi*hi, which keeps about fp32's accuracy (plain TF32 would not). q is
+//   scaled and split once per block into (hi, lo) pairs in shared memory.
+// - A block of 4 warps owns 64 packed rows of one (b, KV head): row r is the
+//   pair (query r / G, q-head kh * G + r % G) with G = H / K, so one K/V tile
+//   in shared memory serves every head that reads it and a few queries fill
+//   a whole tile. Each row keeps its own query position for the masks.
+// - A warp owns 16 rows. Its score tile stays in the mma accumulators: it is
+//   masked, max-reduced (quad shuffles), exponentiated and summed in place;
+//   m, l and the output accumulator live in registers. The score fragment
+//   feeds P.V without a re-layout: the C fragment holds keys 2t and 2t + 1
+//   where the A fragment wants t and t + 4, so P.V runs its 8 keys in the
+//   order (0, 2, 4, 6, 1, 3, 5, 7) and reads V's rows in that same order.
+// - 32-key K/V tiles are double-buffered with cp.async (16-byte copies where
+//   the pointers and strides allow, zero-filled past Sk), rows padded to
+//   D + 4 floats so that every fragment read hits distinct banks. Key tiles
+//   that the masks empty for the whole block are not visited, and a warp
+//   skips those empty for its own rows (either leaves m, l and the
+//   accumulator as they were).
+// - Split-KV: when (b, KV head, row tile) blocks are few and key tiles many
+//   (one query against a long cache), the wrapper cuts the key tiles into
+//   chunks of at least two tiles (a count that depends on the shape alone);
+//   each block writes its unnormalised (m, l, acc) to scratch and a second
+//   kernel adds the chunks in a fixed order. A chunk with no unmasked key
+//   carries m = -1e30, l = 0.
+// No atomics, so the result is the same bit for bit on every run.
+// The wrapper's plan (kernels/flash_attention.py: plan_attention,
+// block_key_tiles) mirrors BM, BN, kMaxChunks and key_tiles() below.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int SP = BK + 1;            // score row stride in shared memory
+constexpr int kThreads = 128;         // 4 warps, 16 packed rows each
+constexpr int BM = 64;                // packed rows a block
+constexpr int BN = 32;                // keys a tile
+constexpr int kMaxChunks = 132;       // the wrapper's SPLIT_BLOCKS
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Shared memory, in floats: Q as (hi, lo) pairs [BM][DP], then two K/V
+// stages, each K [BN][DP] then V [BN][DP]. Rows are padded to DP = D + 4 so
+// that every fragment read (4-byte raw, 8-byte pairs) hits distinct banks.
+// The raw q tile is first copied into stage 1 (the same size: BM = 2 BN).
+template <int D>
+struct Tile {
+    static constexpr int DP = D + 4;
+    static constexpr int stage = 2 * BN * DP;
+    static constexpr int smem_floats = 2 * BM * DP + 2 * stage;
+};
 
 struct Args {
     const float* q;
     const float* k;
     const float* v;
     float* out;
-    int Sq, Sk, H, K;
+    float* part_acc;                  // [chunks, B, Sq, H, D] when chunks > 1
+    float* part_ml;                   // [chunks, B, Sq, H, 2]
+    int B, Sq, Sk, H, K, G;
     long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
     int causal, has_window, window;
     float scale;
+    int row_tiles, chunks, tiles_per_chunk, first_tile;
+    int q_vec, kv_vec;                // 16-byte copies allowed
 };
 
+// tf32(x): x rounded to 10 mantissa bits, to nearest with ties away from
+// zero -- the bits cvt.rna.tf32.f32 gives, from two integer operations
+// instead of the conversion unit
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+    mma_tf32(c, alo, bhi);
+    mma_tf32(c, ahi, blo);
+    mma_tf32(c, ahi, bhi);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The key tiles holding an unmasked key of some query in [qlo, qhi]; an
+// empty range is lo = 0, hi = -1.
+__device__ __forceinline__ void key_tiles(const Args& A, long long qlo,
+                                          long long qhi, int& lo, int& hi) {
+    long long klo = 0, khi = A.Sk - 1;
+    if (A.causal) khi = min(khi, qhi);
+    if (A.has_window) klo = max(klo, qlo - A.window + 1);
+    if (khi < klo) {
+        lo = 0;
+        hi = -1;
+        return;
+    }
+    lo = (int)(klo / BN);
+    hi = (int)(khi / BN);
+}
+
+// The block's packed rows of q (unscaled) into Qraw [BM][DP], zero past the
+// last row.
 template <int D>
-constexpr int smem_floats() {
-    return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * SP + 3 * BQ;
+__device__ __forceinline__ void load_q(const Args& A, float* Qraw, int b, int kh,
+                                       int r0, int rows) {
+    constexpr int DP = Tile<D>::DP;
+    const int step = A.q_vec ? 4 : 1, per_row = D / step;
+    for (int e = threadIdx.x; e < BM * per_row; e += kThreads) {
+        const int r = e / per_row, c = (e % per_row) * step, pr = r0 + r;
+        const bool in = pr < rows;
+        const float* src = A.q;
+        if (in)
+            src += b * A.q_sb + (pr / A.G) * A.q_ss + (kh * A.G + pr % A.G) * A.q_sh + c;
+        if (A.q_vec)
+            cp_async16(Qraw + r * DP + c, src, in);
+        else
+            cp_async4(Qraw + r * DP + c, src, in);
+    }
+}
+
+// K and V rows [k0, k0 + BN) into a stage, zero past Sk.
+template <int D>
+__device__ __forceinline__ void load_kv(const Args& A, float* stage,
+                                        const float* kb, const float* vb, int k0) {
+    constexpr int DP = Tile<D>::DP;
+    float* Ks = stage;
+    float* Vs = stage + BN * DP;
+    const int step = A.kv_vec ? 4 : 1, per_row = D / step;
+    for (int e = threadIdx.x; e < BN * per_row; e += kThreads) {
+        const int r = e / per_row, c = (e % per_row) * step, kj = k0 + r;
+        const bool in = kj < A.Sk;
+        const float* ks = in ? kb + kj * A.k_ss + c : kb;
+        const float* vs = in ? vb + kj * A.v_ss + c : vb;
+        if (A.kv_vec) {
+            cp_async16(Ks + r * DP + c, ks, in);
+            cp_async16(Vs + r * DP + c, vs, in);
+        } else {
+            cp_async4(Ks + r * DP + c, ks, in);
+            cp_async4(Vs + r * DP + c, vs, in);
+        }
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_kernel(Args A) {
-    constexpr int DP = D + 1;
-    constexpr int DC = D / 16;        // output columns per thread
-    extern __shared__ float smem[];
-    float* Qs = smem;                 // [BQ][DP]  q * scale
-    float* Ks = Qs + BQ * DP;         // [BK][DP]
-    float* Vs = Ks + BK * DP;         // [BK][D]
-    float* Ss = Vs + BK * D;          // [BQ][SP]  scores, then p
-    float* m_s = Ss + BQ * SP;        // [BQ] running max
-    float* l_s = m_s + BQ;            // [BQ] running sum
-    float* c_s = l_s + BQ;            // [BQ] this tile's correction
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const Args A) {
+    constexpr int DP = Tile<D>::DP;
+    constexpr int NS = BN / 8;        // score n-tiles (8 keys each)
+    constexpr int NO = D / 8;         // output n-tiles (8 columns each)
+    extern __shared__ __align__(16) float smem[];
+    uint2* Qs = reinterpret_cast<uint2*>(smem);      // [BM][DP] (hi, lo) of q * scale
+    float* stages = smem + 2 * BM * DP;              // 2 x (K [BN][DP], V [BN][DP])
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int n_qt = (A.Sq + BQ - 1) / BQ;
-    const int qt = blockIdx.x % n_qt;
-    const int bh = blockIdx.x / n_qt;
-    const int h = bh % A.H, b = bh / A.H;
-    const int kh = h / (A.H / A.K);
-    const int q0 = qt * BQ;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+
+    // block -> (row tile, b, KV head, chunk); row tiles with the most keys
+    // (the last under the causal mask) go first
+    int x = blockIdx.x;
+    const int chunk = x % A.chunks;
+    x /= A.chunks;
+    const int bk = x % (A.B * A.K);
+    const int rt = A.row_tiles - 1 - x / (A.B * A.K);
+    const int kh = bk % A.K, b = bk / A.K;
+    const int rows = A.Sq * A.G;
+    const int r0 = rt * BM;
     const int shift = A.Sk - A.Sq;
 
-    const float* qb = A.q + b * A.q_sb + h * A.q_sh;
+    // the block's key tiles: its rows' unmasked range, cut to its chunk
+    int kt_lo, kt_hi;
+    {
+        const int last = min(r0 + BM, rows) - 1;
+        key_tiles(A, (long long)(r0 / A.G) + shift, (long long)(last / A.G) + shift,
+                  kt_lo, kt_hi);
+        const int c_lo = A.first_tile + chunk * A.tiles_per_chunk;
+        kt_lo = max(kt_lo, c_lo);
+        kt_hi = min(kt_hi, c_lo + A.tiles_per_chunk - 1);
+    }
+    // the warp's rows and key tiles
+    const int wr0 = r0 + warp * 16;
+    const long long wq_lo = (long long)(wr0 / A.G) + shift;
+    const long long wq_hi = (long long)((min(wr0 + 16, rows) - 1) / A.G) + shift;
+    int wkt_lo = 0, wkt_hi = -1;
+    if (wr0 < rows) key_tiles(A, wq_lo, wq_hi, wkt_lo, wkt_hi);
+    const int prA = wr0 + g, prB = prA + 8;           // this thread's two rows
+    const long long qposA = (long long)(prA / A.G) + shift;
+    const long long qposB = (long long)(prB / A.G) + shift;
+
     const float* kb = A.k + b * A.k_sb + kh * A.k_sh;
     const float* vb = A.v + b * A.v_sb + kh * A.v_sh;
 
-    for (int e = tid; e < BQ * D; e += kThreads) {
-        const int r = e / D, d = e % D, qi = q0 + r;
-        Qs[r * DP + d] = qi < A.Sq ? qb[qi * A.q_ss + d] * A.scale : 0.f;
-    }
-    for (int r = tid; r < BQ; r += kThreads) {
-        m_s[r] = kNegInf;
-        l_s[r] = 0.f;
-    }
-
-    // the key tiles that hold at least one unmasked key of this query tile
-    const long long qpos_lo = (long long)q0 + shift;
-    const long long qpos_hi = (long long)min(q0 + BQ, A.Sq) - 1 + shift;
-    long long k_lo = 0, k_hi = A.Sk - 1;
-    if (A.causal) k_hi = min(k_hi, qpos_hi);
-    if (A.has_window) k_lo = max(k_lo, qpos_lo - A.window + 1);
-    const int kt_lo = (int)(k_lo / BK);
-    const int kt_hi = k_hi < k_lo ? kt_lo - 1 : (int)(k_hi / BK);
-
-    float acc[4][DC];
+    float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
 
+    if (kt_lo <= kt_hi) {
+        // q into stage 1 and the first K/V tile into stage 0, then q split
+        // once into (hi, lo) pairs for every key tile to come
+        float* Qraw = stages + Tile<D>::stage;
+        load_q<D>(A, Qraw, b, kh, r0, rows);
+        load_kv<D>(A, stages, kb, vb, kt_lo * BN);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int e = tid; e < BM * D; e += kThreads) {
+            const int at = (e / D) * DP + e % D;
+            uint32_t hi, lo;
+            split(Qraw[at] * A.scale, hi, lo);
+            Qs[at] = make_uint2(hi, lo);
+        }
+        __syncthreads();
+    }
     for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-        const int k0 = kt * BK;
-        __syncthreads();              // the last tile's readers are done
-        for (int e = tid; e < BK * D; e += kThreads) {
-            const int r = e / D, d = e % D, kj = k0 + r;
-            const bool in = kj < A.Sk;
-            Ks[r * DP + d] = in ? kb[kj * A.k_ss + d] : 0.f;
-            Vs[r * D + d] = in ? vb[kj * A.v_ss + d] : 0.f;
+        const int buf = (kt - kt_lo) & 1;
+        if (kt < kt_hi) {
+            load_kv<D>(A, stages + (buf ^ 1) * Tile<D>::stage, kb, vb, (kt + 1) * BN);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
-        __syncthreads();
+        __syncthreads();              // tile kt visible to all warps
 
-        float s[4][4];
+        if (kt >= wkt_lo && kt <= wkt_hi) {
+            const float* Ks = stages + buf * Tile<D>::stage;
+            const float* Vs = Ks + BN * DP;
+            const uint2* Qw = Qs + warp * 16 * DP;
+            const int k0 = kt * BN;
+
+            // S = Q K^T: rows g, g + 8; keys n * 8 + 2t, n * 8 + 2t + 1
+            float s[NS][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int n = 0; n < NS; ++n)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-            float qv[4], kv[4];
+                for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
+            for (int kk = 0; kk < D / 8; ++kk) {
+                const uint2 q0 = Qw[g * DP + kk * 8 + t];
+                const uint2 q1 = Qw[(g + 8) * DP + kk * 8 + t];
+                const uint2 q2 = Qw[g * DP + kk * 8 + t + 4];
+                const uint2 q3 = Qw[(g + 8) * DP + kk * 8 + t + 4];
+                const uint32_t ahi[4] = {q0.x, q1.x, q2.x, q3.x};
+                const uint32_t alo[4] = {q0.y, q1.y, q2.y, q3.y};
 #pragma unroll
-            for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
+                for (int n = 0; n < NS; ++n) {
+                    uint32_t bhi[2], blo[2];
+                    split(Ks[(n * 8 + g) * DP + kk * 8 + t], bhi[0], blo[0]);
+                    split(Ks[(n * 8 + g) * DP + kk * 8 + t + 4], bhi[1], blo[1]);
+                    mma_3xtf32(s[n], ahi, alo, bhi, blo);
+                }
+            }
+
+            // masks, only where the tile is not wholly inside every row's range
+            const bool inside = k0 + BN <= A.Sk &&
+                                (!A.causal || k0 + BN - 1 <= wq_lo) &&
+                                (!A.has_window || wq_hi - k0 < A.window);
+            if (!inside) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+                for (int n = 0; n < NS; ++n)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        }
+                    for (int e = 0; e < 4; ++e) {
+                        const long long kpos = k0 + n * 8 + 2 * t + (e & 1);
+                        const long long qpos = e < 2 ? qposA : qposB;
+                        bool ok = kpos < A.Sk;
+                        if (A.causal) ok = ok && kpos <= qpos;
+                        if (A.has_window) ok = ok && qpos - kpos < A.window;
+                        if (!ok) s[n][e] = kNegInf;
+                    }
+            }
+
+            // online softmax; a row's four threads form a quad
+            float mxA = kNegInf, mxB = kNegInf;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int r = ty + 16 * i;
-            const long long qpos = (long long)q0 + r + shift;
+            for (int n = 0; n < NS; ++n) {
+                mxA = fmaxf(mxA, fmaxf(s[n][0], s[n][1]));
+                mxB = fmaxf(mxB, fmaxf(s[n][2], s[n][3]));
+            }
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = tx + 16 * j;
-                const long long kpos = k0 + c;
-                bool ok = kpos < A.Sk;
-                if (A.causal) ok = ok && kpos <= qpos;
-                if (A.has_window) ok = ok && (qpos - kpos) < A.window;
-                Ss[r * SP + c] = ok ? s[i][j] : kNegInf;
+            for (int off = 1; off <= 2; off <<= 1) {
+                mxA = fmaxf(mxA, __shfl_xor_sync(kFull, mxA, off));
+                mxB = fmaxf(mxB, __shfl_xor_sync(kFull, mxB, off));
+            }
+            const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
+            const float cA = exp2f((mA - mnA) * kLog2e);
+            const float cB = exp2f((mB - mnB) * kLog2e);
+            mA = mnA;
+            mB = mnB;
+            float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float mn = e < 2 ? mnA : mnB;
+                    s[n][e] = s[n][e] > 0.5f * kNegInf ? exp2f((s[n][e] - mn) * kLog2e)
+                                                       : 0.f;
+                }
+                sumA += s[n][0] + s[n][1];
+                sumB += s[n][2] + s[n][3];
+            }
+            lA = lA * cA + sumA;      // this thread's share; the quad adds up last
+            lB = lB * cB + sumB;
+#pragma unroll
+            for (int n = 0; n < NO; ++n) {
+                o[n][0] *= cA;
+                o[n][1] *= cA;
+                o[n][2] *= cB;
+                o[n][3] *= cB;
+            }
+
+            // O += P V, 8 keys a step in the order (2t | 2t + 1): A fragment
+            // (row, t) = key 2t, (row, t + 4) = key 2t + 1
+#pragma unroll
+            for (int kk = 0; kk < NS; ++kk) {
+                uint32_t ahi[4], alo[4];
+                split(s[kk][0], ahi[0], alo[0]);
+                split(s[kk][2], ahi[1], alo[1]);
+                split(s[kk][1], ahi[2], alo[2]);
+                split(s[kk][3], ahi[3], alo[3]);
+                const float* v0 = Vs + (kk * 8 + 2 * t) * DP + g;
+#pragma unroll
+                for (int n = 0; n < NO; ++n) {
+                    uint32_t bhi[2], blo[2];
+                    split(v0[n * 8], bhi[0], blo[0]);
+                    split(v0[DP + n * 8], bhi[1], blo[1]);
+                    mma_3xtf32(o[n], ahi, alo, bhi, blo);
+                }
             }
         }
-        __syncthreads();
-
-        // online softmax: warp w owns rows [8w, 8w + 8), a lane two columns
-        for (int rr = 0; rr < BQ / 8; ++rr) {
-            const int r = warp * (BQ / 8) + rr;
-            const float s0 = Ss[r * SP + lane], s1 = Ss[r * SP + lane + 32];
-            float mx = fmaxf(s0, s1);
-            for (int off = 16; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_prev = m_s[r];
-            const float m_new = fmaxf(m_prev, mx);
-            const float p0 = s0 > 0.5f * kNegInf ? expf(s0 - m_new) : 0.f;
-            const float p1 = s1 > 0.5f * kNegInf ? expf(s1 - m_new) : 0.f;
-            float sum = p0 + p1;
-            for (int off = 16; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            Ss[r * SP + lane] = p0;
-            Ss[r * SP + lane + 32] = p1;
-            if (lane == 0) {
-                const float corr = expf(m_prev - m_new);
-                c_s[r] = corr;
-                l_s[r] = l_s[r] * corr + sum;
-                m_s[r] = m_new;
-            }
-        }
-        __syncthreads();
+        __syncthreads();              // every warp is done with stage buf
+    }
 
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float corr = c_s[ty + 16 * i];
+    for (int off = 1; off <= 2; off <<= 1) {
+        lA += __shfl_xor_sync(kFull, lA, off);
+        lB += __shfl_xor_sync(kFull, lB, off);
+    }
+
 #pragma unroll
-            for (int j = 0; j < DC; ++j) acc[i][j] *= corr;
+    for (int half = 0; half < 2; ++half) {
+        const int pr = half ? prB : prA;
+        if (pr >= rows) continue;
+        const int i = pr / A.G, h = kh * A.G + pr % A.G;
+        const long long row = ((long long)b * A.Sq + i) * A.H + h;
+        const float m = half ? mB : mA, l = half ? lB : lA;
+        if (A.chunks == 1) {
+            const float denom = fmaxf(l, 1e-30f);
+            float* dst = A.out + row * D + 2 * t;
+#pragma unroll
+            for (int n = 0; n < NO; ++n)
+                *reinterpret_cast<float2*>(dst + n * 8) =
+                    make_float2(o[n][2 * half] / denom, o[n][2 * half + 1] / denom);
+        } else {
+            const long long prow = (long long)chunk * A.B * A.Sq * A.H + row;
+            float* dst = A.part_acc + prow * D + 2 * t;
+#pragma unroll
+            for (int n = 0; n < NO; ++n)
+                *reinterpret_cast<float2*>(dst + n * 8) =
+                    make_float2(o[n][2 * half], o[n][2 * half + 1]);
+            if (t == 0)
+                *reinterpret_cast<float2*>(A.part_ml + prow * 2) = make_float2(m, l);
         }
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-            float pv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty + 16 * i) * SP + kk];
-#pragma unroll
-            for (int j = 0; j < DC; ++j) {
-                const float vv = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-            }
+    }
+}
+
+// One block per output row: the chunks' weights f_c = exp(m_c - max m) and
+// l = sum f_c l_c (one warp), then sum f_c acc_c over (chunk slice, 4
+// columns) threads, the slices added in slice order.
+constexpr int kCombineThreads = 256;
+
+__global__ void __launch_bounds__(kCombineThreads) combine_kernel(
+        const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+        float* __restrict__ out, long long n_rows, int D, int chunks) {
+    __shared__ float f_s[kMaxChunks];
+    __shared__ __align__(16) float red_s[4 * kCombineThreads];
+    __shared__ float denom_s;
+    const long long row = blockIdx.x;
+    const int tid = threadIdx.x;
+    if (tid < 32) {
+        float m = kNegInf;
+        for (int c = tid; c < chunks; c += 32)
+            m = fmaxf(m, part_ml[(c * n_rows + row) * 2]);
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+        float l = 0.f;
+        for (int c = tid; c < chunks; c += 32) {
+            const float2 ml =
+                *reinterpret_cast<const float2*>(part_ml + (c * n_rows + row) * 2);
+            const float f = exp2f((ml.x - m) * kLog2e);
+            f_s[c] = f;
+            l = fmaf(ml.y, f, l);
         }
+        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(kFull, l, off);
+        if (tid == 0) denom_s = fmaxf(l, 1e-30f);
     }
     __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i, qi = q0 + r;
-        if (qi >= A.Sq) continue;
-        const float denom = fmaxf(l_s[r], 1e-30f);
-        float* o = A.out + (((long long)b * A.Sq + qi) * A.H + h) * D;
-#pragma unroll
-        for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] / denom;
+    const int cols = D / 4, slices = kCombineThreads / cols;
+    const int col = tid % cols, slice = tid / cols;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = slice; c < chunks; c += slices) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(part_acc + (c * n_rows + row) * D + 4 * col);
+        const float f = f_s[c];
+        acc = make_float4(fmaf(f, x.x, acc.x), fmaf(f, x.y, acc.y), fmaf(f, x.z, acc.z),
+                          fmaf(f, x.w, acc.w));
+    }
+    *reinterpret_cast<float4*>(red_s + slice * D + 4 * col) = acc;
+    __syncthreads();
+    if (tid < D) {
+        float sum = red_s[tid];
+        for (int sl = 1; sl < slices; ++sl) sum += red_s[sl * D + tid];
+        out[row * D + tid] = sum / denom_s;
     }
 }
 
 template <int D>
-int launch(const Args& a, int blocks, cudaStream_t s) {
-    constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+int launch(const Args& a, cudaStream_t s) {
+    constexpr int bytes = Tile<D>::smem_floats * (int)sizeof(float);
     static const cudaError_t attr = cudaFuncSetAttribute(
         flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int blocks = a.row_tiles * a.B * a.K * a.chunks;
     flash_kernel<D><<<blocks, kThreads, bytes, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || a.chunks == 1) return static_cast<int>(err);
+    const long long n_rows = (long long)a.B * a.Sq * a.H;
+    combine_kernel<<<(unsigned)n_rows, kCombineThreads, 0, s>>>(
+        a.part_acc, a.part_ml, a.out, n_rows, D, a.chunks);
     return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const float* p, long long sb, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && ss % 4 == 0 &&
+           sh % 4 == 0;
 }
 
 }  // namespace
@@ -216,26 +492,40 @@ int launch(const Args& a, int blocks, cudaStream_t s) {
 // q: [B, Sq, H, D], k and v: [B, Sk, K, D] fp32 with unit stride over D and
 // the given element strides over batch, sequence and head; out: [B, Sq, H, D]
 // contiguous. D is 16, 32, 64 or 128; H is a multiple of K. window <= 0 with
-// has_window masks every key. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for a D it
-// was not built for.
+// has_window masks every key. The plan (row tiles of 64 packed rows; key
+// tiles of 32 keys; chunks of tiles_per_chunk key tiles from first_tile)
+// comes from the wrapper; with chunks > 1, part_acc and part_ml
+// are scratch of chunks * B * Sq * H * D and chunks * B * Sq * H * 2 floats.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); 1
+// (cudaErrorInvalidValue) for a D it was not built for or a plan that does
+// not fit the shape.
 extern "C" int flash_attention_f32(
-        const float* q, const float* k, const float* v, float* out, int B,
-        int Sq, int Sk, int H, int K, int D, long long q_sb, long long q_ss,
-        long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-        long long v_sb, long long v_ss, long long v_sh, int causal,
-        int has_window, int window, float scale, void* stream) {
+        const float* q, const float* k, const float* v, float* out,
+        float* part_acc, float* part_ml, int B, int Sq, int Sk, int H, int K,
+        int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+        long long v_sh, int causal, int has_window, int window, float scale,
+        int row_tiles, int chunks, int tiles_per_chunk, int first_tile,
+        void* stream) {
     if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-    Args a{q, k, v, out, Sq, Sk, H, K, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-           v_sb, v_ss, v_sh, causal, has_window, window, scale};
-    const int blocks = B * H * ((Sq + BQ - 1) / BQ);
+    const int invalid = static_cast<int>(cudaErrorInvalidValue);
+    if (K <= 0 || H % K || row_tiles != (Sq * (H / K) + BM - 1) / BM ||
+        chunks < 1 || chunks > kMaxChunks || tiles_per_chunk < 1 || first_tile < 0 ||
+        (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
+        return invalid;
+    Args a{q, k, v, out, part_acc, part_ml, B, Sq, Sk, H, K, H / K,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+           causal, has_window, window, scale,
+           row_tiles, chunks, tiles_per_chunk, first_tile,
+           aligned16(q, q_sb, q_ss, q_sh),
+           aligned16(k, k_sb, k_ss, k_sh) && aligned16(v, v_sb, v_ss, v_sh)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 16: return launch<16>(a, blocks, s);
-        case 32: return launch<32>(a, blocks, s);
-        case 64: return launch<64>(a, blocks, s);
-        case 128: return launch<128>(a, blocks, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
+        case 16: return launch<16>(a, s);
+        case 32: return launch<32>(a, s);
+        case 64: return launch<64>(a, s);
+        case 128: return launch<128>(a, s);
+        default: return invalid;
     }
 }
 

@@ -3,14 +3,23 @@ of every dense block of the federated LM (``models.transformer``).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``) with the hand-written CUDA kernel
-``csrc/flash_attention.cu``: one block per (batch, head, 64-query tile), an
-online softmax over 64-key tiles staged in shared memory, fp32 FMA, no
-atomics. It keeps the TPU kernel's semantics — scale on q, queries
-right-aligned to keys, masked scores at -1e30 with p forced to 0, the
-denominator clamped at 1e-30 so a fully masked row gives 0 — and reads KV
-head ``h // (H / K)`` in place of the reference wrapper's repeat. On the
-card it is bound by operations at long sequences (4·D flops per unmasked
-(q, k) pair) and by latency at the FL path's 32 tokens.
+``csrc/flash_attention.cu``. It keeps the TPU kernel's semantics — scale on
+q, queries right-aligned to keys, masked scores at -1e30 with p forced to
+0, the denominator clamped at 1e-30 so a fully masked row gives 0 — and
+reads KV head ``h // (H / K)`` in place of the reference wrapper's repeat.
+
+On the card it is bound by operations at long sequences (4·D flops per
+unmasked (q, k) pair, run on the tensor cores in 3xTF32: 495/3 TFLOP/s)
+and by bytes and latency at the FL path's 32 tokens. The kernel computes
+both products with ``mma.sync`` TF32 in 3xTF32 (hi·hi + hi·lo + lo·hi,
+about fp32's accuracy), keeps the score tile in registers, packs the
+(q-head, query) rows of one KV head into 64-row tiles so one K/V tile
+serves the whole group, double-buffers K/V with ``cp.async``, and splits
+the key tiles over several blocks when rows are few and keys many (one
+query against a long cache), adding the chunks in a fixed order in a
+second small kernel. :func:`plan_attention` is that grid plan, in Python so
+that the CPU tests can check it; no atomics, so the result is the same bit
+for bit on every run.
 
 The JAX package gives the kernel no gradient of its own, so none is owed
 here: :class:`_FlashAttention`'s forward launches the kernel, its backward
@@ -20,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,10 +37,73 @@ from repro_torch.kernels.build import error_string, load_function
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)      # the kernel's template instances
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+BLOCK_ROWS = 64                    # packed (query, q-head) rows a block
+BLOCK_KEYS = 32                    # keys a tile
+SPLIT_BLOCKS = 132                 # split key tiles under this many blocks,
+                                   # into about as many (the H100's SMs)
+_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
              + (ctypes.c_longlong,) * 9 + (ctypes.c_int,) * 3
-             + (ctypes.c_float, ctypes.c_void_p))
+             + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _INT_MAX = 2 ** 31 - 1
+
+
+class AttentionPlan(NamedTuple):
+    """The kernel's grid: ``row_tiles`` tiles of ``BLOCK_ROWS`` packed rows
+    for each (b, KV head), each cut into ``chunks`` chunks of
+    ``tiles_per_chunk`` key tiles of ``BLOCK_KEYS`` keys from
+    ``first_tile`` on; one block per (row tile, b, KV head, chunk)."""
+    row_tiles: int
+    chunks: int
+    tiles_per_chunk: int
+    first_tile: int
+
+
+def key_tile_range(q_lo: int, q_hi: int, sk: int, causal: bool, window):
+    """The key tiles ``(lo, hi)`` that hold an unmasked key of some query
+    position in ``[q_lo, q_hi]``; ``(0, -1)`` when there is none. The
+    kernel's ``key_tiles``."""
+    k_lo, k_hi = 0, sk - 1
+    if causal:
+        k_hi = min(k_hi, q_hi)
+    if window is not None:
+        k_lo = max(k_lo, q_lo - window + 1)
+    if k_hi < k_lo:
+        return 0, -1
+    return k_lo // BLOCK_KEYS, k_hi // BLOCK_KEYS
+
+
+def plan_attention(B: int, Sq: int, Sk: int, H: int, K: int,
+                   causal: bool = True, window=None) -> AttentionPlan:
+    """The grid for q ``[B, Sq, H, D]`` over k, v ``[B, Sk, K, D]``: a
+    function of the shape alone. Key tiles are split into chunks only when
+    the (row tile, b, KV head) blocks number fewer than ``SPLIT_BLOCKS``,
+    into about ``SPLIT_BLOCKS`` blocks, each chunk at least two key tiles
+    (so its double buffer overlaps something)."""
+    row_tiles = -(-Sq * (H // K) // BLOCK_ROWS)
+    lo, hi = key_tile_range(Sk - Sq, Sk - 1, Sk, causal, window)
+    tiles = hi - lo + 1
+    base = B * K * row_tiles
+    chunks = 1
+    if base < SPLIT_BLOCKS:
+        chunks = max(1, min(tiles // 2, -(-SPLIT_BLOCKS // base)))
+    per = -(-tiles // chunks) if tiles > 0 else 1
+    chunks = -(-tiles // per) if tiles > 0 else 1
+    return AttentionPlan(row_tiles, chunks, per, lo)
+
+
+def block_key_tiles(plan: AttentionPlan, Sq: int, Sk: int, g: int,
+                    causal: bool, window, row_tile: int, chunk: int) -> range:
+    """The key tiles the block (``row_tile``, ``chunk``) visits (the same
+    for every b and KV head): its rows' unmasked range, cut to its chunk.
+    Rows ``r`` of the tile are the pairs (query ``r // g``, q-head
+    ``r % g`` of the group)."""
+    r0 = row_tile * BLOCK_ROWS
+    last = min(r0 + BLOCK_ROWS, Sq * g) - 1
+    shift = Sk - Sq
+    lo, hi = key_tile_range(r0 // g + shift, last // g + shift, Sk, causal,
+                            window)
+    c_lo = plan.first_tile + chunk * plan.tiles_per_chunk
+    return range(max(lo, c_lo), min(hi, c_lo + plan.tiles_per_chunk - 1) + 1)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -90,15 +163,25 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    plan = plan_attention(B, Sq, Sk, H, K, causal, window)
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    part_acc = part_ml = None
+    if plan.chunks > 1:
+        part_acc = torch.empty((plan.chunks, B, Sq, H, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((plan.chunks, B, Sq, H, 2), dtype=torch.float32,
+                              device=q.device)
     win = 0 if window is None else max(min(int(window), _INT_MAX), -_INT_MAX)
     fn = load_function("flash_attention", "flash_attention_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if part_acc is None else part_acc.data_ptr(),
+                 None if part_ml is None else part_ml.data_ptr(),
                  B, Sq, Sk, H, K, D, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], int(bool(causal)), int(window is not None),
-                 win, 1.0 / math.sqrt(D), stream)
+                 win, 1.0 / math.sqrt(D), plan.row_tiles, plan.chunks,
+                 plan.tiles_per_chunk, plan.first_tile, stream)
     if err:
         raise RuntimeError("flash_attention: kernel launch failed: "
                            + error_string("flash_attention", err))

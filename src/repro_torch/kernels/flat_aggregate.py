@@ -4,9 +4,12 @@ one GEMV, ``[N, P] × [N] -> [P]`` in fp32.
 Replaces the Pallas TPU kernel ``src/repro/kernels/flat_aggregate.py``
 (``flat_aggregate`` / ``_flat_aggregate_kernel``) with the hand-written
 CUDA kernel ``csrc/flat_aggregate.cu``. On the card it is bound by bytes:
-the plane is read once for two flops per element. The kernel gives each
-thread four consecutive columns (16-byte loads) and sums all N rows in a
-fixed order — no atomics, no split over N — so the fold is deterministic.
+the live rows are read once for two flops per element, so it runs as fast
+as the loads it keeps in flight. A block compacts the live rows into shared
+memory, splits them over 4 row groups (each lane issuing eight 16-byte
+loads before its FMAs: two rows of four vectors when N ≤ 8, eight rows of
+one above) and adds the groups' partial sums in a fixed order — no
+atomics, so the fold is deterministic.
 
 Both versions skip rows whose weight is not positive, so a NaN row at
 weight 0 never reaches the fold (0·NaN = NaN); the kernel by not reading

@@ -47,6 +47,37 @@ def test_flat_aggregate_matches_plain(cuda, n, p):
     torch.testing.assert_close(got, flat_aggregate_plain(flat, w), **AGG_TOL)
 
 
+@pytest.mark.parametrize("n,p,nan_at", [
+    (1, 4096, ()),                             # one row
+    (13, 4100, (0, 6, 12)),                    # N not a multiple of 8
+    (100, 1003, (0, 50, 99)),                  # P % 4 != 0: scalar path
+    (300, 2052, (0, 150, 299)),                # two 256-row chunks
+])
+def test_flat_aggregate_edges(cuda, n, p, nan_at):
+    """NaN rows at weight 0 first, in the middle and last; a second call
+    is equal bit for bit."""
+    flat = torch.tensor(_normal(n + p, n, p), device=cuda)
+    w = torch.tensor(np.abs(_normal(n + 2, n)) + 0.1, device=cuda)
+    for i in nan_at:                           # NaN rows at weight 0
+        flat[i] = float("nan")
+        w[i] = 0.0
+    got = flat_aggregate(flat, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, flat_aggregate_plain(flat, w), **AGG_TOL)
+    assert torch.equal(flat_aggregate(flat, w), got)     # bit for bit
+
+
+def test_flat_aggregate_all_weights_zero(cuda):
+    flat = torch.tensor(_normal(4, 12, 1000), device=cuda)
+    flat[3] = float("nan")
+    w = torch.zeros(12, device=cuda)
+    for x in (flat, flat[:, 1:]):              # float4 and scalar paths
+        got = flat_aggregate(x.contiguous(), w)
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(got) == 0
+
+
 @pytest.mark.parametrize("n,m,f", [(40, 10, 2240), (40, 1, 113_744),
                                    (7, 3, 33), (1, 1, 8)])
 def test_pairwise_l2_matches_plain(cuda, n, m, f):
@@ -105,6 +136,50 @@ def test_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal,
     torch.testing.assert_close(got, want, **ATTN_TOL)
     if sq > sk:
         assert torch.count_nonzero(got[:, :sq - sk]) == 0
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window", [
+    (1, 1, 2048, 32, 4, 64, None),             # split key tiles
+    (1, 1, 2047, 32, 4, 64, None),
+    (1, 3, 2048, 32, 4, 64, 300),
+    (1, 3, 2047, 32, 4, 64, None),
+    (2, 1, 2047, 8, 8, 64, 1000),              # H / K = 1
+    (1, 37, 300, 16, 8, 32, None),             # H / K = 2, Sq * G % 64 != 0
+    (3, 29, 29, 16, 2, 16, None),              # H / K = 8
+    (2, 50, 600, 8, 1, 128, 128),              # D = 128
+    (1, 2, 5000, 4, 2, 16, None),              # D = 16, many chunks
+])
+def test_flash_attention_plan_shapes(cuda, b, sq, sk, h, kv, d, window):
+    """Split key tiles, GQA-packed rows and both tile widths against the
+    plain version; a second call is equal bit for bit."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     plan_attention)
+    q = torch.tensor(_normal(4, b, sq, h, d), device=cuda)
+    k = torch.tensor(_normal(5, b, sk, kv, d), device=cuda)
+    v = torch.tensor(_normal(6, b, sk, kv, d), device=cuda)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+    if sq <= 3:
+        assert plan_attention(b, sq, sk, h, kv, True, window).chunks > 1
+
+
+def test_flash_attention_unaligned_kv(cuda):
+    """K/V views whose rows are not 16-byte aligned take the 4-byte
+    copies."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.tensor(_normal(7, 2, 40, 8, 32), device=cuda)
+    kv = torch.tensor(_normal(8, 2, 90, 2, 33), device=cuda)
+    k, v = kv[..., 1:], kv[..., :32]
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               **ATTN_TOL)
 
 
 @pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
