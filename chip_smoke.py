@@ -9,9 +9,11 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    together);
 2. each kernel against its plain PyTorch version at the shapes the FL and
-   LM paths give it, with the max error against the tolerance and the
+   LM paths give it, with the max error against the tolerance, the
    kernel's, the plain version's, one library call's and the bound's times
-   (CUDA-event medians after warm-up, L2 flushed before every call);
+   (CUDA-event medians after warm-up, L2 flushed before every call) and
+   the device launches one call makes; then ``ssd_scan``'s forward plus
+   backward against autograd through its plain version;
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
    agree (selections, T_k, E_k, the global row);
@@ -50,6 +52,7 @@ SSD_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's ssd_ref bound
 P_MNIST = 113_744
 P_TINYLLAMA, P_MAMBA2 = 563_200, 616_704      # the LM paths' adapter rows
 F_TINYLLAMA = 22_528             # its K-means features (the last LoRA leaf)
+SLAB_TARGETS = (264, 528, 1056)  # pairwise_l2 block targets swept in phase 2
 DEVICE = "cuda"
 KERNELS = ("flat_aggregate", "pairwise_l2", "flash_attention", "ssd_scan")
 
@@ -96,6 +99,30 @@ class Timer:
         return times[len(times) // 2]
 
 
+def device_launches(torch, fn):
+    """The device kernels, copies and memsets that one call of ``fn``
+    enqueues, from ``torch.profiler`` (after one call outside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if is_device_work(e, DeviceType))
+
+
+def is_device_work(e, DeviceType):
+    """A profiler event that is device work: the device timeline also
+    carries annotations (spans, aten ops), which are not."""
+    if e.device_type != DeviceType.CUDA:
+        return False
+    kind = getattr(e, "activity_type", None)
+    return not (e.is_user_annotation or e.name.startswith(("aten::", "fl."))
+                or kind not in (None, "kernel", "gpu_memcpy", "gpu_memset"))
+
+
 def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
     """The least time [ms]: bytes over HBM's rate against operations over
     ``flop_rate`` (fp32 outside the tensor cores unless a kernel says
@@ -135,7 +162,8 @@ def kernel_phase(torch, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flat_aggregate import (flat_aggregate,
                                                     flat_aggregate_plain)
-    from repro_torch.kernels.pairwise_l2 import pairwise_l2
+    from repro_torch.kernels.pairwise_l2 import (_launch, pairwise_l2,
+                                                 plan_slabs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
@@ -163,6 +191,8 @@ def kernel_phase(torch, timer):
         flat_lib = torch.where(w[:, None] > 0, flat,
                                torch.zeros((), device=DEVICE))
         r = dict(shape=[n, p], max_abs_err=err, ok=bool(ok),
+                 device_launches_per_call=device_launches(
+                     torch, lambda: flat_aggregate(flat, w)),
                  ms=timer(lambda: flat_aggregate(flat, w)),
                  plain_ms=timer(lambda: flat_aggregate_plain(flat, w)),
                  library_ms=timer(lambda: torch.mv(flat_lib.t(), w)),
@@ -173,7 +203,8 @@ def kernel_phase(torch, timer):
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms(torch.mv)={r['library_ms']:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
-              f"bound_share={b_ms / r['ms']:.3f}")
+              f"bound_share={b_ms / r['ms']:.3f} "
+              f"device_launches/call={r['device_launches_per_call']}")
         check(ok, f"flat_aggregate [{n},{p}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("flat_aggregate", []).append(r)
@@ -190,17 +221,31 @@ def kernel_phase(torch, timer):
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, **L2_TOL)
         b_ms, b_by = bound((n * f + m * f + n * m) * 4, 3 * n * m * f)
+        slabs = plan_slabs(n, m, f)[0]
+        per_call = device_launches(torch, lambda: pairwise_l2(x, c))
+        check(per_call == (1 if slabs == 1 else 2),
+              f"pairwise_l2 [{n},{f}]x[{m},{f}]: {per_call} device launches "
+              f"a call with {slabs} slabs")
         r = dict(shape=[n, m, f], max_abs_err=err, ok=bool(ok),
+                 slabs=slabs, device_launches_per_call=per_call,
                  ms=timer(lambda: pairwise_l2(x, c)),
                  plain_ms=timer(lambda: ref.pairwise_l2_ref(x, c)),
                  library_ms=timer(lambda: torch.cdist(x, c).square()),
                  bound_ms=b_ms, bound_by=b_by,
                  bound_rate=rate_name(FP32_FLOP_PER_S))
+        # the slab plan's block target, swept in this call (TARGET_BLOCKS
+        # is the one the wrapper uses)
+        r["slab_target_ms"] = {
+            t: timer(lambda t=t: _launch(x, c, *plan_slabs(n, m, f, t)))
+            for t in SLAB_TARGETS}
         print(f"  pairwise_l2 [{n},{f}]x[{m},{f}] max_abs_err={err:.3e} "
               f"(tol rtol 1e-4 atol 1e-3: {'ok' if ok else 'FAIL'}) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms(cdist^2)={r['library_ms']:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
+              f"bound_ms={b_ms:.4f} ({b_by}) slabs={slabs} "
+              f"device_launches/call={per_call} slab target sweep ms: "
+              + ", ".join(f"{t} blocks ({plan_slabs(n, m, f, t)[0]} slabs)="
+                          f"{ms:.4f}" for t, ms in r["slab_target_ms"].items()))
         check(ok, f"pairwise_l2 [{n},{f}]x[{m},{f}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("pairwise_l2", []).append(r)
@@ -252,6 +297,8 @@ def attention_rows(torch, timer, gen):
         shape = f"q[{b},{sq},{h},{d}] kv[{b},{sk},{kv},{d}] " + (
             f"window={window}" if window else "causal")
         r = dict(shape=shape, max_abs_err=err, ok=ok,
+                 device_launches_per_call=device_launches(
+                     torch, lambda: flash_attention(q, k, v, window=window)),
                  ms=timer(lambda: flash_attention(q, k, v, window=window)),
                  plain_ms=timer(lambda: flash_attention_plain(
                      q, k, v, window=window)),
@@ -265,7 +312,8 @@ def attention_rows(torch, timer, gen):
               f"{'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms(sdpa)="
               f"{r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
-              f"{r['bound_rate']})")
+              f"{r['bound_rate']}) "
+              f"device_launches/call={r['device_launches_per_call']}")
         check(ok, f"flash_attention {shape} disagrees with its plain "
                   f"version: max_abs_err={err}")
         out.append(r)
@@ -273,47 +321,133 @@ def attention_rows(torch, timer, gen):
     return out
 
 
+def ssd_inputs(torch, gen, b, s, h, p, n):
+    x = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
+    a = -(torch.rand((b, s, h), generator=gen, device=DEVICE) + 1e-3)
+    bm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
+    cm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
+    return x, a, bm, cm
+
+
+def ssd_cost(b, s, h, p, n, q):
+    """(bytes, flops) of one forward call: x, a, b, c read once, y and the
+    state written once. Per (b·h, chunk of Ql steps): Ql (Ql + 1) (N + P)
+    flops for C·Bᵀ and its product with X over the j ≤ i triangle, 2 Ql P N
+    for the chunk state and, in each chunk after the first, 2 Ql P N for
+    the carried read-out C·h_inᵀ and 2 P N for passing the state on."""
+    lens = [min(q, s - t0) for t0 in range(0, s, q)]
+    flops = b * h * sum(ql * (ql + 1) * (n + p) + 2 * ql * p * n
+                        + (2 * ql * p * n + 2 * p * n if i else 0)
+                        for i, ql in enumerate(lens))
+    return 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
+                + b * h * p * n), flops
+
+
 def ssd_rows(torch, timer, gen):
     """``ssd_scan`` against its plain version (the token-by-token
     recurrence): the mamba2-130m FL path (S = 32, so Q = 32), one sequence
-    at the published chunk (Q = 256) and a ragged S. No one PyTorch call
-    computes this function: ``library_ms`` is null."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    at the published chunk (Q = 256) and a ragged S; then the forward plus
+    backward at the FL shape against autograd through the plain version.
+    No one PyTorch call computes this function: ``library_ms`` is null."""
+    from repro_torch.kernels.ssd_scan import plan_ssd, ssd_scan, ssd_scan_plain
     out = []
     for b, s, h, p, n, chunk in ((8, 32, 24, 64, 128, 256),
                                  (1, 2048, 24, 64, 128, 256),
                                  (1, 300, 24, 64, 128, 256)):
-        x = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
-        a = -(torch.rand((b, s, h), generator=gen, device=DEVICE) + 1e-3)
-        bm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
-        cm = torch.randn((b, s, 1, n), generator=gen, device=DEVICE) / n ** 0.5
+        x, a, bm, cm = ssd_inputs(torch, gen, b, s, h, p, n)
         y, st = ssd_scan(x, a, bm, cm, chunk=chunk)
         y_p, st_p = ssd_scan_plain(x, a, bm, cm)
         torch.cuda.synchronize()
         err = max(float((y - y_p).abs().max()), float((st - st_p).abs().max()))
         ok = bool(torch.allclose(y, y_p, **SSD_TOL)
                   and torch.allclose(st, st_p, **SSD_TOL))
-        q = min(chunk, s)
-        lens = [min(q, s - t0) for t0 in range(0, s, q)]
-        flops = b * h * sum(2 * ql * ql * (n + p) + 4 * ql * p * n
-                            for ql in lens)
-        b_ms, b_by = bound(4 * (2 * b * s * h * p + b * s * h
-                                + 2 * b * s * n + b * h * p * n), flops)
-        shape = f"x[{b},{s},{h},{p}] bc[{b},{s},1,{n}] Q={q}"
+        plan = plan_ssd(b, s, h, p, n, chunk)
+        per_call = device_launches(
+            torch, lambda: ssd_scan(x, a, bm, cm, chunk=chunk))
+        check(per_call == plan.launches,
+              f"ssd_scan: {per_call} device launches a call, the plan says "
+              f"{plan.launches}")
+        b_ms, b_by = bound(*ssd_cost(b, s, h, p, n, plan.q),
+                           TF32X3_FLOP_PER_S)
+        shape = f"x[{b},{s},{h},{p}] bc[{b},{s},1,{n}] Q={plan.q}"
         r = dict(shape=shape, max_abs_err=err, ok=ok,
+                 device_launches_per_call=per_call,
                  ms=timer(lambda: ssd_scan(x, a, bm, cm, chunk=chunk)),
                  plain_ms=timer(lambda: ssd_scan_plain(x, a, bm, cm),
                                 reps=5, warm=1),
                  library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                 bound_rate=rate_name(FP32_FLOP_PER_S))
+                 bound_rate=rate_name(TF32X3_FLOP_PER_S))
         print(f"  ssd_scan {shape} max_abs_err={err:.3e} (tol rtol/atol "
               f"1e-4: {'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms=null "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"bound_ms={b_ms:.5f} ({b_by}, {r['bound_rate']}) "
+              f"device_launches/call={per_call}")
         check(ok, f"ssd_scan {shape} disagrees with its plain version: "
                   f"max_abs_err={err}")
         out.append(r)
+        del x, a, bm, cm, y, st, y_p, st_p
+    out.append(ssd_grad_row(torch, timer, gen))
     return out
+
+
+def ssd_grad_row(torch, timer, gen):
+    """Forward plus backward of ``ssd_scan`` at the FL shape (the kernel,
+    then autograd through the chunked form) against autograd through the
+    plain recurrence, cotangents on y and on the state. The bound counts
+    the forward's bytes plus the backward's (x, a, b, c and both
+    cotangents read, four gradients written) and three times the
+    forward's flops (each product's gradient is two products) at the
+    3xTF32 rate."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    b, s, h, p, n, chunk = 8, 32, 24, 64, 128, 256
+    leaves = [t.requires_grad_(True)
+              for t in ssd_inputs(torch, gen, b, s, h, p, n)]
+    wy = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
+    ws = torch.randn((b, h, p, n), generator=gen, device=DEVICE)
+
+    def step(fn):
+        y, st = fn(*leaves)
+        return torch.autograd.grad([y, st], leaves, [wy, ws])
+
+    got = step(lambda *t: ssd_scan(*t, chunk=chunk))
+    want = step(ssd_scan_plain)
+    torch.cuda.synchronize()
+    err = max(float((g1 - g2).abs().max()) for g1, g2 in zip(got, want))
+    ok = all(bool(torch.allclose(g1, g2, **SSD_TOL))
+             for g1, g2 in zip(got, want))
+    # how near each gradient sits to allclose's limit: max |g − w| /
+    # (atol + rtol |w|), which allclose holds at ≤ 1
+    ratio = {name: float(((g1 - g2).abs() / (SSD_TOL["atol"] + SSD_TOL["rtol"]
+                                              * g2.abs())).max())
+             for name, g1, g2 in zip(("x", "a", "b", "c"), got, want)}
+    worst = max(ratio, key=ratio.get)
+    per_call = device_launches(
+        torch, lambda: step(lambda *t: ssd_scan(*t, chunk=chunk)))
+    plain_calls = device_launches(torch, lambda: step(ssd_scan_plain))
+    nbytes, flops = ssd_cost(b, s, h, p, n, min(chunk, s))
+    nbytes += 4 * 2 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
+                       + b * h * p * n)
+    b_ms, b_by = bound(nbytes, 3 * flops, TF32X3_FLOP_PER_S)
+    shape = f"forward+backward x[{b},{s},{h},{p}] bc[{b},{s},1,{n}] Q={s}"
+    r = dict(shape=shape, max_abs_err=err, ok=ok,
+             allclose_ratio=ratio, allclose_ratio_max_leaf=worst,
+             device_launches_per_call=per_call,
+             plain_device_launches_per_call=plain_calls,
+             ms=timer(lambda: step(lambda *t: ssd_scan(*t, chunk=chunk)),
+                      reps=10),
+             plain_ms=timer(lambda: step(ssd_scan_plain), reps=5, warm=1),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             bound_rate=rate_name(TF32X3_FLOP_PER_S))
+    print(f"  ssd_scan {shape}: max grad err={err:.3e} (tol rtol/atol 1e-4: "
+          f"{'ok' if ok else 'FAIL'}) allclose ratio "
+          + " ".join(f"d{k}={v:.3f}" for k, v in ratio.items())
+          + f" (largest: d{worst}) ms={r['ms']:.4f} plain_ms="
+          f"{r['plain_ms']:.4f} library_ms=null bound_ms={b_ms:.5f} "
+          f"({b_by}, {r['bound_rate']}) device_launches/call={per_call} "
+          f"(plain: {plain_calls})")
+    check(ok, f"ssd_scan gradients disagree with the plain version's: "
+              f"max_abs_err={err}")
+    return r
 
 
 class _CpuDraws:
@@ -573,12 +707,8 @@ def profile_phase(torch, exp, reps=3):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        kind = getattr(e, "activity_type", None)
-        kinds[kind] += 1
-        # the device timeline also carries annotations (spans, aten ops):
-        # only kernels, copies and memsets are device work
-        if (e.is_user_annotation or e.name.startswith(("aten::", "fl."))
-                or kind not in (None, "kernel", "gpu_memcpy", "gpu_memset")):
+        kinds[getattr(e, "activity_type", None)] += 1
+        if not is_device_work(e, DeviceType):
             continue
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
@@ -591,7 +721,8 @@ def profile_phase(torch, exp, reps=3):
           f"profiled round {t_round:.1f} s, reading the trace "
           f"{time.perf_counter() - t0 - t_round:.1f} s)")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    ours = ("flat_aggregate", "pairwise_l2", "flash_kernel", "ssd_kernel")
+    ours = ("flat_aggregate", "pairwise_l2", "slab_sum", "flash_kernel",
+            "combine_kernel", "ssd_chunk_kernel", "pass_kernel")
     for i, (name, (n, t)) in enumerate(ranked):
         if i < 6 or any(k in name for k in ours):
             print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by a hash of its source
-and flags, then loaded with ``ctypes``. No PyTorch headers are involved,
+``build/kernels/`` at the repository root, named by a hash of its source,
+the shared headers of ``csrc/`` and the flags, then loaded with
+``ctypes``. No PyTorch headers are involved,
 so a build takes seconds. Nothing is compiled when a module is imported.
 """
 from __future__ import annotations
@@ -37,10 +38,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by its source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source, every
+    shared header of ``csrc/`` (``*.cuh``, which a source may include) and
+    the flags, so that a changed header never loads a stale library."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str], ptxas_verbose: bool = False) -> Dict[str, str]:

@@ -47,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using namespace tf32;
 
 constexpr int kThreads = 128;         // 4 warps, 16 packed rows each
 constexpr int BM = 64;                // packed rows a block
@@ -82,58 +86,6 @@ struct Args {
     int row_tiles, chunks, tiles_per_chunk, first_tile;
     int q_vec, kv_vec;                // 16-byte copies allowed
 };
-
-// tf32(x): x rounded to 10 mantissa bits, to nearest with ties away from
-// zero -- the bits cvt.rna.tf32.f32 gives, from two integer operations
-// instead of the conversion unit
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo with hi = tf32(x), lo = tf32(x - hi)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4],
-                                           const uint32_t (&bhi)[2],
-                                           const uint32_t (&blo)[2]) {
-    mma_tf32(c, alo, bhi);
-    mma_tf32(c, ahi, blo);
-    mma_tf32(c, ahi, bhi);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // The key tiles holding an unmasked key of some query in [qlo, qhi]; an
 // empty range is lo = 0, hi = -1.

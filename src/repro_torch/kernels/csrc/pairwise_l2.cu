@@ -7,10 +7,15 @@
 // m = 1 global row over f = P) it does 3 flops per 8 bytes read. Design: the
 // direct sum of (x - c)^2, not the TPU body's |x|^2 + |c|^2 - 2 x.c
 // expansion, which cancels badly when a client row is close to the global
-// row. One block per (i, j) pair strides over f with float4 loads (four
-// loads of each operand in flight per thread), then a fixed-shape
-// warp-shuffle and shared-memory tree reduction: no atomics, so the result
-// is the same bit for bit on every run. A sum of squares needs no clamp at
+// row. One block per ((i, j) pair, slab of f) strides over its slab with
+// float4 loads (four loads of each operand in flight per thread), then a
+// fixed-shape warp-shuffle and shared-memory tree reduction. Few pairs (the
+// divergence: m = 1, n = 10 or 40) leave most SMs idle with one block a
+// pair, so the wrapper cuts f into slabs (a count that depends on n, m and
+// f alone, kernels/pairwise_l2.py: plan_slabs) and a second kernel adds
+// each pair's slab partials in a fixed order, one warp a pair. With one
+// slab the first kernel writes out directly. No atomics, so the result is
+// the same bit for bit on every run. A sum of squares needs no clamp at
 // zero, and a NaN input stays NaN.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,6 +24,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSumWarps = 8;          // pairs a block of the second pass
 
 __device__ __forceinline__ float sq_diff4(float acc, float4 a, float4 b) {
     float d = a.x - b.x;
@@ -33,17 +39,20 @@ __device__ __forceinline__ float sq_diff4(float acc, float4 a, float4 b) {
 
 __global__ void __launch_bounds__(kThreads)
 pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                   float* __restrict__ out, int m, int f, bool vec) {
-    const int i = blockIdx.x / m;
-    const int j = blockIdx.x % m;
-    const float* xr = x + (size_t)i * f;
-    const float* cr = c + (size_t)j * f;
+                   float* __restrict__ out, int m, int f, int slabs, int width,
+                   bool vec) {
+    const int pair = blockIdx.x / slabs, slab = blockIdx.x % slabs;
+    const int i = pair / m;
+    const int j = pair % m;
+    const int f0 = slab * width, fl = min(width, f - f0);   // the slab
+    const float* xr = x + (size_t)i * f + f0;
+    const float* cr = c + (size_t)j * f + f0;
     const int t = threadIdx.x;
     float acc = 0.f;
     if (vec) {
         const float4* x4 = reinterpret_cast<const float4*>(xr);
         const float4* c4 = reinterpret_cast<const float4*>(cr);
-        const int f4 = f / 4;
+        const int f4 = fl / 4;
         int k = t;
         for (; k + 3 * kThreads < f4; k += 4 * kThreads) {
             const float4 a0 = __ldg(x4 + k), a1 = __ldg(x4 + k + kThreads);
@@ -59,7 +68,7 @@ pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ c,
         }
         for (; k < f4; k += kThreads) acc = sq_diff4(acc, __ldg(x4 + k), __ldg(c4 + k));
     } else {
-        for (int k = t; k < f; k += kThreads) {
+        for (int k = t; k < fl; k += kThreads) {
             const float d = __ldg(xr + k) - __ldg(cr + k);
             acc = fmaf(d, d, acc);
         }
@@ -74,21 +83,48 @@ pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ c,
         acc = lane < kWarps ? warp_sums[lane] : 0.f;
         for (int off = 16; off > 0; off >>= 1)
             acc += __shfl_down_sync(0xffffffffu, acc, off);
-        if (lane == 0) out[(size_t)i * m + j] = acc;
+        if (lane == 0) out[(size_t)pair * slabs + slab] = acc;
     }
+}
+
+// out[pair] = the sum of part[pair, 0 .. slabs), one warp a pair: lane l
+// adds slabs l, l + 32, ... in order, then a fixed shuffle tree.
+__global__ void __launch_bounds__(kSumWarps * 32)
+slab_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int pairs,
+                int slabs) {
+    const int pair = blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (pair >= pairs) return;
+    float acc = 0.f;
+    for (int s = lane; s < slabs; s += 32) acc += part[(size_t)pair * slabs + s];
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) out[pair] = acc;
 }
 
 }  // namespace
 
-// x: [n, f], c: [m, f] row-major fp32; out: [n, m] fp32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int pairwise_l2_f32(const float* x, const float* c, float* out, int n,
-                               int m, int f, void* stream) {
+// x: [n, f], c: [m, f] row-major fp32; out: [n, m] fp32. f is cut into
+// `slabs` slabs of `width` columns (a multiple of 4; the last may be
+// shorter); with slabs > 1, part is scratch of n m slabs floats.
+// Launches on `stream` (one kernel, or two with slabs > 1) and returns
+// cudaGetLastError() (0 on success); cudaErrorInvalidValue for slabs that
+// do not cover f.
+extern "C" int pairwise_l2_f32(const float* x, const float* c, float* out, float* part,
+                               int n, int m, int f, int slabs, int width, void* stream) {
     if (n <= 0 || m <= 0) return 0;
+    if (slabs < 1 || width < 1 || width % 4 || (long long)slabs * width < f ||
+        (long long)(slabs - 1) * width >= (f > 0 ? f : 1) || (slabs > 1 && part == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(c) % 16 == 0;
-    pairwise_l2_kernel<<<n * m, kThreads, 0, s>>>(x, c, out, m, f, vec);
+    const int pairs = n * m;
+    pairwise_l2_kernel<<<pairs * slabs, kThreads, 0, s>>>(x, c, slabs > 1 ? part : out, m,
+                                                          f, slabs, width, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
+    slab_sum_kernel<<<(pairs + kSumWarps - 1) / kSumWarps, kSumWarps * 32, 0, s>>>(
+        part, out, pairs, slabs);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,10 @@ kernel ``csrc/pairwise_l2.cu``. On the card it is bound by bytes (three
 flops per eight bytes read). The kernel computes the direct ``Σ(x−c)²``
 — not the TPU body's per-slab ``‖x‖²+‖c‖²−2x·c``, which cancels badly
 for a client row close to the global row — with one block per ``(n, m)``
-pair and a fixed-shape tree reduction: no atomics, deterministic.
+pair and slab of F and a fixed-shape tree reduction. When the pairs are
+few (the divergence: M = 1) F is cut into slabs (:func:`plan_slabs`, a
+function of the shapes alone, not of the card) and a second launch adds
+each pair's slab partials in a fixed order: no atomics, deterministic.
 """
 from __future__ import annotations
 
@@ -20,8 +23,26 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+             + (ctypes.c_void_p,))
+TARGET_BLOCKS = 528                # about four blocks an SM of an H100
+MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
+
+
+def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
+    """``(slabs, width)``: F cut into ``slabs`` slabs of ``width`` columns
+    (a multiple of 4, the last slab possibly shorter), so that the ``n·m``
+    pairs times the slabs come to about ``target`` blocks, each slab at
+    least ``MIN_SLAB`` wide. One slab when the pairs alone are that many.
+    A function of the shapes alone, so the bits depend on the input
+    only."""
+    pairs = n * m
+    want = 1
+    if 0 < pairs < target:
+        want = max(1, min(-(-target // pairs), f // MIN_SLAB))
+    per = -(-f // want)                     # columns a slab, then
+    width = max(4, -(-per // 4) * 4)        # up to a multiple of 4
+    return max(1, -(-f // width)), width
 
 
 def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -45,11 +66,23 @@ def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if max(x.numel(), c.numel(), n * m) >= 2 ** 31:
         raise ValueError(f"pairwise_l2: [{n},{f}]x[{m},{f}] exceeds the "
                          "kernel's 32-bit sizes")
+    return _launch(x, c, *plan_slabs(n, m, f))
+
+
+def _launch(x, c, slabs: int, width: int):
+    """The kernel over ``slabs`` slabs of ``width`` columns of F."""
+    (n, f), m = x.shape, c.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    part = None
+    if slabs > 1:
+        part = torch.empty((n * m, slabs), dtype=torch.float32,
+                           device=x.device)
     fn = load_function("pairwise_l2", "pairwise_l2_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(), n, m, f, stream)
+        err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), n, m, f, slabs,
+                 width, stream)
     if err:
         raise RuntimeError("pairwise_l2: kernel launch failed: "
                            + error_string("pairwise_l2", err))
@@ -57,5 +90,5 @@ def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: kernel launches so far (a plain count, reset by whoever reads it)
+#: kernel calls so far (a plain count, reset by whoever reads it)
 pairwise_l2.launches = 0

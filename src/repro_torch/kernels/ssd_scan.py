@@ -6,32 +6,114 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
 ``csrc/ssd_scan.cu``, computing what it computes: per (batch·head), chunks
 of ``Q = min(chunk, S)`` steps, the decay-masked intra-chunk
 ``(C·Bᵀ ⊙ L)·X`` plus the carried state read out through C, and the state
-carried from chunk to chunk; it returns y and the final fp32 state. On the
-card it is bound by operations (``2Q²(N+P) + 4QPN`` flops per (b·h,
-chunk)). One block per (b·h, slice of P columns) runs the chunks in order
-with the slice's state in shared memory and builds the ``[Q, Q]`` block 32
-rows by 32 columns at a time (at Q = 256 it would not fit whole); the slice
-width is chosen so that small B·H still fills the SMs. Group ``h // (H /
-G)`` of b and c is read in place of the reference wrapper's repeat.
+carried from chunk to chunk; it returns y and the final fp32 state.
+
+On the card it is bound by operations (per (b·h, chunk of ``Ql`` steps)
+``Ql(Ql+1)(N+P)`` flops over the causal triangle, ``2·Ql·P·N`` for the chunk
+state and, after the first chunk, ``2·Ql·P·N`` for the carried read-out;
+on the tensor cores in 3xTF32: 495/3 TFLOP/s). In place of the TPU
+kernel's sequential chunk axis the chunks run in parallel, in the
+decomposition of the reference's ``ssd_chunked``: chunk states, state
+passing in chunk order, then y. One chunk (every call of the FL path) is
+one launch; more chunks are three. Every product runs through ``mma.sync``
+TF32 in 3xTF32. :func:`plan_ssd` is the grid and the shared memory, in
+Python so that the CPU tests can check it; the kernel takes the plan's
+counts and sizes as arguments and refuses a plan that does not match its
+decode. No atomics, so two calls give the same bits. Group
+``h // (H / G)`` of b and c is read in place of the reference wrapper's
+repeat.
 
 The JAX package gives the kernel no gradient of its own: :class:`_SsdScan`'s
-forward launches the kernel, its backward differentiates
-:func:`ssd_scan_plain` on the saved inputs.
+forward launches the kernel, its backward differentiates the chunked form
+``kernels.ssd_chunked.ssd_chunked`` (:func:`ssd_scan_grads`), which the
+reference itself trains through off the TPU.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
+from repro_torch.kernels.ssd_chunked import ssd_chunked
 
-SLICES = (64, 32, 16, 8)           # the kernel's P-slice template instances
-_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
+BLOCK_ROWS = 64                    # y rows a block
+BLOCK_KEYS = 32                    # steps a B / X tile
+BLOCK_P = 64                       # columns of P a block
+BLOCK_N = 64                       # columns of N a state block
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 16
              + (ctypes.c_longlong,) * 12 + (ctypes.c_void_p,))
-_TILE = 32
 _SMEM_LIMIT = 232_448              # bytes of shared memory a block may use
+
+
+class SsdPlan(NamedTuple):
+    """The kernel's grid for one call. ``chunks`` chunks of ``q`` steps,
+    the last ``last`` long. y blocks: one per (b·h, chunk, row tile of
+    ``BLOCK_ROWS``, tile of ``BLOCK_P`` columns of P) — ``row_tiles`` row
+    tiles in a full chunk, ``last_row_tiles`` in the last. State blocks:
+    one per (b·h, chunk, P tile, tile of ``BLOCK_N`` columns of N).
+    ``y_smem`` and ``state_smem`` bytes of shared memory a block of each
+    role (:func:`smem_bytes`). ``launches`` device launches: 1 for one
+    chunk (y and state blocks together), else 3 (states, passing, y).
+
+    The kernel decodes block ``k < y_blocks`` of a launch as a y block, row
+    tiles from the last (the most key tiles) to the first, within one
+    chunk-major, then b·h, then the P tile (the last chunk has only
+    ``last_row_tiles``); the rest as state blocks, chunk-major, then b·h,
+    then the P tile, then the N tile."""
+    q: int
+    chunks: int
+    last: int
+    row_tiles: int
+    last_row_tiles: int
+    p_tiles: int
+    n_tiles: int
+    y_blocks: int
+    state_blocks: int
+    y_smem: int
+    state_smem: int
+    launches: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_ssd(B: int, S: int, H: int, P: int, N: int, chunk: int) -> SsdPlan:
+    """The grid for x ``[B, S, H, P]`` and b, c ``[., ., ., N]`` at
+    ``chunk``: a function of the shapes alone, passed to the kernel."""
+    q = min(chunk, S)
+    chunks = _cdiv(S, q)
+    last = S - (chunks - 1) * q
+    row_tiles, last_row_tiles = _cdiv(q, BLOCK_ROWS), _cdiv(last, BLOCK_ROWS)
+    p_tiles, n_tiles = _cdiv(P, BLOCK_P), _cdiv(_cdiv(N, 8) * 8, BLOCK_N)
+    bh = B * H
+    y_blocks = bh * p_tiles * ((chunks - 1) * row_tiles + last_row_tiles)
+    state_blocks = bh * chunks * p_tiles * n_tiles
+    return SsdPlan(q, chunks, last, row_tiles, last_row_tiles, p_tiles,
+                   n_tiles, y_blocks, state_blocks,
+                   *smem_bytes(q, N, chunks), 1 if chunks == 1 else 3)
+
+
+def smem_bytes(q: int, n: int, chunks: int):
+    """Shared memory of a (y block, state block) at chunk ``q``, state
+    width ``n`` and ``chunks`` chunks: the chunk's cumsum, then for a y
+    block the C tile (``min(64, round16(q))`` rows) and the (B, X) stages
+    (two, or one when ``q <= BLOCK_KEYS``) with rows padded to
+    ``round8(n) + 4`` and ``BLOCK_P + 4``, which also hold h_in
+    ``[BLOCK_P, round8(n) + 4]`` when there is more than one chunk; for a
+    state block its (X, B) stages with rows padded to 72 floats."""
+    qa = _cdiv(q, 64) * 64
+    np_ = _cdiv(n, 8) * 8 + 4
+    rows = min(BLOCK_ROWS, _cdiv(q, 16) * 16)
+    n_stages = 2 if q > BLOCK_KEYS else 1
+    stages = n_stages * BLOCK_KEYS * (np_ + BLOCK_P + 4)
+    h_in = BLOCK_P * np_ if chunks > 1 else 0
+    y = qa + rows * np_ + max(stages, h_in)
+    state = qa + n_stages * 2 * BLOCK_KEYS * 72
+    return 4 * y, 4 * state
 
 
 def ssd_scan_plain(x, a, b, c):
@@ -46,22 +128,6 @@ def ssd_scan_plain(x, a, b, c):
     return ref.ssd_ref(x, a, b, c)
 
 
-def _smem_bytes(q: int, n: int, ps: int) -> int:
-    np_ = n + 1
-    return 4 * (-(-q // 4) * 4 + 2 * _TILE * np_ + _TILE * ps
-                + _TILE * (_TILE + 1) + ps * np_ + 8)
-
-
-def p_slice(bh: int, p: int, sms: int) -> int:
-    """Columns of P per block: the widest slice that still gives the card's
-    ``sms`` SMs a block each, else the narrowest the kernel has."""
-    fits = [ps for ps in SLICES if p % ps == 0]
-    if not fits:
-        raise ValueError(f"ssd_scan: the kernel takes P a multiple of 8; "
-                         f"got {p}")
-    return next((ps for ps in fits if bh * (p // ps) >= sms), fits[-1])
-
-
 def _check(x, a, b, c, chunk):
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError(f"ssd_scan: want x [B, S, H, P], a [B, S, H], b, c "
@@ -72,6 +138,9 @@ def _check(x, a, b, c, chunk):
     if tuple(a.shape) != (B, S, H) or b.shape[:2] != (B, S) or H % b.shape[2]:
         raise ValueError(f"ssd_scan: a {tuple(a.shape)} and b/c "
                          f"{tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    if P % 8:
+        raise ValueError(f"ssd_scan: the kernel takes P a multiple of 8; "
+                         f"got {P}")
     if any(t.dtype != torch.float32 for t in (x, a, b, c)):
         raise TypeError("ssd_scan: the kernel takes float32")
     if any(t.device != x.device for t in (a, b, c)):
@@ -81,25 +150,43 @@ def _check(x, a, b, c, chunk):
                          "(b, c) contiguous values")
     if chunk < 1:
         raise ValueError(f"ssd_scan: chunk must be positive; got {chunk}")
+    if max(x.numel(), b.numel(), B * H * P * b.shape[3] * _cdiv(S, chunk)
+           ) >= 2 ** 31:
+        raise ValueError("ssd_scan: too large for the kernel's 32-bit "
+                         "indices")
 
 
 def _launch(x, a, b, c, chunk: int):
     _check(x, a, b, c, chunk)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    q = min(chunk, S)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ps = p_slice(B * H, P, sms)
-    if _smem_bytes(q, N, ps) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {q} with N = {N} needs "
-                         f"{_smem_bytes(q, N, ps)} bytes of shared memory")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    if S == 0:
+        return y, torch.zeros((B, H, P, N), dtype=torch.float32,
+                              device=x.device)
+    plan = plan_ssd(B, S, H, P, N, chunk)
+    need = max(plan.y_smem, plan.state_smem)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {plan.q} with N = {N} needs "
+                         f"{need} bytes of shared memory")
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    st = dec = None
+    if plan.chunks > 1:
+        st = torch.empty((B * H, plan.chunks, P, N), dtype=torch.float32,
+                         device=x.device)
+        dec = torch.empty((B * H, plan.chunks), dtype=torch.float32,
+                          device=x.device)
     fn = load_function("ssd_scan", "ssd_scan_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 y.data_ptr(), state.data_ptr(), B, S, H, G, P, N, q, ps,
+                 y.data_ptr(), state.data_ptr(),
+                 None if st is None else st.data_ptr(),
+                 None if dec is None else dec.data_ptr(),
+                 B, S, H, G, P, N, plan.q, plan.chunks, plan.row_tiles,
+                 plan.last_row_tiles, plan.p_tiles, plan.n_tiles,
+                 plan.y_blocks, plan.state_blocks, plan.y_smem,
+                 plan.state_smem,
                  *x.stride()[:3], *a.stride(), *b.stride()[:3],
                  *c.stride()[:3], stream)
     if err:
@@ -109,30 +196,42 @@ def _launch(x, a, b, c, chunk: int):
     return y, state
 
 
+def ssd_scan_grads(x, a, b, c, chunk: int, grad_y, grad_state, need):
+    """The gradients of (y, state) with respect to x, a, b, c (those that
+    ``need`` marks; None elsewhere) for the cotangents ``grad_y`` and
+    ``grad_state`` (either may be None): autograd through
+    ``kernels.ssd_chunked.ssd_chunked`` at the kernel's chunk
+    ``min(chunk, S)``, recomputed from the inputs. On the card its einsums
+    run in full fp32 (``core.fedavg.fp32_matmuls`` keeps TF32 off)."""
+    q = max(1, min(chunk, x.shape[1]))
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((x, a, b, c),
+                                                               need)]
+        outs = [(o, g) for o, g in zip(ssd_chunked(*inputs, q),
+                                       (grad_y, grad_state))
+                if g is not None]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in outs], [t for t, n in zip(inputs, need) if n],
+            [g for _, g in outs]))
+    return tuple(next(grads) if n else None for n in need)
+
+
 class _SsdScan(torch.autograd.Function):
-    """Forward: the kernel. Backward: the gradient of the plain version,
+    """Forward: the kernel. Backward: the gradient of the chunked form,
     recomputed from the saved inputs (the reference has no backward
     kernel)."""
 
     @staticmethod
     def forward(ctx, x, a, b, c, chunk):
         ctx.save_for_backward(x, a, b, c)
+        ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return _launch(x, a, b, c, chunk)
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):
-        need = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            outs = [(o, g) for o, g in zip(ssd_scan_plain(*inputs),
-                                           (grad_y, grad_state))
-                    if g is not None]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in outs], [t for t, n in zip(inputs, need) if n],
-                [g for _, g in outs]))
-        return tuple(next(grads) if n else None for n in need) + (None,)
+        return ssd_scan_grads(*ctx.saved_tensors, ctx.chunk, grad_y,
+                              grad_state, ctx.needs_input_grad[:4]) + (None,)
 
 
 def ssd_scan(x, a, b, c, *, chunk: int = 256):
@@ -145,5 +244,5 @@ def ssd_scan(x, a, b, c, *, chunk: int = 256):
     return _SsdScan.apply(x, a, b, c, chunk)
 
 
-#: kernel launches so far (a plain count, reset by whoever reads it)
+#: kernel calls so far (a plain count, reset by whoever reads it)
 ssd_scan.launches = 0

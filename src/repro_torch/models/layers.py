@@ -1,6 +1,7 @@
 """The layers the federated LM's forward pass runs (a subset of
-``repro.models.layers``): norms, RoPE, GQA projections, the SwiGLU MLP and
-the Mamba-2 block.
+``repro.models.layers``): norms, RoPE, GQA projections, the SwiGLU MLP,
+the Mamba-2 block, and (re-exported under the reference's name) the
+chunked SSD form ``kernels.ssd_chunked.ssd_chunked``.
 
 Parameters are flat ``{name: tensor}`` dicts of one layer's subtree
 (``{"wq", "wk", "wv", "wo"}`` for attention), with the reference's layouts:
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_chunked import ssd_chunked  # noqa: F401
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:

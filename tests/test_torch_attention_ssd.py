@@ -22,7 +22,7 @@ from repro.kernels import ref as jref
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import p_slice, ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -139,16 +139,6 @@ def test_ssd_gradients_match_jax():
     grads = torch.autograd.grad(torch.sum(y * torch.tensor(w)), leaves)
     for g, wg in zip(grads, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wg), **GRAD_TOL)
-
-
-@pytest.mark.parametrize("bh,p,sms,want", [
-    (192, 64, 132, 64),     # the FL path: B·H already fills the card
-    (24, 64, 132, 8),       # one sequence: slice P to reach 132 blocks
-    (24, 32, 132, 8),
-    (2, 64, 132, 8),        # cannot fill: the narrowest slice
-])
-def test_ssd_p_slice_fills_the_sms(bh, p, sms, want):
-    assert p_slice(bh, p, sms) == want
 
 
 def test_ref_oracles_match_the_reference_oracles():

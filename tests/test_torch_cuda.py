@@ -79,14 +79,32 @@ def test_flat_aggregate_all_weights_zero(cuda):
 
 
 @pytest.mark.parametrize("n,m,f", [(40, 10, 2240), (40, 1, 113_744),
-                                   (7, 3, 33), (1, 1, 8)])
+                                   (7, 3, 33), (1, 1, 8),
+                                   (10, 1, 563_200),   # F split into slabs
+                                   (10, 4, 22_528),
+                                   (3, 1, 50_001)])    # split, f % 4 != 0
 def test_pairwise_l2_matches_plain(cuda, n, m, f):
+    """One call per wrapper call (one or two device launches); a second
+    call is equal bit for bit."""
     x = torch.tensor(_normal(n, n, f), device=cuda)
     c = torch.tensor(_normal(m + 100, m, f), device=cuda)
     before = pairwise_l2.launches
     got = pairwise_l2(x, c)
     torch.cuda.synchronize()
     assert pairwise_l2.launches == before + 1
+    torch.testing.assert_close(got, ref.pairwise_l2_ref(x, c), **L2_TOL)
+    assert torch.equal(pairwise_l2(x, c), got)           # bit for bit
+
+
+def test_pairwise_l2_misaligned_view(cuda):
+    """A contiguous view whose rows are not 16-byte aligned takes the
+    scalar path, split into slabs at M = 1."""
+    n, f = 5, 40_000
+    base = torch.tensor(_normal(11, n * f + 1), device=cuda)
+    x = base[1:].view(n, f)
+    c = torch.tensor(_normal(12, 1, f), device=cuda)
+    got = pairwise_l2(x, c)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.pairwise_l2_ref(x, c), **L2_TOL)
 
 
@@ -188,8 +206,13 @@ def test_flash_attention_unaligned_kv(cuda):
     (1, 2048, 24, 1, 64, 128, 256),
     (1, 300, 24, 1, 64, 128, 256),             # ragged S
     (2, 77, 4, 2, 8, 24, 16),                  # groups, ragged, odd N
+    (1, 512, 4, 1, 64, 128, 128),              # S a multiple of Q, 4 chunks
+    (1, 200, 2, 1, 16, 18, 16),                # 13 chunks, N % 4 != 0
+    (2, 50, 3, 3, 72, 17, 8),                  # odd N, P > 64, G = H
 ])
 def test_ssd_scan_matches_plain(cuda, b, s, h, g, p, n, chunk):
+    """One call per wrapper call (one device launch for one chunk, three
+    for more); a second call is equal bit for bit."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     rng = np.random.default_rng(s + n)
     x = torch.tensor(rng.normal(size=(b, s, h, p)).astype(np.float32),
@@ -207,11 +230,60 @@ def test_ssd_scan_matches_plain(cuda, b, s, h, g, p, n, chunk):
     y_ref, state_ref = ssd_scan_plain(x, a, bm, cm)
     torch.testing.assert_close(y, y_ref, **SSD_TOL)
     torch.testing.assert_close(state, state_ref, **SSD_TOL)
+    y2, state2 = ssd_scan(x, a, bm, cm, chunk=chunk)
+    assert torch.equal(y2, y) and torch.equal(state2, state)
+
+
+def test_ssd_scan_strided_and_misaligned_views(cuda):
+    """b and c as views of one projection (as ``mamba2_apply`` passes
+    them), then views off the 16-byte grid, which take 4-byte copies."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    rng = np.random.default_rng(5)
+    b_, s, h, p, n = 2, 70, 4, 16, 24
+    x = torch.tensor(rng.normal(size=(b_, s, h, p)).astype(np.float32),
+                     device=cuda)
+    a = torch.tensor(-rng.uniform(0.01, 0.3, (b_, s, h)).astype(np.float32),
+                     device=cuda)
+    proj = torch.tensor((rng.normal(size=(b_, s, 1, 2 * n + 1)) / np.sqrt(n))
+                        .astype(np.float32), device=cuda)
+    for bm, cm in ((proj[..., :n], proj[..., n:2 * n]),
+                   (proj[..., 1:n + 1], proj[..., n + 1:])):
+        y, state = ssd_scan(x, a, bm, cm, chunk=32)
+        torch.cuda.synchronize()
+        y_ref, state_ref = ssd_scan_plain(x, a, bm, cm)
+        torch.testing.assert_close(y, y_ref, **SSD_TOL)
+        torch.testing.assert_close(state, state_ref, **SSD_TOL)
+
+
+@pytest.mark.parametrize("change", [
+    dict(y_blocks=-1), dict(state_blocks=1), dict(row_tiles=1),
+    dict(chunks=1), dict(y_smem=-16), dict(state_smem=-16)])
+def test_ssd_scan_refuses_a_plan_that_is_not_its_grid(cuda, monkeypatch,
+                                                      change):
+    """The kernel takes its grid and shared memory from ``plan_ssd`` and
+    checks them against its block decode and layout: a plan off by one
+    block, tile, chunk or 16 bytes is refused, and nothing is counted."""
+    from repro_torch.kernels import ssd_scan as ss
+    x = torch.zeros((1, 300, 2, 64), device=cuda)        # two chunks
+    a = torch.zeros((1, 300, 2), device=cuda)
+    bc = torch.zeros((1, 300, 1, 128), device=cuda)
+    plan = ss.plan_ssd
+
+    def off(*args):
+        p = plan(*args)
+        return p._replace(**{k: getattr(p, k) + d for k, d in change.items()})
+
+    monkeypatch.setattr(ss, "plan_ssd", off)
+    before = ss.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ss.ssd_scan(x, a, bc, bc)
+    assert ss.ssd_scan.launches == before
 
 
 def test_kernel_gradients_are_the_plain_versions(cuda):
-    """The autograd Functions: values from the kernels, gradients from
-    differentiating the plain versions on the same inputs."""
+    """The autograd Functions: values from the kernels; gradients, from
+    differentiating the plain version (attention) or the chunked form
+    (SSD), equal to those of the plain versions on the same inputs."""
     from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
     rng = np.random.default_rng(0)
 
