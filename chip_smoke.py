@@ -27,11 +27,18 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    seed), N = 10, S = 4, c = 4, L = 2, batch 8, 32-token windows, for the
    initial round and 2 rounds each, with the launch counts read from each
    run alone, then one more round broken down as in phase 5;
-7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+7. the paper's comparisons: (a) Fig. 5 — SAO, SAO with the box
+   correction, equal bandwidth and FEDL (tuned λ, 4.58, 1000, and tuned
+   every call) on 10 devices, each against the CPU and FEDL's CUDA graph
+   against its eager solve; (b) Algorithm 6; (c) ``ExperimentSpec()``
+   with one round per selector under SAO and three more allocators, the
+   FL kernels' launch counts read from this run alone;
+8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -55,6 +62,7 @@ F_TINYLLAMA = 22_528             # its K-means features (the last LoRA leaf)
 SLAB_TARGETS = (264, 528, 1056)  # pairwise_l2 block targets swept in phase 2
 DEVICE = "cuda"
 KERNELS = ("flat_aggregate", "pairwise_l2", "flash_attention", "ssd_scan")
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")   # profiler activities
 
 
 def fail(msg):
@@ -101,7 +109,8 @@ class Timer:
 
 def device_launches(torch, fn):
     """The device kernels, copies and memsets that one call of ``fn``
-    enqueues, from ``torch.profiler`` (after one call outside it)."""
+    enqueues, from ``torch.profiler``'s raw event list (after one call
+    outside it); a CUDA graph's replay counts each of its kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -110,7 +119,17 @@ def device_launches(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if is_device_work(e, DeviceType))
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        # not every build's raw event has these accessors
+        kind = e.activity_type() if hasattr(e, "activity_type") else None
+        note = e.is_user_annotation() if hasattr(
+            e, "is_user_annotation") else False
+        n += not (note or e.name().startswith(("aten::", "fl."))
+                  or kind not in (None, *DEVICE_WORK))
+    return n
 
 
 def is_device_work(e, DeviceType):
@@ -120,7 +139,7 @@ def is_device_work(e, DeviceType):
         return False
     kind = getattr(e, "activity_type", None)
     return not (e.is_user_annotation or e.name.startswith(("aten::", "fl."))
-                or kind not in (None, "kernel", "gpu_memcpy", "gpu_memset"))
+                or kind not in (None, *DEVICE_WORK))
 
 
 def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
@@ -523,13 +542,43 @@ def kernel_fns():
             "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
+def check_sao_band(exp, need, what, sel, band):
+    """(19c): where problem (19) is feasible the solve keeps Σb within B.
+    Where the set's least band (energy budgets met at f_min, computed
+    apart from the solver: ``need``) exceeds B, no allocation fits: SAO
+    must flag it (converged=False, as the reference's solver does) and
+    give each device its least band, capped at B (a device's band never
+    exceeds B). Within 1e-3 of B either answer is accepted."""
+    import numpy as np
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays
+    B = exp.B
+    sol = solve_sao(fleet_arrays(exp.fleet.select(sel), exp.device), B)
+    converged = bool(sol.converged)
+    least = float(need[sel].sum())
+    capped = float(np.minimum(need[sel], B).sum())
+    check(math.isclose(float(sol.b.sum()), band, rel_tol=1e-6),
+          f"{what}: the SAO re-solve differs from the run")
+    if converged:
+        check(band <= B * (1 + 1e-4), f"{what}: SAO converged but uses "
+                                      f"{band} MHz of {B}")
+    else:
+        check(math.isclose(band, capped, rel_tol=1e-4),
+              f"{what}: flagged, but Σb={band} MHz is not the least band "
+              f"capped at B, {capped} MHz")
+    if least <= B * (1 - 1e-3) or least > B:
+        check(converged == (least <= B),
+              f"{what}: converged={converged}, but the least band is "
+              f"{least} MHz of B={B}")
+    print(f"  {what}: Σb={band:.4f} MHz of B={B}, least band {least:.4f} "
+          f"MHz, capped at B {capped:.4f} MHz ("
+          f"{'within B' if converged else 'set infeasible at B: flagged'})")
+
+
 def drive(torch, exp, rounds, must_launch):
     """The initial round and ``rounds`` rounds of ``exp`` on the card, with
     every kernel's count set to 0 just before and read just after; checks
     the history, SAO's band use and that each of ``must_launch`` ran."""
-    from repro_torch.core.sao import solve_sao
-    from repro_torch.core.wireless import fleet_arrays
-
     fns = kernel_fns()
     for fn in fns.values():
         fn.launches = 0
@@ -552,37 +601,9 @@ def drive(torch, exp, rounds, must_launch):
           "non-finite client plane")
     check(len(hist.accuracy) == rounds + 1,
           f"expected the initial round + {rounds} rounds")
-    # (19c): where problem (19) is feasible the solve keeps Σb within B.
-    # Where the set's least band (energy budgets met at f_min, computed
-    # apart from the solver) exceeds B, no allocation fits: SAO must flag
-    # it (converged=False, as the reference's solver does) and give each
-    # device its least band, capped at B (a device's band never exceeds
-    # B). Within 1e-3 of B either answer is accepted.
-    import numpy as np
-    B = exp.B
     need = least_band_mhz(exp.fleet)
     for k, (sel, band) in enumerate(zip(hist.selected, hist.band_mhz)):
-        sol = solve_sao(fleet_arrays(exp.fleet.select(sel), exp.device), B)
-        converged = bool(sol.converged)
-        least = float(need[sel].sum())
-        capped = float(np.minimum(need[sel], B).sum())
-        check(math.isclose(float(sol.b.sum()), band, rel_tol=1e-6),
-              f"round {k}: the SAO re-solve differs from the run")
-        if converged:
-            check(band <= B * (1 + 1e-4), f"round {k}: SAO converged but "
-                                          f"uses {band} MHz of {B}")
-        else:
-            check(math.isclose(band, capped, rel_tol=1e-4),
-                  f"round {k}: flagged, but Σb={band} MHz is not the least "
-                  f"band capped at B, {capped} MHz")
-        if least <= B * (1 - 1e-3) or least > B:
-            check(converged == (least <= B),
-                  f"round {k}: converged={converged}, but the least band "
-                  f"is {least} MHz of B={B}")
-        print(f"  round {k}: Σb={band:.4f} MHz of B={B}, least band "
-              f"{least:.4f} MHz, capped at B {capped:.4f} MHz ("
-              f"{'within B' if converged else 'set infeasible at B: flagged'}"
-              f")")
+        check_sao_band(exp, need, f"round {k}", sel, band)
     n = exp.fed.num_clients
     for sel in hist.selected[1:]:
         check(0 < len(sel) <= exp.fl.devices_per_round
@@ -728,6 +749,247 @@ def profile_phase(torch, exp, reps=3):
             print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
     return ms
 
+# the port's CPU result is the yardstick of each allocation on the card, at
+# the CPU tests' bands: SAO's outer bisection, equal bandwidth's fp32 ops,
+# the FEDL grid (its objective; T and E one grid step apart at most)
+ALLOC_TOL = {"sao": 2e-3, "equal": 1e-5, "fedl": 1e-2, "fedl_auto": 1e-2}
+FEDL_OBJ_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def eager_fedl():
+    """FEDL with its CUDA graph taken out: every solve runs the graph's
+    body, ``baselines._fedl_solve``, eagerly (the yardstick the captured
+    graph is held to, and its time without the graph)."""
+    from repro_torch.core import baselines
+    captured = baselines._solve
+    baselines._solve = baselines._fedl_solve
+    try:
+        yield
+    finally:
+        baselines._solve = captured
+
+
+def host_ms(torch, fn, reps=3):
+    """Median host wall [ms] of ``reps`` calls of ``fn``, each ending in a
+    device sync, and the last call's result."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def fig5_phase(torch):
+    """(a) Fig. 5 on the card: every allocator on ``sample_fleet(100,
+    seed=0)``'s first ten devices at B = 20 MHz — T, E, ms a call (the
+    first call apart: it captures FEDL's graph) and device launches a call
+    — each held to the port's CPU result on the same inputs; FEDL's graph
+    held to its eager solve on the card; the figure's own assertions
+    (``benchmarks/fig5_sao_vs_fedl.py``)."""
+    import numpy as np
+    from repro_torch.api import ALLOCATORS
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+
+    B = 20.0
+    fleet = sample_fleet(100, seed=0).select(np.arange(10))
+    arr = {dev: fleet_arrays(fleet, dev) for dev in ("cpu", DEVICE)}
+    t0 = time.perf_counter()
+    lam = bl.tune_fedl_lambda_for_constraints(arr[DEVICE], B)
+    tune_ms = (time.perf_counter() - t0) * 1e3
+    lam_cpu = bl.tune_fedl_lambda_for_constraints(arr["cpu"], B)
+    print(f"  tuned λ (24 steps, 120-point grid) = {lam:.6g} on the card in "
+          f"{tune_ms:.1f} ms (first call, graph captured), {lam_cpu:.6g} on "
+          "the CPU")
+    check(math.isclose(lam, lam_cpu, rel_tol=1e-2),
+          f"tuned λ {lam} on the card, {lam_cpu} on the CPU")
+    out = {}
+    for label, ref in (("sao", "sao"), ("sao:box", "sao:box"),
+                       ("equal", "equal"),
+                       ("fedl at the tuned λ", {"name": "fedl",
+                                                 "params": {"lam": lam}}),
+                       ("fedl:4.58", "fedl:4.58"), ("fedl:1000", "fedl:1000"),
+                       ("fedl_auto", "fedl_auto")):
+        alloc = ALLOCATORS.resolve(ref)
+        name = alloc.registry_name
+
+        def call(alloc=alloc):
+            return alloc.allocate(arr[DEVICE], B)
+
+        first_ms, _ = host_ms(torch, call, reps=1)
+        ms, a = host_ms(torch, call)
+        launches = device_launches(torch, call)
+        c = alloc.allocate(arr["cpu"], B)
+        T, E, T_c, E_c = float(a.T), float(a.E), float(c.T), float(c.E)
+        r = dict(T=T, E=E, T_cpu=T_c, E_cpu=E_c, ms=ms, first_ms=first_ms,
+                 device_launches_per_call=launches)
+        tol = ALLOC_TOL[name]
+        ok = (math.isclose(T, T_c, rel_tol=tol)
+              and math.isclose(E, E_c, rel_tol=tol))
+        if name == "fedl":
+            r["objective"] = E + alloc.lam * T
+            ok = ok and math.isclose(r["objective"], E_c + alloc.lam * T_c,
+                                     rel_tol=FEDL_OBJ_TOL)
+        print(f"  {label}: T={T:.6f} s E={E:.6f} J (CPU: {T_c:.6f} s, "
+              f"{E_c:.6f} J; rtol {tol}: {'ok' if ok else 'FAIL'}) "
+              f"ms/call={ms:.1f} (first call {first_ms:.1f}) "
+              f"device_launches/call={launches}")
+        check(ok, f"{label}: the card's allocation differs from the CPU's")
+        out[label] = r
+
+    # the graph against its body run eagerly on the card
+    with eager_fedl():
+        ms, e = host_ms(torch, lambda: bl.fedl_lambda(arr[DEVICE], B, 4.58),
+                        reps=1)
+        launches = device_launches(
+            torch, lambda: bl.fedl_lambda(arr[DEVICE], B, 4.58))
+        auto_ms, ea = host_ms(torch, lambda: ALLOCATORS.resolve(
+            "fedl_auto").allocate(arr[DEVICE], B), reps=1)
+    g = bl.fedl_lambda(arr[DEVICE], B, 4.58)
+    ga = ALLOCATORS.resolve("fedl_auto").allocate(arr[DEVICE], B)
+    err = max(float((x - y).abs().max()) for x, y in zip(g[:4], e[:4]))
+    err_auto = max(abs(float(ga.T) - float(ea.T)), abs(float(ga.E)
+                                                       - float(ea.E)))
+    out["eager"] = {"fedl:4.58": dict(ms=ms, device_launches_per_call=launches,
+                                      max_abs_diff_graph=err),
+                    "fedl_auto": dict(ms=auto_ms,
+                                      max_abs_diff_graph=err_auto)}
+    print(f"  eager on the card: fedl:4.58 ms/call={ms:.1f} "
+          f"device_launches/call={launches} (graph − eager max abs "
+          f"{err:.3e}); fedl_auto ms/call={auto_ms:.1f} (graph − eager T, E "
+          f"max abs {err_auto:.3e}); graph ms/call "
+          f"{out['fedl:4.58']['ms']:.1f} and {out['fedl_auto']['ms']:.1f}")
+    obj = lambda r: float(torch.sum(r.e) + 4.58 * r.T)   # noqa: E731
+    check(math.isclose(obj(g), obj(e), rel_tol=FEDL_OBJ_TOL)
+          and math.isclose(float(ga.T), float(ea.T), rel_tol=ALLOC_TOL["fedl"])
+          and math.isclose(float(ga.E), float(ea.E),
+                           rel_tol=ALLOC_TOL["fedl"]),
+          "FEDL's CUDA graph differs from its eager solve")
+
+    # the figure's assertions
+    sao = solve_sao(arr[DEVICE], B)
+    eq = bl.equal_bandwidth(arr[DEVICE], B)
+    both = bool(sao.converged) and bool(eq.feasible.all())
+    if both:
+        check(out["sao"]["T"] <= out["equal"]["T"] * 1.02,
+              "SAO must beat equal bandwidth (Fig. 5)")
+    fedl_f = bl.fedl_lambda(arr[DEVICE], B, lam)
+    n_violate = int((fedl_f.e > arr[DEVICE]["e_cons"] + 1e-6).sum())
+    verdict = ("both feasible: ≤ 1.02 checked" if both
+               else "not both feasible: not checked")
+    print(f"  Fig. 5: SAO T / equal T = "
+          f"{out['sao']['T'] / out['equal']['T']:.4f} ({verdict}); devices "
+          f"over budget at the tuned λ: {n_violate}")
+    check(n_violate == 0, f"{n_violate} devices over their energy budget at "
+                          "the tuned λ")
+    out["tuned_lambda"] = lam
+    out["tune_ms"] = tune_ms
+    return out
+
+
+def power_phase(torch):
+    """(b) Algorithm 6 on the card, on ``tests/test_power.py``'s fleet:
+    T* within 5 % of the better endpoint."""
+    import numpy as np
+    from repro_torch.core.power import optimal_transmit_power
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import (dbm_to_watt, fleet_arrays,
+                                           sample_fleet)
+    fleet = sample_fleet(100, seed=0, e_cons_range=(35e-3, 35e-3)).select(
+        np.arange(10))
+    t0 = time.perf_counter()
+    res = optimal_transmit_power(fleet, 20.0, p_min_dbm=10, p_max_dbm=23,
+                                 device=DEVICE)
+    ms = (time.perf_counter() - t0) * 1e3
+    ends = [float(solve_sao(fleet_arrays(fleet.with_power(dbm_to_watt(p)),
+                                         DEVICE), 20.0).T) for p in (10, 23)]
+    print(f"  Algorithm 6: p*={res.p_star_dbm:.3f} dBm T*={res.T_star:.6f} s "
+          f"after {len(res.history)} probes in {ms:.1f} ms; endpoints T = "
+          f"{ends[0]:.6f} (10 dBm), {ends[1]:.6f} s (23 dBm)")
+    check(res.T_star <= min(ends) * 1.05,
+          "Algorithm 6: T* above 1.05 × the better endpoint")
+    check(10.0 <= res.p_star_dbm <= 23.01, "Algorithm 6: p* outside the box")
+    return dict(p_star_dbm=res.p_star_dbm, T_star=res.T_star,
+                probes=len(res.history), ms=ms)
+
+
+COMPARISON_ROUNDS = ([(s, "sao") for s in ("divergence", "kmeans_random",
+                                           "random", "icas", "rra",
+                                           "stochastic-sched")]
+                     + [("divergence", a) for a in ("equal", "sao:box",
+                                                    "fedl_auto")])
+
+
+def comparison_rounds_phase(torch):
+    """(c) ``build_experiment(ExperimentSpec())`` on the card: the initial
+    round, then one ``round(method)`` per (selector, allocator) of
+    ``COMPARISON_ROUNDS``, the allocator swapped in between rounds. Each
+    round's set, T_k and E_k are checked (and SAO's band use under
+    ``sao``); its ms by phase come from timing wrappers around the
+    experiment's own ``select`` and ``allocation`` (a device sync after
+    each), the rest of the round being train, fold and evaluation. The
+    FL kernels' counts are set to 0 just before and read just after."""
+    from repro_torch.api import ALLOCATORS, ExperimentSpec, build_experiment
+
+    exp = build_experiment(ExperimentSpec(), device=DEVICE)
+    need = least_band_mhz(exp.fleet)
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    exp.initial_round()
+    torch.cuda.synchronize()
+    print(f"  initial round {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    laps = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            laps[name] = (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    exp.select = timed("select", exp.select)
+    exp.allocation = timed("allocate", exp.allocation)
+    out = []
+    n = exp.fed.num_clients
+    for k, (selection, allocator) in enumerate(COMPARISON_ROUNDS):
+        exp.allocator = ALLOCATORS.resolve(allocator)
+        t0 = time.perf_counter()
+        res = exp.round(selection)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        sel = [int(i) for i in res.selected]
+        what = f"round {k + 1} ({selection}, {allocator})"
+        check(0 < len(sel) <= n and len(set(sel)) == len(sel)
+              and all(0 <= i < n for i in sel), f"{what}: bad selection {sel}")
+        check(math.isfinite(res.T_k) and res.T_k > 0
+              and math.isfinite(res.E_k) and res.E_k > 0,
+              f"{what}: T_k={res.T_k}, E_k={res.E_k}")
+        rest = wall - laps["select"] - laps["allocate"]
+        print(f"  {what}: {len(sel)} selected {sel} T_k={res.T_k:.6f} s "
+              f"E_k={res.E_k:.6f} J accuracy={res.accuracy:.4f}; ms: round "
+              f"{wall:.1f} = select {laps['select']:.1f} + allocate "
+              f"{laps['allocate']:.1f} + train/fold/evaluate {rest:.1f}")
+        if allocator == "sao":
+            check_sao_band(exp, need, what, res.selected, res.band_mhz)
+        out.append(dict(selection=selection, allocator=allocator,
+                        selected=sel, T_k=res.T_k, E_k=res.E_k, ms=wall,
+                        select_ms=laps["select"],
+                        allocate_ms=laps["allocate"]))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    print(f"  launches in this run: {launches}")
+    for name in ("flat_aggregate", "pairwise_l2"):
+        check(launches[name] > 0, f"{name} was not launched on this path")
+    return out, launches
+
 
 def main():
     import torch
@@ -795,6 +1057,17 @@ def main():
         lm_launches, _ = lm_phase(torch, arch)
         launches[own] = lm_launches[own]
         by_path[arch] = lm_launches
+
+    print("== 7. the paper's comparisons on the card")
+    print(f"  phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    print("  (a) Fig. 5: every allocator on 10 devices at B = 20 MHz")
+    fig5_phase(torch)
+    print("  (b) Algorithm 6, the shared transmit power")
+    power_phase(torch)
+    print("  (c) ExperimentSpec(): one round per selector and allocator")
+    _, comparison_launches = comparison_rounds_phase(torch)
+    by_path["comparisons (phase 7c)"] = comparison_launches
+    torch.cuda.empty_cache()
 
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",

@@ -4,10 +4,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.api.registry import AGGREGATORS, ALLOCATORS, SELECTORS
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.paper_cnn import CNN_CONFIGS
-from repro_torch.core.fedavg import FLExperiment
 from repro_torch.core.wireless import sample_fleet
 from repro_torch.data.partition import partition_bias
 from repro_torch.data.synthetic import make_dataset
@@ -39,11 +39,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_experiment(spec: ExperimentSpec, device=None, *,
-                     draws=None) -> FLExperiment:
+                     draws=None) -> "FLExperiment":
     """Materialize dataset, partition, fleet and experiment from ``spec`` on
     ``device`` (default ``cuda``). ``draws`` replaces the experiment's default
     ``torch.Generator`` draws (``repro_torch.core.draws``). A workload that
     builds its own data (the LoRA LMs) ignores ``spec.dataset``."""
+    from repro_torch.core.fedavg import FLExperiment   # imports the api
+
     dev = resolve_device(device)
     model_cfg = (CNN_CONFIGS[spec.dataset] if spec.model in ("auto", "cnn")
                  else workload_config(spec.model))
@@ -65,7 +67,9 @@ def build_experiment(spec: ExperimentSpec, device=None, *,
         model_cfg, fed, test.images, test.labels, fleet,
         fl_config_from_spec(spec), device=dev,
         bandwidth_mhz=spec.bandwidth_mhz, seed=spec.seed,
-        batch_size=spec.batch_size, selection=spec.selection,
-        allocator=spec.allocator, aggregator=spec.aggregator, draws=draws)
+        batch_size=spec.batch_size,
+        selection=SELECTORS.resolve(spec.selection),
+        allocator=ALLOCATORS.resolve(spec.allocator),
+        aggregator=AGGREGATORS.resolve(spec.aggregator), draws=draws)
     exp.spec = spec
     return exp

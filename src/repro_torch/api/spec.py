@@ -1,25 +1,33 @@
-"""Declarative experiment specification — one frozen value that fully
-determines an FL experiment (the fields of ``repro.api.spec.ExperimentSpec``
-that the port reads, with the same names, defaults and seed derivation).
+"""Declarative experiment specification — one frozen, JSON-round-trippable
+value that fully determines an FL experiment (the fields of
+``repro.api.spec.ExperimentSpec`` that the port reads, with the same
+names, defaults, seed derivation and JSON form).
 
-    spec = ExperimentSpec(dataset="fashion", clients=30, sigma=0.8)
+    spec = ExperimentSpec(dataset="fashion", clients=30, sigma=0.8,
+                          selection="icas", allocator="fedl_auto")
     hist = build_experiment(spec).run()          # repro_torch.api.build
 
-Strategy fields take a bare name or a ``{"name", "params"}`` dict and are
-stored in the dict form; the port supports the defaults only
-(``repro_torch.strategies``). ``model`` is ``"auto"``/``"cnn"`` (the paper
-CNN for ``dataset``) or a registered workload name (``"tinyllama"``,
-``"mamba2-130m"``: LoRA LM rows). The reference's fields for which the port
-has a single value — ``store`` (the dense plane), ``compressor`` (none) —
-are left out, so passing one raises ``TypeError``.
+Strategy fields take a bare name (``"sao"``), the ``name:arg`` shorthand
+(``"fedl:2.0"``), a ``{"name", "params"}`` dict or an instance, resolved
+through the port's registries and stored in the dict form, so
+``ExperimentSpec.from_json(spec.to_json()) == spec``. ``model`` is
+``"auto"``/``"cnn"`` (the paper CNN for ``dataset``) or a registered
+workload name (``"tinyllama"``, ``"mamba2-130m"``: LoRA LM rows). The
+reference's fields the port has no counterpart for yet — ``fleet``,
+``store``, ``compressor``, ``cohort``, … — are left out, so passing one
+raises ``TypeError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
-from repro_torch import strategies
+import repro_torch.strategies  # noqa: F401  (populate the registries)
+from repro_torch.api.registry import get_registry
+
+SPEC_VERSION = 1
 
 StrategyRef = Union[str, Dict[str, Any]]
 
@@ -67,6 +75,8 @@ class ExperimentSpec:
     allocator: StrategyRef = "sao"
     aggregator: StrategyRef = "fedavg"
 
+    version: int = SPEC_VERSION
+
     def __post_init__(self):
         if self.model not in ("auto", "cnn"):
             from repro_torch.models.registry import workload_names
@@ -76,9 +86,8 @@ class ExperimentSpec:
         for name, kind in (("selection", "selector"),
                            ("allocator", "allocator"),
                            ("aggregator", "aggregator")):
-            object.__setattr__(self, name,
-                               strategies.canonical(kind,
-                                                    getattr(self, name)))
+            object.__setattr__(self, name, get_registry(kind).canonical(
+                getattr(self, name)))
 
     # ---- derived -----------------------------------------------------
     @property
@@ -101,3 +110,28 @@ class ExperimentSpec:
 
     def replace(self, **kw) -> "ExperimentSpec":
         return dataclasses.replace(self, **kw)
+
+    # ---- serialization -----------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentSpec":
+        d = dict(d)
+        version = d.pop("version", SPEC_VERSION)
+        if version > SPEC_VERSION:
+            raise ValueError(f"spec version {version} is newer than "
+                             f"supported {SPEC_VERSION}")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown ExperimentSpec fields: "
+                             f"{sorted(unknown)}")
+        return cls(version=version, **d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentSpec":
+        return cls.from_dict(json.loads(s))

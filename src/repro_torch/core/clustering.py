@@ -99,6 +99,13 @@ def kmeans_fit(x: torch.Tensor, c: int, iters: int = 50, *, draws=None,
     return centroids, labels, torch.sum(torch.min(d, dim=1).values)
 
 
+def kmeans_predict(centroids: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The nearest centroid of each row of ``x`` (first index on ties),
+    through the ``pairwise_l2`` kernel on the card."""
+    return torch.argmin(ops.pairwise_sq_dists(x.to(torch.float32),
+                                              centroids), dim=1)
+
+
 def clusters_from_labels(labels, c: int):
     """Algorithm 2 output form: list of index arrays {N_1..N_c}."""
     labels = np.asarray(labels.cpu() if isinstance(labels, torch.Tensor)

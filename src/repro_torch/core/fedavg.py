@@ -2,8 +2,10 @@
 the synchronous host loop over the dense ``[N, P]`` client plane.
 
 Per round k:
-  1. device selection        — Algorithm 4 on the weight divergences
-  2. spectrum allocation     — SAO, Algorithm 5
+  1. device selection        — Algorithm 4 on the weight divergences, or
+                               a compared policy (``SELECTORS``)
+  2. spectrum allocation     — SAO, Algorithm 5, or a §VI-A baseline
+                               (``ALLOCATORS``)
   3. local updates (L SGD steps each), all selected clients at once
   4. weighted aggregation    — eq. (4), one ``flat_aggregate`` fold
   5. bookkeeping: accuracy, T_k, E_k (eqs. 10-11)
@@ -12,9 +14,10 @@ Clustering (Algorithm 2) happens once, after an initial all-device round,
 on the K-means features of the paper's chosen layer.
 
 ``FLExperiment`` owns the experiment's state on one device — the global
-row, the client plane, the data — and one draws object
-(``repro_torch.core.draws``) that every random choice comes from. Build it
-from a declarative spec with ``repro_torch.api.build_experiment``.
+row, the client plane, the data — one draws object
+(``repro_torch.core.draws``) that the model's random choices come from,
+and the host Generator ``rng`` that the stochastic selectors draw from.
+Build it from a declarative spec with ``repro_torch.api.build_experiment``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch import strategies
+import repro_torch.strategies  # noqa: F401  (populate the registries)
+from repro_torch.api.protocols import Allocation, SelectionContext
+from repro_torch.api.registry import AGGREGATORS, ALLOCATORS, SELECTORS
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.clustering import (clusters_from_labels,
                                          extract_features_flat, kmeans_fit)
@@ -37,7 +42,6 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.wireless import Fleet, fleet_arrays
 from repro_torch.data.partition import FederatedData
 from repro_torch.models.registry import model_def_for
-from repro_torch.strategies.allocators import Allocation
 from repro_torch.utils.trees import flatten_vector
 
 
@@ -85,6 +89,12 @@ def fp32_matmuls() -> None:
 class FLExperiment:
     """The synchronous dense FL loop on one device, driven from the host.
 
+    ``selection``, ``allocator`` and ``aggregator`` take a registered name,
+    the ``name:arg`` shorthand, a ``{"name", "params"}`` dict or an
+    instance; ``box_correct=True`` turns on the ``sao`` allocator's KKT box
+    correction (and raises for any other allocator). ``seed`` seeds the
+    selectors' host Generator ``rng`` and the default draws.
+
     ``draws`` replaces the default :class:`TorchDraws` (seeded with
     ``seed``): a parity test hands in a replay of the reference's key
     stream. The client plane and the global row live on ``device``; the
@@ -98,7 +108,8 @@ class FLExperiment:
                  test_labels: np.ndarray, fleet: Fleet, fl: FLConfig, *,
                  device, bandwidth_mhz: float = 20.0, seed: int = 0,
                  batch_size: int = 32, selection=None, allocator="sao",
-                 aggregator="fedavg", draws=None):
+                 aggregator="fedavg", box_correct: bool = False,
+                 draws=None):
         fp32_matmuls()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -106,10 +117,18 @@ class FLExperiment:
         self.fleet = fleet
         self.fl = fl
         self.B = bandwidth_mhz
-        self.selector = strategies.resolve(
-            "selector", selection if selection is not None else fl.selection)
-        self.allocator = strategies.resolve("allocator", allocator)
-        self.aggregator = strategies.resolve("aggregator", aggregator)
+        self.rng = np.random.default_rng(seed)
+        self.selector = SELECTORS.resolve(selection if selection is not None
+                                          else fl.selection)
+        self.allocator = ALLOCATORS.resolve(allocator)
+        if box_correct:
+            if getattr(self.allocator, "registry_name", "") != "sao":
+                raise ValueError("box_correct=True only applies to the "
+                                 "'sao' allocator; set allocator params "
+                                 "explicitly instead")
+            self.allocator = dataclasses.replace(self.allocator,
+                                                 box_correct=True)
+        self.aggregator = AGGREGATORS.resolve(aggregator)
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
         mdef = model_def_for(model_cfg)
@@ -199,9 +218,24 @@ class FLExperiment:
         return weight_divergence_flat(self.client_plane,
                                       self.global_vec).cpu().numpy()
 
-    def select(self) -> np.ndarray:
-        return np.asarray(self.selector.select(
-            self.divergences(), self.clusters, self.fl.selected_per_cluster))
+    def selection_context(self) -> SelectionContext:
+        return SelectionContext(
+            rng=self.rng,
+            num_devices=self.fed.num_clients,
+            devices_per_round=self.fl.devices_per_round,
+            selected_per_cluster=self.fl.selected_per_cluster,
+            bandwidth_mhz=self.B,
+            fleet=self.fleet,
+            clusters=self.clusters,
+            divergences=self.divergences)
+
+    def select(self, method=None) -> np.ndarray:
+        """Device selection for one round; ``method`` is a registered name,
+        a spec dict, a selector instance, or None for the experiment's
+        own selector."""
+        selector = (self.selector if method is None
+                    else SELECTORS.resolve(method))
+        return np.asarray(selector.select(self.selection_context()))
 
     def allocation(self, idx) -> Allocation:
         """Spectrum allocation for the selected devices."""
@@ -212,11 +246,17 @@ class FLExperiment:
         a = self.allocation(idx)
         return a.T, a.E
 
-    def round(self) -> RoundResult:
+    def round(self, method=None) -> RoundResult:
         """One full FL round: select → allocate → train → aggregate → eval,
-        each phase a profiler span (``fl.select`` …)."""
+        each phase a profiler span (``fl.select`` …). ``method`` picks the
+        selector as in :meth:`select`. A selection that comes back empty
+        is an explicit no-op round: nothing trains, T_k = E_k = 0."""
         with record_function("fl.select"):
-            idx = self.select()
+            idx = self.select(method)
+        if idx.size == 0:
+            acc, per_class = self.evaluate()
+            return RoundResult(selected=idx, T_k=0.0, E_k=0.0, accuracy=acc,
+                               per_class=per_class)
         with record_function("fl.allocate"):
             alloc = self.allocation(idx)
         t = self._index(idx)
@@ -231,11 +271,12 @@ class FLExperiment:
                            per_class=per_class.cpu().numpy(),
                            band_mhz=float(torch.sum(alloc.b)))
 
-    def run(self, rounds: Optional[int] = None,
+    def run(self, method=None, rounds: Optional[int] = None,
             target_accuracy: Optional[float] = None) -> FLHistory:
         """The host round loop: the initial round (recorded as round 0,
-        all devices), then ``rounds`` rounds, stopping early once the test
-        accuracy reaches ``target_accuracy`` (0 = never)."""
+        all devices), then ``rounds`` rounds of :meth:`round` with
+        ``method``, stopping early once the test accuracy reaches
+        ``target_accuracy`` (0 = never)."""
         rounds = rounds or self.fl.max_rounds
         target = (self.fl.target_accuracy
                   if target_accuracy is None else target_accuracy)
@@ -251,7 +292,7 @@ class FLExperiment:
             time.perf_counter() - t0)
         for k in range(rounds):
             t0 = time.perf_counter()
-            res = self.round()
+            res = self.round(method)
             hist.append(res, time.perf_counter() - t0)
             if target and res.accuracy >= target:
                 hist.rounds_to_target = k + 1

@@ -78,17 +78,45 @@ def _solve_b_from_energy(f, arr, b_max, n_iters: int) -> torch.Tensor:
     return torch.where(achievable, 0.5 * (lo + hi), b_max)
 
 
-def _inner_allocate(T, arr, b_max, n_iters: int):
+def _solve_b_from_deadline(T, f, arr, b_max, n_iters: int) -> torch.Tensor:
+    """Solve (20): Q(b) = z / (T − U/f) for b — for box-clipped devices in
+    the box-corrected variant (their energy multiplier is zero, so the
+    deadline, not the energy budget, pins b)."""
+    slack = T - arr["U"] / f
+    target = arr["z"] / torch.clamp(slack, min=1e-9)
+    achievable = ((slack > 0.0) & (target < arr["J"] / LN2)
+                  & (_Q(b_max, arr["J"]) >= target))
+    lo = torch.full_like(f, 1e-9)
+    hi = b_max.expand(f.shape).to(f.dtype)
+    for _ in range(n_iters):
+        mid = 0.5 * (lo + hi)
+        ge = _Q(mid, arr["J"]) >= target
+        lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+    return torch.where(achievable, 0.5 * (lo + hi), b_max)
+
+
+def _inner_allocate(T, arr, b_max, n_iters: int, box_correct: bool = False):
     """Lines 5-11 of Algorithm 5: f from the cubic, clipped to the box,
-    then b from the tight energy constraint (21)."""
-    f = torch.clamp(_solve_cubic_f(T, arr, n_iters), arr["f_min"],
-                    arr["f_max"])
-    return _solve_b_from_energy(f, arr, b_max, n_iters), f
+    then b from the tight energy constraint (21).
+
+    ``box_correct`` (beyond the paper): a device whose f clipped at a box
+    face takes the larger of the deadline's (20) and the energy budget's
+    (21) least b — the KKT completion, which stops it from spending band
+    to exhaust an energy budget the optimum leaves slack."""
+    f_raw = _solve_cubic_f(T, arr, n_iters)
+    f = torch.clamp(f_raw, arr["f_min"], arr["f_max"])
+    b_energy = _solve_b_from_energy(f, arr, b_max, n_iters)
+    if not box_correct:
+        return b_energy, f
+    b_deadline = _solve_b_from_deadline(T, f, arr, b_max, n_iters)
+    clipped = (f_raw < arr["f_min"]) | (f_raw > arr["f_max"])
+    b = torch.where(clipped, torch.maximum(b_deadline, b_energy), b_energy)
+    return torch.minimum(b, b_max), f
 
 
 def solve_sao(arr: Dict[str, torch.Tensor], B: float, *, mask=None,
               eps0: float = 1e-3, b_max: float = None, n_outer: int = 48,
-              n_inner: int = 48) -> SAOSolution:
+              n_inner: int = 48, box_correct: bool = False) -> SAOSolution:
     """Algorithm 5. ``arr`` = fleet_arrays(fleet.select(S_k)); B in MHz.
 
     Outer bisection on T_k: Σ_n b_n(T) is monotone ↓ in T, so bisection
@@ -115,7 +143,7 @@ def solve_sao(arr: Dict[str, torch.Tensor], B: float, *, mask=None,
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(n_outer):
         T = 0.5 * (T_lo + T_hi)
-        b, _ = _inner_allocate(T, arr, b_max, n_inner)
+        b, _ = _inner_allocate(T, arr, b_max, n_inner, box_correct)
         ratio = masked_sum(b, mask) / B
         hit = (ratio <= 1.0) & (ratio >= 1.0 - eps0)
         # on a hit pin both ends to T (the returned midpoint IS that T);
@@ -128,7 +156,7 @@ def solve_sao(arr: Dict[str, torch.Tensor], B: float, *, mask=None,
     T = 0.5 * (T_lo + T_hi)
 
     # final allocation at the converged T (lines 21-22)
-    b, f = _inner_allocate(T, arr, b_max, n_inner)
+    b, f = _inner_allocate(T, arr, b_max, n_inner, box_correct)
     # f* from the clipped b* via the tight energy budget (21), boxed
     Qb = _Q(b, arr["J"])
     resid = arr["e_cons"] - arr["H"] / Qb

@@ -40,6 +40,10 @@ def dbm_to_watt(dbm):
     return 10.0 ** (np.asarray(dbm) / 10.0) / 1e3
 
 
+def watt_to_dbm(w):
+    return 10.0 * np.log10(np.asarray(w) * 1e3)
+
+
 @dataclass
 class Fleet:
     """Per-device physical parameters for N devices (single cell)."""
@@ -88,6 +92,15 @@ class Fleet:
                      alpha=self.alpha[idx], f_min=self.f_min[idx],
                      f_max=self.f_max[idx], e_cons=self.e_cons[idx],
                      N0=self.N0, inr=self.inr[idx])
+
+    def with_power(self, p_watt) -> "Fleet":
+        """The same fleet at transmit power ``p_watt`` (one value or one
+        per device); Algorithm 6 probes these."""
+        p = np.broadcast_to(np.asarray(p_watt, np.float64),
+                            self.h.shape).copy()
+        return Fleet(h=self.h, p=p, z=self.z, C=self.C, D=self.D, L=self.L,
+                     alpha=self.alpha, f_min=self.f_min, f_max=self.f_max,
+                     e_cons=self.e_cons, N0=self.N0, inr=self.inr)
 
 
 def sample_fleet(num_devices: int = 100, seed: int = 0, *,
@@ -179,10 +192,21 @@ def masked_max(x, mask=None, empty=0.0):
 
 
 def masked_sum(x, mask=None):
-    """Sum over the real lanes (pads contribute exactly 0)."""
+    """Sum over the real lanes, the last axis (pads contribute exactly
+    0)."""
     if mask is None:
-        return torch.sum(x)
-    return torch.sum(torch.where(mask, x, torch.zeros_like(x)))
+        return torch.sum(x, dim=-1)
+    return torch.sum(torch.where(mask, x, torch.zeros_like(x)), dim=-1)
+
+
+def round_totals(fleet_arrays, b_mhz, f_ghz):
+    """Per-round totals, eqs (10)-(11): (T_k, E_k, per-device t, per-device
+    e) of an allocation."""
+    fa = effective_arrays(fleet_arrays)
+    J, U, G, H, z = (fa[k] for k in ("J", "U", "G", "H", "z"))
+    t = t_com(z, b_mhz, J) + t_cmp(U, f_ghz)
+    e = e_com(H, b_mhz, J) + e_cmp(G, f_ghz)
+    return torch.max(t), torch.sum(e), t, e
 
 
 def fleet_arrays(fleet: Fleet, device="cpu"):

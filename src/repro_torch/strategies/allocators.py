@@ -1,40 +1,87 @@
-"""Spectrum allocation strategy: SAO, Algorithm 5
-(``repro.strategies.allocators.SAOAllocator``). It takes the
+"""Registered spectrum-allocation strategies: SAO (Alg. 5, ours) and the
+§VI-A baselines (``repro.strategies.allocators``). Each takes the
 ``fleet_arrays`` of the selected devices and the band B [MHz] and returns
 an :class:`Allocation`, whose tensors stay on the fleet arrays' device
-until the history reads them."""
+until the history reads them. ``mask`` marks the real lanes of a padded
+selection."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
 
 import torch
 
+from repro_torch.api.protocols import Allocation
+from repro_torch.api.registry import ALLOCATORS, Strategy, StrategyError
+from repro_torch.core.baselines import (equal_bandwidth, fedl_lambda,
+                                        tune_fedl_lambda)
 from repro_torch.core.sao import _Q, solve_sao
-from repro_torch.core.wireless import effective_arrays
+from repro_torch.core.wireless import effective_arrays, masked_sum
 
 
-class Allocation(NamedTuple):
-    """One round's spectrum allocation (eqs. 10-11)."""
-    T: torch.Tensor            # round delay T_k [s]
-    E: torch.Tensor            # round energy E_k [J]
-    b: torch.Tensor            # per-device bandwidth [MHz]
-    f: torch.Tensor            # per-device CPU frequency [GHz]
-
-
+@ALLOCATORS.register("sao")
 @dataclass(frozen=True)
-class SAOAllocator:
+class SAOAllocator(Strategy):
     """Algorithm 5: per-device bandwidth and CPU frequency under
-    per-device energy budgets."""
+    per-device energy budgets; ``box_correct`` (``sao:box``) takes the KKT
+    box correction beyond the paper."""
 
-    registry_name = "sao"
+    box_correct: bool = False
 
     def allocate(self, arr, B: float, mask=None) -> Allocation:
         # interference folds into J before the energy sum too: the rate the
         # solver allocated against is the degraded one
         arr = effective_arrays(arr)
-        s = solve_sao(arr, B, mask=mask)
+        s = solve_sao(arr, B, mask=mask, box_correct=self.box_correct)
         e = arr["G"] * torch.square(s.f) + arr["H"] / _Q(s.b, arr["J"])
-        if mask is not None:
-            e = torch.where(mask, e, torch.zeros_like(e))
-        return Allocation(T=s.T, E=torch.sum(e), b=s.b, f=s.f)
+        return Allocation(T=s.T, E=masked_sum(e, mask), b=s.b, f=s.f)
+
+    @classmethod
+    def from_string(cls, arg):
+        if arg in (None, ""):
+            return cls()
+        if arg in ("box", "box_correct"):
+            return cls(box_correct=True)
+        raise StrategyError(f"sao:{arg}: the only ':arg' is 'box' (KKT box "
+                            "correction)")
+
+
+@ALLOCATORS.register("equal")
+@dataclass(frozen=True)
+class EqualBandwidthAllocator(Strategy):
+    """Baseline 1: b_n = B/S, fastest feasible frequency per device."""
+
+    def allocate(self, arr, B: float, mask=None) -> Allocation:
+        r = equal_bandwidth(arr, B, mask=mask)
+        return Allocation(T=r.T, E=torch.sum(r.e), b=r.b, f=r.f)
+
+
+@ALLOCATORS.register("fedl")
+@dataclass(frozen=True)
+class FEDLAllocator(Strategy):
+    """Baseline 2 — FEDL [27]: min Σe + λ·T without per-device energy
+    constraints, at a fixed λ (``fedl:<λ>``)."""
+
+    lam: float = 1.0
+
+    def allocate(self, arr, B: float, mask=None) -> Allocation:
+        r = fedl_lambda(arr, B, self.lam, mask=mask)
+        return Allocation(T=r.T, E=masked_sum(r.e, mask), b=r.b, f=r.f)
+
+
+@ALLOCATORS.register("fedl_auto")
+@dataclass(frozen=True)
+class FEDLAutoAllocator(Strategy):
+    """FEDL with the §VI-A λ protocol ('the device with the highest energy
+    cost just meets its budget') tuned every round: ``iters`` bisection
+    steps on λ (``fedl_auto:<iters>``), each a solve over an ``n_grid``
+    T grid, then the solve at the tuned λ."""
+
+    iters: int = 12
+    n_grid: int = 60
+
+    def allocate(self, arr, B: float, mask=None) -> Allocation:
+        arr = effective_arrays(arr)
+        lam = tune_fedl_lambda(arr, B, mask=mask, iters=self.iters,
+                               n_grid=self.n_grid)
+        r = fedl_lambda(arr, B, lam, n_grid=self.n_grid, mask=mask)
+        return Allocation(T=r.T, E=masked_sum(r.e, mask), b=r.b, f=r.f)

@@ -333,3 +333,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd_scan(x, torch.zeros((1, 4, 2), device=cuda),
                  torch.zeros((1, 4, 1, 8), device=cuda),
                  torch.zeros((1, 4, 1, 8), device=cuda))
+
+
+def test_fedl_graph_matches_its_eager_solve(cuda):
+    """FEDL's captured CUDA graph against its body run eagerly on the card,
+    at two λ through one capture and with a padding mask; the CPU solve
+    is the third yardstick."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    fleet = sample_fleet(100, seed=1).select(np.arange(10))
+    arr = fleet_arrays(fleet, cuda)
+    mask = torch.arange(10, device=cuda) < 7
+    for lam, m in ((4.58, None), (0.2, None), (4.58, mask)):
+        got = bl.fedl_lambda(arr, 20.0, lam, 60, mask=m)
+        want = bl._fedl_solve(bl.effective_arrays(arr), 20.0, lam, 60, m)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        if m is None:
+            cpu = bl.fedl_lambda(fleet_arrays(fleet), 20.0, lam, 60)
+            torch.testing.assert_close(float(torch.sum(got.e) + lam * got.T),
+                                       float(torch.sum(cpu.e) + lam * cpu.T),
+                                       rtol=1e-3, atol=0)

@@ -64,7 +64,8 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("selection", "random"), ("allocator", "equal"), ("allocator", "sao:box"),
+    ("aggregator", "trimmed:0.2"), ("aggregator", "clipnorm:1.0"),
+    ("aggregator", "fedbuff:4"),
     ("aggregator", "fedavgm:0.9"), ("compressor", "int8"),
     ("store", "paged"), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):
@@ -73,7 +74,7 @@ def test_spec_rejects_what_the_port_lacks(field, value):
     field that has one value in the port (compressor, store) is not a field
     of the port's spec at all."""
     from repro_torch.api import ExperimentSpec
-    if field in ("selection", "allocator", "aggregator"):
+    if field == "aggregator":
         with pytest.raises(ValueError, match="port"):
             ExperimentSpec(**{field: value})
     elif field == "model":
@@ -90,7 +91,8 @@ def test_spec_stores_strategies_in_dict_form():
     from repro_torch.api import ExperimentSpec
     spec = ExperimentSpec(selection={"name": "divergence", "params": {}})
     assert spec.selection == {"name": "divergence", "params": {}}
-    assert spec.allocator == {"name": "sao", "params": {}}
+    assert spec.allocator == {"name": "sao",
+                              "params": {"box_correct": False}}
     assert spec.aggregator == {"name": "fedavg", "params": {}}
 
 

@@ -12,6 +12,7 @@ from repro.core import clustering as ref_clustering
 from repro.core.divergence import weight_divergence_flat as ref_divergence
 from repro.core.selection import select_divergence as ref_select_divergence
 
+from repro_torch.api.protocols import SelectionContext
 from repro_torch.core.clustering import (adjusted_rand_index,
                                          clusters_from_labels,
                                          kmeans_fit, kmeans_plus_plus_init)
@@ -78,6 +79,14 @@ def test_kmeans_fit_needs_a_seeding():
         kmeans_fit(torch.zeros((4, 3)), 2)
 
 
+def _context(div, clusters, s):
+    """The selection context of one round over ``div`` and ``clusters``."""
+    return SelectionContext(
+        rng=np.random.default_rng(0), num_devices=len(div),
+        devices_per_round=10, selected_per_cluster=s, bandwidth_mhz=20.0,
+        fleet=None, clusters=clusters, divergences=lambda: div)
+
+
 @pytest.mark.parametrize("seed,s", [(0, 1), (1, 2), (2, 1)])
 def test_select_divergence_on_reference_divergences(seed, s):
     rng = np.random.default_rng(seed)
@@ -94,12 +103,12 @@ def test_select_divergence_on_reference_divergences(seed, s):
     want = ref_select_divergence(div, ref_clusters, s)
     np.testing.assert_array_equal(select_divergence(div, clusters, s), want)
     np.testing.assert_array_equal(
-        DivergenceSelector().select(div, clusters, s), want)
+        DivergenceSelector().select(_context(div, clusters, s)), want)
 
 
 def test_selector_needs_clusters():
     with pytest.raises(ValueError, match="clusters"):
-        DivergenceSelector().select(np.zeros(3), None, 1)
+        DivergenceSelector().select(_context(np.zeros(3), None, 1))
 
 
 def test_weight_divergence_matches_reference():
