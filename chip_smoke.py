@@ -16,11 +16,12 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    backward against autograd through its plain version;
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
-   agree (selections, T_k, E_k, the global row);
+   agree (selections, T_k, E_k, the global row); ``run()`` takes the
+   device-resident path on both (on the card: a captured round);
 4. the main path: ``build_experiment(ExperimentSpec())`` — the paper's
    MNIST CNN at full width (P = 113,744), N = 40, S = 10, L = 20 — for the
-   initial round and 3 rounds, with every kernel's launch count read from
-   this run alone;
+   initial round and 3 rounds of the host loop, with every kernel's launch
+   count read from this run alone;
 5. where one more round's time goes (host clock, ``torch.profiler``);
 6. the federated LM at full width: LoRA adapters over tinyllama-1.1b and
    over mamba2-130m (published widths and depths, random base from a
@@ -29,21 +30,31 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    run alone, then one more round broken down as in phase 5;
 7. the paper's comparisons: (a) Fig. 5 — SAO, SAO with the box
    correction, equal bandwidth and FEDL (tuned λ, 4.58, 1000, and tuned
-   every call) on 10 devices, each against the CPU and FEDL's CUDA graph
-   against its eager solve; (b) Algorithm 6; (c) ``ExperimentSpec()``
-   with one round per selector under SAO and three more allocators, the
-   FL kernels' launch counts read from this run alone;
-8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+   every call) on 10 devices, each against the CPU, and SAO's and FEDL's
+   CUDA graphs against their eager solves; (b) Algorithm 6; (c)
+   ``ExperimentSpec()`` with one round per selector under SAO and three
+   more allocators, the FL kernels' launch counts read from this run
+   alone; (d) 5 host-loop rounds of ``rra`` (a set size that changes from
+   round to round) with the solves' graphs and with every solve eager,
+   which must agree;
+8. the device-resident run: two ``ExperimentSpec()`` experiments from one
+   seed, the initial round and 5 rounds, one through ``run()`` (the round
+   captured as a CUDA graph, replayed once a round) and one through the
+   host loop, which must agree; the capture's time, each path's ms a
+   round, one replay under ``torch.profiler`` (its device launches, idle
+   share and the FL kernels inside it), and a whole traced run under the
+   profiler, whose FL kernel launches are the path's counts;
+9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
 """
-import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -576,13 +587,14 @@ def check_sao_band(exp, need, what, sel, band):
 
 
 def drive(torch, exp, rounds, must_launch):
-    """The initial round and ``rounds`` rounds of ``exp`` on the card, with
-    every kernel's count set to 0 just before and read just after; checks
-    the history, SAO's band use and that each of ``must_launch`` ran."""
+    """The initial round and ``rounds`` rounds of ``exp``'s host loop on the
+    card, with every kernel's count set to 0 just before and read just
+    after; checks the history, SAO's band use and that each of
+    ``must_launch`` ran."""
     fns = kernel_fns()
     for fn in fns.values():
         fn.launches = 0
-    hist = exp.run(rounds=rounds)
+    hist = exp._run_host(None, rounds, 0.0)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in fns.items()}
     for k in range(len(hist.accuracy)):
@@ -681,7 +693,7 @@ def lm_phase(torch, arch, rounds=2):
 
 def profile_phase(torch, exp, reps=3):
     """Where one round's time goes. First ``reps`` rounds driven through
-    the experiment's own pieces, host clock with a device sync at the end
+    the experiment's own pieces (its round body's phases), host clock with a device sync at the end
     of each phase (no profiler): select (divergence + Alg. 4), allocate
     (SAO), train, aggregate (eq. 4), evaluate. Then one ``exp.round()``
     under ``torch.profiler``: its device work by kernel, the busy total and
@@ -698,16 +710,18 @@ def profile_phase(torch, exp, reps=3):
         laps[name].append(t - t0)
         return t
 
+    ph = exp.phases()
     for _ in range(reps):
         t0 = start = time.perf_counter()
         idx = exp.select()
         t0 = lap("select", t0)
         float(exp.allocation(idx).T)
         t0 = lap("allocate", t0)
-        rows = exp.train_clients(idx)
+        t, state = exp._index(idx), exp._host_state()
+        rows = ph.train_rows(state, t, exp._images, exp._labels,
+                             exp._batch_indices(len(t)))
         t0 = lap("train", t0)
-        exp.store_clients(rows, idx)
-        exp.aggregate(rows, idx)
+        ph.fold(state, t, None, rows, exp._sizes)
         t0 = lap("aggregate", t0)
         exp.evaluate()
         lap("evaluate", t0)
@@ -756,20 +770,6 @@ ALLOC_TOL = {"sao": 2e-3, "equal": 1e-5, "fedl": 1e-2, "fedl_auto": 1e-2}
 FEDL_OBJ_TOL = 1e-3
 
 
-@contextlib.contextmanager
-def eager_fedl():
-    """FEDL with its CUDA graph taken out: every solve runs the graph's
-    body, ``baselines._fedl_solve``, eagerly (the yardstick the captured
-    graph is held to, and its time without the graph)."""
-    from repro_torch.core import baselines
-    captured = baselines._solve
-    baselines._solve = baselines._fedl_solve
-    try:
-        yield
-    finally:
-        baselines._solve = captured
-
-
 def host_ms(torch, fn, reps=3):
     """Median host wall [ms] of ``reps`` calls of ``fn``, each ending in a
     device sync, and the last call's result."""
@@ -785,13 +785,16 @@ def host_ms(torch, fn, reps=3):
 def fig5_phase(torch):
     """(a) Fig. 5 on the card: every allocator on ``sample_fleet(100,
     seed=0)``'s first ten devices at B = 20 MHz — T, E, ms a call (the
-    first call apart: it captures FEDL's graph) and device launches a call
-    — each held to the port's CPU result on the same inputs; FEDL's graph
-    held to its eager solve on the card; the figure's own assertions
+    first call apart: a new shape's first solve runs eager, its second
+    captures SAO's or FEDL's graph) and device
+    launches a call — each held to the port's CPU result on the same
+    inputs; SAO's graph held to its eager solve bit for bit and FEDL's to
+    its eager solve on the card; the figure's own assertions
     (``benchmarks/fig5_sao_vs_fedl.py``)."""
     import numpy as np
     from repro_torch.api import ALLOCATORS
     from repro_torch.core import baselines as bl
+    from repro_torch.core.graphs import eager_solves
     from repro_torch.core.sao import solve_sao
     from repro_torch.core.wireless import fleet_arrays, sample_fleet
 
@@ -841,23 +844,44 @@ def fig5_phase(torch):
         check(ok, f"{label}: the card's allocation differs from the CPU's")
         out[label] = r
 
-    # the graph against its body run eagerly on the card
-    with eager_fedl():
+    # the graphs against their bodies run eagerly on the card
+    with eager_solves():
+        sao_eager = {}
+        for box in (False, True):
+            def sao(box=box):
+                return solve_sao(arr[DEVICE], B, box_correct=box)
+            sao_ms, sol = host_ms(torch, sao, reps=1)
+            sao_eager[box] = dict(ms=sao_ms, sol=sol,
+                                  launches=device_launches(torch, sao))
         ms, e = host_ms(torch, lambda: bl.fedl_lambda(arr[DEVICE], B, 4.58),
                         reps=1)
         launches = device_launches(
             torch, lambda: bl.fedl_lambda(arr[DEVICE], B, 4.58))
         auto_ms, ea = host_ms(torch, lambda: ALLOCATORS.resolve(
             "fedl_auto").allocate(arr[DEVICE], B), reps=1)
+    for box, label in ((False, "sao"), (True, "sao:box")):
+        graph_sol = solve_sao(arr[DEVICE], B, box_correct=box)
+        eager = sao_eager[box]
+        same = all(torch.equal(x, y) for x, y in zip(graph_sol, eager["sol"]))
+        out["eager"] = out.get("eager", {})
+        out["eager"][label] = dict(ms=eager["ms"],
+                                   device_launches_per_call=eager["launches"],
+                                   bit_equal_graph=same)
+        print(f"  {label}: graph ms/call={out[label]['ms']:.1f} "
+              f"(first call {out[label]['first_ms']:.1f}) "
+              f"device_launches/call={out[label]['device_launches_per_call']}"
+              f"; eager ms/call={eager['ms']:.1f} device_launches/call="
+              f"{eager['launches']}; graph and eager bit for bit: "
+              f"{'equal' if same else 'DIFFER'}")
+        check(same, f"{label}: SAO's CUDA graph differs from its eager solve")
     g = bl.fedl_lambda(arr[DEVICE], B, 4.58)
     ga = ALLOCATORS.resolve("fedl_auto").allocate(arr[DEVICE], B)
     err = max(float((x - y).abs().max()) for x, y in zip(g[:4], e[:4]))
     err_auto = max(abs(float(ga.T) - float(ea.T)), abs(float(ga.E)
                                                        - float(ea.E)))
-    out["eager"] = {"fedl:4.58": dict(ms=ms, device_launches_per_call=launches,
-                                      max_abs_diff_graph=err),
-                    "fedl_auto": dict(ms=auto_ms,
-                                      max_abs_diff_graph=err_auto)}
+    out["eager"]["fedl:4.58"] = dict(ms=ms, device_launches_per_call=launches,
+                                     max_abs_diff_graph=err)
+    out["eager"]["fedl_auto"] = dict(ms=auto_ms, max_abs_diff_graph=err_auto)
     print(f"  eager on the card: fedl:4.58 ms/call={ms:.1f} "
           f"device_launches/call={launches} (graph − eager max abs "
           f"{err:.3e}); fedl_auto ms/call={auto_ms:.1f} (graph − eager T, E "
@@ -930,9 +954,10 @@ def comparison_rounds_phase(torch):
     ``COMPARISON_ROUNDS``, the allocator swapped in between rounds. Each
     round's set, T_k and E_k are checked (and SAO's band use under
     ``sao``); its ms by phase come from timing wrappers around the
-    experiment's own ``select`` and ``allocation`` (a device sync after
-    each), the rest of the round being train, fold and evaluation. The
-    FL kernels' counts are set to 0 just before and read just after."""
+    experiment's own ``select`` and its allocator's ``allocate_traced``
+    (a device sync after each), the rest of the round being train, fold
+    and evaluation. The FL kernels' counts are set to 0 just before and
+    read just after."""
     from repro_torch.api import ALLOCATORS, ExperimentSpec, build_experiment
 
     exp = build_experiment(ExperimentSpec(), device=DEVICE)
@@ -955,12 +980,21 @@ def comparison_rounds_phase(torch):
             return out
         return wrapper
 
+    class TimedAllocator:
+        """The allocator, its ``allocate_traced`` (what the round body
+        calls) timed."""
+        def __init__(self, inner):
+            self.inner = inner
+            self.allocate_traced = timed("allocate", inner.allocate_traced)
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
     exp.select = timed("select", exp.select)
-    exp.allocation = timed("allocate", exp.allocation)
     out = []
     n = exp.fed.num_clients
     for k, (selection, allocator) in enumerate(COMPARISON_ROUNDS):
-        exp.allocator = ALLOCATORS.resolve(allocator)
+        exp.allocator = TimedAllocator(ALLOCATORS.resolve(allocator))
         t0 = time.perf_counter()
         res = exp.round(selection)
         torch.cuda.synchronize()
@@ -989,6 +1023,313 @@ def comparison_rounds_phase(torch):
     for name in ("flat_aggregate", "pairwise_l2"):
         check(launches[name] > 0, f"{name} was not launched on this path")
     return out, launches
+
+
+def varying_set_phase(torch, rounds=5):
+    """(d) ``ExperimentSpec(selection="rra")``: the initial round and
+    ``rounds`` host-loop rounds, whose set size changes from round to
+    round, once with the solves' CUDA graphs (a graph per set size from
+    its second solve on) and once with every solve eager, from one seed:
+    the histories must be equal. Per-round wall for both, and the graphs
+    held and device memory reserved after the graphed run."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core import baselines, sao
+    from repro_torch.core.graphs import eager_solves
+
+    spec = ExperimentSpec(selection="rra")
+    out = {}
+    for label in ("graphs", "eager"):
+        sao._GRAPHS.clear()
+        baselines._GRAPHS.clear()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        exp = build_experiment(spec, device=DEVICE)
+        if label == "eager":
+            with eager_solves():
+                hist = exp.run(rounds=rounds)
+        else:
+            hist = exp.run(rounds=rounds)
+        torch.cuda.synchronize()
+        check(len(hist.seconds) == rounds + 1, "rra did not take the host "
+                                               "loop")
+        out[label] = dict(hist=hist, graphs=len(sao._GRAPHS.graphs),
+                          reserved_mib=(torch.cuda.memory_reserved()
+                                        - reserved) / 2**20)
+        print(f"  rra, {label}: set sizes "
+              f"{[len(x) for x in hist.selected[1:]]}; wall ms a round "
+              f"{[round(t * 1e3, 1) for t in hist.seconds[1:]]} (initial "
+              f"round {hist.seconds[0] * 1e3:.1f}); SAO graphs held "
+              f"{out[label]['graphs']}; device memory reserved "
+              f"+{out[label]['reserved_mib']:.1f} MiB")
+        del exp
+    g, e = out["graphs"]["hist"], out["eager"]["hist"]
+    same = (all(a.tolist() == b.tolist()
+                for a, b in zip(g.selected, e.selected))
+            and g.T_k == e.T_k and g.E_k == e.E_k
+            and g.accuracy == e.accuracy)
+    print(f"  rra with graphs and eager: histories "
+          f"{'equal' if same else 'DIFFER'}; total wall ms "
+          f"{sum(g.seconds) * 1e3:.1f} with graphs, "
+          f"{sum(e.seconds) * 1e3:.1f} eager")
+    check(same, "rra: the graphed run differs from the eager one")
+    return {k: dict(seconds=v["hist"].seconds, graphs=v["graphs"],
+                    reserved_mib=v["reserved_mib"]) for k, v in out.items()}
+
+
+MARK_BURSTS, MARK_SPINS, MARK_GAP_S = 40, 16, 0.005
+
+
+def mark(torch):
+    """Marker device work around a profiled call: ``MARK_BURSTS`` bursts of
+    ``MARK_SPINS`` short spin kernels, each burst synced and followed by
+    ``MARK_GAP_S`` of host sleep, about 0.2 s in all. The profiler drops the
+    device records of a session's first moments (13 to 16 of 64 spins
+    enqueued back to back were lost in some runs, all 64 in another), so
+    what it drops must be marks spread over time, not the call's records."""
+    for _ in range(MARK_BURSTS):
+        for _ in range(MARK_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(MARK_GAP_S)
+
+
+def profiled_device_work(torch, fn, what):
+    """``fn`` under ``torch.profiler``, between two runs of ``mark``: its
+    device work (kernels, copies, memsets; a replayed graph gives each of
+    its kernels) from the raw event list as ``(name, ms)`` pairs, and how
+    many marks were recorded before its first record and after its last.
+    Fails when either side kept none: the profiler's window may then have
+    cut ``fn``'s own records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark(torch)
+        fn()
+        torch.cuda.synchronize()
+        mark(torch)
+    work, marks = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        kind = e.activity_type() if hasattr(e, "activity_type") else None
+        note = e.is_user_annotation() if hasattr(
+            e, "is_user_annotation") else False
+        name = e.name()
+        if note or name.startswith(("aten::", "fl.")) or kind not in (
+                None, *DEVICE_WORK):
+            continue
+        if "spin_kernel" in name:
+            marks.append(e.start_ns())
+        else:
+            work.append((e.start_ns(), name, e.duration_ns() / 1e6))
+    first = min((t for t, _, _ in work), default=math.inf)
+    last = max((t for t, _, _ in work), default=-math.inf)
+    before = sum(t < first for t in marks)
+    after = sum(t > last for t in marks)
+    check(before > 0 and after > 0,
+          f"the profiler kept {before} marks before {what} and {after} after "
+          f"it (of {MARK_BURSTS * MARK_SPINS} each): its window may have cut "
+          f"{what}'s own records")
+    return [(name, ms) for _, name, ms in work], before, after
+
+
+def profile_replay(torch, prog, batch):
+    """One replay of ``prog``'s captured round under ``torch.profiler``
+    (``profiled_device_work``): its device launches, busy ms, the launches
+    of each FL kernel and of each device function, and the marks kept
+    before and after it."""
+    from collections import defaultdict
+    prog.replay(batch)
+    work, before, after = profiled_device_work(
+        torch, lambda: prog.replay(batch), "the replay")
+    by_name = defaultdict(lambda: [0, 0.0])
+    for name, ms in work:
+        by_name[name][0] += 1
+        by_name[name][1] += ms
+    kernels = {k: sum(n for name, (n, _) in by_name.items()
+                      if f"{k}_kernel" in name)
+               for k in ("flat_aggregate", "pairwise_l2")}
+    return (len(work), sum(ms for _, ms in work), kernels, by_name,
+            (before, after))
+
+
+# each kernel's own device function: one launch of it per wrapper call
+DEVICE_KERNEL = {"flat_aggregate": "flat_aggregate_kernel",
+                 "pairwise_l2": "pairwise_l2_kernel",
+                 "flash_attention": "flash_kernel",
+                 "ssd_scan": "ssd_chunk_kernel"}
+
+
+def profiled_kernel_counts(torch, fn):
+    """``fn`` under ``torch.profiler`` (``profiled_device_work``): the
+    device launches of each kernel's own function (``DEVICE_KERNEL``) and
+    of ``slab_sum_kernel`` in it, and the marks kept before and after."""
+    work, before, after = profiled_device_work(torch, fn, "the run")
+    names = dict(DEVICE_KERNEL, slab_sum="slab_sum_kernel")
+    counts = {k: sum(fn_name in name for name, _ in work)
+              for k, fn_name in names.items()}
+    return counts, (before, after)
+
+
+def traced_phase(torch, rounds=5):
+    """The device-resident run of ``ExperimentSpec()`` against its host loop
+    from the same seed: the initial round and ``rounds`` rounds each. The
+    traced run goes through ``run()`` (its first call captures the round);
+    a second traced run replays the cached graph with PyTorch's sync debug
+    mode on, counting host syncs from the initial round to the last
+    replay. Then the replayed round's ms, and one replay profiled."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core import engine
+    from repro_torch.core.wireless import fleet_arrays
+
+    spec = ExperimentSpec()
+    fns = kernel_fns()
+    host = build_experiment(spec, device=DEVICE)
+    traced = build_experiment(spec, device=DEVICE)
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    h_t = traced.run(rounds=rounds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counted = {name: fn.launches for name, fn in fns.items()}
+    check(h_t.seconds == [], "run() did not take the device-resident path")
+    h_h = host._run_host(None, rounds, 0.0)
+    torch.cuda.synchronize()
+
+    for k, (a, b) in enumerate(zip(h_t.selected, h_h.selected)):
+        check(np.array_equal(a, b), f"round {k}: traced selected {list(a)}, "
+                                    f"host loop {list(b)}")
+        if k:
+            check(len(a) == spec.devices_per_round,
+                  f"round {k}: {len(a)} selected, not a full selection")
+    d_T = max(abs(x - y) / abs(y) for x, y in zip(h_t.T_k, h_h.T_k))
+    d_E = max(abs(x - y) / abs(y) for x, y in zip(h_t.E_k, h_h.E_k))
+    d_acc = max(abs(x - y) for x, y in zip(h_t.accuracy, h_h.accuracy))
+    d_row = float((traced.global_vec - host.global_vec).abs().max())
+    d_plane = float((traced.client_plane - host.client_plane).abs().max())
+    for k in range(len(h_t.accuracy)):
+        print(f"  round {k}: accuracy={h_t.accuracy[k]:.4f} "
+              f"T_k={h_t.T_k[k]:.6f} s E_k={h_t.E_k[k]:.6f} J "
+              f"band={h_t.band_mhz[k]:.4f} MHz "
+              f"selected={list(map(int, h_t.selected[k]))}")
+    print(f"  traced vs host loop: selections equal; max rel diff T_k "
+          f"{d_T:.3e}, E_k {d_E:.3e} (tol 1e-6); accuracy max diff "
+          f"{d_acc:.3e} (must be 0); global row max abs diff {d_row:.3e} "
+          f"(tol 1e-5); client plane {d_plane:.3e}")
+    check(d_T <= 1e-6 and d_E <= 1e-6, "traced T_k/E_k differ from the host "
+                                       "loop's")
+    check(d_acc == 0.0, "traced accuracy differs from the host loop's")
+    check(d_row <= 1e-5, f"traced global row differs by {d_row}")
+    check(bool(torch.isfinite(traced.global_vec).all()), "non-finite row")
+
+    prog = engine.run_rounds(
+        traced.engine_cfg, selector=traced.selector,
+        allocator=traced.allocator, aggregator=traced.aggregator,
+        tctx=traced.traced_context(), feature_layer=traced.fl.feature_layer,
+        device=traced.device,
+        shapes=engine.shapes_key((traced._images, traced._labels,
+                                  traced._sizes, traced.test_images,
+                                  traced.test_labels)))
+    check(prog.graph is not None, "the round was not captured")
+    # a second run on a fresh experiment (the graph cached): host syncs
+    # from the initial round to the last replay, and its wall
+    again = build_experiment(spec, device=DEVICE)
+    state = again.traced_state()
+    arr = fleet_arrays(again.fleet, DEVICE)
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = prog(state, again._images, again._labels, again._sizes, arr,
+                       again.test_images, again.test_labels,
+                       draws=again.draws, rounds=rounds, with_init=True)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    # a replay counts nothing: these are the initial round's launches
+    init_counts = {name: fn.launches for name, fn in fns.items()}
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    acc2 = res.rounds.accuracy.cpu().tolist()
+    check(acc2 == h_t.accuracy[1:], "a second traced run from the same seed "
+                                    "gave other accuracies")
+    print(f"  first traced run (initial round + {rounds}, capture included) "
+          f"{first_ms:.1f} ms; capture {prog.capture_ms:.1f} ms; a second "
+          f"run from the same seed (graph cached) {second_ms:.1f} ms, "
+          f"{enqueue_ms:.1f} ms of it enqueueing; host syncs in it: "
+          f"{len(syncs)}{' ' + syncs[0][:120] if syncs else ''}")
+    check(not syncs, "the traced run waited for the card before its end")
+
+    batch = again.draws.batch_indices(prog.pad, spec.local_iters,
+                                      spec.batch_size, spec.samples_per_client)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.replay(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    replay_ms = sorted(walls)[len(walls) // 2]
+    host_round_ms = sorted(h_h.seconds[1:])[len(h_h.seconds[1:]) // 2] * 1e3
+    n_dev, busy, inside, by_name, kept = profile_replay(torch, prog, batch)
+    print(f"  round wall (host clock, synchronised; median): traced replay "
+          f"{replay_ms:.1f} ms, host loop {host_round_ms:.1f} ms "
+          f"({host_round_ms / replay_ms:.2f}x)")
+    print(f"  one profiled replay: {n_dev} device launches, {busy:.2f} ms busy"
+          f"; idle share vs the unprofiled replay {1 - busy / replay_ms:.4f}; "
+          f"inside it: {inside}; the wrappers counted "
+          f"{ {k: (counted[k] - init_counts[k]) // 2 for k in inside} } a "
+          f"round at the warm-up and the capture (marks kept before and "
+          f"after it: {kept[0]} and {kept[1]} of {MARK_BURSTS * MARK_SPINS})")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, t)) in enumerate(ranked[:6]):
+        print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
+    for name, n in inside.items():
+        check(n > 0, f"{name} did not run inside the replayed round")
+
+    # the path's launch counts: a third run from the same seed, the
+    # initial round and all its replays under the profiler; the wrappers
+    # count only the (eager) initial round's, as a replay counts nothing
+    third = build_experiment(spec, device=DEVICE)
+    state = third.traced_state()
+    arr = fleet_arrays(third.fleet, DEVICE)
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    run_counts, run_kept = profiled_kernel_counts(torch, lambda: prog(
+        state, third._images, third._labels, third._sizes, arr,
+        third.test_images, third.test_labels, draws=third.draws,
+        rounds=rounds, with_init=True))
+    wrapped = {name: fn.launches for name, fn in fns.items()}
+    launches = {name: run_counts[name] for name in KERNELS}
+    expect = {name: wrapped[name] + rounds * inside[name] for name in inside}
+    agree = all(launches[k] == v for k, v in expect.items())
+    print(f"  a profiled run (initial round + {rounds} replays; marks kept "
+          f"before and after it: {run_kept[0]} and {run_kept[1]} of "
+          f"{MARK_BURSTS * MARK_SPINS}): device launches "
+          f"{run_counts}; the wrappers counted {wrapped} in its initial "
+          f"round, and the initial round + {rounds} x one replay's make "
+          f"{expect} ({'agree' if agree else 'DIFFER'}); the wrappers' "
+          f"counts in the first run (warm-up and capture included): "
+          f"{counted}")
+    for name in inside:
+        check(launches[name] >= wrapped[name] + rounds,
+              f"{name}: {launches[name]} device launches in the profiled "
+              f"run, fewer than its initial round's {wrapped[name]} + one "
+              f"a replay")
+    return launches, dict(replay_ms=replay_ms, host_round_ms=host_round_ms,
+                          capture_ms=prog.capture_ms, device_launches=n_dev,
+                          busy_ms=busy, inside=inside)
 
 
 def main():
@@ -1068,7 +1409,19 @@ def main():
     _, comparison_launches = comparison_rounds_phase(torch)
     by_path["comparisons (phase 7c)"] = comparison_launches
     torch.cuda.empty_cache()
+    print("  (d) rra: 5 host-loop rounds with and without the solves' "
+          "graphs")
+    varying_set_phase(torch)
+    torch.cuda.empty_cache()
 
+    print(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 8. the device-resident run: ExperimentSpec(), 5 rounds")
+    traced_launches, _ = traced_phase(torch)
+    by_path["device-resident run (phase 8)"] = traced_launches
+    torch.cuda.empty_cache()
+
+    print(f"  phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 9. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

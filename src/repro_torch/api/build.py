@@ -70,6 +70,7 @@ def build_experiment(spec: ExperimentSpec, device=None, *,
         batch_size=spec.batch_size,
         selection=SELECTORS.resolve(spec.selection),
         allocator=ALLOCATORS.resolve(spec.allocator),
-        aggregator=AGGREGATORS.resolve(spec.aggregator), draws=draws)
+        aggregator=AGGREGATORS.resolve(spec.aggregator),
+        fedprox_mu=spec.fedprox_mu, draws=draws)
     exp.spec = spec
     return exp

@@ -62,6 +62,7 @@ class ExperimentSpec:
     batch_size: int = 32
     target_accuracy: float = 0.0           # 0 → always run ``rounds``
     feature_layer: str = "auto"            # K-means feature (Alg. 2)
+    fedprox_mu: float = 0.0                # >0 → FedProx client objective
 
     # ---- seeds (None → derived from ``seed``) ------------------------
     seed: int = 0

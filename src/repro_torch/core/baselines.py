@@ -17,19 +17,22 @@ bisection as an ``[n_grid, 1]`` column, and every bisection runs a fixed
 count with a sticky stop where the reference's ``while_loop`` ends early,
 so no step reads a value back to the host. On the card one FEDL solve is
 about 50,000 small launches; :func:`fedl_lambda` and
-:func:`tune_fedl_lambda` replay it as a CUDA graph captured once per
-(device, S, n_grid, mask) — the same launches, without the host's
-per-launch cost. A CPU tensor runs :func:`_fedl_solve` itself.
+:func:`tune_fedl_lambda` replay it as a CUDA graph captured per (device,
+S, n_grid, mask) at its second call — the same launches, without the
+host's per-launch cost (``repro_torch.core.graphs.GraphCache``). A CPU
+tensor, a shape's first solve, or a solve inside a captured round, runs
+:func:`_fedl_solve` itself.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch.core.graphs import GraphCache, graph_key, replays
 from repro_torch.core.sao import _Q
-from repro_torch.core.wireless import (LN2, effective_arrays, masked_max,
-                                       masked_sum)
+from repro_torch.core.wireless import (LN2, device_scalar, effective_arrays,
+                                       masked_max, masked_sum)
 
 _INV_LN2 = 1.0 / LN2
 
@@ -137,7 +140,7 @@ def _waterfill_b(T, arr, B, n_iters: int = 40, mask=None):
     to ``b = 0`` and left out of the band sum."""
     b_req = _b_required(T, arr)
     zero = torch.zeros((), dtype=b_req.dtype, device=b_req.device)
-    B = torch.as_tensor(B, dtype=torch.float32, device=b_req.device)
+    B = device_scalar(B, b_req.device)
     if mask is None:
         b_hi_cap = B.expand(b_req.shape)
     else:
@@ -187,7 +190,7 @@ def _fedl_grid(arr, B, lam, n_grid: int, mask):
     (+inf where the deadline cannot be met within B), b, f, e
     [n_grid, S])``."""
     J = arr["J"]
-    B = torch.as_tensor(B, dtype=torch.float32, device=J.device)
+    B = device_scalar(B, J.device)
     n = J.shape[0] if mask is None else torch.clamp(torch.sum(mask), min=1)
     # the bracket counts the real lanes only, never the padding
     T_min = masked_max(LN2 * arr["z"] / J + arr["U"] / arr["f_max"],
@@ -221,64 +224,20 @@ def _fedl_solve(arr, B, lam, n_grid: int, mask) -> AllocResult:
                        feasible=e <= arr["e_cons"] + 1e-6)
 
 
-class _CapturedSolve:
-    """:func:`_fedl_solve` captured as a CUDA graph for one (device, S,
-    n_grid, mask): the inputs are copied into the graph's own tensors, the
-    graph replays, and the outputs are copied out (a later replay
-    overwrites them)."""
-
-    def __init__(self, arr, B, lam, n_grid: int, mask):
-        self.arr = {k: v.clone() for k, v in arr.items()}
-        dev = arr["J"].device
-        self.B = torch.empty((), dtype=torch.float32, device=dev)
-        self.lam = torch.empty((), dtype=torch.float32, device=dev)
-        self.mask = None if mask is None else mask.clone()
-        self._load(arr, B, lam, mask)
-        # one eager solve first, on a side stream, so that nothing is
-        # first touched (a kernel's module, an allocator block) during
-        # the capture
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            _fedl_solve(self.arr, self.B, self.lam, n_grid, self.mask)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = _fedl_solve(self.arr, self.B, self.lam, n_grid,
-                                   self.mask)
-
-    def _load(self, arr, B, lam, mask):
-        # device-to-device copies and fills: nothing waits for the card
-        for k, v in self.arr.items():
-            v.copy_(arr[k])
-        for dst, v in ((self.B, B), (self.lam, lam)):
-            if isinstance(v, torch.Tensor):
-                dst.copy_(v)
-            else:
-                dst.fill_(v)
-        if mask is not None:
-            self.mask.copy_(mask)
-
-    def __call__(self, arr, B, lam, mask) -> AllocResult:
-        self._load(arr, B, lam, mask)
-        self.graph.replay()
-        return AllocResult(*(v.clone() for v in self.out))
-
-
-# one captured solve per shape on the card, as ``jax.jit`` keeps one
+# the captured solves per shape on the card, as ``jax.jit`` keeps one
 # compiled program per static shape
-_GRAPHS: Dict[Tuple, _CapturedSolve] = {}
+_GRAPHS = GraphCache()
 
 
 def _solve(arr, B, lam, n_grid: int, mask) -> AllocResult:
-    """:func:`_fedl_solve`: eager on the CPU, a graph replay on the card."""
-    J = arr["J"]
-    if not J.is_cuda:
+    """:func:`_fedl_solve`: a graph replay on the card, eager on the CPU
+    and inside a captured round (:func:`repro_torch.core.graphs.replays`).
+    """
+    if not replays(arr["J"]):
         return _fedl_solve(arr, B, lam, n_grid, mask)
-    key = (J.device, J.shape[0], n_grid, mask is None, tuple(sorted(arr)))
-    if key not in _GRAPHS:
-        _GRAPHS[key] = _CapturedSolve(arr, B, lam, n_grid, mask)
-    return _GRAPHS[key](arr, B, lam, mask)
+    return _GRAPHS(graph_key(arr, mask, "fedl", n_grid),
+                   lambda a, sc, m: _fedl_solve(a, sc[0], sc[1], n_grid, m),
+                   arr, (B, lam), mask)
 
 
 def fedl_lambda(arr: Dict[str, torch.Tensor], B: float, lam,

@@ -50,6 +50,13 @@ class TorchDraws:
 
     def kmeans_choice(self, i: int, p: torch.Tensor) -> torch.Tensor:
         """Centroid ``i`` drawn with probabilities ``p`` (uniform when
-        every row already sits on a centroid)."""
+        every row already sits on a centroid), by inverting the CDF at one
+        uniform: unlike ``torch.multinomial``, which checks ``p`` on the
+        host, nothing here waits for the card."""
         p = torch.where(p.sum() > 0, p, torch.ones_like(p))
-        return torch.multinomial(p, 1, generator=self.generator)[0]
+        cdf = torch.cumsum(p, 0)
+        u = torch.rand((1,), generator=self.generator, device=p.device,
+                       dtype=cdf.dtype) * cdf[-1]
+        # the first row whose CDF passes u: a row of p = 0 never does
+        pick = torch.searchsorted(cdf, u, right=True)
+        return torch.clamp(pick, max=p.shape[0] - 1)[0]

@@ -19,16 +19,23 @@ Everything is fp32 tensors on the fleet's device, vectorised over devices.
 The reference's outer ``lax.while_loop`` becomes a fixed ``n_outer`` loop
 with a sticky ``done`` mask: once the band ratio lands in [1−eps0, 1] the
 bracket is pinned to that T and later iterations leave it there, so no
-iteration reads a value back to the host.
+iteration reads a value back to the host. On the card that solve (about
+50,000 small launches) is captured per (device, S, mask, parameters) at
+its second call as a CUDA graph and replayed from then on
+(``repro_torch.core.graphs.GraphCache``): the same launches and bits,
+without the host's per-launch cost. A CPU tensor, a shape's first solve,
+or a solve inside a captured round, runs :func:`_sao_body` itself.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.wireless import (LN2, effective_arrays, masked_max,
-                                       masked_sum, rate_mbps)
+from repro_torch.core.graphs import GraphCache, graph_key, replays
+from repro_torch.core.wireless import (LN2, device_scalar, effective_arrays,
+                                       masked_max, masked_sum, rate_mbps)
 
 
 class SAOSolution(NamedTuple):
@@ -114,21 +121,42 @@ def _inner_allocate(T, arr, b_max, n_iters: int, box_correct: bool = False):
     return torch.minimum(b, b_max), f
 
 
-def solve_sao(arr: Dict[str, torch.Tensor], B: float, *, mask=None,
-              eps0: float = 1e-3, b_max: float = None, n_outer: int = 48,
+# the captured solves per shape and parameters on the card, as ``jax.jit``
+# keeps one compiled program per static shape
+_GRAPHS = GraphCache()
+
+
+def solve_sao(arr: Dict[str, torch.Tensor], B, *, mask=None,
+              eps0: float = 1e-3, b_max=None, n_outer: int = 48,
               n_inner: int = 48, box_correct: bool = False) -> SAOSolution:
-    """Algorithm 5. ``arr`` = fleet_arrays(fleet.select(S_k)); B in MHz.
+    """Algorithm 5. ``arr`` = fleet_arrays(fleet.select(S_k)); B in MHz
+    (a number or a 0-d tensor, as is ``b_max``).
 
     Outer bisection on T_k: Σ_n b_n(T) is monotone ↓ in T, so bisection
     converges to the T* where the band is exactly used. ``mask`` ([S]
     bool) marks real lanes of a padded selection; pads are excluded from
-    the band sum and delay max and get ``b = f = 0``.
+    the band sum and delay max and get ``b = f = 0``. On the card the
+    solve replays its CUDA graph (:mod:`repro_torch.core.graphs`).
     """
     arr = effective_arrays(arr)
+    scalars = (B,) if b_max is None else (B, b_max)
+    body = functools.partial(_sao_body, eps0=eps0, n_outer=n_outer,
+                             n_inner=n_inner, box_correct=box_correct)
+    if not replays(arr["J"]):
+        return body(arr, scalars, mask)
+    key = graph_key(arr, mask, len(scalars), eps0, n_outer, n_inner,
+                    box_correct)
+    return _GRAPHS(key, body, arr, scalars, mask)
+
+
+def _sao_body(arr, scalars, mask, *, eps0: float, n_outer: int,
+              n_inner: int, box_correct: bool) -> SAOSolution:
+    """The solve itself over an interference-folded ``arr``: ``scalars``
+    is ``(B,)`` or ``(B, b_max)``, loaded on the device by fills or device
+    copies, so no step waits for the card and a capture may hold it."""
     dev = arr["J"].device
-    B = torch.tensor(B, dtype=torch.float32, device=dev)
-    b_max = B if b_max is None else torch.tensor(b_max, dtype=torch.float32,
-                                                 device=dev)
+    B = device_scalar(scalars[0], dev)
+    b_max = B if len(scalars) == 1 else device_scalar(scalars[1], dev)
     if mask is None:
         mask = torch.ones(arr["J"].shape, dtype=torch.bool, device=dev)
 

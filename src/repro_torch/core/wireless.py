@@ -183,6 +183,15 @@ def completion_times(arr, b_mhz, f_ghz, mask=None):
     return torch.where(mask, d, torch.full_like(d, float("inf")))
 
 
+def device_scalar(x, device) -> torch.Tensor:
+    """``x`` as a 0-d fp32 tensor on ``device``: a tensor as it is (cast),
+    a number by a fill on the device, never by a copy from the host (which
+    waits for the card, and which a CUDA graph capture refuses)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def masked_max(x, mask=None, empty=0.0):
     """Max over the real lanes; an all-False mask returns ``empty``."""
     if mask is None:

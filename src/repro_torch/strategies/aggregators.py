@@ -14,8 +14,18 @@ from repro_torch.kernels import ops
 @dataclass(frozen=True)
 class FedAvgAggregator(Strategy):
     """Eq. (4): the D_n-weighted mean of the participating client rows, as
-    one ``ops.flat_aggregate`` row reduction. Stateless."""
+    one ``ops.flat_aggregate`` row reduction. Stateless: its server state
+    (``RoundState.opt_state``) is ``None``."""
+
+    traceable = True
+
+    def init_flat_state(self, global_vec: torch.Tensor):
+        return None
 
     def aggregate_flat(self, global_vec: torch.Tensor, rows: torch.Tensor,
-                       weights: torch.Tensor) -> torch.Tensor:
-        return ops.flat_aggregate(rows, weights)
+                       weights: torch.Tensor, opt_state=None):
+        """``(new global row, new server state)``."""
+        return ops.flat_aggregate(rows, weights), opt_state
+
+    def load_flat_state(self, opt_state, spec) -> None:
+        pass

@@ -3,7 +3,12 @@
 ``fleet_arrays`` of the selected devices and the band B [MHz] and returns
 an :class:`Allocation`, whose tensors stay on the fleet arrays' device
 until the history reads them. ``mask`` marks the real lanes of a padded
-selection."""
+selection.
+
+Each also implements the traced contract
+(``repro_torch.api.protocols.TracedAllocator``): ``allocate_traced(arr,
+B, mask) -> (T, E, b, f)``, which ``allocate`` wraps. Inside a captured
+round the solves run their eager bodies as part of the round's graph."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,13 +32,18 @@ class SAOAllocator(Strategy):
 
     box_correct: bool = False
 
+    traceable = True
+
     def allocate(self, arr, B: float, mask=None) -> Allocation:
+        return Allocation(*self.allocate_traced(arr, B, mask))
+
+    def allocate_traced(self, arr, B: float, mask):
         # interference folds into J before the energy sum too: the rate the
         # solver allocated against is the degraded one
         arr = effective_arrays(arr)
         s = solve_sao(arr, B, mask=mask, box_correct=self.box_correct)
         e = arr["G"] * torch.square(s.f) + arr["H"] / _Q(s.b, arr["J"])
-        return Allocation(T=s.T, E=masked_sum(e, mask), b=s.b, f=s.f)
+        return s.T, masked_sum(e, mask), s.b, s.f
 
     @classmethod
     def from_string(cls, arg):
@@ -50,9 +60,14 @@ class SAOAllocator(Strategy):
 class EqualBandwidthAllocator(Strategy):
     """Baseline 1: b_n = B/S, fastest feasible frequency per device."""
 
+    traceable = True
+
     def allocate(self, arr, B: float, mask=None) -> Allocation:
+        return Allocation(*self.allocate_traced(arr, B, mask))
+
+    def allocate_traced(self, arr, B: float, mask):
         r = equal_bandwidth(arr, B, mask=mask)
-        return Allocation(T=r.T, E=torch.sum(r.e), b=r.b, f=r.f)
+        return r.T, torch.sum(r.e), r.b, r.f
 
 
 @ALLOCATORS.register("fedl")
@@ -63,9 +78,14 @@ class FEDLAllocator(Strategy):
 
     lam: float = 1.0
 
+    traceable = True
+
     def allocate(self, arr, B: float, mask=None) -> Allocation:
+        return Allocation(*self.allocate_traced(arr, B, mask))
+
+    def allocate_traced(self, arr, B: float, mask):
         r = fedl_lambda(arr, B, self.lam, mask=mask)
-        return Allocation(T=r.T, E=masked_sum(r.e, mask), b=r.b, f=r.f)
+        return r.T, masked_sum(r.e, mask), r.b, r.f
 
 
 @ALLOCATORS.register("fedl_auto")
@@ -79,9 +99,14 @@ class FEDLAutoAllocator(Strategy):
     iters: int = 12
     n_grid: int = 60
 
+    traceable = True
+
     def allocate(self, arr, B: float, mask=None) -> Allocation:
+        return Allocation(*self.allocate_traced(arr, B, mask))
+
+    def allocate_traced(self, arr, B: float, mask):
         arr = effective_arrays(arr)
         lam = tune_fedl_lambda(arr, B, mask=mask, iters=self.iters,
                                n_grid=self.n_grid)
         r = fedl_lambda(arr, B, lam, n_grid=self.n_grid, mask=mask)
-        return Allocation(T=r.T, E=masked_sum(r.e, mask), b=r.b, f=r.f)
+        return r.T, masked_sum(r.e, mask), r.b, r.f

@@ -1,9 +1,16 @@
 """Registered device-selection strategies (paper §IV, Algorithms 3-4, and
-the compared baselines; ``repro.strategies.selectors``, host contract).
-Thin adapters over ``repro_torch.core.selection``; each reads only what
-it needs from the :class:`SelectionContext`. The channel-aware policies
-compute their rates from the fleet in fp32 on the CPU, as the reference
-does in ``jnp``."""
+the compared baselines; ``repro.strategies.selectors``). Thin adapters
+over ``repro_torch.core.selection``; each reads only what it needs from
+the :class:`SelectionContext`. The channel-aware policies compute their
+rates from the fleet in fp32 on the CPU, as the reference does in
+``jnp``.
+
+Every one also implements the traced contract
+(``repro_torch.api.protocols.TracedSelector``): ``select_traced`` over
+fixed-size padded index sets (``repro_torch.strategies.traced``), which
+the device-resident run (``repro_torch.core.engine.run_rounds``) calls.
+The stochastic ones take their draw as an argument there.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,13 +18,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.api.protocols import SelectionContext
+from repro_torch.api.protocols import SelectionContext, TracedContext
 from repro_torch.api.registry import SELECTORS, Strategy, StrategyError
 from repro_torch.core.selection import (select_divergence, select_icas,
                                         select_kmeans_random, select_random,
                                         select_rra)
-from repro_torch.core.wireless import (effective_arrays, fleet_arrays,
-                                       rate_mbps)
+from repro_torch.core.wireless import effective_arrays, fleet_arrays
+from repro_torch.strategies.traced import (rate_at, select_divergence_traced,
+                                           select_icas_traced,
+                                           select_kmeans_random_traced,
+                                           select_random_traced,
+                                           select_rra_traced,
+                                           select_stochastic_sched_traced)
 
 
 def _require_clusters(ctx: SelectionContext, name: str):
@@ -33,28 +45,34 @@ def _host_arrays(ctx: SelectionContext):
     return effective_arrays(fleet_arrays(ctx.fleet))
 
 
-def _rate_at(arr, band_mhz: float) -> torch.Tensor:
-    """Each device's rate [Mbit/s] at an equal band share ``band_mhz``."""
-    return rate_mbps(torch.tensor(band_mhz, dtype=torch.float32), arr["J"])
-
-
 @SELECTORS.register("random")
 @dataclass(frozen=True)
 class RandomSelector(Strategy):
-    """FedAvg [31]: S uniform devices."""
+    """FedAvg [31]: S uniform devices. Traced draw: a permutation of N."""
 
+    traceable = True
     needs_rng = True
     needs_divergence = False
 
     def select(self, ctx: SelectionContext) -> np.ndarray:
         return select_random(ctx.rng, ctx.num_devices, ctx.devices_per_round)
 
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.devices_per_round
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_random_traced(draw, num_devices=ctx.num_devices,
+                                    S=ctx.devices_per_round)
+
 
 @SELECTORS.register("kmeans_random")
 @dataclass(frozen=True)
 class KMeansRandomSelector(Strategy):
-    """Algorithm 3: s random devices from each cluster."""
+    """Algorithm 3: s random devices from each cluster. Traced draw: [N]
+    uniforms."""
 
+    traceable = True
     needs_rng = True
     needs_divergence = False
     needs_clusters = True
@@ -64,12 +82,22 @@ class KMeansRandomSelector(Strategy):
             ctx.rng, _require_clusters(ctx, self.registry_name),
             ctx.selected_per_cluster)
 
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.num_clusters * ctx.selected_per_cluster
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_kmeans_random_traced(
+            draw, labels, num_clusters=ctx.num_clusters,
+            s=ctx.selected_per_cluster, num_devices=ctx.num_devices)
+
 
 @SELECTORS.register("divergence")
 @dataclass(frozen=True)
 class DivergenceSelector(Strategy):
     """Algorithm 4 (ours): top-s weight divergence per cluster."""
 
+    traceable = True
     needs_rng = False
     needs_divergence = True
     needs_clusters = True
@@ -79,6 +107,15 @@ class DivergenceSelector(Strategy):
                                  _require_clusters(ctx, self.registry_name),
                                  ctx.selected_per_cluster)
 
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.num_clusters * ctx.selected_per_cluster
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_divergence_traced(
+            divergences, labels, num_clusters=ctx.num_clusters,
+            s=ctx.selected_per_cluster, num_devices=ctx.num_devices)
+
 
 @SELECTORS.register("icas")
 @dataclass(frozen=True)
@@ -87,14 +124,25 @@ class ICASSelector(Strategy):
 
     beta: float = 0.5
 
+    traceable = True
     needs_rng = False
     needs_divergence = True
 
     def select(self, ctx: SelectionContext) -> np.ndarray:
-        rates = _rate_at(_host_arrays(ctx),
+        rates = rate_at(_host_arrays(ctx),
                          ctx.bandwidth_mhz / ctx.num_devices).numpy()
         return select_icas(ctx.divergences(), rates, ctx.devices_per_round,
                            beta=self.beta)
+
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.devices_per_round
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_icas_traced(
+            divergences, arr, bandwidth_mhz=ctx.bandwidth_mhz,
+            num_devices=ctx.num_devices, S=ctx.devices_per_round,
+            beta=self.beta)
 
 
 @SELECTORS.register("stochastic-sched")
@@ -103,15 +151,26 @@ class StochasticSchedSelector(Strategy):
     """Churn-aware stochastic scheduling (Perazzone et al., arXiv
     2201.07912): independent per-device participation probabilities
     proportional to energy headroom over per-round cost, normalized to an
-    expected set size of ``devices_per_round``; never empty."""
+    expected set size of ``devices_per_round``; never empty. Traced draw:
+    [N] uniforms."""
 
+    traceable = True
     needs_rng = True
     needs_divergence = False
+
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.num_devices          # the set size varies
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_stochastic_sched_traced(
+            draw, arr, bandwidth_mhz=ctx.bandwidth_mhz,
+            num_devices=ctx.num_devices, S=ctx.devices_per_round)
 
     def select(self, ctx: SelectionContext) -> np.ndarray:
         arr = _host_arrays(ctx)
         S = ctx.devices_per_round
-        cost = ((arr["H"] / _rate_at(arr, ctx.bandwidth_mhz / S)).numpy()
+        cost = ((arr["H"] / rate_at(arr, ctx.bandwidth_mhz / S)).numpy()
                 + arr["G"].numpy() * np.square(arr["f_max"].numpy()))
         ratio = arr["e_cons"].numpy() / np.maximum(cost, 1e-12)
         p = np.clip(S * ratio / max(float(ratio.sum()), 1e-12), 0.0, 1.0)
@@ -125,16 +184,27 @@ class StochasticSchedSelector(Strategy):
 @dataclass(frozen=True)
 class RRASelector(Strategy):
     """RRA [39]: energy-efficiency participation thresholding; the selected
-    set size varies per round (~``target_mean`` on average, §VI-C)."""
+    set size varies per round (~``target_mean`` on average, §VI-C).
+    Traced draw: [N] uniforms."""
 
     target_mean: int = 45
 
+    traceable = True
     needs_rng = True
     needs_divergence = False
 
+    def pad_size(self, ctx: TracedContext) -> int:
+        return ctx.num_devices          # the set size varies
+
+    def select_traced(self, draw, divergences, labels, arr,
+                      ctx: TracedContext):
+        return select_rra_traced(
+            draw, arr, bandwidth_mhz=ctx.bandwidth_mhz,
+            num_devices=ctx.num_devices, target_mean=self.target_mean)
+
     def select(self, ctx: SelectionContext) -> np.ndarray:
         arr = _host_arrays(ctx)
-        e_eq = (arr["H"] / _rate_at(arr, ctx.bandwidth_mhz
+        e_eq = (arr["H"] / rate_at(arr, ctx.bandwidth_mhz
                                     / self.target_mean)).numpy()
         return select_rra(ctx.rng, e_eq, arr["e_cons"].numpy(),
                           target_mean=self.target_mean)

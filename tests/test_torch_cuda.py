@@ -344,7 +344,9 @@ def test_fedl_graph_matches_its_eager_solve(cuda):
     fleet = sample_fleet(100, seed=1).select(np.arange(10))
     arr = fleet_arrays(fleet, cuda)
     mask = torch.arange(10, device=cuda) < 7
-    for lam, m in ((4.58, None), (0.2, None), (4.58, mask)):
+    bl._GRAPHS.clear()
+    # a shape's first solve runs eager, its second captures
+    for lam, m in ((4.58, None), (0.2, None), (1.0, mask), (4.58, mask)):
         got = bl.fedl_lambda(arr, 20.0, lam, 60, mask=m)
         want = bl._fedl_solve(bl.effective_arrays(arr), 20.0, lam, 60, m)
         for g, w in zip(got, want):
@@ -354,3 +356,87 @@ def test_fedl_graph_matches_its_eager_solve(cuda):
             torch.testing.assert_close(float(torch.sum(got.e) + lam * got.T),
                                        float(torch.sum(cpu.e) + lam * cpu.T),
                                        rtol=1e-3, atol=0)
+    assert len(bl._GRAPHS.graphs) == 2
+
+
+def test_sao_graph_matches_its_eager_solve(cuda):
+    """SAO's captured CUDA graph against its body run eagerly on the card,
+    bit for bit: with and without the box correction and a padding mask,
+    two fleets through one capture (a shape's first solve runs eager, its
+    second captures); the CPU solve within SAO's band."""
+    from repro_torch.core import sao
+    from repro_torch.core.graphs import eager_solves
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    mask = torch.arange(10, device=cuda) < 7
+    sao._GRAPHS.clear()
+    for seed in (1, 2, 3):
+        fleet = sample_fleet(100, seed=seed).select(np.arange(10))
+        arr = fleet_arrays(fleet, cuda)
+        for box in (False, True):
+            for m in (None, mask):
+                got = solve_sao(arr, 20.0, mask=m, box_correct=box)
+                with eager_solves():
+                    want = solve_sao(arr, 20.0, mask=m, box_correct=box)
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0)
+        got, cpu = solve_sao(arr, 20.0), solve_sao(fleet_arrays(fleet), 20.0)
+        torch.testing.assert_close(float(got.T), float(cpu.T), rtol=2e-3,
+                                   atol=0)
+    assert len(sao._GRAPHS.graphs) == 4
+
+
+def test_graph_cache_captures_a_shape_at_its_second_solve(cuda):
+    """A shape met once runs eager and holds no graph; the second solve
+    captures it; the cache keeps at most ``max_graphs``, the least
+    recently used going first."""
+    from repro_torch.core import sao
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    arr = fleet_arrays(sample_fleet(100, seed=1), cuda)
+    sao._GRAPHS.clear()
+    solve_sao({k: v[:5] for k, v in arr.items()}, 20.0)
+    assert not sao._GRAPHS.graphs
+    for s in list(range(2, 11)) * 2:
+        solve_sao({k: v[:s] for k, v in arr.items()}, 20.0)
+    held = [key[1] for key in sao._GRAPHS.graphs]
+    assert held == list(range(3, 11)) and sao._GRAPHS.max_graphs == 8
+
+
+def test_replayed_round_matches_the_eager_round_body(cuda):
+    """One replay of the captured round against the same round body run
+    eagerly on the same carry, inputs and batch indices."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core import engine
+    from repro_torch.core.graphs import eager_solves
+    from repro_torch.core.wireless import fleet_arrays
+    spec = ExperimentSpec(dataset="fashion", clients=8, samples_per_client=16,
+                          train_samples=160, test_samples=80, local_iters=2,
+                          batch_size=8, rounds=1, devices_per_round=4,
+                          num_clusters=4)
+    exp = build_experiment(spec, device=cuda)
+    hist = exp.run()                    # the initial round + one replay
+    assert hist.seconds == [] and len(hist.accuracy) == 2
+    prog = engine.run_rounds(
+        exp.engine_cfg, selector=exp.selector, allocator=exp.allocator,
+        aggregator=exp.aggregator, tctx=exp.traced_context(),
+        feature_layer=exp.fl.feature_layer, device=exp.device,
+        shapes=engine.shapes_key((exp._images, exp._labels, exp._sizes,
+                                  exp.test_images, exp.test_labels)))
+    assert prog.graph is not None and prog.capture_ms > 0
+    inputs = engine.RoundInputs(exp._images, exp._labels, exp._sizes,
+                                fleet_arrays(exp.fleet, cuda),
+                                exp.test_images, exp.test_labels)
+    batch = exp.draws.batch_indices(prog.pad, 2, 8, 16)
+    prog.load(exp.traced_state(), inputs)
+    got = [t.clone() for t in prog.replay(batch)]
+    got_state = [t.clone() for t in (prog.state.params,
+                                     prog.state.client_params)]
+    state = exp.traced_state()
+    with eager_solves():
+        state, want = prog.round_body(state, inputs, batch)
+    torch.cuda.synchronize()
+    for name, g, w in zip(engine.RoundOutputs._fields, got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6, msg=name)
+    for g, w in zip(got_state, (state.params, state.client_params)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
