@@ -13,7 +13,8 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    kernel's, the plain version's, one library call's and the bound's times
    (CUDA-event medians after warm-up, L2 flushed before every call) and
    the device launches one call makes; then ``ssd_scan``'s forward plus
-   backward against autograd through its plain version;
+   backward against autograd through its plain version; (d) the lane
+   forms of ``flat_aggregate`` and ``pairwise_l2`` at the cohort's shapes;
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
    agree (selections, T_k, E_k, the global row); ``run()`` takes the
@@ -42,9 +43,19 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    captured as a CUDA graph, replayed once a round) and one through the
    host loop, which must agree; the capture's time, each path's ms a
    round, one replay under ``torch.profiler`` (its device launches, idle
-   share and the FL kernels inside it), and a whole traced run under the
-   profiler, whose FL kernel launches are the path's counts;
-9. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+   share of its own device window and the FL kernels inside it), and a
+   whole traced run under the profiler, whose FL kernel launches are the
+   path's counts;
+9. seed cohorts (``build_cohort``): (a) ``ExperimentSpec(cohort=8)``, the
+   initial round and 5 replays of ONE captured round for the 8 lanes,
+   under ``transfer_guard`` (a host sync raises), each lane held to its
+   seed's single traced run; the cohort's replay against one seed's, one
+   cohort replay profiled, device memory; (b) cohorts of 4 under
+   ``kmeans_random`` and ``random``, their traced draws, against single
+   traced runs fed the same draws; in (a) and (b) a whole guarded run
+   under the profiler gives the path's kernel launches; (c) the quick
+   cell of Fig. 10/11 and Table III (four methods, seeds 0 and 17);
+10. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -120,27 +131,14 @@ class Timer:
 
 def device_launches(torch, fn):
     """The device kernels, copies and memsets that one call of ``fn``
-    enqueues, from ``torch.profiler``'s raw event list (after one call
-    outside it); a CUDA graph's replay counts each of its kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    enqueues (after one call outside the profiler), between marks as
+    ``profiled_device_work`` takes them, fewer of them: without, the
+    profiler once dropped a call's only record; a CUDA graph's replay
+    counts each of its kernels."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n = 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        # not every build's raw event has these accessors
-        kind = e.activity_type() if hasattr(e, "activity_type") else None
-        note = e.is_user_annotation() if hasattr(
-            e, "is_user_annotation") else False
-        n += not (note or e.name().startswith(("aten::", "fl."))
-                  or kind not in (None, *DEVICE_WORK))
-    return n
+    return len(profiled_device_work(torch, fn, "the call",
+                                    bursts=CALL_MARK_BURSTS)[0])
 
 
 def is_device_work(e, DeviceType):
@@ -279,9 +277,98 @@ def kernel_phase(torch, timer):
         check(ok, f"pairwise_l2 [{n},{f}]x[{m},{f}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("pairwise_l2", []).append(r)
+    for name, r in lane_kernel_rows(torch, timer, gen).items():
+        rows[name].append(r)
     rows["flash_attention"] = attention_rows(torch, timer, gen)
     rows["ssd_scan"] = ssd_rows(torch, timer, gen)
     return rows
+
+
+def lane_kernel_rows(torch, timer, gen, lanes=8):
+    """(d) The lane forms on the cohort path (phase 9's 8 lanes):
+    ``flat_aggregate`` at [8, 10, 113744] (a round's fold, every lane in
+    one launch) and ``pairwise_l2`` at [8, 40, 113744] × [8, 1, 113744]
+    (the divergence: the first 40 rows of each lane of an [8, 50, 113744]
+    plane, read in place), each against its plain version at the 2-D
+    rows' tolerances. Library yardsticks in lane form: ``torch.bmm`` and
+    ``torch.cdist(...).square()``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flat_aggregate import (flat_aggregate,
+                                                    flat_aggregate_plain)
+    from repro_torch.kernels.pairwise_l2 import pairwise_l2, plan_slabs
+
+    out = {}
+    n, p = 10, P_MNIST
+    flat = torch.randn((lanes, n, p), generator=gen, device=DEVICE)
+    w = torch.rand((lanes, n), generator=gen, device=DEVICE) + 0.1
+    flat[:, n // 2] = float("nan")              # a NaN row at weight 0
+    w[:, n // 2] = 0.0
+    w = w / w.sum(dim=-1, keepdim=True)
+    got, want = flat_aggregate(flat, w), flat_aggregate_plain(flat, w)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          f"flat_aggregate [{lanes},{n},{p}]: non-finite output")
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **AGG_TOL))
+    live = int((w > 0).sum())
+    b_ms, b_by = bound(live * p * 4 + lanes * n * 4 + lanes * p * 4,
+                       2 * live * p)
+    flat_lib = torch.where(w[..., None] > 0, flat,
+                           torch.zeros((), device=DEVICE))
+    per_call = device_launches(torch, lambda: flat_aggregate(flat, w))
+    check(per_call == 1, f"flat_aggregate [{lanes},{n},{p}]: {per_call} "
+                         "device launches a call, not one for every lane")
+    r = dict(shape=[lanes, n, p], max_abs_err=err, ok=ok,
+             device_launches_per_call=per_call,
+             ms=timer(lambda: flat_aggregate(flat, w)),
+             plain_ms=timer(lambda: flat_aggregate_plain(flat, w)),
+             library_ms=timer(lambda: torch.bmm(w[:, None, :], flat_lib)),
+             bound_ms=b_ms, bound_by=b_by,
+             bound_rate=rate_name(FP32_FLOP_PER_S))
+    print(f"  flat_aggregate lanes [{lanes},{n},{p}] max_abs_err={err:.3e} "
+          f"(tol rtol/atol 2e-5: {'ok' if ok else 'FAIL'}) "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms(torch.bmm)={r['library_ms']:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / r['ms']:.3f} "
+          f"device_launches/call={per_call}")
+    check(ok, f"flat_aggregate [{lanes},{n},{p}] disagrees with its plain "
+              f"version: max_abs_err={err}")
+    out["flat_aggregate"] = r
+    del flat, flat_lib
+
+    n, m, rows_n = 40, 1, 50
+    plane = torch.randn((lanes, rows_n, p), generator=gen, device=DEVICE)
+    x = plane[:, :n]                    # a view: each lane at its stride
+    c = torch.randn((lanes, m, p), generator=gen, device=DEVICE)
+    got, want = pairwise_l2(x, c), ref.pairwise_l2_ref(x, c)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **L2_TOL))
+    b_ms, b_by = bound((lanes * n * p + lanes * m * p + lanes * n * m) * 4,
+                       3 * lanes * n * m * p)
+    slabs = plan_slabs(n, m, p)[0]            # each lane's own plan
+    per_call = device_launches(torch, lambda: pairwise_l2(x, c))
+    check(per_call == (1 if slabs == 1 else 2),
+          f"pairwise_l2 lanes: {per_call} device launches a call with "
+          f"{slabs} slabs")
+    shape = [lanes, n, m, p]
+    r = dict(shape=shape, max_abs_err=err, ok=ok, slabs=slabs,
+             device_launches_per_call=per_call,
+             ms=timer(lambda: pairwise_l2(x, c)),
+             plain_ms=timer(lambda: ref.pairwise_l2_ref(x, c)),
+             library_ms=timer(lambda: torch.cdist(x, c).square()),
+             bound_ms=b_ms, bound_by=b_by,
+             bound_rate=rate_name(FP32_FLOP_PER_S))
+    print(f"  pairwise_l2 lanes [{lanes},{n},{p}] (of [{lanes},{rows_n},{p}])"
+          f"x[{lanes},{m},{p}] max_abs_err={err:.3e} (tol rtol 1e-4 atol "
+          f"1e-3: {'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} library_ms(cdist^2)="
+          f"{r['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"slabs={slabs} device_launches/call={per_call}")
+    check(ok, f"pairwise_l2 lanes disagree with the plain version: "
+              f"max_abs_err={err}")
+    out["pairwise_l2"] = r
+    return out
 
 
 def attention_rows(torch, timer, gen):
@@ -1077,38 +1164,43 @@ def varying_set_phase(torch, rounds=5):
 
 
 MARK_BURSTS, MARK_SPINS, MARK_GAP_S = 40, 16, 0.005
+CALL_MARK_BURSTS = 10            # around one kernel call (phases 2, 7)
 
 
-def mark(torch):
-    """Marker device work around a profiled call: ``MARK_BURSTS`` bursts of
+def mark(torch, bursts=MARK_BURSTS):
+    """Marker device work around a profiled call: ``bursts`` bursts of
     ``MARK_SPINS`` short spin kernels, each burst synced and followed by
-    ``MARK_GAP_S`` of host sleep, about 0.2 s in all. The profiler drops the
-    device records of a session's first moments (13 to 16 of 64 spins
-    enqueued back to back were lost in some runs, all 64 in another), so
-    what it drops must be marks spread over time, not the call's records."""
-    for _ in range(MARK_BURSTS):
+    ``MARK_GAP_S`` of host sleep, about 0.2 s in all for ``MARK_BURSTS``.
+    The profiler drops the device records of a session's first moments (13
+    to 16 of 64 spins enqueued back to back were lost in some runs, all 64
+    in another), so what it drops must be marks spread over time, not the
+    call's records."""
+    for _ in range(bursts):
         for _ in range(MARK_SPINS):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(MARK_GAP_S)
 
 
-def profiled_device_work(torch, fn, what):
-    """``fn`` under ``torch.profiler``, between two runs of ``mark``: its
-    device work (kernels, copies, memsets; a replayed graph gives each of
-    its kernels) from the raw event list as ``(name, ms)`` pairs, and how
-    many marks were recorded before its first record and after its last.
-    Fails when either side kept none: the profiler's window may then have
-    cut ``fn``'s own records."""
+def profiled_device_work(torch, fn, what, bursts=MARK_BURSTS):
+    """``fn`` under ``torch.profiler``, between two runs of ``mark``
+    (``bursts`` bursts each): its device work (kernels, copies, memsets; a
+    replayed graph gives each of its kernels) from the raw event list as
+    ``(name, ms)`` pairs, how many marks were recorded before its first
+    record and after its last, and its own device window [ms]: from its
+    first record's start to its last record's end. Fails when either side
+    kept none: the profiler's window may then have cut ``fn``'s own
+    records. The device activity only: the host's op records of an eager
+    round (several per kernel) made a profiled cohort run's stop and read
+    ≈ 5× the run itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        mark(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mark(torch, bursts)
         fn()
         torch.cuda.synchronize()
-        mark(torch)
+        mark(torch, bursts)
     work, marks = [], []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
@@ -1126,24 +1218,35 @@ def profiled_device_work(torch, fn, what):
             work.append((e.start_ns(), name, e.duration_ns() / 1e6))
     first = min((t for t, _, _ in work), default=math.inf)
     last = max((t for t, _, _ in work), default=-math.inf)
+    end = max((t + ms * 1e6 for t, _, ms in work), default=-math.inf)
     before = sum(t < first for t in marks)
     after = sum(t > last for t in marks)
     check(before > 0 and after > 0,
           f"the profiler kept {before} marks before {what} and {after} after "
-          f"it (of {MARK_BURSTS * MARK_SPINS} each): its window may have cut "
+          f"it (of {bursts * MARK_SPINS} each): its window may have cut "
           f"{what}'s own records")
-    return [(name, ms) for _, name, ms in work], before, after
+    return ([(name, ms) for _, name, ms in work], before, after,
+            (end - first) / 1e6)
 
 
-def profile_replay(torch, prog, batch):
+def idle_share(busy_ms, window_ms):
+    """The share of a profiled call's own device window (its first
+    record's start to its last record's end) in which none of its device
+    work ran: the gaps between a replay's kernels. Read from the same
+    profiled call as ``busy_ms``, so it lies in [0, 1) (a graph captured
+    from one stream runs its kernels one at a time)."""
+    return 1.0 - busy_ms / window_ms
+
+
+def profile_replay(torch, prog, batch, draw=None):
     """One replay of ``prog``'s captured round under ``torch.profiler``
     (``profiled_device_work``): its device launches, busy ms, the launches
-    of each FL kernel and of each device function, and the marks kept
-    before and after it."""
+    of each FL kernel and of each device function, the marks kept before
+    and after it, and its own device window [ms]."""
     from collections import defaultdict
-    prog.replay(batch)
-    work, before, after = profiled_device_work(
-        torch, lambda: prog.replay(batch), "the replay")
+    prog.replay(batch, draw)
+    work, before, after, window = profiled_device_work(
+        torch, lambda: prog.replay(batch, draw), "the replay")
     by_name = defaultdict(lambda: [0, 0.0])
     for name, ms in work:
         by_name[name][0] += 1
@@ -1152,7 +1255,7 @@ def profile_replay(torch, prog, batch):
                       if f"{k}_kernel" in name)
                for k in ("flat_aggregate", "pairwise_l2")}
     return (len(work), sum(ms for _, ms in work), kernels, by_name,
-            (before, after))
+            (before, after), window)
 
 
 # each kernel's own device function: one launch of it per wrapper call
@@ -1166,11 +1269,63 @@ def profiled_kernel_counts(torch, fn):
     """``fn`` under ``torch.profiler`` (``profiled_device_work``): the
     device launches of each kernel's own function (``DEVICE_KERNEL``) and
     of ``slab_sum_kernel`` in it, and the marks kept before and after."""
-    work, before, after = profiled_device_work(torch, fn, "the run")
+    work, before, after, _ = profiled_device_work(torch, fn, "the run")
     names = dict(DEVICE_KERNEL, slab_sum="slab_sum_kernel")
     counts = {k: sum(fn_name in name for name, _ in work)
               for k, fn_name in names.items()}
     return counts, (before, after)
+
+
+def path_launches(torch, fns, run, rounds, what):
+    """A device-resident path's launches of each kernel: ``run`` (the
+    initial round and ``rounds`` replays of an already captured round)
+    under ``torch.profiler``, with the wrappers' counts set to 0 just
+    before it and read just after. The wrappers count the (eager) initial
+    round's launches only, as a replay counts nothing, so the profiled
+    counts are the path's. Returns them with the wrappers' counts; the
+    caller holds them to the initial round's + ``rounds`` × one replay's
+    (``hold_path_launches``)."""
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run_counts, kept = profiled_kernel_counts(torch, run)
+    wrapped = {name: fn.launches for name, fn in fns.items()}
+    print(f"  {what}: a profiled run (initial round + {rounds} replays; marks "
+          f"kept before and after it: {kept[0]} and {kept[1]} of "
+          f"{MARK_BURSTS * MARK_SPINS}; {time.perf_counter() - t0:.1f} s "
+          f"with the profiler's stop and read): device launches "
+          f"{run_counts}; the wrappers counted {wrapped} in its initial "
+          f"round")
+    return {name: run_counts[name] for name in KERNELS}, wrapped
+
+
+def hold_path_launches(launches, wrapped, inside, rounds, what,
+                       replayed=("flat_aggregate", "pairwise_l2")):
+    """Fail unless each kernel's launches in a profiled run are its
+    initial round's (the wrappers') + ``rounds`` × one profiled replay's
+    (``inside``), and each kernel of ``replayed`` ran in every replay (a
+    selector with no divergence replays no ``pairwise_l2``)."""
+    expect = {name: wrapped[name] + rounds * inside.get(name, 0)
+              for name in KERNELS}
+    print(f"  {what}: the initial round + {rounds} x one replay's {inside} "
+          f"make {expect}: {'agree' if expect == launches else 'DIFFER'}")
+    check(expect == launches, f"{what}: {launches} device launches in the "
+                              f"profiled run, not {expect}")
+    for name in replayed:
+        check(inside[name] > 0,
+              f"{what}: {name} did not run inside the replayed round")
+
+
+def single_program(exp):
+    """The device-resident program of ``exp``'s own bundle and shapes (the
+    one its ``run()`` captured and replays)."""
+    from repro_torch.core import engine
+    return engine.run_rounds(
+        exp.engine_cfg, selector=exp.selector, allocator=exp.allocator,
+        aggregator=exp.aggregator, tctx=exp.traced_context(),
+        feature_layer=exp.fl.feature_layer, device=exp.device,
+        shapes=exp.traced_inputs().shapes())
 
 
 def traced_phase(torch, rounds=5):
@@ -1182,8 +1337,6 @@ def traced_phase(torch, rounds=5):
     replay. Then the replayed round's ms, and one replay profiled."""
     import numpy as np
     from repro_torch.api import ExperimentSpec, build_experiment
-    from repro_torch.core import engine
-    from repro_torch.core.wireless import fleet_arrays
 
     spec = ExperimentSpec()
     fns = kernel_fns()
@@ -1226,20 +1379,12 @@ def traced_phase(torch, rounds=5):
     check(d_row <= 1e-5, f"traced global row differs by {d_row}")
     check(bool(torch.isfinite(traced.global_vec).all()), "non-finite row")
 
-    prog = engine.run_rounds(
-        traced.engine_cfg, selector=traced.selector,
-        allocator=traced.allocator, aggregator=traced.aggregator,
-        tctx=traced.traced_context(), feature_layer=traced.fl.feature_layer,
-        device=traced.device,
-        shapes=engine.shapes_key((traced._images, traced._labels,
-                                  traced._sizes, traced.test_images,
-                                  traced.test_labels)))
+    prog = single_program(traced)
     check(prog.graph is not None, "the round was not captured")
     # a second run on a fresh experiment (the graph cached): host syncs
     # from the initial round to the last replay, and its wall
     again = build_experiment(spec, device=DEVICE)
-    state = again.traced_state()
-    arr = fleet_arrays(again.fleet, DEVICE)
+    state, inputs = again.traced_state(), again.traced_inputs()
     torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
@@ -1248,9 +1393,8 @@ def traced_phase(torch, rounds=5):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
-            res = prog(state, again._images, again._labels, again._sizes, arr,
-                       again.test_images, again.test_labels,
-                       draws=again.draws, rounds=rounds, with_init=True)
+            res = prog(state, *inputs, draws=again.draws, rounds=rounds,
+                       with_init=True)
             enqueue_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1281,12 +1425,14 @@ def traced_phase(torch, rounds=5):
         walls.append((time.perf_counter() - t0) * 1e3)
     replay_ms = sorted(walls)[len(walls) // 2]
     host_round_ms = sorted(h_h.seconds[1:])[len(h_h.seconds[1:]) // 2] * 1e3
-    n_dev, busy, inside, by_name, kept = profile_replay(torch, prog, batch)
+    n_dev, busy, inside, by_name, kept, window = profile_replay(
+        torch, prog, batch)
     print(f"  round wall (host clock, synchronised; median): traced replay "
           f"{replay_ms:.1f} ms, host loop {host_round_ms:.1f} ms "
           f"({host_round_ms / replay_ms:.2f}x)")
     print(f"  one profiled replay: {n_dev} device launches, {busy:.2f} ms busy"
-          f"; idle share vs the unprofiled replay {1 - busy / replay_ms:.4f}; "
+          f" in its own device window of {window:.2f} ms: idle share "
+          f"{idle_share(busy, window):.4f}; "
           f"inside it: {inside}; the wrappers counted "
           f"{ {k: (counted[k] - init_counts[k]) // 2 for k in inside} } a "
           f"round at the warm-up and the capture (marks kept before and "
@@ -1294,42 +1440,318 @@ def traced_phase(torch, rounds=5):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for i, (name, (n, t)) in enumerate(ranked[:6]):
         print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
-    for name, n in inside.items():
-        check(n > 0, f"{name} did not run inside the replayed round")
 
     # the path's launch counts: a third run from the same seed, the
-    # initial round and all its replays under the profiler; the wrappers
-    # count only the (eager) initial round's, as a replay counts nothing
+    # initial round and all its replays under the profiler
     third = build_experiment(spec, device=DEVICE)
-    state = third.traced_state()
-    arr = fleet_arrays(third.fleet, DEVICE)
-    torch.cuda.synchronize()
-    for fn in fns.values():
-        fn.launches = 0
-    run_counts, run_kept = profiled_kernel_counts(torch, lambda: prog(
-        state, third._images, third._labels, third._sizes, arr,
-        third.test_images, third.test_labels, draws=third.draws,
-        rounds=rounds, with_init=True))
-    wrapped = {name: fn.launches for name, fn in fns.items()}
-    launches = {name: run_counts[name] for name in KERNELS}
-    expect = {name: wrapped[name] + rounds * inside[name] for name in inside}
-    agree = all(launches[k] == v for k, v in expect.items())
-    print(f"  a profiled run (initial round + {rounds} replays; marks kept "
-          f"before and after it: {run_kept[0]} and {run_kept[1]} of "
-          f"{MARK_BURSTS * MARK_SPINS}): device launches "
-          f"{run_counts}; the wrappers counted {wrapped} in its initial "
-          f"round, and the initial round + {rounds} x one replay's make "
-          f"{expect} ({'agree' if agree else 'DIFFER'}); the wrappers' "
-          f"counts in the first run (warm-up and capture included): "
-          f"{counted}")
-    for name in inside:
-        check(launches[name] >= wrapped[name] + rounds,
-              f"{name}: {launches[name]} device launches in the profiled "
-              f"run, fewer than its initial round's {wrapped[name]} + one "
-              f"a replay")
+    state, inputs = third.traced_state(), third.traced_inputs()
+    launches, wrapped = path_launches(torch, fns, lambda: prog(
+        state, *inputs, draws=third.draws, rounds=rounds, with_init=True),
+        rounds, "the device-resident path")
+    hold_path_launches(launches, wrapped, inside, rounds,
+                       "the device-resident path")
+    print(f"  the wrappers' counts in the first run (warm-up and capture "
+          f"included): {counted}")
     return launches, dict(replay_ms=replay_ms, host_round_ms=host_round_ms,
                           capture_ms=prog.capture_ms, device_launches=n_dev,
-                          busy_ms=busy, inside=inside)
+                          busy_ms=busy, window_ms=window, inside=inside)
+
+
+# benchmarks/common.py's BENCH_DEFAULTS (the figures' §VI protocol), kept
+# here: the port imports nothing of the benchmarks
+FIG10_DEFAULTS = dict(dataset="fashion", train_samples=2500,
+                      test_samples=600, samples_per_client=96, sigma=0.8,
+                      local_iters=20, learning_rate=0.08, num_clusters=10,
+                      devices_per_round=10, data_seed=7, seed=0)
+FIG10_METHODS = ("divergence", "kmeans_random", "random", "icas")
+FIG10_TARGET = 0.60                 # fashion's rounds-to-target accuracy
+LANE_TOL = dict(T_E=1e-5, row=1e-5)  # a lane against its seed's single run
+
+
+def lane_vs_single(ch, i, lane, single, h_single, what, test_samples):
+    """Lane ``i`` of the cohort history ``ch`` (its experiment ``lane``)
+    against its seed's single run (``single``, history ``h_single``):
+    selections equal, accuracy within one test sample, T_k and E_k within
+    rtol 1e-5, the final global row within atol 1e-5."""
+    import numpy as np
+    hi = ch.history(i)
+    check(len(hi.selected) == len(h_single.selected),
+          f"{what}: {len(hi.selected)} rounds, the single run "
+          f"{len(h_single.selected)}")
+    for k, (a, b) in enumerate(zip(hi.selected, h_single.selected)):
+        check(np.array_equal(a, b), f"{what}: round {k} selected {list(a)}, "
+                                    f"its single run {list(b)}")
+    d_T = max(abs(x - y) / abs(y) for x, y in zip(hi.T_k, h_single.T_k))
+    d_E = max(abs(x - y) / abs(y) for x, y in zip(hi.E_k, h_single.E_k))
+    d_acc = max(abs(x - y) for x, y in zip(hi.accuracy, h_single.accuracy))
+    d_row = float((lane.global_vec - single.global_vec).abs().max())
+    check(d_T <= LANE_TOL["T_E"] and d_E <= LANE_TOL["T_E"],
+          f"{what}: T_k/E_k differ from the single run by {d_T}, {d_E}")
+    check(d_acc <= 1.0 / test_samples + 1e-9,
+          f"{what}: accuracy differs from the single run by {d_acc}")
+    check(d_row <= LANE_TOL["row"], f"{what}: global row differs by {d_row}")
+    return d_T, d_E, d_acc, d_row
+
+
+def lane_draws(torch, prog, exps):
+    """A round's batch indices and selector draw (``None`` for a
+    deterministic selector) for ``prog``'s lanes, from each lane's
+    experiment's draws: lane-stacked for a cohort, else ``exps[0]``'s."""
+    spec = exps[0].spec
+    batch = [e.draws.batch_indices(prog.pad, spec.local_iters,
+                                   spec.batch_size, spec.samples_per_client)
+             for e in exps]
+    draw = [e.draws.selector_draw(prog.draw_kind, spec.clients)
+            for e in exps] if prog.draw_kind else None
+    if prog.lanes is None:
+        return batch[0], draw and draw[0]
+    return torch.stack(batch), draw and torch.stack(draw)
+
+
+def profiled_cohort_run(torch, fns, runner, rounds, what):
+    """A cohort run from the same seeds as ``runner``'s last, its program
+    already captured: under ``transfer_guard`` (sync debug mode "error":
+    any host sync raises) and under the profiler (``path_launches``).
+    Returns the history, its wall [ms] (the profiler's included), the
+    path's launches and the wrappers' counts (the initial round's)."""
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        out["ch"] = runner.run(rounds=rounds, transfer_guard=True)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+    launches, wrapped = path_launches(torch, fns, run, rounds, what)
+    return out["ch"], out["ms"], launches, wrapped
+
+
+def same_history(a, b):
+    """Two cohort histories equal in every round of every lane."""
+    import numpy as np
+    return (np.array_equal(a.selected, b.selected)
+            and a.accuracy.tolist() == b.accuracy.tolist()
+            and a.T_k.tolist() == b.T_k.tolist()
+            and a.E_k.tolist() == b.E_k.tolist())
+
+
+def cohort_phase(torch, rounds=5, lanes=8):
+    """(a) ``build_cohort(ExperimentSpec(cohort=8))``: the initial round and
+    ``rounds`` replays of ONE captured round for the 8 lanes. A first run
+    captures; a second from the same seeds runs under ``transfer_guard``
+    (any host sync raises) and under the profiler, the wrappers' counts
+    set to 0 just before it and read just after: its device launches are
+    the path's, held to the initial round's + ``rounds`` × one profiled
+    replay's. It must repeat the first. Each lane is held to its seed's
+    single traced run. Then the cohort's replay against the single run's
+    (median of 6 synchronised replays each, in turns), one cohort replay
+    profiled (device launches, idle share of its own device window, the
+    FL kernels inside) and the device memory."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+
+    what = f"cohort of {lanes}"
+    spec = ExperimentSpec(cohort=lanes)
+    fns = kernel_fns()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    runner = build_cohort(spec)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    first = runner.run(rounds=rounds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prog = runner.program
+    check(prog.graph is not None and prog.lanes == lanes,
+          "the cohort's round was not captured as one graph for all lanes")
+    ch, guarded_ms, launches, wrapped = profiled_cohort_run(
+        torch, fns, runner, rounds, what)
+    check(runner.program is prog, "the second cohort run captured again")
+    check(ch.accuracy.shape == (lanes, rounds + 1)
+          and bool(np.isfinite(ch.accuracy).all()
+                   and np.isfinite(ch.T_k).all()
+                   and np.isfinite(ch.E_k).all()),
+          f"cohort history: shape {ch.accuracy.shape} or non-finite values")
+    check(same_history(first, ch), "two cohort runs from the same seeds differ")
+    print(f"  {what} (seeds {ch.seeds}): build {build_ms:.1f} ms; first run "
+          f"(initial round + {rounds}, capture included) {first_ms:.1f} ms, "
+          f"capture {prog.capture_ms:.1f} ms; a second run under "
+          f"transfer_guard (sync debug mode 'error': 0 host syncs) and the "
+          f"profiler {guarded_ms:.1f} ms, equal to the first")
+    print(f"  final accuracy by lane "
+          f"{[round(float(a), 4) for a in ch.final_accuracy]}")
+
+    worst = np.zeros(4)
+    for i, seed in enumerate(ch.seeds):
+        single = build_experiment(spec.replace(seed=seed))
+        h = single.run(rounds=rounds)
+        check(h.seconds == [], "a single run did not take the traced path")
+        worst = np.maximum(worst, lane_vs_single(
+            ch, i, runner.experiments[i], single, h,
+            f"cohort lane {i} (seed {seed})", spec.test_samples))
+    print(f"  every lane against its seed's single traced run: selections "
+          f"equal; max rel diff T_k {worst[0]:.3e}, E_k {worst[1]:.3e} (tol "
+          f"1e-5); accuracy max diff {worst[2]:.4f} (tol one test sample, "
+          f"{1 / spec.test_samples}); global row max abs diff "
+          f"{worst[3]:.3e} (tol 1e-5)")
+
+    single_prog = single_program(single)
+    e0 = runner.experiments[0]
+    batch, _ = lane_draws(torch, prog, runner.experiments)
+    batch1, _ = lane_draws(torch, single_prog, [single])
+    walls = {"single": [], "cohort": []}
+    for _ in range(3):
+        for name, fn in (("single", lambda: single_prog.replay(batch1)),
+                         ("cohort", lambda: prog.replay(batch)),
+                         ("cohort", lambda: prog.replay(batch)),
+                         ("single", lambda: single_prog.replay(batch1))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in walls.items()}
+    n_dev, busy, inside, by_name, kept, window = profile_replay(
+        torch, prog, batch)
+    n1, busy1, _, _, _, window1 = profile_replay(torch, single_prog, batch1)
+    reserved = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    plane_mb = lanes * (spec.clients + prog.pad) * e0.global_vec.numel() * 4
+    print(f"  replay wall (host clock, synchronised; median of "
+          f"{len(walls['cohort'])}, in turns): {what} {ms['cohort']:.1f} ms, "
+          f"one seed {ms['single']:.1f} ms "
+          f"({ms['cohort'] / ms['single']:.2f}x for {lanes}x the seeds)")
+    print(f"  one profiled cohort replay: {n_dev} device launches (one seed's:"
+          f" {n1}), {busy:.2f} ms busy in its own device window of "
+          f"{window:.2f} ms: idle share {idle_share(busy, window):.4f} (one "
+          f"seed's: {busy1:.2f} of {window1:.2f} ms, "
+          f"{idle_share(busy1, window1):.4f}); inside it: {inside} (marks "
+          f"kept before and after it: {kept[0]} and {kept[1]})")
+    for i, (name, (n, t)) in enumerate(sorted(by_name.items(),
+                                              key=lambda kv: -kv[1][1])[:5]):
+        print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
+    print(f"  device memory: reserved +{reserved:.1f} MiB over the phase, "
+          f"peak allocated {peak:.1f} MiB; the [{lanes}, "
+          f"{spec.clients + prog.pad}, {e0.global_vec.numel()}] plane "
+          f"{plane_mb / 1e6:.1f} MB")
+    hold_path_launches(launches, wrapped, inside, rounds, what)
+    return launches, dict(replay_ms=ms["cohort"], single_replay_ms=ms["single"],
+                          capture_ms=prog.capture_ms, device_launches=n_dev,
+                          busy_ms=busy, window_ms=window,
+                          reserved_mib=reserved, peak_mib=peak)
+
+
+def stochastic_cohort_phase(torch, rounds=2, lanes=4):
+    """(b) Cohorts of 4 seeds under ``kmeans_random`` and ``random``, each
+    lane's selector draws from its own draws object. A first run
+    captures; a second from the same seeds runs under ``transfer_guard``
+    and the profiler (``profiled_cohort_run``: the path's launches, held
+    to the initial round's + ``rounds`` × one profiled replay's) and must
+    repeat it. At most s devices of a cluster (``kmeans_random``), exactly
+    S distinct (``random``), and the last lane equal to its seed's single
+    traced run fed the same draws (``traced_run(..., draws=)``). Returns
+    each selector's path launches."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    fns = kernel_fns()
+    by_selector = {}
+    for selection in ("kmeans_random", "random"):
+        what = f"{selection}, cohort of {lanes}"
+        spec = ExperimentSpec(cohort=lanes, selection=selection)
+        t0 = time.perf_counter()
+        runner = build_cohort(spec)
+        first = runner.run(rounds=rounds)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        prog = runner.program
+        ch, guarded_ms, launches, wrapped = profiled_cohort_run(
+            torch, fns, runner, rounds, what)
+        check(runner.program is prog and same_history(first, ch),
+              f"{what}: a second run from the same seeds differs or "
+              "captured again")
+        sizes = []
+        for i in range(lanes):
+            labels = runner.experiments[i].cluster_labels
+            for k, sel in enumerate(ch.history(i).selected[1:]):
+                where = f"{selection} lane {i} round {k + 1}"
+                check(len(set(sel.tolist())) == len(sel)
+                      and all(0 <= d < spec.clients for d in sel),
+                      f"{where}: bad selection {list(sel)}")
+                if selection == "random":
+                    check(len(sel) == spec.devices_per_round,
+                          f"{where}: {len(sel)} devices, not S")
+                else:
+                    check(np.bincount(labels[sel]).max()
+                          <= spec.selected_per_cluster,
+                          f"{where}: more than s devices of a cluster")
+                sizes.append(len(sel))
+        i = lanes - 1
+        single = build_experiment(spec.replace(seed=ch.seeds[i]))
+        res = single.traced_run(single.selector, rounds, draws=single.draws)
+        h = single.history_from_traced(res, spec.clients)
+        single.load_traced_state(res.state)
+        d = lane_vs_single(ch, i, runner.experiments[i], single, h,
+                           f"{selection} lane {i}", spec.test_samples)
+        batch, draw = lane_draws(torch, prog, runner.experiments)
+        inside = profile_replay(torch, prog, batch, draw)[2]
+        # neither selector reads the divergence: pairwise_l2 runs in the
+        # initial round's K-means only
+        hold_path_launches(launches, wrapped, inside, rounds, what,
+                           replayed=("flat_aggregate",))
+        check(launches["pairwise_l2"] > 0,
+              f"{what}: no pairwise_l2 in the initial round's K-means")
+        by_selector[selection] = launches
+        print(f"  {what}: initial round + {rounds}: first run {first_ms:.1f} "
+              f"ms (capture {prog.capture_ms:.1f} ms), a second under "
+              f"transfer_guard and the profiler {guarded_ms:.1f} ms, equal "
+              f"to it; set sizes {sizes}; lane {i} equals its single traced "
+              f"run fed the same draws (max rel diff T_k {d[0]:.3e}, E_k "
+              f"{d[1]:.3e}; accuracy {d[2]:.4f}; row {d[3]:.3e})")
+    return by_selector
+
+
+def fig10_phase(torch, rounds=10, seeds=(0, 17)):
+    """(c) The quick cell of Fig. 10/11 and Table III
+    (``benchmarks/fig10_11_convergence.py``, quick): fashion, σ = 0.8, 30
+    clients, 10 rounds, seeds 0 and 17 as one cohort a method. Each
+    method's mean final accuracy (at its stop round), median rounds to
+    0.60 (rounds + 1 if never), and the Table III score R_random /
+    R_divergence − 1. Only the histories are checked (finite, of the right
+    shape): two seeds do not establish the paper's ranking."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort
+    base = ExperimentSpec(**dict(FIG10_DEFAULTS, clients=30, sigma=0.8,
+                                 rounds=rounds, test_seed=90_000,
+                                 seed=seeds[0]))
+    r2t_median = {}
+    for method in FIG10_METHODS:
+        t0 = time.perf_counter()
+        ch = build_cohort(base.replace(selection=method)).run(
+            seeds=list(seeds), rounds=rounds)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(ch.accuracy.shape == (len(seeds), rounds + 1)
+              and bool(np.isfinite(ch.accuracy).all()
+                       and np.isfinite(ch.T_k).all()
+                       and np.isfinite(ch.E_k).all()),
+              f"fig10 {method}: history shape {ch.accuracy.shape} or "
+              "non-finite values")
+        accs, r2t = [], []
+        for i in range(len(seeds)):
+            acc = ch.history(i).accuracy
+            hit = [k for k, a in enumerate(acc) if a >= FIG10_TARGET]
+            accs.append(acc[hit[0] if hit else len(acc) - 1])
+            r2t.append(hit[0] if hit else rounds + 1)
+        r2t_median[method] = float(np.median(r2t))
+        print(f"  fig10/fashion_s0.8_{method}: final accuracy "
+              f"{np.mean(accs):.4f} (by seed {[round(a, 4) for a in accs]}); "
+              f"rounds to {FIG10_TARGET}: {r2t_median[method]:.1f} (by seed "
+              f"{r2t}); curves {np.round(ch.accuracy, 3).tolist()}; "
+              f"{wall:.1f} ms for the cohort (build and capture included)")
+    score = r2t_median["random"] / max(r2t_median["divergence"], 1e-9) - 1.0
+    print(f"  table3/fashion_s0.8 improvement vs FedAvg (R_random / "
+          f"R_divergence - 1): {score:.3f} (Favor's published: 0.209; two "
+          "seeds, not a ranking)")
 
 
 def main():
@@ -1421,7 +1843,23 @@ def main():
     torch.cuda.empty_cache()
 
     print(f"  phase 8 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 9. the kernels")
+    print("== 9. seed cohorts on the card: lanes of one captured round")
+    print("  (a) build_cohort(ExperimentSpec(cohort=8)), 5 rounds")
+    cohort_launches, _ = cohort_phase(torch)
+    by_path["cohort of 8 (phase 9a)"] = cohort_launches
+    torch.cuda.empty_cache()
+    print(f"  (a) done at {time.perf_counter() - t_start:.1f} s")
+    print("  (b) the stochastic selectors' traced draws, cohorts of 4")
+    for selection, n in stochastic_cohort_phase(torch).items():
+        by_path[f"{selection} cohort of 4 (phase 9b)"] = n
+    torch.cuda.empty_cache()
+    print(f"  (b) done at {time.perf_counter() - t_start:.1f} s")
+    print("  (c) Fig. 10/11 and Table III, the quick cell")
+    fig10_phase(torch)
+    torch.cuda.empty_cache()
+
+    print(f"  phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 10. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

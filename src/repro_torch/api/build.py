@@ -1,5 +1,7 @@
 """``build_experiment(spec)`` — from a declarative ``ExperimentSpec`` to a
-runnable ``FLExperiment`` on one device."""
+runnable ``FLExperiment`` on one device; ``build_cohort(spec)`` — its
+seeds ``seed .. seed + cohort − 1`` as lanes of one device-resident
+program (``repro_torch.core.cohort.CohortRunner``)."""
 from __future__ import annotations
 
 import torch
@@ -74,3 +76,20 @@ def build_experiment(spec: ExperimentSpec, device=None, *,
         fedprox_mu=spec.fedprox_mu, draws=draws)
     exp.spec = spec
     return exp
+
+
+def build_cohort(spec: ExperimentSpec, device=None, *, draws=None):
+    """A ``CohortRunner`` for ``spec`` on ``device`` (default ``cuda``;
+    a machine with no card raises unless the caller passes
+    ``device="cpu"``): seeds ``seed .. seed + cohort − 1`` run as lanes of
+    one captured round (``repro_torch.core.cohort``). ``draws``: ``seed ->
+    draws object`` in place of each lane's default draws.
+
+    Every strategy must be traceable, and a stochastic selector must name
+    its draw (``draw_kind``): a selector the cohort lacks raises here,
+    naming the port."""
+    from repro_torch.core.cohort import CohortRunner     # imports the api
+    from repro_torch.core.engine import selector_draw_kind
+
+    selector_draw_kind(SELECTORS.resolve(spec.selection))
+    return CohortRunner(spec, device, draws=draws)

@@ -64,6 +64,9 @@ class RoundState(NamedTuple):
       labels        : ``[N]`` int64 K-means cluster labels (Alg. 2; zeros
                       until the initial round has run)
 
+    A cohort's carry (``repro_torch.core.cohort``) stacks B of these on a
+    leading lane axis: ``[B, P]``, ``[B, N + S_pad, P]``, ``[B, N]``.
+
     The reference's PRNG ``key`` has no slot: the port's draws are
     arguments of the round (``repro_torch.core.draws``).
     """
@@ -94,8 +97,9 @@ class TracedSelector(Protocol):
     padding lanes hold the sentinel ``ctx.num_devices``, ``mask`` True
     exactly on the real lanes. ``draw`` is the policy's random input,
     drawn by the caller (``[N]`` uniforms, or a permutation of N for
-    ``random``), and ``None`` for a deterministic policy; nothing draws
-    inside.
+    ``random``: ``draw_kind`` says which), and ``None`` for a
+    deterministic policy; nothing draws inside. Every input may carry a
+    leading lane axis (a cohort's seeds), and the result then does too.
     """
 
     traceable: bool

@@ -12,10 +12,11 @@ Strategy fields take a bare name (``"sao"``), the ``name:arg`` shorthand
 through the port's registries and stored in the dict form, so
 ``ExperimentSpec.from_json(spec.to_json()) == spec``. ``model`` is
 ``"auto"``/``"cnn"`` (the paper CNN for ``dataset``) or a registered
-workload name (``"tinyllama"``, ``"mamba2-130m"``: LoRA LM rows). The
-reference's fields the port has no counterpart for yet — ``fleet``,
-``store``, ``compressor``, ``cohort``, … — are left out, so passing one
-raises ``TypeError``.
+workload name (``"tinyllama"``, ``"mamba2-130m"``: LoRA LM rows).
+``cohort`` is the number of seeds ``build_cohort`` runs as lanes of one
+captured round (``repro_torch.core.cohort``). The reference's fields the
+port has no counterpart for yet — ``fleet``, ``store``, ``compressor``, …
+— are left out, so passing one raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -63,6 +64,10 @@ class ExperimentSpec:
     target_accuracy: float = 0.0           # 0 → always run ``rounds``
     feature_layer: str = "auto"            # K-means feature (Alg. 2)
     fedprox_mu: float = 0.0                # >0 → FedProx client objective
+
+    # ---- cohort (seeds as lanes of one captured round) ---------------
+    cohort: int = 1                        # seeds seed..seed+cohort-1 run as
+                                           # ONE program (build_cohort)
 
     # ---- seeds (None → derived from ``seed``) ------------------------
     seed: int = 0

@@ -11,9 +11,11 @@ MHz through a dual bisection on μ, each device's b by bisection on its
 slope de/db). The §VI-A λ protocol ("λ makes the worst device just meet
 its energy budget") is :func:`tune_fedl_lambda`, a bisection on λ.
 
-Everything is fp32 tensors on the fleet arrays' device. The reference's
-``lax.map`` over the T grid is one ``[n_grid, S]`` pass with the μ
-bisection as an ``[n_grid, 1]`` column, and every bisection runs a fixed
+Everything is fp32 tensors on the fleet arrays' device, with an optional
+leading lane axis (a cohort's seeds: arrays of ``[B, S]``, one independent
+allocation a lane, where the reference ``vmap``s). The reference's
+``lax.map`` over the T grid is one ``[n_grid, S]`` pass (``[B, n_grid,
+S]`` with lanes) with the μ bisection as an ``[n_grid, 1]`` column, and every bisection runs a fixed
 count with a sticky stop where the reference's ``while_loop`` ends early,
 so no step reads a value back to the host. On the card one FEDL solve is
 about 50,000 small launches; :func:`fedl_lambda` and
@@ -52,14 +54,14 @@ def equal_bandwidth(arr: Dict[str, torch.Tensor], B: float,
     ``mask`` ([S] bool) marks the real devices of a padded selection: the
     band splits over their count only, pads are left out of the
     reductions and get ``b = f = e = 0``, and an all-False mask gives
-    T = 0."""
+    T = 0. Arrays (and mask) of ``[B, S]``: one allocation a lane."""
     arr = effective_arrays(arr)
     J = arr["J"]
     if mask is None:
-        b = torch.full_like(J, B / J.shape[0])
+        b = torch.full_like(J, B / J.shape[-1])
         b_q = b
     else:
-        n = torch.clamp(torch.sum(mask), min=1)
+        n = torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1)
         b = torch.where(mask, B / n, torch.zeros_like(J))
         b_q = torch.where(mask, b, torch.ones_like(J))   # Q defined on pads
     ecom = arr["H"] / _Q(b_q, J)
@@ -178,33 +180,42 @@ def _waterfill_b(T, arr, B, n_iters: int = 40, mask=None):
 
 def _linspace(start, stop, num: int):
     """``jnp.linspace`` in its own arithmetic: start·(1 − s) + stop·s for
-    s = i/(num − 1), i < num − 1, then ``stop`` itself."""
+    s = i/(num − 1), i < num − 1, then ``stop`` itself; along a new last
+    axis, one grid per lane of ``start`` and ``stop``."""
     div = num - 1
     step = torch.arange(div, dtype=torch.float32, device=start.device) / div
-    return torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
+    start, stop = start[..., None], stop[..., None]
+    return torch.cat([start * (1 - step) + stop * step, stop], dim=-1)
 
 
 def _fedl_grid(arr, B, lam, n_grid: int, mask):
     """The objective Σe + λT at each deadline of the log grid, with each
     deadline's waterfilled allocation: ``(T [n_grid], objective [n_grid]
     (+inf where the deadline cannot be met within B), b, f, e
-    [n_grid, S])``."""
+    [n_grid, S])``, each after the lane axis if there is one (``lam``: a
+    number, or a tensor of one λ a lane)."""
     J = arr["J"]
     B = device_scalar(B, J.device)
-    n = J.shape[0] if mask is None else torch.clamp(torch.sum(mask), min=1)
+    n = (J.shape[-1] if mask is None
+         else torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1))
     # the bracket counts the real lanes only, never the padding
     T_min = masked_max(LN2 * arr["z"] / J + arr["U"] / arr["f_max"],
                        mask) * 1.02
     T_max = masked_max(arr["z"] / _Q(B / n * 0.05, J)
                        + arr["U"] / arr["f_min"], mask)
     Ts = torch.exp(_linspace(torch.log(T_min), torch.log(T_max),
-                             n_grid))[:, None]
-    b = _waterfill_b(Ts, arr, B, mask=mask)
-    e, f = _device_energy(b, Ts, arr)
-    infeasible = masked_sum(_b_required(Ts, arr), mask) > B
-    obj = masked_sum(e, mask) + lam * Ts[:, 0]
+                             n_grid))[..., None]          # [.., n_grid, 1]
+    # the devices as a row against the grid's column of deadlines
+    grid = {k: v[..., None, :] for k, v in arr.items()}
+    gmask = None if mask is None else mask[..., None, :]
+    b = _waterfill_b(Ts, grid, B, mask=gmask)
+    e, f = _device_energy(b, Ts, grid)
+    infeasible = masked_sum(_b_required(Ts, grid), gmask) > B
+    if isinstance(lam, torch.Tensor):
+        lam = lam[..., None]
+    obj = masked_sum(e, gmask) + lam * Ts[..., 0]
     obj = torch.where(infeasible, torch.full_like(obj, float("inf")), obj)
-    return Ts[:, 0], obj, b, f, e
+    return Ts[..., 0], obj, b, f, e
 
 
 def _fedl_solve(arr, B, lam, n_grid: int, mask) -> AllocResult:
@@ -213,8 +224,9 @@ def _fedl_solve(arr, B, lam, n_grid: int, mask) -> AllocResult:
     deadline is infeasible, as ``jnp.argmin`` picks) and its allocation.
     No step reads a value back to the host."""
     _, obj, bs, fs, es = _fedl_grid(arr, B, lam, n_grid, mask)
-    i = torch.argmin(obj).reshape(1)
-    b, f, e = (v.index_select(0, i)[0] for v in (bs, fs, es))
+    i = torch.argmin(obj, dim=-1)[..., None, None]            # per lane
+    i = i.expand(i.shape[:-1] + bs.shape[-1:])
+    b, f, e = (torch.gather(v, -2, i)[..., 0, :] for v in (bs, fs, es))
     b_q = b if mask is None else torch.where(mask, b, torch.ones_like(b))
     t = arr["z"] / _Q(b_q, arr["J"]) + arr["U"] / f
     if mask is not None:
@@ -235,7 +247,8 @@ def _solve(arr, B, lam, n_grid: int, mask) -> AllocResult:
     """
     if not replays(arr["J"]):
         return _fedl_solve(arr, B, lam, n_grid, mask)
-    return _GRAPHS(graph_key(arr, mask, "fedl", n_grid),
+    return _GRAPHS(graph_key(arr, mask, "fedl", n_grid,
+                             tuple(getattr(lam, "shape", ()))),
                    lambda a, sc, m: _fedl_solve(a, sc[0], sc[1], n_grid, m),
                    arr, (B, lam), mask)
 
@@ -258,11 +271,12 @@ def tune_fedl_lambda(arr: Dict[str, torch.Tensor], B: float, *, mask=None,
     max(e − e_cons) ≤ 0 over the real lanes. ``iters`` steps, each frozen
     once the bracket is within 1e-3 (where the reference's loop stops).
     Returns the largest feasible λ found, a 0-dim tensor on the arrays'
-    device."""
+    device (one λ a lane, ``[B]``, for arrays of ``[B, S]``)."""
     arr = effective_arrays(arr)
-    dev = arr["J"].device
-    lo = torch.full((), lam_lo, dtype=torch.float32, device=dev)
-    hi = torch.full((), lam_hi, dtype=torch.float32, device=dev)
+    J = arr["J"]
+    lo = torch.full(J.shape[:-1], lam_lo, dtype=torch.float32,
+                    device=J.device)
+    hi = torch.full_like(lo, lam_hi)
     for _ in range(iters):
         active = hi > lo * (1.0 + 1e-3)
         mid = torch.sqrt(lo * hi)

@@ -1,0 +1,198 @@
+"""CohortRunner — a cohort of seeds as lanes of ONE captured round
+(``repro.core.cohort``).
+
+The paper's headline figures are sweeps over seeds (× selectors × σ). The
+reference stacks the seeds' states on a leading cohort axis and ``vmap``s
+its scanned multi-round program over it. The port gives the round body's
+tensors that leading lane axis instead (``repro_torch.core.engine``): the
+carry is a ``[B, P]`` global row, a ``[B, N + pad, P]`` plane and ``[B,
+N]`` labels, the data and fleet arrays are ``[B, ...]``, and on the card
+the whole round for every lane is one CUDA graph, replayed once a round —
+not B graphs. Each seed's dataset, partition, fleet and draws come from
+``build_experiment(spec.replace(seed=s))``, so a lane is its seed's single
+run; the initial round runs eagerly, lane by lane (each lane's own
+K-means), and the history comes back in one device-to-host transfer.
+
+    runner = build_cohort(ExperimentSpec(..., cohort=8))
+    ch = runner.run()                  # 8 seeds, one captured round
+    ch.accuracy                        # [8, rounds + 1]
+    ch.history(3)                      # lane 3 as an FLHistory
+
+The stochastic selectors run here with their draws from each lane's own
+draws object (``TorchDraws.selector_draw``), not from the host Generator
+of the host loop: a lane is reproducible from its seed and equals its
+seed's ``traced_run(..., draws=)``, but not its host-loop run.
+
+Not ported (one card, one cell, synchronous rounds): the reference's
+device mesh over the cohort axis (``cohort_mesh``, ``_mesh_pad``), cells
+per seed (``cells > 1``, dynamic channels) and the asynchronous traces
+(``participation``, ``staleness``, ``active``, ``inr``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import (RoundInputs, TracedRunResult,
+                                     lane_view, run_rounds)
+from repro_torch.core.fedavg import (FLExperiment, FLHistory, history_parts,
+                                     to_host)
+from repro_torch.core.wireless import fleet_arrays
+
+__all__ = ["CohortHistory", "CohortRunner"]
+
+
+@dataclass
+class CohortHistory:
+    """Stacked round histories of a cohort, the leading axis the lane (one
+    seed a lane: ``cells`` is always 1 in the port)."""
+    seeds: List[int]                  # per-lane seed
+    accuracy: np.ndarray              # [B, rounds + 1]
+    T_k: np.ndarray                   # [B, rounds + 1]
+    E_k: np.ndarray                   # [B, rounds + 1]
+    selected: np.ndarray              # [B, rounds, S_pad] padded indices
+    mask: np.ndarray                  # [B, rounds, S_pad] participation
+    with_init: bool
+    num_devices: int
+    cells: int = 1                    # cells per seed (lane = s·cells + c)
+
+    @property
+    def lane_cells(self) -> List[int]:
+        """Per-lane cell index (parallel to ``seeds``)."""
+        return [i % self.cells for i in range(len(self.seeds))]
+
+    def __len__(self) -> int:
+        return len(self.seeds)
+
+    def history(self, i: int) -> FLHistory:
+        """Lane ``i``'s run as a plain ``FLHistory`` (padding stripped), in
+        the reference's layout: accuracy, T_k, E_k and the selections."""
+        hist = FLHistory()
+        hist.accuracy = [float(a) for a in self.accuracy[i]]
+        hist.T_k = [float(t) for t in self.T_k[i]]
+        hist.E_k = [float(e) for e in self.E_k[i]]
+        if self.with_init:
+            hist.selected.append(np.arange(self.num_devices))
+        hist.selected.extend(self.selected[i][k][self.mask[i][k]]
+                             for k in range(self.selected.shape[1]))
+        return hist
+
+    @property
+    def final_accuracy(self) -> np.ndarray:
+        return self.accuracy[:, -1]
+
+
+def _stack(tensors):
+    return torch.stack(list(tensors))
+
+
+class CohortRunner:
+    """Run one ``ExperimentSpec`` across a batch of seeds as lanes of one
+    device-resident program on one device.
+
+    ``device`` as for ``build_experiment`` (``cuda`` unless named);
+    ``draws``: ``seed -> draws object`` in place of each lane's default
+    ``TorchDraws(seed)`` (a parity test replays the reference's key
+    streams). Requires every strategy to be traceable
+    (``FLExperiment.traceable``).
+    """
+
+    def __init__(self, spec, device=None,
+                 draws: Optional[Callable[[int], object]] = None):
+        from repro_torch.api.build import resolve_device
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.draws = draws
+        self.experiments: List[FLExperiment] = []
+        self.program = None             # the last run's TracedProgram
+
+    def _build(self, seeds: Sequence[int]) -> List[FLExperiment]:
+        from repro_torch.api.build import build_experiment
+        return [build_experiment(
+                    self.spec.replace(seed=s), device=self.device,
+                    draws=None if self.draws is None else self.draws(s))
+                for s in seeds]
+
+    def run(self, seeds: Optional[Sequence[int]] = None,
+            rounds: Optional[int] = None, reuse_experiments: bool = False,
+            transfer_guard: bool = False) -> CohortHistory:
+        """The initial round and ``rounds`` rounds (default
+        ``spec.rounds``) of seeds ``seeds`` (default ``spec.seed ..
+        spec.seed + spec.cohort − 1``), one lane each.
+        ``reuse_experiments=True`` keeps the lanes' experiments when this
+        runner already holds as many (their state continues where it was).
+        ``transfer_guard=True`` raises on any host sync with the card from
+        the initial round to the last replay (the counterpart of the
+        reference's ``jax.transfer_guard_device_to_host("disallow")``).
+        Each lane's final carry is loaded back into its experiment
+        (``self.experiments``); ``self.program`` is the program the run
+        replayed (one captured round for all lanes)."""
+        if seeds is None:
+            seeds = [self.spec.seed + i
+                     for i in range(max(int(self.spec.cohort), 1))]
+        seeds = [int(s) for s in seeds]
+        rounds = rounds or self.spec.rounds
+        if reuse_experiments and len(self.experiments) == len(seeds):
+            exps = self.experiments
+        else:
+            exps = self.experiments = self._build(seeds)
+        e0 = exps[0]
+        if not e0.traceable():
+            raise ValueError(
+                "CohortRunner needs an all-traceable strategy bundle (the "
+                "PyTorch port, repro_torch, runs a cohort on its "
+                "device-resident run only); got "
+                f"selector={e0.selector.registry_name!r}, "
+                f"allocator={e0.allocator.registry_name!r}, "
+                f"aggregator={e0.aggregator.registry_name!r}")
+
+        state = type(e0.traced_state())(*(
+            None if parts[0] is None else _stack(parts)
+            for parts in zip(*(e.traced_state() for e in exps))))
+        lanes = [e.traced_inputs() for e in exps]
+        # one evaluation set for the whole cohort iff every seed resolves
+        # the same test data (the sweeps' protocol), else one a lane
+        shared = len({e.spec.resolved_test_seed for e in exps}) == 1
+        inputs = RoundInputs(
+            images=_stack(x.images for x in lanes),
+            labels=_stack(x.labels for x in lanes),
+            sizes=_stack(x.sizes for x in lanes),
+            arr=fleet_arrays([e.fleet for e in exps], self.device),
+            test_images=(lanes[0].test_images if shared
+                         else _stack(x.test_images for x in lanes)),
+            test_labels=(lanes[0].test_labels if shared
+                         else _stack(x.test_labels for x in lanes)))
+        prog = self.program = run_rounds(
+            e0.engine_cfg, selector=e0.selector, allocator=e0.allocator,
+            aggregator=e0.aggregator, tctx=e0.traced_context(),
+            feature_layer=e0.fl.feature_layer, device=self.device,
+            shapes=inputs.shapes(), base=e0.base)
+        res = prog(state, *inputs, draws=[e.draws for e in exps],
+                   rounds=rounds, with_init=True,
+                   transfer_guard=transfer_guard)
+        # the whole history and the K-means labels in one transfer
+        *vals, lane_labels = to_host(history_parts(res) + [res.state.labels])
+        for i, e in enumerate(exps):
+            e.load_traced_state(lane_view(res.state, i),
+                                labels=lane_labels[i])
+        return self._history(seeds, res, vals, e0.fed.num_clients)
+
+    @staticmethod
+    def _history(seeds, res: TracedRunResult, vals,
+                 num_devices: int) -> CohortHistory:
+        """``vals``: :func:`history_parts` of a cohort's run on the host —
+        the initial round's ``[B]`` values, then the rounds' ``[R, B,
+        ...]``."""
+        acc0, T0, E0 = (v[:, None] for v in vals[:3])
+        acc, T, E, sel, mask = (np.moveaxis(v, 0, 1)
+                                for v in vals[len(res.init):][:5])
+        return CohortHistory(
+            seeds=list(seeds),
+            accuracy=np.concatenate([acc0, acc], axis=1),
+            T_k=np.concatenate([T0, T], axis=1),
+            E_k=np.concatenate([E0, E], axis=1),
+            selected=sel.astype(np.int64), mask=mask > 0, with_init=True,
+            num_devices=num_devices)

@@ -2,12 +2,19 @@
 
 Every random choice on the FL path comes from one draws object owned by
 the experiment: the initial parameters, each round's local-SGD batch
-indices and the k-means++ seeding choices — nothing else on this path
-draws — plus, for a workload with frozen weights (the LoRA LM), that base.
-:class:`TorchDraws` is the default, a ``torch.Generator`` on the
+indices, the k-means++ seeding choices and, on the device-resident run of
+a stochastic selector, each round's selector draw — nothing else on this
+path draws — plus, for a workload with frozen weights (the LoRA LM), that
+base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
 experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
 give different numbers for one seed, so a parity test hands the experiment
-an object with the same five methods that replays the reference's draws.
+an object with the same methods that replays the reference's draws.
+
+The order of the draws is part of the contract (the reference splits its
+key in the same order): the initial parameters; the initial round's batch
+indices, then its k-means++ choices; then per round the selector's draw
+(where the selector takes one) before the round's batch indices. The
+device-resident run makes every round's draws before its first round.
 """
 from __future__ import annotations
 
@@ -41,6 +48,20 @@ class TorchDraws:
         """``[n, L, batch]`` sample indices into each client's shard."""
         return torch.randint(0, num_samples, (n, local_iters, batch_size),
                              generator=self.generator, device=self.device)
+
+    def selector_draw(self, kind: str, n: int) -> torch.Tensor:
+        """One round's draw of a stochastic selector over ``n`` devices
+        (``TracedSelector.draw_kind``): ``"uniform"``, ``[n]`` uniforms in
+        [0, 1); ``"permutation"``, a permutation of ``range(n)`` (int64),
+        the order of ``n`` uniforms (the stable sort keeps it one even on
+        a tie). Made on the device: nothing waits for the card."""
+        u = torch.rand((n,), generator=self.generator, device=self.device)
+        if kind == "uniform":
+            return u
+        if kind == "permutation":
+            return torch.argsort(u, stable=True)
+        raise ValueError(f"unknown selector draw {kind!r}; the port draws "
+                         "'uniform' or 'permutation'")
 
     def kmeans_seed(self, n: int, c: int) -> torch.Tensor:
         """The first k-means++ centroid of a fit over ``n`` rows into ``c``

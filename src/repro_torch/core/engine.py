@@ -23,9 +23,21 @@ updates in place — serves both ways to run rounds:
   host until the history comes back in one transfer
   (``FLExperiment.history_from_traced``). On the CPU the same body runs
   eagerly.
+
+Every function of the round body also takes a leading lane axis (a
+cohort's seeds, ``repro_torch.core.cohort``, where the reference
+``vmap``s the scanned run): a ``[B, P]`` global row, a ``[B, N + pad, P]``
+plane, ``[B, ...]`` data, draws and fleet arrays. The single run is one
+lane with today's shapes through the same code; a cohort is B lanes of
+ONE captured round, replayed once a round for all of them. Local
+training runs lane by lane inside it: each lane's S clients as one stack,
+the products of its single run at their shapes, so a lane computes its
+single run's bits (one ``[B·S_pad]`` stack would not: cuBLAS picks its
+kernels by the batch count).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from collections import OrderedDict
@@ -168,8 +180,43 @@ class TracedRunResult(NamedTuple):
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what}: not in the PyTorch port (repro_torch) yet; the port's "
-        "device-resident run takes the deterministic selectors")
+        f"{what}: not in the PyTorch port (repro_torch) yet")
+
+
+def selector_draw_kind(selector) -> Optional[str]:
+    """The draw a selector takes each round on the device-resident run:
+    ``None`` for a deterministic one, else its ``draw_kind``; a
+    stochastic selector that names none raises naming the port."""
+    if not getattr(selector, "needs_rng", True):
+        return None
+    kind = getattr(selector, "draw_kind", None)
+    if kind is None:
+        _not_ported(f"the traced draw of the stochastic selector "
+                    f"{getattr(selector, 'registry_name', selector)!r} "
+                    "(it names no draw_kind)")
+    return kind
+
+
+def lane_rows(x, idx):
+    """``x[idx]`` along the client axis: ``x [N, ...]`` at ``idx [S]``, or
+    lane by lane, ``x [B, N, ...]`` at ``idx [B, S]`` (lane b's rows of
+    its own ``x[b]``)."""
+    if idx.dim() == 1:
+        return x[idx]
+    lanes = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return x[lanes, idx]
+
+
+def lane_view(tree, b: int):
+    """Lane ``b`` of a lane-stacked carry or input (views: an in-place
+    update of the lane writes the stack)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: lane_view(v, b) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(lane_view(v, b) for v in tree))
+    return tree[b]
 
 
 def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
@@ -183,15 +230,22 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     two), ``cluster_round`` (Alg. 1 line 1 + Alg. 2: all devices train and
     fold, K-means), ``init_round`` (``cluster_round``, then evaluate and
     allocate over all N), ``select_phase`` (divergence → select),
-    ``finish_phase`` (allocate → train → fold → evaluate) and
-    ``evaluate_row``. ``mask = None`` marks a selection with no padding
-    (the host loop's, and the all-device round's).
+    ``finish_phase`` (allocate → train → fold → evaluate),
+    ``evaluate_row`` and ``evaluate_rows``. ``mask = None`` marks a
+    selection with no padding (the host loop's, and the all-device
+    round's).
+
+    Each takes the carry either as one run's or lane-stacked (a cohort's:
+    ``state.params`` of ``[B, P]``), with its inputs to match; only
+    ``cluster_round`` is one lane's (``init_round`` runs it lane by lane,
+    each lane's K-means on its own draws).
 
     Padding lanes hold the sentinel N: data is gathered at ``min(idx,
     N − 1)`` (JAX clamps a gather), their weight is 0, and lane j's row is
     written to plane row ``N + j``, which nothing reads (JAX drops an
-    out-of-bounds scatter). Every index of the write is then distinct, so
-    its result does not depend on the order of the writes.
+    out-of-bounds scatter); in a cohort, of the cohort lane's own plane.
+    Every index of the write is then distinct, so its result does not
+    depend on the order of the writes.
     """
     local_update = local_update_for(cfg, base)
     spec = model_flat_spec(cfg.model_cfg)
@@ -206,22 +260,49 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         return evaluate(unflatten_vector(spec, gvec), test_images,
                         test_labels)
 
+    def evaluate_rows(gvec, test_images, test_labels, images):
+        """:func:`evaluate_row` of ``gvec [P]``, or of each lane's row of
+        ``gvec [B, P]`` — one evaluation a lane, stacked — on the test set
+        all lanes share or, when it carries the lane axis too (one axis
+        less than the clients' lane-stacked ``images [B, N, n, ...]``, as
+        theirs carry the client axis), on lane b's own ``test_*[b]``."""
+        if gvec.dim() == 1:
+            return evaluate_row(gvec, test_images, test_labels)
+        own = test_images.dim() == images.dim() - 1
+        outs = [evaluate_row(g, test_images[b] if own else test_images,
+                             test_labels[b] if own else test_labels)
+                for b, g in enumerate(gvec)]
+        return tuple(torch.stack(v) for v in zip(*outs))
+
     def train_rows(state, idx, images, labels, batch_idx):
+        """Local SGD of the clients ``idx`` from the global row: rows
+        ``[S, P]``. A cohort's ``idx [B, S]`` trains lane by lane (rows
+        ``[B, S, P]``), each lane's S clients from its own row as one
+        stack — its single run's products at their shapes, so its bits."""
+        if idx.dim() > 1:
+            return torch.stack([
+                train_rows(lane_view(state, b), idx[b], images[b], labels[b],
+                           batch_idx[b]) for b in range(idx.shape[0])])
         t = clamp(idx)
         params = unflatten_vector(spec, state.params)
         stacked = local_update(params, images[t], labels[t], batch_idx)
         return flatten_stacked(spec, stacked)                 # [S_pad, P]
 
     def fold(state, idx, mask, rows, sizes):
-        w = sizes[clamp(idx)]
+        w = lane_rows(sizes, clamp(idx))
         store = idx
         if mask is not None:
             w = torch.where(mask, w, torch.zeros_like(w))
-            lanes = torch.arange(idx.shape[0], device=idx.device)
-            store = torch.where(mask, idx, N + lanes)
+            pads = torch.arange(idx.shape[-1], device=idx.device)
+            store = torch.where(mask, idx, N + pads)
         new_gvec, opt_state = aggregator.aggregate_flat(
             state.params, rows, w, state.opt_state)
-        state.client_params.index_copy_(0, store, rows)
+        plane = state.client_params
+        if store.dim() > 1:         # cohort lane b writes its own plane b
+            lanes = torch.arange(store.shape[0], device=store.device)
+            store = store + plane.shape[-2] * lanes[:, None]
+        plane.view(-1, plane.shape[-1]).index_copy_(
+            0, store.reshape(-1), rows.reshape(-1, rows.shape[-1]))
         state.params.copy_(new_gvec)
         return state._replace(opt_state=opt_state)
 
@@ -233,7 +314,7 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
 
     def cluster_round(state, images, labels, sizes, batch_idx, draws):
         """All devices train and fold, then K-means on the feature layer
-        (seeded from ``draws``) into ``state.labels``."""
+        (seeded from ``draws``) into ``state.labels``. One lane's."""
         all_idx = torch.arange(N, device=state.params.device)
         state = train_aggregate(state, all_idx, None, images, labels, sizes,
                                 batch_idx)
@@ -245,21 +326,33 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
 
     def init_round(state, images, labels, sizes, batch_idx, arr,
                    test_images, test_labels, draws):
-        """Round 0: :func:`cluster_round`, evaluate, allocate over all N."""
-        state = cluster_round(state, images, labels, sizes, batch_idx, draws)
-        acc, per_class = evaluate_row(state.params, test_images, test_labels)
+        """Round 0: :func:`cluster_round`, evaluate, allocate over all N.
+        A cohort's carry runs :func:`cluster_round` lane by lane, lane b
+        on ``batch_idx[b]`` and its own draws ``draws[b]``, then evaluates
+        and allocates every lane at once."""
+        if state.params.dim() == 1:
+            state = cluster_round(state, images, labels, sizes, batch_idx,
+                                  draws)
+        else:
+            for b, lane_draws in enumerate(draws):
+                cluster_round(lane_view(state, b), images[b], labels[b],
+                              sizes[b], batch_idx[b], lane_draws)
+        acc, per_class = evaluate_rows(state.params, test_images,
+                                       test_labels, images)
         T, E, b, _ = allocator.allocate_traced(arr, B, None)
-        return state, InitOutputs(accuracy=acc, T=T, E=E, band=torch.sum(b),
+        return state, InitOutputs(accuracy=acc, T=T, E=E, band=masked_sum(b),
                                   per_class=per_class)
 
     def select_phase(state, arr, draw=None):
-        """Divergence (rows ``[:N]`` of the plane) → select."""
+        """Divergence (rows ``[:N]`` of the plane) → select; ``draw`` is a
+        stochastic selector's (``[N]``, or ``[B, N]`` a cohort lane
+        each)."""
         with record_function("fl.select"):
             if selector.needs_divergence:
-                div = weight_divergence_flat(state.client_params[:N],
-                                             state.params)
+                div = weight_divergence_flat(
+                    state.client_params[..., :N, :], state.params)
             else:
-                div = torch.zeros((N,), dtype=torch.float32,
+                div = torch.zeros(state.labels.shape, dtype=torch.float32,
                                   device=state.params.device)
             return selector.select_traced(draw, div, state.labels, arr, tctx)
 
@@ -268,13 +361,13 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         """allocate → train → fold → evaluate for one selection."""
         with record_function("fl.allocate"):
             t = clamp(idx)
-            arr_sel = {k: v[t] for k, v in arr.items()}
+            arr_sel = {k: lane_rows(v, t) for k, v in arr.items()}
             T, E, b, _ = allocator.allocate_traced(arr_sel, B, mask)
         state = train_aggregate(state, idx, mask, images, labels, sizes,
                                 batch_idx)
         with record_function("fl.evaluate"):
-            acc, per_class = evaluate_row(state.params, test_images,
-                                          test_labels)
+            acc, per_class = evaluate_rows(state.params, test_images,
+                                           test_labels, images)
         return state, RoundOutputs(accuracy=acc, T=T, E=E, selected=idx,
                                    mask=mask, band=masked_sum(b, mask),
                                    per_class=per_class)
@@ -282,20 +375,27 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     return SimpleNamespace(
         spec=spec, N=N, B=B, local_iters=cfg.local_iters, batch_size=cfg.batch_size,
         allocator=allocator, aggregator=aggregator,
-        evaluate_row=evaluate_row, train_rows=train_rows, fold=fold,
+        evaluate_row=evaluate_row, evaluate_rows=evaluate_rows,
+        train_rows=train_rows, fold=fold,
         train_aggregate=train_aggregate, cluster_round=cluster_round,
         init_round=init_round, select_phase=select_phase,
         finish_phase=finish_phase)
 
 
 class RoundInputs(NamedTuple):
-    """What a round reads besides the carry and the batch indices."""
+    """What a round reads besides the carry, the batch indices and the
+    selector's draw."""
     images: Any
     labels: Any
     sizes: Any
     arr: Dict[str, Any]
     test_images: Any
     test_labels: Any
+
+    def shapes(self) -> tuple:
+        """:func:`shapes_key` of the data (the fleet arrays aside)."""
+        return shapes_key((self.images, self.labels, self.sizes,
+                           self.test_images, self.test_labels))
 
 
 def _clone(x):
@@ -321,48 +421,91 @@ def _copy_into(dst, src):
         dst.copy_(src)
 
 
+@contextlib.contextmanager
+def sync_guard(device: torch.device):
+    """Raise on any host sync with the card inside the block (PyTorch's
+    sync debug mode "error", the counterpart of the reference's
+    ``jax.transfer_guard_device_to_host("disallow")``); on the CPU there
+    is nothing to guard."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
 class TracedProgram:
     """One strategy bundle's round body on one device at one set of shapes
-    (the reference's scanned program).
+    (the reference's scanned program), for one run or for a cohort of
+    ``lanes`` lanes (the reference's ``vmap`` of it).
 
     A call ``prog(state, images, labels, sizes, arr, test_images,
     test_labels, draws=, rounds=, with_init=)`` runs the initial round
     (``with_init``), then ``rounds`` rounds, and returns a
-    :class:`TracedRunResult`. ``draws`` gives the initial round's batch
-    indices and K-means seeding, then every round's ``[S_pad, L, batch]``
-    batch indices, all drawn before the first round in the host loop's
-    order.
+    :class:`TracedRunResult`. ``draws`` — one draws object, or a cohort's
+    sequence of one a lane — gives the initial round's batch indices and
+    K-means seeding, then every round's selector draw (a stochastic
+    selector's: ``draw_kind``) and ``[S_pad, L, batch]`` batch indices,
+    all drawn before the first round, in the order of
+    ``repro_torch.core.draws``. A cohort's carry and inputs are
+    lane-stacked (``lanes``: the carry's leading axis, set by the call);
+    its test set is one for all lanes or one a lane.
 
     On the card the program owns static copies of the carry and the
     inputs: a call loads them by device copies, runs the initial round
     eagerly (its solve is SAO's own, a graph from its second call on)
-    and replays the captured
-    round once a round, copying the round's batch indices into the
-    graph's input first; no step reads back to the host. The first call
+    and replays the captured round once a round for every lane,
+    copying the round's selector draw and batch indices into the graph's
+    inputs first; no step reads back to the host. ``transfer_guard``
+    raises on any host sync from the initial round to the last replay
+    (sync debug mode "error"; the initial round's solve then runs eagerly,
+    as capturing its graph would wait for the card). The first call
     captures the round (after one warm-up round on a side stream, which
     builds and loads the kernels) and records ``capture_ms``. Kernel
     wrappers count their launches at the capture, never on a replay. On
     the CPU the round body runs eagerly on the caller's tensors.
     """
 
-    def __init__(self, ph, device: torch.device, pad: int):
+    def __init__(self, ph, device: torch.device, pad: int,
+                 draw_kind: Optional[str] = None):
         self.ph = ph
         self.device = device
         self.pad = pad                  # the selector's lanes a round
+        self.draw_kind = draw_kind      # a stochastic selector's draw
+        self.lanes = None               # a cohort's lane count, else None
         self.graph = None
         self.capture_ms = None
 
-    def round_body(self, state, inputs: RoundInputs, batch_idx):
+    def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None):
         """One round, eagerly: select, then allocate, train, fold and
         evaluate. Returns ``(state, RoundOutputs)``."""
-        idx, mask = self.ph.select_phase(state, inputs.arr)
+        idx, mask = self.ph.select_phase(state, inputs.arr, draw)
         return self.ph.finish_phase(state, inputs.arr, idx, mask,
                                     inputs.images, inputs.labels,
                                     inputs.sizes, batch_idx,
                                     inputs.test_images, inputs.test_labels)
 
+    def _lead(self) -> tuple:
+        return () if self.lanes is None else (self.lanes,)
+
     def _batch_shape(self):
-        return (self.pad, self.ph.local_iters, self.ph.batch_size)
+        return self._lead() + (self.pad, self.ph.local_iters,
+                               self.ph.batch_size)
+
+    def _draw_input(self):
+        """A valid selector draw for the warm-up and the capture (the
+        replays overwrite it): uniforms 0, or the identity permutation."""
+        shape = self._lead() + (self.ph.N,)
+        if self.draw_kind is None:
+            return None
+        if self.draw_kind == "permutation":
+            return torch.arange(self.ph.N, device=self.device).expand(
+                shape).contiguous()
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
     def capture(self, state: RoundState, inputs: RoundInputs) -> None:
         """Capture the round over static copies of ``state`` and
@@ -370,16 +513,18 @@ class TracedProgram:
         self.state, self.inputs = _clone(state), _clone(inputs)
         self.batch = torch.zeros(self._batch_shape(), dtype=torch.long,
                                  device=self.device)
+        self.draw = self._draw_input()
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side), eager_solves():
-            self.round_body(self.state, self.inputs, self.batch)
+            self.round_body(self.state, self.inputs, self.batch, self.draw)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            _, self.out = self.round_body(self.state, self.inputs, self.batch)
+            _, self.out = self.round_body(self.state, self.inputs, self.batch,
+                                          self.draw)
         torch.cuda.synchronize(self.device)
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -390,45 +535,78 @@ class TracedProgram:
         _copy_into(self.state, state)
         _copy_into(self.inputs, inputs)
 
-    def replay(self, batch_idx) -> RoundOutputs:
-        """One captured round on the static carry: load ``batch_idx``,
-        replay; the outputs are the graph's (the next replay overwrites
-        them)."""
+    def replay(self, batch_idx, draw=None) -> RoundOutputs:
+        """One captured round on the static carry, every lane at once:
+        load ``batch_idx`` (and a stochastic selector's ``draw``), replay;
+        the outputs are the graph's (the next replay overwrites them)."""
         self.batch.copy_(batch_idx)
+        if self.draw is not None:
+            self.draw.copy_(draw)
         self.graph.replay()
         return self.out
 
+    def _round_draws(self, lane_draws, n_samples: int):
+        """One round's ``(batch indices, selector draw)``: per lane, the
+        selector's draw first, then the batch indices; lane-stacked for a
+        cohort."""
+        batches, draws = [], []
+        shape = (self.pad, self.ph.local_iters, self.ph.batch_size)
+        for d in lane_draws:
+            if self.draw_kind is not None:
+                draws.append(d.selector_draw(self.draw_kind, self.ph.N))
+            batches.append(d.batch_indices(*shape, n_samples))
+        if self.lanes is None:
+            return batches[0], (draws[0] if draws else None)
+        return (torch.stack(batches),
+                torch.stack(draws) if draws else None)
+
     def __call__(self, state: RoundState, images, labels, sizes, arr,
                  test_images, test_labels, *, draws, rounds: int,
-                 with_init: bool) -> TracedRunResult:
+                 with_init: bool,
+                 transfer_guard: bool = False) -> TracedRunResult:
         ph = self.ph
         inputs = RoundInputs(images, labels, sizes, dict(arr), test_images,
                              test_labels)
+        # a cohort's carry is lane-stacked: a [B, P] global row
+        self.lanes = (state.params.shape[0] if state.params.dim() > 1
+                      else None)
         if self.device.type == "cuda":
             if self.graph is None:
                 self.capture(state, inputs)
             self.load(state, inputs)
             state, inputs = self.state, self.inputs
-        n_samples = inputs.images.shape[1]
-        init = None
-        if with_init:
-            batch0 = draws.batch_indices(ph.N, ph.local_iters,
-                                         ph.batch_size, n_samples)
-            state, init = ph.init_round(state, inputs.images, inputs.labels,
-                                        inputs.sizes, batch0, inputs.arr,
-                                        inputs.test_images,
-                                        inputs.test_labels, draws)
-        batches = [draws.batch_indices(*self._batch_shape(), n_samples)
-                   for _ in range(rounds)]
-        outs = []
-        for batch_idx in batches:
-            if self.graph is not None:
-                out = _clone(self.replay(batch_idx))
-            else:
-                state, out = self.round_body(state, inputs, batch_idx)
-            outs.append(out)
-        stacked = (RoundOutputs(*(torch.stack(v) for v in zip(*outs)))
-                   if outs else None)
+        lane_draws = [draws] if self.lanes is None else list(draws)
+        if len(lane_draws) != (self.lanes or 1):
+            raise ValueError(f"{len(lane_draws)} draws objects for "
+                             f"{self.lanes or 1} lanes")
+        n_samples = inputs.images.shape[len(self._lead()) + 1]
+        guard = contextlib.ExitStack()
+        if transfer_guard:
+            guard.enter_context(sync_guard(self.device))
+            guard.enter_context(eager_solves())
+        with guard:
+            init = None
+            if with_init:
+                batch0 = [d.batch_indices(ph.N, ph.local_iters,
+                                          ph.batch_size, n_samples)
+                          for d in lane_draws]
+                state, init = ph.init_round(
+                    state, inputs.images, inputs.labels, inputs.sizes,
+                    batch0[0] if self.lanes is None else torch.stack(batch0),
+                    inputs.arr, inputs.test_images, inputs.test_labels,
+                    draws)
+            per_round = [self._round_draws(lane_draws, n_samples)
+                         for _ in range(rounds)]
+            outs = []
+            for batch_idx, draw in per_round:
+                if self.graph is not None:
+                    out = _clone(self.replay(batch_idx, draw))
+                else:
+                    state, out = self.round_body(state, inputs, batch_idx,
+                                                 draw)
+                outs.append(out)
+            stacked = (RoundOutputs(*(torch.stack(v) for v in zip(*outs)))
+                       if outs else None)
         return TracedRunResult(state=state, rounds=stacked, init=init)
 
 
@@ -455,21 +633,18 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                tctx: TracedContext, feature_layer: str, device,
                shapes: tuple, base=None) -> TracedProgram:
     """The device-resident program for one strategy bundle on ``device``
-    at ``shapes`` (the shapes of the data it reads: :func:`shapes_key` of
-    images, labels, sizes, test images, test labels), cached process-wide
-    (LRU), so runs that differ only in seed or data replay one captured
-    round.
+    at ``shapes`` (the shapes of the data it reads,
+    :meth:`RoundInputs.shapes`: a cohort's lane-stacked, its test set one
+    for every lane or one a lane), cached process-wide (LRU), so runs that
+    differ only in seed or data replay one captured round.
 
-    A stochastic selector raises naming the port: its traced draw has no
-    source in the port's run yet (the host loop runs it). The reference's
-    other options (compressors, channels, cells, cohorts, faults) are no
-    fields of the port's spec, and its registries refuse the strategies it
-    lacks, naming the port.
+    A stochastic selector takes its draw from the caller's draws object
+    (:func:`selector_draw_kind`). The reference's other options
+    (compressors, channels, cells, faults) are no fields of the port's
+    spec, and its registries refuse the strategies it lacks, naming the
+    port.
     """
-    if getattr(selector, "needs_rng", True):
-        _not_ported(f"the traced draw of the stochastic selector "
-                    f"{getattr(selector, 'registry_name', selector)!r} "
-                    "(FLExperiment.run() takes the host loop for it)")
+    draw_kind = selector_draw_kind(selector)
     device = torch.device(device)
     base_key = (None if base is None
                 else tuple(v.data_ptr() for v in base.values()))
@@ -479,8 +654,8 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     if prog is None:
         ph = build_round_phases(cfg, aggregator, selector, allocator, tctx,
                                 feature_layer, base)
-        prog = _RUN_FN_CACHE[key] = TracedProgram(ph, device,
-                                                  selector.pad_size(tctx))
+        prog = _RUN_FN_CACHE[key] = TracedProgram(
+            ph, device, selector.pad_size(tctx), draw_kind)
         while len(_RUN_FN_CACHE) > _RUN_FN_CACHE_MAX:
             _RUN_FN_CACHE.popitem(last=False)
     else:

@@ -7,7 +7,9 @@ results:
   a captured CUDA graph replayed once a round, with no host read until
   the history comes back in one transfer — taken by :meth:`run` when the
   selector is deterministic, every strategy is traceable and no accuracy
-  target asks for an early stop;
+  target asks for an early stop (a stochastic selector runs there only
+  when the caller supplies the draws: :meth:`traced_run`, and the cohort,
+  ``repro_torch.core.cohort``, which stacks experiments as lanes);
 * the host loop (:meth:`FLExperiment.round`), one round at a time with
   the strategies' host contracts in between, each round the same round
   body (``build_round_phases``'s ``finish_phase``) run eagerly on the
@@ -51,9 +53,9 @@ from repro_torch.core.clustering import (clusters_from_labels,
                                          extract_features_flat)
 from repro_torch.core.divergence import weight_divergence_flat
 from repro_torch.core.draws import TorchDraws
-from repro_torch.core.engine import (EngineConfig, TracedRunResult,
-                                     build_round_phases, model_flat_spec,
-                                     run_rounds, shapes_key)
+from repro_torch.core.engine import (EngineConfig, RoundInputs,
+                                     TracedRunResult, build_round_phases,
+                                     model_flat_spec, run_rounds)
 from repro_torch.core.wireless import Fleet, fleet_arrays
 from repro_torch.data.partition import FederatedData
 from repro_torch.models.registry import model_def_for
@@ -386,6 +388,15 @@ class FLExperiment:
                           opt_state=self.aggregator.init_flat_state(gvec),
                           labels=self._labels_tensor())
 
+    def traced_inputs(self) -> RoundInputs:
+        """What the device-resident run reads besides the carry: the
+        clients' data, the fleet's arrays and the test set."""
+        return RoundInputs(images=self._images, labels=self._labels,
+                           sizes=self._sizes,
+                           arr=fleet_arrays(self.fleet, self.device),
+                           test_images=self.test_images,
+                           test_labels=self.test_labels)
+
     def load_traced_state(self, state: RoundState, *,
                           labels: Optional[np.ndarray] = None) -> None:
         """Copy a finished carry back into the experiment (the padding rows
@@ -401,21 +412,30 @@ class FLExperiment:
                                              self.fl.num_clusters)
 
     def traced_run(self, selector, rounds: int,
-                   include_initial_round: bool = True) -> TracedRunResult:
+                   include_initial_round: bool = True,
+                   draws=None) -> TracedRunResult:
         """The device-resident run, its result still on the device (the
         experiment's own state is not updated: :meth:`_run_traced` does
-        that)."""
+        that). ``draws`` replaces the experiment's draws object for the
+        run. A stochastic selector runs here only when the caller supplies
+        ``draws`` (it then draws each round's selection from them, not
+        from the host Generator ``rng`` of the host loop); without, it
+        raises naming the port, and :meth:`run` takes the host loop."""
+        if getattr(selector, "needs_rng", True) and draws is None:
+            raise NotImplementedError(
+                f"the traced run of the stochastic selector "
+                f"{getattr(selector, 'registry_name', selector)!r} without "
+                "draws: not in the PyTorch port (repro_torch); pass draws= "
+                "(FLExperiment.run() takes the host loop for it)")
         with_init = include_initial_round or self.clusters is None
+        inputs = self.traced_inputs()
         prog = run_rounds(
             self.engine_cfg, selector=selector, allocator=self.allocator,
             aggregator=self.aggregator, tctx=self.traced_context(),
             feature_layer=self.fl.feature_layer, device=self.device,
-            shapes=shapes_key((self._images, self._labels, self._sizes,
-                               self.test_images, self.test_labels)),
-            base=self.base)
-        return prog(self.traced_state(selector), self._images, self._labels,
-                    self._sizes, fleet_arrays(self.fleet, self.device),
-                    self.test_images, self.test_labels, draws=self.draws,
+            shapes=inputs.shapes(), base=self.base)
+        return prog(self.traced_state(selector), *inputs,
+                    draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)
 
     def _run_traced(self, selector, rounds: int,
@@ -435,7 +455,7 @@ class FLExperiment:
         accuracy and the selections (padding lanes stripped), read in one
         transfer (``values``: :func:`history_parts` already on the host).
         ``seconds`` stays empty: the rounds have no host boundary of their
-        own to time."""
+        own to time. (A cohort's lanes: ``CohortHistory.history``.)"""
         vals = list(to_host(history_parts(res)) if values is None
                     else values)
         hist = FLHistory()

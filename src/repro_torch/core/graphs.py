@@ -41,8 +41,8 @@ def replays(t: torch.Tensor) -> bool:
 
 class CapturedSolve:
     """``body(arr, scalars, mask)`` captured as a CUDA graph for one shape:
-    ``arr`` a dict of tensors, ``scalars`` 0-d fp32 values (Python numbers
-    or tensors), ``mask`` a bool tensor or ``None``. A call loads its
+    ``arr`` a dict of tensors, ``scalars`` fp32 values (Python numbers, or
+    tensors: 0-d, or one a lane), ``mask`` a bool tensor or ``None``. A call loads its
     inputs by device copies and fills (nothing waits for the card), replays
     and returns clones of the outputs (a later replay overwrites them)."""
 
@@ -50,8 +50,9 @@ class CapturedSolve:
                  scalars: Sequence, mask: Optional[torch.Tensor]):
         dev = next(iter(arr.values())).device
         self.arr = {k: v.clone() for k, v in arr.items()}
-        self.scalars = [torch.empty((), dtype=torch.float32, device=dev)
-                        for _ in scalars]
+        self.scalars = [torch.empty(getattr(v, "shape", ()),
+                                    dtype=torch.float32, device=dev)
+                        for v in scalars]
         self.mask = None if mask is None else mask.clone()
         self._load(arr, scalars, mask)
         # one eager solve first, on a side stream, so that nothing is
@@ -85,9 +86,11 @@ class CapturedSolve:
 
 def graph_key(arr: Dict[str, torch.Tensor], mask, *static) -> tuple:
     """The cache key of a solve's graph: its device, lane count, whether
-    it is masked, its arrays' names and its static parameters."""
+    it is masked, its arrays' names, its leading (cohort) shape — ``()``
+    for one solve — and its static parameters."""
     J = arr["J"]
-    return (J.device, J.shape[0], mask is None, tuple(sorted(arr))) + static
+    return (J.device, J.shape[-1], mask is None, tuple(sorted(arr)),
+            tuple(J.shape[:-1])) + static
 
 
 class GraphCache:

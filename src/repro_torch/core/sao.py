@@ -15,16 +15,19 @@ cubic (23) f³ + (H·T/(z·G) − e_cons/G)·f − H·U/(z·G) = 0 with a unique
 positive root (Lemma 3). Algorithm 5 is a three-level bisection: outer on
 T_k, inner per device on f (cubic) and on b (monotone Q).
 
-Everything is fp32 tensors on the fleet's device, vectorised over devices.
+Everything is fp32 tensors on the fleet's device, vectorised over devices
+and over an optional leading lane axis (a cohort's seeds: ``arr`` of
+``[B, S]``, one independent solve a lane, where the reference ``vmap``s).
 The reference's outer ``lax.while_loop`` becomes a fixed ``n_outer`` loop
-with a sticky ``done`` mask: once the band ratio lands in [1−eps0, 1] the
-bracket is pinned to that T and later iterations leave it there, so no
-iteration reads a value back to the host. On the card that solve (about
-50,000 small launches) is captured per (device, S, mask, parameters) at
-its second call as a CUDA graph and replayed from then on
-(``repro_torch.core.graphs.GraphCache``): the same launches and bits,
-without the host's per-launch cost. A CPU tensor, a shape's first solve,
-or a solve inside a captured round, runs :func:`_sao_body` itself.
+with a sticky ``done`` mask per lane: once a lane's band ratio lands in
+[1−eps0, 1] its bracket is pinned to that T and later iterations leave it
+there, so no iteration reads a value back to the host. On the card that
+solve (about 50,000 small launches, whatever the lane count) is captured
+per (device, shape, mask, parameters) at its second call as a CUDA graph
+and replayed from then on (``repro_torch.core.graphs.GraphCache``): the
+same launches and bits, without the host's per-launch cost. A CPU tensor,
+a shape's first solve, or a solve inside a captured round, runs
+:func:`_sao_body` itself.
 """
 from __future__ import annotations
 
@@ -135,8 +138,10 @@ def solve_sao(arr: Dict[str, torch.Tensor], B, *, mask=None,
     Outer bisection on T_k: Σ_n b_n(T) is monotone ↓ in T, so bisection
     converges to the T* where the band is exactly used. ``mask`` ([S]
     bool) marks real lanes of a padded selection; pads are excluded from
-    the band sum and delay max and get ``b = f = 0``. On the card the
-    solve replays its CUDA graph (:mod:`repro_torch.core.graphs`).
+    the band sum and delay max and get ``b = f = 0``. With ``arr`` (and
+    ``mask``) of ``[B, S]``, B independent solves at one band B: ``T``,
+    ``converged`` and ``ratio`` are ``[B]``. On the card the solve replays
+    its CUDA graph (:mod:`repro_torch.core.graphs`).
     """
     arr = effective_arrays(arr)
     scalars = (B,) if b_max is None else (B, b_max)
@@ -160,19 +165,21 @@ def _sao_body(arr, scalars, mask, *, eps0: float, n_outer: int,
     if mask is None:
         mask = torch.ones(arr["J"].shape, dtype=torch.bool, device=dev)
 
+    # the bracket, T and the band ratio are [..., 1] columns: one per lane
     # Line 1: T_min = max_n( ln2·z/J + U/f_max ) — the b→∞, f=f_max limit.
     T_lo = masked_max(LN2 * arr["z"] / arr["J"] + arr["U"] / arr["f_max"],
-                      mask)
-    # T_max: slowest CPU + a 1000th of the band each.
-    n = arr["J"].shape[0]
+                      mask, keepdim=True)
+    # T_max: slowest CPU + a 1000th of the band each (n counts the lanes of
+    # S, padding included: the same n in every lane of a cohort)
+    n = arr["J"].shape[-1]
     b_floor = torch.clamp(B / n * 1e-3, min=1e-6)
     T_hi = masked_max(arr["z"] / _Q(b_floor, arr["J"])
-                      + arr["U"] / arr["f_min"], mask) * 2.0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+                      + arr["U"] / arr["f_min"], mask, keepdim=True) * 2.0
+    done = torch.zeros(T_lo.shape, dtype=torch.bool, device=dev)
     for _ in range(n_outer):
         T = 0.5 * (T_lo + T_hi)
         b, _ = _inner_allocate(T, arr, b_max, n_inner, box_correct)
-        ratio = masked_sum(b, mask) / B
+        ratio = masked_sum(b, mask, keepdim=True) / B
         hit = (ratio <= 1.0) & (ratio >= 1.0 - eps0)
         # on a hit pin both ends to T (the returned midpoint IS that T);
         # once done the bracket stays pinned
@@ -201,7 +208,7 @@ def _sao_body(arr, scalars, mask, *, eps0: float, n_outer: int,
     # (γ* = 0 corner), a converged optimum too
     return SAOSolution(T=T_star, b=torch.where(mask, b, zero),
                        f=torch.where(mask, f_final, zero),
-                       converged=done | (ratio <= 1.0), ratio=ratio)
+                       converged=done[..., 0] | (ratio <= 1.0), ratio=ratio)
 
 
 def kkt_residuals(sol: SAOSolution, arr, B):

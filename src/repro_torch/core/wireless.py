@@ -192,20 +192,25 @@ def device_scalar(x, device) -> torch.Tensor:
     return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
-def masked_max(x, mask=None, empty=0.0):
-    """Max over the real lanes; an all-False mask returns ``empty``."""
+def masked_max(x, mask=None, empty=0.0, keepdim: bool = False):
+    """Max over the real lanes, the last axis (so one max per row of a
+    leading batch: a cohort's seeds, a grid of deadlines); a row whose
+    mask is all False gives ``empty``."""
     if mask is None:
-        return torch.max(x)
-    m = torch.max(torch.where(mask, x, torch.full_like(x, -float("inf"))))
-    return torch.where(torch.any(mask), m, torch.full_like(m, empty))
+        return torch.amax(x, dim=-1, keepdim=keepdim)
+    m = torch.amax(torch.where(mask, x, torch.full_like(x, -float("inf"))),
+                   dim=-1, keepdim=keepdim)
+    return torch.where(torch.any(mask, dim=-1, keepdim=keepdim), m,
+                       torch.full_like(m, empty))
 
 
-def masked_sum(x, mask=None):
+def masked_sum(x, mask=None, keepdim: bool = False):
     """Sum over the real lanes, the last axis (pads contribute exactly
     0)."""
     if mask is None:
-        return torch.sum(x, dim=-1)
-    return torch.sum(torch.where(mask, x, torch.zeros_like(x)), dim=-1)
+        return torch.sum(x, dim=-1, keepdim=keepdim)
+    return torch.sum(torch.where(mask, x, torch.zeros_like(x)), dim=-1,
+                     keepdim=keepdim)
 
 
 def round_totals(fleet_arrays, b_mhz, f_ghz):
@@ -218,8 +223,14 @@ def round_totals(fleet_arrays, b_mhz, f_ghz):
     return torch.max(t), torch.sum(e), t, e
 
 
-def fleet_arrays(fleet: Fleet, device="cpu"):
-    """The solver-facing constants (15)-(18) as fp32 tensors on ``device``."""
+def fleet_arrays(fleet, device="cpu"):
+    """The solver-facing constants (15)-(18) as fp32 tensors on ``device``:
+    ``[N]`` each for one :class:`Fleet`, ``[B, N]`` stacked over the lanes
+    for a sequence of B fleets of N devices each (a cohort's seeds)."""
+    if not isinstance(fleet, Fleet):
+        lanes = [fleet_arrays(f, device) for f in fleet]
+        return {k: torch.stack([a[k] for a in lanes]) for k in lanes[0]}
+
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=device)

@@ -1,5 +1,7 @@
 // Weighted row sum over the flat client plane: out[p] = sum_n w[n] * flat[n, p].
-// FedAvg's eq.-(4) fold as one GEMV, fp32 in and out.
+// FedAvg's eq.-(4) fold as one GEMV, fp32 in and out; with a leading batch
+// axis (a cohort's seeds), one such sum per batch entry in the same launch:
+// out[b, p] = sum_n w[b, n] * flat[b, n, p].
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flat_aggregate.py
 // (flat_aggregate / _flat_aggregate_kernel). Bound on the card: bytes -- the
@@ -20,7 +22,9 @@
 // group order. Which rows a group takes depends only on w, every sum runs in
 // a fixed order and there are no atomics, so the result is the same bit for
 // bit on every run. Skipping rows with w <= 0 is the same function as zeroing
-// them first (a NaN row at weight 0 included).
+// them first (a NaN row at weight 0 included). The batch is the grid's y
+// axis: a block reads its batch entry's rows and weights only, so each
+// entry's sum is the one a call on that entry alone gives, bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,15 +49,19 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
     return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// flat: [n_rows, p] of T; out: [p] of T (p counts T's, not floats). Group
-// g takes compact rows g, g + kGroups, ..., U at a time, and loads U rows x
-// V vectors a lane before its FMAs. The block covers kLanes * V vectors.
+// flat: [batch, n_rows, p] of T; w: [batch, n_rows]; out: [batch, p] of T (p
+// counts T's, not floats); blockIdx.y is the batch entry. Group g takes
+// compact rows g, g + kGroups, ..., U at a time, and loads U rows x V vectors
+// a lane before its FMAs. The block covers kLanes * V vectors.
 template <typename T, int U, int V>
 __global__ void __launch_bounds__(kThreads) flat_aggregate_kernel(
         const T* __restrict__ flat, const float* __restrict__ w,
         T* __restrict__ out, int n_rows, int p) {
     constexpr int kCols = kLanes * V;                         // T's a block
     constexpr int kFloats = kCols * (int)(sizeof(T) / sizeof(float));
+    flat += (size_t)blockIdx.y * n_rows * p;                  // the entry's rows
+    w += (size_t)blockIdx.y * n_rows;
+    out += (size_t)blockIdx.y * p;
     __shared__ int row_s[kChunk];
     __shared__ float w_s[kChunk];
     __shared__ int count_s[kThreads / 32];
@@ -130,38 +138,43 @@ __global__ void __launch_bounds__(kThreads) flat_aggregate_kernel(
 }
 
 template <typename T, int U, int V>
-void launch_tiles(const float* flat, const float* w, float* out, int n_rows, int p,
-                  cudaStream_t s) {
+void launch_tiles(const float* flat, const float* w, float* out, int batch,
+                  int n_rows, int p, cudaStream_t s) {
     constexpr int per = (int)(sizeof(T) / sizeof(float)), cols = kLanes * V;
     const int pt = p / per;
-    flat_aggregate_kernel<T, U, V><<<(pt + cols - 1) / cols, kThreads, 0, s>>>(
+    const dim3 grid((pt + cols - 1) / cols, batch);
+    flat_aggregate_kernel<T, U, V><<<grid, kThreads, 0, s>>>(
         reinterpret_cast<const T*>(flat), w, reinterpret_cast<T*>(out), n_rows, pt);
 }
 
 // Eight vectors in flight a lane: at most eight rows give each group two
 // rows of four vectors, more rows eight rows of one.
 template <typename T>
-void launch(const float* flat, const float* w, float* out, int n_rows, int p,
-            cudaStream_t s) {
+void launch(const float* flat, const float* w, float* out, int batch, int n_rows,
+            int p, cudaStream_t s) {
     if (n_rows <= 2 * kGroups)
-        launch_tiles<T, 2, 4>(flat, w, out, n_rows, p, s);
+        launch_tiles<T, 2, 4>(flat, w, out, batch, n_rows, p, s);
     else
-        launch_tiles<T, 8, 1>(flat, w, out, n_rows, p, s);
+        launch_tiles<T, 8, 1>(flat, w, out, batch, n_rows, p, s);
 }
 
 }  // namespace
 
-// flat: [n_rows, p] row-major fp32; w: [n_rows] fp32; out: [p] fp32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// flat: [batch, n_rows, p] row-major fp32; w: [batch, n_rows] fp32; out:
+// [batch, p] fp32 (batch = 1: the plain [n_rows, p] x [n_rows] -> [p] fold).
+// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// cudaErrorInvalidValue for a batch larger than a grid's y axis.
 extern "C" int flat_aggregate_f32(const float* flat, const float* w, float* out,
-                                  int n_rows, int p, void* stream) {
-    if (p <= 0) return 0;
+                                  int batch, int n_rows, int p, void* stream) {
+    if (p <= 0 || batch <= 0) return 0;
+    if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // entry b starts b n_rows p floats in: as aligned as entry 0 when p % 4 == 0
     if (p % 4 == 0 && reinterpret_cast<uintptr_t>(flat) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(out) % 16 == 0)
-        launch<float4>(flat, w, out, n_rows, p, s);
+        launch<float4>(flat, w, out, batch, n_rows, p, s);
     else
-        launch<float>(flat, w, out, n_rows, p, s);
+        launch<float>(flat, w, out, batch, n_rows, p, s);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,7 @@
 // Pairwise squared L2 distances: out[i, j] = sum_f (x[i, f] - c[j, f])^2.
-// x: [n, f], c: [m, f] fp32 -> out: [n, m] fp32.
+// x: [n, f], c: [m, f] fp32 -> out: [n, m] fp32; with a leading batch axis
+// (a cohort's seeds), x: [batch, n, f], c: [batch, m, f] -> [batch, n, m],
+// each entry's distances in the same launch.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pairwise_l2.py
 // (pairwise_l2 / _pairwise_l2_kernel). Bound on the card: bytes -- at the
@@ -16,7 +18,11 @@
 // each pair's slab partials in a fixed order, one warp a pair. With one
 // slab the first kernel writes out directly. No atomics, so the result is
 // the same bit for bit on every run. A sum of squares needs no clamp at
-// zero, and a NaN input stays NaN.
+// zero, and a NaN input stays NaN. The batch folds into the pairs: pair
+// (b, i, j) reads row i of entry b of x and row j of entry b of c, each
+// entry at its own stride (the divergence reads the first n rows of each
+// entry of a [batch, n + pad, f] plane) with the slab plan of a call on
+// that entry alone, so each entry's sums run in that call's order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,14 +45,15 @@ __device__ __forceinline__ float sq_diff4(float acc, float4 a, float4 b) {
 
 __global__ void __launch_bounds__(kThreads)
 pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                   float* __restrict__ out, int m, int f, int slabs, int width,
-                   bool vec) {
+                   float* __restrict__ out, int n, int m, int f, long long x_stride,
+                   long long c_stride, int slabs, int width, bool vec) {
     const int pair = blockIdx.x / slabs, slab = blockIdx.x % slabs;
-    const int i = pair / m;
-    const int j = pair % m;
+    const int b = pair / (n * m), ij = pair % (n * m);
+    const int i = ij / m;
+    const int j = ij % m;
     const int f0 = slab * width, fl = min(width, f - f0);   // the slab
-    const float* xr = x + (size_t)i * f + f0;
-    const float* cr = c + (size_t)j * f + f0;
+    const float* xr = x + b * x_stride + (size_t)i * f + f0;
+    const float* cr = c + b * c_stride + (size_t)j * f + f0;
     const int t = threadIdx.x;
     float acc = 0.f;
     if (vec) {
@@ -103,24 +110,28 @@ slab_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int pai
 
 }  // namespace
 
-// x: [n, f], c: [m, f] row-major fp32; out: [n, m] fp32. f is cut into
+// x: [batch, n, f], c: [batch, m, f] fp32 whose rows are row-major, entry b
+// of x at x + b x_stride and of c at c + b c_stride (floats); out: [batch, n,
+// m] fp32 (batch = 1: the plain [n, f] x [m, f] -> [n, m]). f is cut into
 // `slabs` slabs of `width` columns (a multiple of 4; the last may be
-// shorter); with slabs > 1, part is scratch of n m slabs floats.
+// shorter); with slabs > 1, part is scratch of batch n m slabs floats.
 // Launches on `stream` (one kernel, or two with slabs > 1) and returns
 // cudaGetLastError() (0 on success); cudaErrorInvalidValue for slabs that
 // do not cover f.
 extern "C" int pairwise_l2_f32(const float* x, const float* c, float* out, float* part,
-                               int n, int m, int f, int slabs, int width, void* stream) {
-    if (n <= 0 || m <= 0) return 0;
+                               int batch, int n, int m, int f, long long x_stride,
+                               long long c_stride, int slabs, int width, void* stream) {
+    if (batch <= 0 || n <= 0 || m <= 0) return 0;
     if (slabs < 1 || width < 1 || width % 4 || (long long)slabs * width < f ||
         (long long)(slabs - 1) * width >= (f > 0 ? f : 1) || (slabs > 1 && part == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+    const bool vec = f % 4 == 0 && x_stride % 4 == 0 && c_stride % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(c) % 16 == 0;
-    const int pairs = n * m;
-    pairwise_l2_kernel<<<pairs * slabs, kThreads, 0, s>>>(x, c, slabs > 1 ? part : out, m,
-                                                          f, slabs, width, vec);
+    const int pairs = batch * n * m;
+    pairwise_l2_kernel<<<pairs * slabs, kThreads, 0, s>>>(
+        x, c, slabs > 1 ? part : out, n, m, f, x_stride, c_stride, slabs, width, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
     slab_sum_kernel<<<(pairs + kSumWarps - 1) / kSumWarps, kSumWarps * 32, 0, s>>>(

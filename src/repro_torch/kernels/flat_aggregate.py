@@ -1,5 +1,7 @@
 """Weighted row sum over the flat client plane — FedAvg's eq.-(4) fold as
-one GEMV, ``[N, P] × [N] -> [P]`` in fp32.
+one GEMV, ``[N, P] × [N] -> [P]`` in fp32; with a leading lane axis (a
+cohort's seeds), ``[B, N, P] × [B, N] -> [B, P]`` in one launch, the lane
+as the grid's second axis.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flat_aggregate.py``
 (``flat_aggregate`` / ``_flat_aggregate_kernel``) with the hand-written
@@ -24,32 +26,35 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+             + (ctypes.c_void_p,))
 
 
 def flat_aggregate_plain(flat: torch.Tensor,
                          weights: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: zero the rows with ``w <= 0``, then the
-    naive multiply-and-reduce of ``ref.flat_aggregate_ref``."""
-    keep = (weights > 0.0)[:, None]
+    naive multiply-and-reduce of ``ref.flat_aggregate_ref`` (lanes
+    included)."""
+    keep = (weights > 0.0)[..., None]
     return ref.flat_aggregate_ref(
         torch.where(keep, flat, torch.zeros((), dtype=flat.dtype,
                                             device=flat.device)), weights)
 
 
 def flat_aggregate(flat: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """``Σ_n w_n·flat[n, :]`` over the rows with ``w_n > 0``.
+    """``Σ_n w_n·flat[n, :]`` over the rows with ``w_n > 0``, for each lane
+    of a leading lane axis if there is one.
 
-    flat ``[N, P]`` fp32 and weights ``[N]`` fp32, both contiguous on one
-    device. A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`flat_aggregate_plain`.
+    flat ``[N, P]`` and weights ``[N]``, or flat ``[B, N, P]`` and weights
+    ``[B, N]``; fp32, both contiguous on one device. A CUDA tensor launches
+    the kernel; a CPU tensor takes :func:`flat_aggregate_plain`.
     """
     if not flat.is_cuda:
         return flat_aggregate_plain(flat, weights)
-    if flat.dim() != 2 or weights.shape != (flat.shape[0],):
-        raise ValueError(f"flat_aggregate: want flat [N, P] and weights [N]; "
-                         f"got {tuple(flat.shape)} and {tuple(weights.shape)}")
+    if flat.dim() not in (2, 3) or weights.shape != flat.shape[:-1]:
+        raise ValueError(f"flat_aggregate: want flat [N, P] and weights [N], "
+                         f"or [B, N, P] and [B, N]; got {tuple(flat.shape)} "
+                         f"and {tuple(weights.shape)}")
     if flat.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError(f"flat_aggregate: the kernel takes float32; got "
                         f"{flat.dtype} and {weights.dtype}")
@@ -58,16 +63,17 @@ def flat_aggregate(flat: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                          f"devices ({flat.device}, {weights.device})")
     if not (flat.is_contiguous() and weights.is_contiguous()):
         raise ValueError("flat_aggregate: the kernel takes contiguous tensors")
-    n, p = flat.shape
-    if flat.numel() >= 2 ** 31:
-        raise ValueError(f"flat_aggregate: {n}x{p} exceeds the kernel's "
-                         "32-bit sizes")
-    out = torch.empty((p,), dtype=torch.float32, device=flat.device)
+    *lanes, n, p = flat.shape
+    b = lanes[0] if lanes else 1
+    if n * p >= 2 ** 31 or b > 65535:
+        raise ValueError(f"flat_aggregate: {tuple(flat.shape)} exceeds the "
+                         "kernel's 32-bit sizes or 65535 lanes")
+    out = torch.empty((*lanes, p), dtype=torch.float32, device=flat.device)
     fn = load_function("flat_aggregate", "flat_aggregate_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(flat.device).cuda_stream
     with torch.cuda.device(flat.device):
-        err = fn(flat.data_ptr(), weights.data_ptr(), out.data_ptr(), n, p,
-                 stream)
+        err = fn(flat.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n,
+                 p, stream)
     if err:
         raise RuntimeError("flat_aggregate: kernel launch failed: "
                            + error_string("flat_aggregate", err))

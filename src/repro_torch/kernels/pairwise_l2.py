@@ -1,7 +1,12 @@
 """Pairwise squared L2 distances, ``[N, F] × [M, F] -> [N, M]`` in fp32 —
 K-means assignment and k-means++ (M = clusters, F = the feature layer)
 and, with the global row as the one centroid, the divergence signal
-(M = 1, F = P).
+(M = 1, F = P). With a leading lane axis (a cohort's seeds), ``[B, N, F]
+× [B, M, F] -> [B, N, M]`` in one launch (plus its ``slab_sum``), each
+lane's operands at their own lane stride, so the divergence reads the
+first N rows of each lane of a ``[B, N + pad, P]`` plane in place. Each
+lane keeps the slab plan of its one-lane call (:func:`plan_slabs` of N,
+M and F), so it sums in the same order and gives that call's bits.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/pairwise_l2.py``
 (``pairwise_l2`` / ``_pairwise_l2_kernel``) with the hand-written CUDA
@@ -23,7 +28,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
 
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+             + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 2
              + (ctypes.c_void_p,))
 TARGET_BLOCKS = 528                # about four blocks an SM of an H100
 MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
@@ -35,7 +41,8 @@ def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
     pairs times the slabs come to about ``target`` blocks, each slab at
     least ``MIN_SLAB`` wide. One slab when the pairs alone are that many.
     A function of the shapes alone, so the bits depend on the input
-    only."""
+    only. A cohort's lanes keep their one-lane plan (B lanes bring B
+    times the blocks)."""
     pairs = n * m
     want = 1
     if 0 < pairs < target:
@@ -45,44 +52,58 @@ def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
     return max(1, -(-f // width)), width
 
 
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Each lane of ``t`` (``[.., R, F]``) is a row-major ``[R, F]`` block;
+    the lanes may lie at any stride."""
+    return (t.stride(-1) == 1 or t.shape[-1] <= 1) and (
+        t.stride(-2) == t.shape[-1] or t.shape[-2] <= 1)
+
+
 def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared distances ``[N, M]`` between the rows of x ``[N, F]`` and
-    c ``[M, F]``, both fp32 and contiguous on one device. A CUDA tensor
-    launches the kernel; a CPU tensor takes ``ref.pairwise_l2_ref``."""
+    c ``[M, F]``, or ``[B, N, M]`` lane by lane for x ``[B, N, F]`` and c
+    ``[B, M, F]``; fp32 on one device, each lane's rows row-major (the
+    lanes at any stride). A CUDA tensor launches the kernel; a CPU tensor
+    takes ``ref.pairwise_l2_ref``."""
     if not x.is_cuda:
         return ref.pairwise_l2_ref(x, c)
-    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
-        raise ValueError(f"pairwise_l2: want x [N, F] and c [M, F]; got "
-                         f"{tuple(x.shape)} and {tuple(c.shape)}")
+    if (x.dim() not in (2, 3) or c.dim() != x.dim()
+            or x.shape[-1] != c.shape[-1] or x.shape[:-2] != c.shape[:-2]):
+        raise ValueError(f"pairwise_l2: want x [N, F] and c [M, F], or "
+                         f"[B, N, F] and [B, M, F]; got {tuple(x.shape)} "
+                         f"and {tuple(c.shape)}")
     if x.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"pairwise_l2: the kernel takes float32; got "
                         f"{x.dtype} and {c.dtype}")
     if c.device != x.device:
         raise ValueError("pairwise_l2: x and c lie on different devices "
                          f"({x.device}, {c.device})")
-    if not (x.is_contiguous() and c.is_contiguous()):
-        raise ValueError("pairwise_l2: the kernel takes contiguous tensors")
-    (n, f), m = x.shape, c.shape[0]
-    if max(x.numel(), c.numel(), n * m) >= 2 ** 31:
-        raise ValueError(f"pairwise_l2: [{n},{f}]x[{m},{f}] exceeds the "
-                         "kernel's 32-bit sizes")
+    if not (_rows_contiguous(x) and _rows_contiguous(c)):
+        raise ValueError("pairwise_l2: the kernel takes row-major rows")
+    *lanes, n, f = x.shape
+    b, m = (lanes[0] if lanes else 1), c.shape[-2]
+    if max(n * f, m * f, b * n * m) >= 2 ** 31:
+        raise ValueError(f"pairwise_l2: {tuple(x.shape)}x{tuple(c.shape)} "
+                         "exceeds the kernel's 32-bit sizes")
     return _launch(x, c, *plan_slabs(n, m, f))
 
 
 def _launch(x, c, slabs: int, width: int):
     """The kernel over ``slabs`` slabs of ``width`` columns of F."""
-    (n, f), m = x.shape, c.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    *lanes, n, f = x.shape
+    b, m = (lanes[0] if lanes else 1), c.shape[-2]
+    out = torch.empty((*lanes, n, m), dtype=torch.float32, device=x.device)
     part = None
     if slabs > 1:
-        part = torch.empty((n * m, slabs), dtype=torch.float32,
+        part = torch.empty((b * n * m, slabs), dtype=torch.float32,
                            device=x.device)
     fn = load_function("pairwise_l2", "pairwise_l2_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    strides = (x.stride(0), c.stride(0)) if lanes else (0, 0)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(),
-                 None if part is None else part.data_ptr(), n, m, f, slabs,
-                 width, stream)
+                 None if part is None else part.data_ptr(), b, n, m, f,
+                 *strides, slabs, width, stream)
     if err:
         raise RuntimeError("pairwise_l2: kernel launch failed: "
                            + error_string("pairwise_l2", err))

@@ -9,18 +9,21 @@ import torch
 
 
 def pairwise_l2_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Squared Euclidean distances. x: [N, F]; c: [M, F] -> [N, M] fp32.
-    The direct difference form, O(N·M·F) memory."""
-    diff = x.to(torch.float32)[:, None, :] - c.to(torch.float32)[None, :, :]
+    """Squared Euclidean distances. x: [N, F]; c: [M, F] -> [N, M] fp32,
+    or one such per lane of a leading lane axis ([B, N, F] × [B, M, F] ->
+    [B, N, M]). The direct difference form, O(N·M·F) memory."""
+    diff = (x.to(torch.float32)[..., :, None, :]
+            - c.to(torch.float32)[..., None, :, :])
     return torch.sum(torch.square(diff), dim=-1)
 
 
 def flat_aggregate_ref(flat: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
-    """Weighted row sum over the flat client plane: [N, P] × [N] -> [P] fp32,
-    as an elementwise multiply + axis-0 reduce (not a dot)."""
+    """Weighted row sum over the flat client plane: [N, P] × [N] -> [P] fp32
+    (or [B, N, P] × [B, N] -> [B, P] over a leading lane axis), as an
+    elementwise multiply + row-axis reduce (not a dot)."""
     w = weights.to(torch.float32)
-    return torch.sum(flat.to(torch.float32) * w[:, None], dim=0)
+    return torch.sum(flat.to(torch.float32) * w[..., None], dim=-2)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):

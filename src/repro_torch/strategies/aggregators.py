@@ -24,7 +24,9 @@ class FedAvgAggregator(Strategy):
 
     def aggregate_flat(self, global_vec: torch.Tensor, rows: torch.Tensor,
                        weights: torch.Tensor, opt_state=None):
-        """``(new global row, new server state)``."""
+        """``(new global row, new server state)``: rows ``[S, P]`` and
+        weights ``[S]`` give ``[P]``; with a leading lane axis (``[B, S,
+        P]``, ``[B, S]``) one global row a lane, ``[B, P]``."""
         return ops.flat_aggregate(rows, weights), opt_state
 
     def load_flat_state(self, opt_state, spec) -> None:

@@ -8,7 +8,9 @@ selection.
 Each also implements the traced contract
 (``repro_torch.api.protocols.TracedAllocator``): ``allocate_traced(arr,
 B, mask) -> (T, E, b, f)``, which ``allocate`` wraps. Inside a captured
-round the solves run their eager bodies as part of the round's graph."""
+round the solves run their eager bodies as part of the round's graph.
+Arrays (and mask) of ``[B, S]`` carry a leading lane axis (a cohort's
+seeds): ``T`` and ``E`` are then ``[B]``, one allocation a lane."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -67,7 +69,7 @@ class EqualBandwidthAllocator(Strategy):
 
     def allocate_traced(self, arr, B: float, mask):
         r = equal_bandwidth(arr, B, mask=mask)
-        return r.T, torch.sum(r.e), r.b, r.f
+        return r.T, torch.sum(r.e, dim=-1), r.b, r.f
 
 
 @ALLOCATORS.register("fedl")

@@ -9,7 +9,9 @@ Every one also implements the traced contract
 (``repro_torch.api.protocols.TracedSelector``): ``select_traced`` over
 fixed-size padded index sets (``repro_torch.strategies.traced``), which
 the device-resident run (``repro_torch.core.engine.run_rounds``) calls.
-The stochastic ones take their draw as an argument there.
+The stochastic ones take their draw as an argument there: ``draw_kind``
+names it (``"permutation"`` of N, or ``"uniform"``: N uniforms), so that
+a draws object can make it (``repro_torch.core.draws``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ class RandomSelector(Strategy):
     traceable = True
     needs_rng = True
     needs_divergence = False
+    draw_kind = "permutation"
 
     def select(self, ctx: SelectionContext) -> np.ndarray:
         return select_random(ctx.rng, ctx.num_devices, ctx.devices_per_round)
@@ -76,6 +79,7 @@ class KMeansRandomSelector(Strategy):
     needs_rng = True
     needs_divergence = False
     needs_clusters = True
+    draw_kind = "uniform"
 
     def select(self, ctx: SelectionContext) -> np.ndarray:
         return select_kmeans_random(
@@ -157,6 +161,7 @@ class StochasticSchedSelector(Strategy):
     traceable = True
     needs_rng = True
     needs_divergence = False
+    draw_kind = "uniform"
 
     def pad_size(self, ctx: TracedContext) -> int:
         return ctx.num_devices          # the set size varies
@@ -192,6 +197,7 @@ class RRASelector(Strategy):
     traceable = True
     needs_rng = True
     needs_divergence = False
+    draw_kind = "uniform"
 
     def pad_size(self, ctx: TracedContext) -> int:
         return ctx.num_devices          # the set size varies

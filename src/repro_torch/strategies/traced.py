@@ -18,6 +18,11 @@ permutation of N for ``random`` — so a caller decides where it comes from
 and a test can feed the reference's ``jax.random`` draws; nothing draws
 inside. The host versions (``repro_torch.core.selection``) stay the
 round-at-a-time loop's.
+
+Every policy also takes a leading lane axis (a cohort's seeds, where the
+reference ``vmap``s): divergences, labels, draws and fleet arrays of
+``[B, N]`` give ``idx``/``mask`` of ``[B, pad]``, each lane the selection
+its own inputs give alone.
 """
 from __future__ import annotations
 
@@ -41,10 +46,11 @@ def rate_at(arr, band_mhz: float) -> torch.Tensor:
 
 def _participants(mask: torch.Tensor, fallback: torch.Tensor, n: int):
     """``(idx, mask)`` over all N lanes from a participation mask, never
-    empty: with nobody drawn, the device ``argmax(fallback)`` alone."""
+    empty: with nobody drawn, the device ``argmax(fallback)`` alone (per
+    lane of a leading lane axis)."""
     lanes = torch.arange(n, device=mask.device)
-    mask = torch.where(torch.any(mask), mask,
-                       lanes == torch.argmax(fallback))
+    mask = torch.where(torch.any(mask, dim=-1, keepdim=True), mask,
+                       lanes == torch.argmax(fallback, dim=-1, keepdim=True))
     return torch.where(mask, lanes, n), mask
 
 
@@ -52,19 +58,20 @@ def _per_cluster_topk(scores, labels, num_clusters: int, s: int,
                       num_devices: int):
     """Top-``s`` lanes per cluster of a score vector.
 
-    Returns ``(idx, mask)`` of static length ``num_clusters * s``;
-    clusters with fewer than ``s`` members pad with the sentinel. Cluster
-    blocks come in label order (the host loop's concatenation order), each
-    block descending by score.
+    Returns ``(idx, mask)`` of static length ``num_clusters * s`` (after
+    the lane axis, if any); clusters with fewer than ``s`` members pad
+    with the sentinel. Cluster blocks come in label order (the host loop's
+    concatenation order), each block descending by score.
     """
     clusters = torch.arange(num_clusters, device=labels.device)
-    member = labels[None, :] == clusters[:, None]                 # [c, N]
-    masked = torch.where(member, scores[None, :].to(torch.float32),
+    member = labels[..., None, :] == clusters[:, None]        # [.., c, N]
+    masked = torch.where(member, scores[..., None, :].to(torch.float32),
                          -float("inf"))
-    top, order = _stable_top(masked, s)                           # [c, s]
+    top, order = _stable_top(masked, s)                       # [.., c, s]
     valid = torch.isfinite(top)
     idx = torch.where(valid, order, num_devices)
-    return idx.reshape(-1), valid.reshape(-1)
+    lead = idx.shape[:-2]
+    return idx.reshape(lead + (-1,)), valid.reshape(lead + (-1,))
 
 
 def select_divergence_traced(divergences, labels, *, num_clusters: int,
@@ -83,8 +90,8 @@ def select_kmeans_random_traced(uniforms, labels, *, num_clusters: int,
 
 def select_random_traced(permutation, *, num_devices: int, S: int):
     """FedAvg: the first S of a permutation of the N devices."""
-    idx = permutation[:S].to(torch.int64)
-    return idx, torch.ones((S,), dtype=torch.bool, device=idx.device)
+    idx = permutation[..., :S].to(torch.int64)
+    return idx, torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
 
 
 def select_icas_traced(divergences, arr, *, bandwidth_mhz: float,
@@ -92,11 +99,13 @@ def select_icas_traced(divergences, arr, *, bandwidth_mhz: float,
     """ICAS: importance × channel rate, a geometric blend; the top S."""
     arr = effective_arrays(arr)
     rates = rate_at(arr, bandwidth_mhz / num_devices)
-    u = divergences / torch.clamp(torch.max(divergences), min=1e-12)
-    r = rates / torch.clamp(torch.max(rates), min=1e-12)
+    u = divergences / torch.clamp(
+        torch.amax(divergences, dim=-1, keepdim=True), min=1e-12)
+    r = rates / torch.clamp(torch.amax(rates, dim=-1, keepdim=True),
+                            min=1e-12)
     score = torch.pow(u, beta) * torch.pow(r, 1.0 - beta)
     _, idx = _stable_top(score, S)
-    return idx, torch.ones((S,), dtype=torch.bool, device=idx.device)
+    return idx, torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
 
 
 def select_stochastic_sched_traced(uniforms, arr, *, bandwidth_mhz: float,
@@ -109,8 +118,8 @@ def select_stochastic_sched_traced(uniforms, arr, *, bandwidth_mhz: float,
     cost = (arr["H"] / rate_at(arr, bandwidth_mhz / S)
             + arr["G"] * torch.square(arr["f_max"]))
     ratio = arr["e_cons"] / torch.clamp(cost, min=1e-12)
-    p = torch.clamp(S * ratio / torch.clamp(torch.sum(ratio), min=1e-12),
-                    0.0, 1.0)
+    total = torch.sum(ratio, dim=-1, keepdim=True)
+    p = torch.clamp(S * ratio / torch.clamp(total, min=1e-12), 0.0, 1.0)
     return _participants(uniforms < p, ratio, num_devices)
 
 
@@ -123,7 +132,8 @@ def select_rra_traced(uniforms, arr, *, bandwidth_mhz: float,
     e_eq = arr["H"] / rate_at(arr, bandwidth_mhz / target_mean)
     eff = arr["e_cons"] / torch.clamp(e_eq, min=1e-12)
     q = min(1.0, target_mean / num_devices)
-    p = torch.clamp(eff / torch.quantile(eff, q), 0.0, 1.0)
-    scale = torch.clamp(target_mean / torch.clamp(torch.sum(p), min=1e-9),
-                        max=1.0)
+    p = torch.clamp(eff / torch.quantile(eff, q, dim=-1, keepdim=True),
+                    0.0, 1.0)
+    total = torch.sum(p, dim=-1, keepdim=True)
+    scale = torch.clamp(target_mean / torch.clamp(total, min=1e-9), max=1.0)
     return _participants(uniforms < p * scale, eff, num_devices)

@@ -440,3 +440,87 @@ def test_replayed_round_matches_the_eager_round_body(cuda):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6, msg=name)
     for g, w in zip(got_state, (state.params, state.client_params)):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the lane forms (a cohort's seeds): one launch for every lane
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,p", [(8, 10, 113_744), (3, 13, 4100),
+                                   (2, 300, 1003), (5, 1, 8)])
+def test_flat_aggregate_lanes_match_plain(cuda, b, n, p):
+    """[B, N, P] × [B, N] in one launch, each lane equal bit for bit to
+    the 2-D call on that lane (the lane is a grid axis, nothing else)."""
+    flat = torch.tensor(_normal(b + n, b, n, p), device=cuda)
+    w = torch.tensor(np.abs(_normal(b + n + 1, b, n)) + 0.1, device=cuda)
+    if n > 1:
+        flat[:, n // 2] = float("nan")             # NaN rows at weight 0
+        w[:, n // 2] = 0.0
+    before = flat_aggregate.launches
+    got = flat_aggregate(flat, w)
+    torch.cuda.synchronize()
+    assert flat_aggregate.launches == before + 1 and got.shape == (b, p)
+    torch.testing.assert_close(got, flat_aggregate_plain(flat, w), **AGG_TOL)
+    for i in range(b):
+        assert torch.equal(got[i], flat_aggregate(flat[i], w[i]))
+
+
+@pytest.mark.parametrize("b,n,rows,m,f", [(8, 40, 50, 1, 113_744),
+                                          (8, 40, 40, 10, 2240),
+                                          (3, 7, 9, 3, 33),
+                                          (2, 10, 12, 1, 563_200)])
+def test_pairwise_l2_lanes_match_plain(cuda, b, n, rows, m, f):
+    """[B, N, F] × [B, M, F] in one call, x the first N rows of each lane
+    of a [B, rows, F] plane (each lane at its stride); each lane equal
+    bit for bit to the 2-D call on that lane's rows (the same slab
+    plan)."""
+    plane = torch.tensor(_normal(b + f, b, rows, f), device=cuda)
+    x = plane[:, :n]
+    c = torch.tensor(_normal(b + m, b, m, f), device=cuda)
+    before = pairwise_l2.launches
+    got = pairwise_l2(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2.launches == before + 1 and got.shape == (b, n, m)
+    torch.testing.assert_close(got, ref.pairwise_l2_ref(x, c), **L2_TOL)
+    for i in range(b):
+        assert torch.equal(got[i], pairwise_l2(x[i], c[i]))
+
+
+def test_ops_lanes_on_cuda(cuda):
+    flat = torch.tensor(_normal(3, 4, 6, 4096), device=cuda)
+    w = torch.tensor(np.abs(_normal(4, 4, 6)) + 0.1, device=cuda)
+    mask = torch.rand((4, 6), device=cuda) > 0.3
+    g = ops.flat_aggregate(flat, w, mask=mask)
+    d = ops.client_divergence(flat, g)
+    torch.cuda.synchronize()
+    cpu = ops.flat_aggregate(flat.cpu(), w.cpu(), mask=mask.cpu())
+    torch.testing.assert_close(g.cpu(), cpu, **AGG_TOL)
+    torch.testing.assert_close(d.cpu(), ops.client_divergence(
+        flat.cpu(), cpu), rtol=1e-5, atol=1e-5)
+
+
+def test_cohort_on_the_card_matches_single_runs(cuda):
+    """A cohort of 2 as lanes of one captured round against its seeds'
+    single traced runs on the card."""
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    spec = ExperimentSpec(dataset="fashion", clients=8, samples_per_client=16,
+                          train_samples=160, test_samples=80, local_iters=2,
+                          batch_size=8, rounds=2, devices_per_round=4,
+                          num_clusters=4, cohort=2, data_seed=7,
+                          test_seed=90_000)
+    runner = build_cohort(spec, device=cuda)
+    ch = runner.run(transfer_guard=True)
+    assert runner.program.graph is not None and runner.program.lanes == 2
+    for i, seed in enumerate(ch.seeds):
+        single = build_experiment(spec.replace(seed=seed), device=cuda)
+        h = single.run()
+        hi = ch.history(i)
+        for a, b in zip(hi.selected, h.selected):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(hi.T_k, h.T_k, rtol=1e-5)
+        np.testing.assert_allclose(hi.E_k, h.E_k, rtol=1e-5)
+        assert max(abs(x - y) for x, y in zip(hi.accuracy, h.accuracy)) \
+            <= 1.0 / 80 + 1e-9
+        torch.testing.assert_close(runner.experiments[i].global_vec,
+                                   single.global_vec, rtol=0, atol=1e-5)
