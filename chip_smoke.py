@@ -47,7 +47,7 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    whole traced run under the profiler, whose FL kernel launches are the
    path's counts;
 9. seed cohorts (``build_cohort``): (a) ``ExperimentSpec(cohort=8)``, the
-   initial round and 5 replays of ONE captured round for the 8 lanes,
+   initial round and 3 replays of ONE captured round for the 8 lanes,
    under ``transfer_guard`` (a host sync raises), each lane held to its
    seed's single traced run; the cohort's replay against one seed's, one
    cohort replay profiled, device memory; (b) cohorts of 4 under
@@ -55,7 +55,18 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    traced runs fed the same draws; in (a) and (b) a whole guarded run
    under the profiler gives the path's kernel launches; (c) the quick
    cell of Fig. 10/11 and Table III (four methods, seeds 0 and 17);
-10. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+10. the wireless scenario: (a) tiny runs on the CPU and on the card from
+    the same draws — a 2-cell ``multicell-dynamic`` (ρ = 0.9) cohort with
+    FedAvgM and int8, a single cell under ``topk:0.01``; (b) the 3-cell
+    dynamic cohort of 2 seeds at full width (6 lanes of ONE captured
+    round, the initial round and 3 replays) under ``transfer_guard`` and,
+    once more, under the profiler (the path's kernel launches); its
+    replay against one single-cell seed's; (c) a static 2-cell cohort, each
+    cell lane against its ``build_experiment(spec, cell=c)`` run; (d)
+    ``topk:0.01`` with FedAvgM, traced against the host loop, and SAO's T
+    with the compressed payload below T with the full one; (e)
+    ``rayleigh-block`` against ``gauss-markov:0`` from the same draws;
+11. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -277,15 +288,17 @@ def kernel_phase(torch, timer):
         check(ok, f"pairwise_l2 [{n},{f}]x[{m},{f}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("pairwise_l2", []).append(r)
-    for name, r in lane_kernel_rows(torch, timer, gen).items():
-        rows[name].append(r)
+    for lanes in (8, 6):        # phase 9's seed cohort, phase 10's cells
+        for name, r in lane_kernel_rows(torch, timer, gen, lanes).items():
+            rows[name].append(r)
     rows["flash_attention"] = attention_rows(torch, timer, gen)
     rows["ssd_scan"] = ssd_rows(torch, timer, gen)
     return rows
 
 
 def lane_kernel_rows(torch, timer, gen, lanes=8):
-    """(d) The lane forms on the cohort path (phase 9's 8 lanes):
+    """(d) The lane forms on the cohort paths (phase 9's 8 lanes, phase
+    10's 6: 2 seeds × 3 cells), here for 8:
     ``flat_aggregate`` at [8, 10, 113744] (a round's fold, every lane in
     one launch) and ``pairwise_l2`` at [8, 40, 113744] × [8, 1, 113744]
     (the divergence: the first 40 rows of each lane of an [8, 50, 113744]
@@ -587,6 +600,12 @@ class _CpuDraws:
 
     def batch_indices(self, *args):
         return self.inner.batch_indices(*args).to(self.device)
+
+    def channel_init(self, shape):
+        return self.inner.channel_init(shape).to(self.device)
+
+    def channel_step(self, shape):
+        return self.inner.channel_step(shape).to(self.device)
 
     def kmeans_seed(self, n, c):
         return self.inner.kmeans_seed(n, c).to(self.device)
@@ -1238,15 +1257,15 @@ def idle_share(busy_ms, window_ms):
     return 1.0 - busy_ms / window_ms
 
 
-def profile_replay(torch, prog, batch, draw=None):
+def profile_replay(torch, prog, batch, draw=None, fade=None):
     """One replay of ``prog``'s captured round under ``torch.profiler``
     (``profiled_device_work``): its device launches, busy ms, the launches
     of each FL kernel and of each device function, the marks kept before
     and after it, and its own device window [ms]."""
     from collections import defaultdict
-    prog.replay(batch, draw)
+    prog.replay(batch, draw, fade)
     work, before, after, window = profiled_device_work(
-        torch, lambda: prog.replay(batch, draw), "the replay")
+        torch, lambda: prog.replay(batch, draw, fade), "the replay")
     by_name = defaultdict(lambda: [0, 0.0])
     for name, ms in work:
         by_name[name][0] += 1
@@ -1325,7 +1344,8 @@ def single_program(exp):
         exp.engine_cfg, selector=exp.selector, allocator=exp.allocator,
         aggregator=exp.aggregator, tctx=exp.traced_context(),
         feature_layer=exp.fl.feature_layer, device=exp.device,
-        shapes=exp.traced_inputs().shapes())
+        shapes=exp.traced_inputs().shapes(), base=exp.base,
+        compressor=exp.compressor, channel=exp.channel)
 
 
 def traced_phase(torch, rounds=5):
@@ -1534,7 +1554,7 @@ def same_history(a, b):
             and a.E_k.tolist() == b.E_k.tolist())
 
 
-def cohort_phase(torch, rounds=5, lanes=8):
+def cohort_phase(torch, rounds=3, lanes=8):
     """(a) ``build_cohort(ExperimentSpec(cohort=8))``: the initial round and
     ``rounds`` replays of ONE captured round for the 8 lanes. A first run
     captures; a second from the same seeds runs under ``transfer_guard``
@@ -1754,6 +1774,292 @@ def fig10_phase(torch, rounds=10, seeds=(0, 17)):
           "seeds, not a ranking)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the wireless scenario
+# ---------------------------------------------------------------------------
+
+
+WIRELESS_TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
+                     train_samples=160, test_samples=80, local_iters=2,
+                     batch_size=8, devices_per_round=4, num_clusters=4,
+                     rounds=3)
+DYNAMIC_RHO = {"name": "multicell-dynamic", "params": {"rho": 0.9}}
+
+
+def rows_agree(got, want, atol, what):
+    """``got`` within ``atol`` of ``want``, but for the entries an int8
+    rounding flipped: a drift below ``atol`` in a trained row moves a
+    value across a rounding boundary of the int8 grid now and then, which
+    changes it by one quantization step (max|Δ|/127 of its leaf). At most
+    0.1 % of the entries may do so, each within 1e-3. Returns the max
+    abs diff and how many entries passed ``atol``."""
+    d = (got.cpu() - want.cpu()).abs()
+    off = int((d > atol).sum())
+    err = float(d.max())
+    check(off <= 1e-3 * d.numel() and err <= 1e-3,
+          f"{what}: {off} of {d.numel()} entries beyond {atol}, max abs "
+          f"diff {err}")
+    return err, off
+
+
+def wireless_agreement(torch):
+    """(a) Tiny runs on the CPU and on the card from the same draws: a
+    2-cell ``multicell-dynamic`` (ρ = 0.9) cohort of one seed with
+    ``fedavgm:0.9`` and ``int8``, and a single-cell ``topk:0.01`` run.
+    Selections equal, T_k/E_k and ``inr`` within rtol 2e-3, the rows
+    within atol 1e-4 (``rows_agree``): phase 3's tolerances."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    from repro_torch.api.scenario import multicell_fleet_spec
+    spec = ExperimentSpec(**WIRELESS_TINY, cohort=1, aggregator="fedavgm:0.9",
+                          compressor="int8",
+                          fleet=multicell_fleet_spec(2, channel=DYNAMIC_RHO))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        runner = build_cohort(spec, device=dev,
+                              draws=lambda s, dev=dev: _CpuDraws(s, dev))
+        out[dev] = runner, runner.run()
+    (r_cpu, c_cpu), (r_gpu, c_gpu) = out["cpu"], out[DEVICE]
+    check(r_gpu.program.graph is not None and r_gpu.program.lanes == 2,
+          "(a) the 2-cell cohort was not one captured round")
+    check(np.array_equal(c_cpu.selected * c_cpu.mask,
+                         c_gpu.selected * c_gpu.mask),
+          f"(a) cells: selections differ, card {c_gpu.selected.tolist()}, "
+          f"CPU {c_cpu.selected.tolist()}")
+    d = {k: float(np.max(np.abs(getattr(c_gpu, k) / getattr(c_cpu, k) - 1)))
+         for k in ("T_k", "E_k", "inr")}
+    check(all(v <= 2e-3 for v in d.values()), f"(a) cells: rel diffs {d}")
+    errs = [rows_agree(a.global_vec, b.global_vec, 1e-4,
+                       f"(a) cell {c} row")
+            for c, (a, b) in enumerate(zip(r_gpu.experiments,
+                                           r_cpu.experiments))]
+    print(f"  (a) 2-cell multicell-dynamic (rho 0.9) cohort, fedavgm:0.9, "
+          f"int8, CPU vs card: selections equal; max rel diff {d} (tol "
+          f"2e-3); global rows max abs diff {[e for e, _ in errs]}, entries "
+          f"beyond 1e-4 (int8 flips) {[n for _, n in errs]}; inr (card) "
+          f"{np.round(c_gpu.inr, 4).tolist()}")
+
+    spec = ExperimentSpec(**WIRELESS_TINY, compressor="topk:0.01")
+    out = {}
+    for dev in ("cpu", DEVICE):
+        exp = build_experiment(spec, device=dev, draws=_CpuDraws(0, dev))
+        out[dev] = exp, exp.run()
+    (e_cpu, h_cpu), (e_gpu, h_gpu) = out["cpu"], out[DEVICE]
+    check(h_gpu.seconds == [], "(a) topk: run() did not take the traced path")
+    for k, (a, b) in enumerate(zip(h_cpu.selected, h_gpu.selected)):
+        check(list(a) == list(b), f"(a) topk: round {k} selected {list(b)} "
+                                  f"on the card, {list(a)} on the CPU")
+    d = max(abs(x / y - 1) for x, y in zip(h_gpu.T_k + h_gpu.E_k,
+                                           h_cpu.T_k + h_cpu.E_k))
+    check(d <= 2e-3, f"(a) topk: T_k/E_k differ by {d}")
+    err = float((e_gpu.global_vec.cpu() - e_cpu.global_vec).abs().max())
+    check(err <= 1e-4, f"(a) topk: global row differs by {err}")
+    print(f"  (a) topk:0.01, CPU vs card: selections equal; T_k/E_k max rel "
+          f"diff {d:.3e} (tol 2e-3); global row max abs diff {err:.3e} (tol "
+          f"1e-4)")
+
+
+def cells_cohort_phase(torch, rounds=3, seeds=2, cells=3):
+    """(b) ``ExperimentSpec(cohort=2, aggregator="fedavgm:0.9",
+    compressor="int8", fleet=multicell_fleet_spec(3, channel=
+    multicell-dynamic with ρ = 0.9))`` at full width: the paper CNN, 40
+    clients a cell, S = 10, L = 20, batch 32 — 6 lanes of ONE captured
+    round, the initial round and ``rounds`` replays. A first run captures;
+    a second from the same seeds runs under ``transfer_guard`` and the
+    profiler (the path's launches, held to the initial round's +
+    ``rounds`` × one profiled replay's) and must repeat the first. Every
+    cell's ``inr`` is > 0 and changes between rounds. Then a replay
+    against one single-cell seed's (FedAvgM and int8, in turns), the
+    capture's ms and the device memory."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    from repro_torch.api.scenario import multicell_fleet_spec
+    lanes = seeds * cells
+    what = f"multicell cohort ({seeds} seeds x {cells} cells)"
+    spec = ExperimentSpec(cohort=seeds, aggregator="fedavgm:0.9",
+                          compressor="int8", fleet=multicell_fleet_spec(
+                              cells, channel=DYNAMIC_RHO))
+    fns = kernel_fns()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    runner = build_cohort(spec)
+    t0 = time.perf_counter()
+    first = runner.run(rounds=rounds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prog = runner.program
+    check(prog.graph is not None and prog.lanes == lanes and prog.ph.dynamic
+          and prog.ph.fading,
+          "the multicell cohort's round was not one captured graph for all "
+          "lanes with its fade and cross-cell reduction")
+    ch, guarded_ms, launches, wrapped = profiled_cohort_run(
+        torch, fns, runner, rounds, what)
+    check(runner.program is prog, "the second multicell run captured again")
+    check(same_history(first, ch)
+          and np.array_equal(first.inr, ch.inr),
+          "two multicell cohort runs from the same seeds differ")
+    check(ch.accuracy.shape == (lanes, rounds + 1)
+          and bool(np.isfinite(ch.accuracy).all() and np.isfinite(ch.T_k).all()
+                   and np.isfinite(ch.E_k).all()),
+          f"multicell history: shape {ch.accuracy.shape} or non-finite")
+    check(ch.inr.shape == (lanes, rounds) and bool(np.all(ch.inr > 0)),
+          f"multicell inr: shape {ch.inr.shape} or a cell with none: "
+          f"{ch.inr.tolist()}")
+    check(all(len(set(row.tolist())) > 1 for row in ch.inr),
+          f"a cell's inr did not change between rounds: {ch.inr.tolist()}")
+    print(f"  {what}: lanes {list(zip(ch.seeds, ch.lane_cells))}; first run "
+          f"(initial round + {rounds}, capture included) {first_ms:.1f} ms, "
+          f"capture {prog.capture_ms:.1f} ms; a second run under "
+          f"transfer_guard (0 host syncs) and the profiler {guarded_ms:.1f} "
+          f"ms, equal to the first")
+    print(f"  inr by lane and round: {np.round(ch.inr, 3).tolist()}")
+    print(f"  T_k by lane: {np.round(ch.T_k, 5).tolist()}")
+    print(f"  final accuracy by lane "
+          f"{[round(float(a), 4) for a in ch.final_accuracy]}")
+
+    single = build_experiment(ExperimentSpec(aggregator="fedavgm:0.9",
+                                             compressor="int8"))
+    single.run(rounds=1)
+    single_prog = single_program(single)
+    check(single_prog.graph is not None, "the single-cell round was not "
+                                         "captured")
+    exps = runner.experiments
+    batch = torch.stack([e.draws.batch_indices(
+        prog.pad, spec.local_iters, spec.batch_size, spec.samples_per_client)
+        for e in exps])
+    fade = torch.stack([e.draws.channel_step((spec.clients,)) for e in exps])
+    batch1 = single.draws.batch_indices(single_prog.pad, spec.local_iters,
+                                        spec.batch_size,
+                                        spec.samples_per_client)
+    walls = {"single": [], "cohort": []}
+    for _ in range(3):
+        for name, fn in (("single", lambda: single_prog.replay(batch1)),
+                         ("cohort", lambda: prog.replay(batch, None, fade)),
+                         ("cohort", lambda: prog.replay(batch, None, fade)),
+                         ("single", lambda: single_prog.replay(batch1))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in walls.items()}
+    n_dev, busy, inside, by_name, kept, window = profile_replay(
+        torch, prog, batch, None, fade)
+    reserved = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"  replay wall (host clock, synchronised; median of "
+          f"{len(walls['cohort'])}, in turns): {what} {ms['cohort']:.1f} ms, "
+          f"one single-cell seed (fedavgm, int8) {ms['single']:.1f} ms "
+          f"({ms['cohort'] / ms['single']:.2f}x for {lanes} lanes)")
+    print(f"  one profiled replay: {n_dev} device launches, {busy:.2f} ms "
+          f"busy in its own device window of {window:.2f} ms: idle share "
+          f"{idle_share(busy, window):.4f}; inside it: {inside} (marks kept "
+          f"before and after it: {kept[0]} and {kept[1]})")
+    for i, (name, (n, t)) in enumerate(sorted(by_name.items(),
+                                              key=lambda kv: -kv[1][1])[:5]):
+        print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
+    print(f"  device memory: reserved +{reserved:.1f} MiB over the phase, "
+          f"peak allocated {peak:.1f} MiB")
+    hold_path_launches(launches, wrapped, inside, rounds, what)
+    return launches, dict(replay_ms=ms["cohort"],
+                          single_replay_ms=ms["single"],
+                          capture_ms=prog.capture_ms, device_launches=n_dev,
+                          busy_ms=busy, window_ms=window,
+                          reserved_mib=reserved, peak_mib=peak)
+
+
+def static_cells_phase(torch, rounds=2):
+    """(c) ``ExperimentSpec(fleet=multicell_fleet_spec(2))`` (build-time
+    interference) as a cohort: each cell lane against its
+    ``build_experiment(spec, cell=c)`` single traced run
+    (``lane_vs_single``), and whether it is equal bit for bit."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    from repro_torch.api.scenario import multicell_fleet_spec
+    spec = ExperimentSpec(fleet=multicell_fleet_spec(2))
+    runner = build_cohort(spec)
+    ch = runner.run(rounds=rounds)
+    check(runner.program.lanes == 2 and ch.inr is None,
+          "(c) the static 2-cell cohort is not 2 independent lanes")
+    bits = []
+    for c in range(2):
+        single = build_experiment(spec, cell=c)
+        h = single.run(rounds=rounds)
+        check(h.seconds == [] and float(single.fleet.inr.min()) > 0,
+              "(c) a cell's single run is not traced or has no interference")
+        d = lane_vs_single(ch, c, runner.experiments[c], single, h,
+                           f"static cell lane {c}", spec.test_samples)
+        bits.append(bool(np.all(np.asarray(d) == 0)))
+    print(f"  (c) static 2-cell cohort ({rounds} rounds): each cell lane "
+          f"equals its build_experiment(spec, cell=c) run (tol: "
+          f"lane_vs_single); bit for bit: {bits}")
+
+
+def topk_phase(torch, rounds=3):
+    """(d) ``ExperimentSpec(compressor="topk:0.01", aggregator=
+    "fedavgm:0.9")``: the traced run against the host loop from the same
+    seed, bit for bit; SAO's T for round 1's selection with the compressed
+    payload z against the full one, in this call."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core.sao import solve_sao
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    spec = ExperimentSpec(compressor="topk:0.01", aggregator="fedavgm:0.9")
+    traced, host = (build_experiment(spec) for _ in range(2))
+    h_t = traced.run(rounds=rounds)
+    h_h = host._run_host(None, rounds, 0.0)
+    torch.cuda.synchronize()
+    check(h_t.seconds == [], "(d) run() did not take the traced path")
+    same_sel = all(np.array_equal(a, b)
+                   for a, b in zip(h_t.selected, h_h.selected))
+    d_row = float((traced.global_vec - host.global_vec).abs().max())
+    d_v = float((traced.aggregator.init_flat_state(traced.global_vec)
+                 - host.aggregator.init_flat_state(host.global_vec))
+                .abs().max())
+    equal = (same_sel and h_t.T_k == h_h.T_k and h_t.E_k == h_h.E_k
+             and h_t.accuracy == h_h.accuracy and d_row == 0.0 and d_v == 0.0)
+    print(f"  (d) topk:0.01 + fedavgm:0.9, {rounds} rounds: traced vs host "
+          f"loop selections equal {same_sel}; T_k {h_t.T_k == h_h.T_k}, E_k "
+          f"{h_t.E_k == h_h.E_k}, accuracy {h_t.accuracy == h_h.accuracy} "
+          f"equal; global row max abs diff {d_row:.3e}, momentum {d_v:.3e}: "
+          f"{'bit for bit' if equal else 'NOT EQUAL'}")
+    check(equal, "(d) the topk traced run differs from the host loop")
+    sel = np.asarray(h_t.selected[1])
+    full = sample_fleet(spec.clients, seed=spec.resolved_fleet_seed)
+    T_c = float(solve_sao(fleet_arrays(traced.fleet.select(sel), DEVICE),
+                          spec.bandwidth_mhz).T)
+    T_u = float(solve_sao(fleet_arrays(full.select(sel), DEVICE),
+                          spec.bandwidth_mhz).T)
+    print(f"  (d) SAO T for round 1's selection: z = "
+          f"{traced.fleet.z[0]:.4f} Mbit (topk:0.01) {T_c:.6f} s, z = "
+          f"{full.z[0]:.4f} Mbit (uncompressed) {T_u:.6f} s")
+    check(T_c < T_u, f"(d) SAO's T with the compressed z ({T_c}) is not "
+                     f"below T with the full z ({T_u})")
+
+
+def rayleigh_phase(torch):
+    """(e) ``rayleigh-block`` against ``gauss-markov:0``: tiny traced runs
+    on the card from the same draws, equal bit for bit."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.api.scenario import FleetSpec
+    out = []
+    for channel in ("rayleigh-block", "gauss-markov:0"):
+        exp = build_experiment(ExperimentSpec(**WIRELESS_TINY,
+                                              fleet=FleetSpec(channel=channel)))
+        h = exp.run()
+        check(h.seconds == [], f"(e) {channel}: not the traced path")
+        out.append((h, exp.global_vec.cpu()))
+    (a, ga), (b, gb) = out
+    equal = (all(list(x) == list(y) for x, y in zip(a.selected, b.selected))
+             and a.T_k == b.T_k and a.E_k == b.E_k
+             and a.accuracy == b.accuracy and torch.equal(ga, gb))
+    print(f"  (e) rayleigh-block vs gauss-markov:0 on the card, same draws, "
+          f"{len(a.T_k) - 1} rounds: {'equal bit for bit' if equal else 'DIFFER'}"
+          f" (T_k {a.T_k})")
+    check(equal, "(e) rayleigh-block and gauss-markov:0 differ")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1844,7 +2150,7 @@ def main():
 
     print(f"  phase 8 done at {time.perf_counter() - t_start:.1f} s")
     print("== 9. seed cohorts on the card: lanes of one captured round")
-    print("  (a) build_cohort(ExperimentSpec(cohort=8)), 5 rounds")
+    print("  (a) build_cohort(ExperimentSpec(cohort=8)), 3 rounds")
     cohort_launches, _ = cohort_phase(torch)
     by_path["cohort of 8 (phase 9a)"] = cohort_launches
     torch.cuda.empty_cache()
@@ -1859,7 +2165,25 @@ def main():
     torch.cuda.empty_cache()
 
     print(f"  phase 9 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 10. the kernels")
+    print("== 10. the wireless scenario on the card")
+    t10 = time.perf_counter()
+    print("  (a) CPU and card agree: a dynamic 2-cell cohort, topk")
+    wireless_agreement(torch)
+    print("  (b) 3 cells x 2 seeds at full width: one captured round")
+    cells_launches, _ = cells_cohort_phase(torch)
+    by_path["multicell cohort (phase 10b)"] = cells_launches
+    torch.cuda.empty_cache()
+    print("  (c) static interference: cell lanes against single runs")
+    static_cells_phase(torch)
+    print("  (d) topk:0.01 with FedAvgM: traced against the host loop")
+    topk_phase(torch)
+    print("  (e) rayleigh-block against gauss-markov:0")
+    rayleigh_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    print(f"  phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 11. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

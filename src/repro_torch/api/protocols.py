@@ -63,9 +63,13 @@ class RoundState(NamedTuple):
                       ``None`` for FedAvg)
       labels        : ``[N]`` int64 K-means cluster labels (Alg. 2; zeros
                       until the initial round has run)
+      channel       : a fading channel's state, the ``[N, 2]`` (re, im)
+                      fade amplitude (``None`` for a stateless channel),
+                      set at the start of each device-resident run
 
-    A cohort's carry (``repro_torch.core.cohort``) stacks B of these on a
-    leading lane axis: ``[B, P]``, ``[B, N + S_pad, P]``, ``[B, N]``.
+    The aggregator's state is FedAvgM's ``[P]`` momentum. A cohort's carry
+    (``repro_torch.core.cohort``) stacks B of these on a leading lane
+    axis: ``[B, P]``, ``[B, N + S_pad, P]``, ``[B, N]``, ``[B, N, 2]``.
 
     The reference's PRNG ``key`` has no slot: the port's draws are
     arguments of the round (``repro_torch.core.draws``).
@@ -74,6 +78,7 @@ class RoundState(NamedTuple):
     client_params: Any
     opt_state: Any
     labels: Any
+    channel: Any = None
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Strategy registries — one per swappable stage of the round loop (Fig. 2):
-device selection, spectrum allocation and aggregation
-(``repro.api.registry``). A strategy is a small class registered under a
+device selection, spectrum allocation, aggregation and uplink compression,
+plus the physical channel models (``repro.api.registry``). A strategy is a small class registered under a
 short name:
 
     from repro_torch.api import SELECTORS
@@ -146,8 +146,17 @@ class Registry:
 SELECTORS = Registry("selector")
 ALLOCATORS = Registry("allocator")
 AGGREGATORS = Registry("aggregator")
+COMPRESSORS = Registry("compressor")
+CHANNELS = Registry("channel")
 
-_BY_KIND = {r.kind: r for r in (SELECTORS, ALLOCATORS, AGGREGATORS)}
+_BY_KIND = {r.kind: r for r in (SELECTORS, ALLOCATORS, AGGREGATORS,
+                                COMPRESSORS, CHANNELS)}
+
+
+def register_channel(name: str):
+    """Register a channel model under ``name`` (``CHANNELS.register``, the
+    scenario API's entry point)."""
+    return CHANNELS.register(name)
 
 
 def get_registry(kind: str) -> Registry:

@@ -14,9 +14,12 @@ through the port's registries and stored in the dict form, so
 ``"auto"``/``"cnn"`` (the paper CNN for ``dataset``) or a registered
 workload name (``"tinyllama"``, ``"mamba2-130m"``: LoRA LM rows).
 ``cohort`` is the number of seeds ``build_cohort`` runs as lanes of one
-captured round (``repro_torch.core.cohort``). The reference's fields the
-port has no counterpart for yet — ``fleet``, ``store``, ``compressor``, …
-— are left out, so passing one raises ``TypeError``.
+captured round (``repro_torch.core.cohort``). ``fleet`` is the physical
+scenario (a ``FleetSpec`` or its dict: cells and channel model,
+``repro_torch.api.scenario``); ``compressor`` the uplink compression. The
+reference's fields the port has no counterpart for yet (``store``,
+``faults``, ``churn_leave``, …) are left out: passing one raises a
+``TypeError`` that names the port.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Any, Dict, Optional, Union
 
 import repro_torch.strategies  # noqa: F401  (populate the registries)
 from repro_torch.api.registry import get_registry
+from repro_torch.api.scenario import FleetSpec
 
 SPEC_VERSION = 1
 
@@ -50,8 +54,12 @@ class ExperimentSpec:
                                            # dataset; else a registered
                                            # workload name
 
-    # ---- wireless fleet (the paper's §VI single cell) ----------------
-    bandwidth_mhz: float = 20.0            # B
+    # ---- wireless fleet / physical scenario --------------------------
+    bandwidth_mhz: float = 20.0            # B (per cell, reused by cells)
+    fleet: Optional[Any] = None            # FleetSpec (or its dict form);
+                                           # None → the paper's §VI single
+                                           # cell (sample_fleet, the same
+                                           # draws as FleetSpec())
 
     # ---- FL hyper-parameters (FLConfig) ------------------------------
     rounds: int = 30
@@ -80,6 +88,7 @@ class ExperimentSpec:
     selection: StrategyRef = "divergence"
     allocator: StrategyRef = "sao"
     aggregator: StrategyRef = "fedavg"
+    compressor: StrategyRef = "none"
 
     version: int = SPEC_VERSION
 
@@ -89,9 +98,12 @@ class ExperimentSpec:
             if self.model not in workload_names():
                 raise ValueError(f"unknown model {self.model!r}; known: "
                                  f"{('auto', 'cnn') + workload_names()}")
+        if self.fleet is not None and not isinstance(self.fleet, FleetSpec):
+            object.__setattr__(self, "fleet", FleetSpec.from_dict(self.fleet))
         for name, kind in (("selection", "selector"),
                            ("allocator", "allocator"),
-                           ("aggregator", "aggregator")):
+                           ("aggregator", "aggregator"),
+                           ("compressor", "compressor")):
             object.__setattr__(self, name, get_registry(kind).canonical(
                 getattr(self, name)))
 
@@ -113,6 +125,16 @@ class ExperimentSpec:
     @property
     def resolved_fleet_seed(self) -> int:
         return self.seed if self.fleet_seed is None else self.fleet_seed
+
+    @property
+    def resolved_fleet_spec(self) -> FleetSpec:
+        """The scenario, ``None`` resolved to the paper's single static
+        cell."""
+        return self.fleet if self.fleet is not None else FleetSpec()
+
+    @property
+    def num_cells(self) -> int:
+        return 1 if self.fleet is None else self.fleet.num_cells
 
     def replace(self, **kw) -> "ExperimentSpec":
         return dataclasses.replace(self, **kw)
@@ -141,3 +163,24 @@ class ExperimentSpec:
     @classmethod
     def from_json(cls, s: str) -> "ExperimentSpec":
         return cls.from_dict(json.loads(s))
+
+
+# the reference's fields the port has no counterpart for yet
+NOT_PORTED_FIELDS = ("store", "k_max", "chunk_size", "div_refresh_every",
+                     "cluster", "p_shards", "churn_leave", "churn_join",
+                     "faults", "quarantine_after")
+
+
+def _refuse_not_ported(init):
+    def __init__(self, *args, **kw):
+        missing = sorted(set(kw) & set(NOT_PORTED_FIELDS))
+        if missing:
+            raise TypeError(
+                f"ExperimentSpec field(s) {missing}: not in the PyTorch "
+                "port (repro_torch) yet")
+        init(self, *args, **kw)
+    __init__.__doc__ = init.__doc__
+    return __init__
+
+
+ExperimentSpec.__init__ = _refuse_not_ported(ExperimentSpec.__init__)

@@ -3,10 +3,11 @@
 
   FedProx (Li et al. 2020): the proximal term μ/2‖w − w_global‖² in each
           client's objective — stabilizes non-iid local updates.
+  FedAvgM (Hsu et al. 2019): server momentum over the pseudo-gradient
+          Δ_k = w_k − aggregate(w_locals).
 
-It composes with the paper's selection and SAO layers unchanged
+They compose with the paper's selection and SAO layers unchanged
 (selection sees the same weight-divergence signal, SAO the same payloads).
-The reference's server momentum (FedAvgM) is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,3 +33,23 @@ def make_fedprox_local_update(model_cfg, lr: float, local_iters: int,
 
     return make_local_update(model_cfg, lr, local_iters, batch_size, base,
                              penalty=proximal)
+
+
+class ServerMomentum:
+    """FedAvgM: w ← w − η·v,  v ← β·v + (w − w_agg), over ``{name:
+    tensor}`` models; ``v`` is ``None`` until the first step, which sets
+    it to the pseudo-gradient."""
+
+    def __init__(self, beta: float = 0.9, lr: float = 1.0):
+        self.beta = beta
+        self.lr = lr
+        self.v = None
+
+    def step(self, global_params, aggregated):
+        delta = {k: global_params[k] - aggregated[k] for k in global_params}
+        if self.v is None:
+            self.v = delta
+        else:
+            self.v = {k: self.v[k] * self.beta + delta[k] for k in delta}
+        return {k: global_params[k] - self.v[k] * self.lr
+                for k in global_params}

@@ -1,5 +1,5 @@
-"""CohortRunner — a cohort of seeds as lanes of ONE captured round
-(``repro.core.cohort``).
+"""CohortRunner — a cohort of seeds (× cells) as lanes of ONE captured
+round (``repro.core.cohort``).
 
 The paper's headline figures are sweeps over seeds (× selectors × σ). The
 reference stacks the seeds' states on a leading cohort axis and ``vmap``s
@@ -8,14 +8,23 @@ tensors that leading lane axis instead (``repro_torch.core.engine``): the
 carry is a ``[B, P]`` global row, a ``[B, N + pad, P]`` plane and ``[B,
 N]`` labels, the data and fleet arrays are ``[B, ...]``, and on the card
 the whole round for every lane is one CUDA graph, replayed once a round —
-not B graphs. Each seed's dataset, partition, fleet and draws come from
-``build_experiment(spec.replace(seed=s))``, so a lane is its seed's single
-run; the initial round runs eagerly, lane by lane (each lane's own
-K-means), and the history comes back in one device-to-host transfer.
+not B graphs. Each lane's dataset, partition, fleet and draws come from
+``build_experiment(spec.replace(seed=s), cell=c)``, so a lane is its
+seed's (and cell's) single run; the initial round runs eagerly, lane by
+lane (each lane's own K-means), and the history comes back in one
+device-to-host transfer.
+
+A multi-cell ``FleetSpec`` gives each seed one lane a cell, lane ``s·C +
+c``. Under build-time interference (``multicell-interference``) the lanes
+are independent; under selection-driven interference
+(``multicell-dynamic``) the round body views the lanes as ``[seeds,
+cells]`` for one reduction a round, which couples a seed's cells inside
+the same captured round: each BS hears the devices the other cells
+selected (the reference's inner cells axis).
 
     runner = build_cohort(ExperimentSpec(..., cohort=8))
-    ch = runner.run()                  # 8 seeds, one captured round
-    ch.accuracy                        # [8, rounds + 1]
+    ch = runner.run()                  # 8 seeds (× cells), one round
+    ch.accuracy                        # [8·C, rounds + 1]
     ch.history(3)                      # lane 3 as an FLHistory
 
 The stochastic selectors run here with their draws from each lane's own
@@ -23,10 +32,9 @@ draws object (``TorchDraws.selector_draw``), not from the host Generator
 of the host loop: a lane is reproducible from its seed and equals its
 seed's ``traced_run(..., draws=)``, but not its host-loop run.
 
-Not ported (one card, one cell, synchronous rounds): the reference's
-device mesh over the cohort axis (``cohort_mesh``, ``_mesh_pad``), cells
-per seed (``cells > 1``, dynamic channels) and the asynchronous traces
-(``participation``, ``staleness``, ``active``, ``inr``).
+Not ported (one card, synchronous rounds): the reference's device mesh
+over the cohort axis (``cohort_mesh``, ``_mesh_pad``) and the
+asynchronous traces (``participation``, ``staleness``, ``active``).
 """
 from __future__ import annotations
 
@@ -47,8 +55,8 @@ __all__ = ["CohortHistory", "CohortRunner"]
 
 @dataclass
 class CohortHistory:
-    """Stacked round histories of a cohort, the leading axis the lane (one
-    seed a lane: ``cells`` is always 1 in the port)."""
+    """Stacked round histories of a (seeds × cells) cohort; the leading
+    axis is the lane ``seed_index · cells + cell``."""
     seeds: List[int]                  # per-lane seed
     accuracy: np.ndarray              # [B, rounds + 1]
     T_k: np.ndarray                   # [B, rounds + 1]
@@ -58,6 +66,9 @@ class CohortHistory:
     with_init: bool
     num_devices: int
     cells: int = 1                    # cells per seed (lane = s·cells + c)
+    inr: Optional[np.ndarray] = None  # [B, rounds] the round's selection-
+                                      # driven I/N0 at each lane's BS
+                                      # (dynamic interference only)
 
     @property
     def lane_cells(self) -> List[int]:
@@ -90,14 +101,15 @@ def _stack(tensors):
 
 
 class CohortRunner:
-    """Run one ``ExperimentSpec`` across a batch of seeds as lanes of one
-    device-resident program on one device.
+    """Run one ``ExperimentSpec`` across a batch of seeds (× the fleet's
+    cells) as lanes of one device-resident program on one device.
 
     ``device`` as for ``build_experiment`` (``cuda`` unless named);
     ``draws``: ``seed -> draws object`` in place of each lane's default
     ``TorchDraws(seed)`` (a parity test replays the reference's key
     streams). Requires every strategy to be traceable
-    (``FLExperiment.traceable``).
+    (``FLExperiment.traceable``) and, with cells, equal device counts
+    in every cell.
     """
 
     def __init__(self, spec, device=None,
@@ -109,19 +121,29 @@ class CohortRunner:
         self.experiments: List[FLExperiment] = []
         self.program = None             # the last run's TracedProgram
 
+    @property
+    def num_cells(self) -> int:
+        return self.spec.num_cells
+
     def _build(self, seeds: Sequence[int]) -> List[FLExperiment]:
         from repro_torch.api.build import build_experiment
-        return [build_experiment(
-                    self.spec.replace(seed=s), device=self.device,
+        exps = [build_experiment(
+                    self.spec.replace(seed=s), device=self.device, cell=c,
                     draws=None if self.draws is None else self.draws(s))
-                for s in seeds]
+                for s in seeds for c in range(self.num_cells)]
+        counts = {e.fed.num_clients for e in exps}
+        if len(counts) > 1:
+            raise ValueError(
+                "CohortRunner stacks (seed, cell) lanes into one program; "
+                f"all cells need equal device counts, got {counts}")
+        return exps
 
     def run(self, seeds: Optional[Sequence[int]] = None,
             rounds: Optional[int] = None, reuse_experiments: bool = False,
             transfer_guard: bool = False) -> CohortHistory:
         """The initial round and ``rounds`` rounds (default
         ``spec.rounds``) of seeds ``seeds`` (default ``spec.seed ..
-        spec.seed + spec.cohort − 1``), one lane each.
+        spec.seed + spec.cohort − 1``), one lane each a cell.
         ``reuse_experiments=True`` keeps the lanes' experiments when this
         runner already holds as many (their state continues where it was).
         ``transfer_guard=True`` raises on any host sync with the card from
@@ -134,8 +156,10 @@ class CohortRunner:
             seeds = [self.spec.seed + i
                      for i in range(max(int(self.spec.cohort), 1))]
         seeds = [int(s) for s in seeds]
+        cells = self.num_cells
+        lane_seeds = [s for s in seeds for _ in range(cells)]
         rounds = rounds or self.spec.rounds
-        if reuse_experiments and len(self.experiments) == len(seeds):
+        if reuse_experiments and len(self.experiments) == len(lane_seeds):
             exps = self.experiments
         else:
             exps = self.experiments = self._build(seeds)
@@ -147,7 +171,12 @@ class CohortRunner:
                 "device-resident run only); got "
                 f"selector={e0.selector.registry_name!r}, "
                 f"allocator={e0.allocator.registry_name!r}, "
-                f"aggregator={e0.aggregator.registry_name!r}")
+                f"aggregator={e0.aggregator.registry_name!r}, "
+                f"compressor={e0.compressor.registry_name!r}, "
+                f"channel={e0.channel.registry_name!r}")
+        # a dynamic channel couples each seed's cells inside the round
+        prog_cells = (cells if getattr(e0.channel, "dynamic", False)
+                      else 1)
 
         state = type(e0.traced_state())(*(
             None if parts[0] is None else _stack(parts)
@@ -169,7 +198,8 @@ class CohortRunner:
             e0.engine_cfg, selector=e0.selector, allocator=e0.allocator,
             aggregator=e0.aggregator, tctx=e0.traced_context(),
             feature_layer=e0.fl.feature_layer, device=self.device,
-            shapes=inputs.shapes(), base=e0.base)
+            shapes=inputs.shapes(), base=e0.base, compressor=e0.compressor,
+            channel=e0.channel, cells=prog_cells)
         res = prog(state, *inputs, draws=[e.draws for e in exps],
                    rounds=rounds, with_init=True,
                    transfer_guard=transfer_guard)
@@ -178,21 +208,24 @@ class CohortRunner:
         for i, e in enumerate(exps):
             e.load_traced_state(lane_view(res.state, i),
                                 labels=lane_labels[i])
-        return self._history(seeds, res, vals, e0.fed.num_clients)
+        return self._history(lane_seeds, res, vals, e0.fed.num_clients,
+                             cells)
 
     @staticmethod
-    def _history(seeds, res: TracedRunResult, vals,
-                 num_devices: int) -> CohortHistory:
+    def _history(seeds, res: TracedRunResult, vals, num_devices: int,
+                 cells: int = 1) -> CohortHistory:
         """``vals``: :func:`history_parts` of a cohort's run on the host —
         the initial round's ``[B]`` values, then the rounds' ``[R, B,
-        ...]``."""
+        ...]`` (``inr`` last, where the run has it)."""
         acc0, T0, E0 = (v[:, None] for v in vals[:3])
-        acc, T, E, sel, mask = (np.moveaxis(v, 0, 1)
-                                for v in vals[len(res.init):][:5])
+        rounds = vals[len(res.init):]
+        acc, T, E, sel, mask = (np.moveaxis(v, 0, 1) for v in rounds[:5])
+        inr = (np.moveaxis(rounds[7], 0, 1) if res.rounds.inr is not None
+               else None)
         return CohortHistory(
             seeds=list(seeds),
             accuracy=np.concatenate([acc0, acc], axis=1),
             T_k=np.concatenate([T0, T], axis=1),
             E_k=np.concatenate([E0, E], axis=1),
             selected=sel.astype(np.int64), mask=mask > 0, with_init=True,
-            num_devices=num_devices)
+            num_devices=num_devices, cells=cells, inr=inr)

@@ -2,25 +2,33 @@
 
 Every random choice on the FL path comes from one draws object owned by
 the experiment: the initial parameters, each round's local-SGD batch
-indices, the k-means++ seeding choices and, on the device-resident run of
-a stochastic selector, each round's selector draw — nothing else on this
-path draws — plus, for a workload with frozen weights (the LoRA LM), that
-base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
+indices, the k-means++ seeding choices, on the device-resident run of a
+stochastic selector each round's selector draw, and under a fading
+channel (``repro_torch.api.scenario``) its CN(0,1) draws — nothing else
+on this path draws — plus, for a workload with frozen weights (the LoRA
+LM), that base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
 experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
 give different numbers for one seed, so a parity test hands the experiment
 an object with the same methods that replays the reference's draws.
 
 The order of the draws is part of the contract (the reference splits its
-key in the same order): the initial parameters; the initial round's batch
-indices, then its k-means++ choices; then per round the selector's draw
-(where the selector takes one) before the round's batch indices. The
-device-resident run makes every round's draws before its first round.
+key in the same order): the initial parameters; at the start of a
+device-resident run under a fading channel, the fade's h_0
+(``channel_init``); the initial round's batch indices, then its k-means++
+choices, then (fading) the initial round's fade step (``channel_step``);
+then per round the fade step (fading), the selector's draw (where the
+selector takes one), and the round's batch indices. The device-resident
+run makes every round's draws before its first round.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models.registry import model_def_for
+
+_SQRT_HALF = math.sqrt(0.5)
 
 
 class TorchDraws:
@@ -62,6 +70,19 @@ class TorchDraws:
             return torch.argsort(u, stable=True)
         raise ValueError(f"unknown selector draw {kind!r}; the port draws "
                          "'uniform' or 'permutation'")
+
+    def _complex_normal(self, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape) + (2,), generator=self.generator,
+                           device=self.device) * _SQRT_HALF
+
+    def channel_init(self, shape) -> torch.Tensor:
+        """A fading channel's h_0 ~ CN(0,1) over ``shape`` (one value a
+        device): ``shape + (2,)`` real fp32 (re, im), each N(0, ½)."""
+        return self._complex_normal(shape)
+
+    def channel_step(self, shape) -> torch.Tensor:
+        """One round's fade innovation w ~ CN(0,1), as :meth:`channel_init`."""
+        return self._complex_normal(shape)
 
     def kmeans_seed(self, n: int, c: int) -> torch.Tensor:
         """The first k-means++ centroid of a fit over ``n`` rows into ``c``

@@ -24,9 +24,18 @@ updates in place — serves both ways to run rounds:
   (``FLExperiment.history_from_traced``). On the CPU the same body runs
   eagerly.
 
+The wireless scenario rides the same body: a fading channel
+(``repro_torch.api.scenario``) steps its carried state at the start of
+each round from a CN(0,1) draw handed in like the selector's, so the
+selector sees the round's gains; an uplink compressor quantizes the
+trained rows before the fold; a multi-cell cohort under selection-driven
+interference (``multicell-dynamic``) reduces, each round, the cross gains
+of the devices the other cells selected into each cell's ``inr`` before
+the allocator.
+
 Every function of the round body also takes a leading lane axis (a
-cohort's seeds, ``repro_torch.core.cohort``, where the reference
-``vmap``s the scanned run): a ``[B, P]`` global row, a ``[B, N + pad, P]``
+cohort's seeds — and cells — ``repro_torch.core.cohort``, where the
+reference ``vmap``s the scanned run): a ``[B, P]`` global row, a ``[B, N + pad, P]``
 plane, ``[B, ...]`` data, draws and fleet arrays. The single run is one
 lane with today's shapes through the same code; a cohort is B lanes of
 ONE captured round, replayed once a round for all of them. Local
@@ -151,7 +160,9 @@ def model_evaluate(model_cfg, base=None):
 
 class RoundOutputs(NamedTuple):
     """What a round leaves in the history: ``[R]`` / ``[R, S_pad]`` /
-    ``[R, classes]`` once stacked. ``band`` is Σ b_n of the allocation."""
+    ``[R, classes]`` once stacked. ``band`` is Σ b_n of the allocation;
+    ``inr`` the round's selection-driven I/N0 at each lane's BS (a
+    dynamic-interference cohort only, else ``None``)."""
     accuracy: Any
     T: Any
     E: Any
@@ -159,6 +170,7 @@ class RoundOutputs(NamedTuple):
     mask: Any
     band: Any
     per_class: Any
+    inr: Any = None
 
 
 class InitOutputs(NamedTuple):
@@ -220,37 +232,52 @@ def lane_view(tree, b: int):
 
 
 def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
-                       tctx: TracedContext, feature_layer: str, base=None):
-    """The closures a round is made of (the single-cell, full-plane subset
-    of the reference's ``build_round_phases``), over a
-    :class:`RoundState` they update in place:
+                       tctx: TracedContext, feature_layer: str, base=None,
+                       *, compressor=None, channel=None, cells: int = 1):
+    """The closures a round is made of (the full-plane subset of the
+    reference's ``build_round_phases``), over a :class:`RoundState` they
+    update in place:
 
-    ``train_rows`` (local SGD of an index set), ``fold`` (store the rows
-    into the plane + the eq.-(4) masked fold), ``train_aggregate`` (the
-    two), ``cluster_round`` (Alg. 1 line 1 + Alg. 2: all devices train and
-    fold, K-means), ``init_round`` (``cluster_round``, then evaluate and
-    allocate over all N), ``select_phase`` (divergence → select),
-    ``finish_phase`` (allocate → train → fold → evaluate),
-    ``evaluate_row`` and ``evaluate_rows``. ``mask = None`` marks a
-    selection with no padding (the host loop's, and the all-device
-    round's).
+    ``init_channel``/``step_channel`` (a fading channel's state: h_0, then
+    one AR(1) step a round from the draw handed in), ``train_rows`` (local
+    SGD of an index set, then the ``compressor``), ``fold`` (store the
+    rows into the plane + the eq.-(4) masked fold), ``train_aggregate``
+    (the two), ``cluster_round`` (Alg. 1 line 1 + Alg. 2: all devices
+    train and fold, K-means), ``init_round`` (``cluster_round``, then
+    evaluate, fade and allocate over all N), ``select_phase`` (fade →
+    divergence → select; returns the faded arrays), ``cross_inr``
+    (selection-driven interference), ``finish_phase`` (allocate → train
+    → fold → evaluate), ``evaluate_row`` and ``evaluate_rows``. ``mask =
+    None`` marks a selection with no padding (the host loop's, and the
+    all-device round's).
 
     Each takes the carry either as one run's or lane-stacked (a cohort's:
     ``state.params`` of ``[B, P]``), with its inputs to match; only
     ``cluster_round`` is one lane's (``init_round`` runs it lane by lane,
-    each lane's K-means on its own draws).
+    each lane's K-means on its own draws). ``cells > 1`` (a dynamic
+    channel's cohort): lane ``s·cells + c`` is seed s's cell c, and
+    ``cross_inr`` couples each seed's cells.
 
     Padding lanes hold the sentinel N: data is gathered at ``min(idx,
     N − 1)`` (JAX clamps a gather), their weight is 0, and lane j's row is
     written to plane row ``N + j``, which nothing reads (JAX drops an
     out-of-bounds scatter); in a cohort, of the cohort lane's own plane.
     Every index of the write is then distinct, so its result does not
-    depend on the order of the writes.
+    depend on the order of the writes. The compressor sees the padding
+    rows too (a block's scale and top-k threshold span all ``S_pad``
+    rows, as the reference's do).
     """
+    if compressor is None:
+        from repro_torch.api.registry import COMPRESSORS
+        compressor = COMPRESSORS.resolve("none")
     local_update = local_update_for(cfg, base)
     spec = model_flat_spec(cfg.model_cfg)
     evaluate = model_evaluate(cfg.model_cfg, base)
     N, B = tctx.num_devices, tctx.bandwidth_mhz
+    channel_stateful = bool(getattr(channel, "stateful", False))
+    channel_rng = bool(getattr(channel, "needs_rng", False))
+    fading = channel_stateful or channel_rng
+    dynamic = cells > 1 and bool(getattr(channel, "dynamic", False))
 
     def clamp(idx):
         return torch.clamp(idx, max=N - 1)
@@ -274,19 +301,28 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                 for b, g in enumerate(gvec)]
         return tuple(torch.stack(v) for v in zip(*outs))
 
-    def train_rows(state, idx, images, labels, batch_idx):
-        """Local SGD of the clients ``idx`` from the global row: rows
-        ``[S, P]``. A cohort's ``idx [B, S]`` trains lane by lane (rows
-        ``[B, S, P]``), each lane's S clients from its own row as one
-        stack — its single run's products at their shapes, so its bits."""
-        if idx.dim() > 1:
-            return torch.stack([
-                train_rows(lane_view(state, b), idx[b], images[b], labels[b],
-                           batch_idx[b]) for b in range(idx.shape[0])])
+    def local_rows(state, idx, images, labels, batch_idx):
+        """Local SGD of the clients ``idx`` from the global row: ``[S,
+        P]``."""
         t = clamp(idx)
         params = unflatten_vector(spec, state.params)
         stacked = local_update(params, images[t], labels[t], batch_idx)
         return flatten_stacked(spec, stacked)                 # [S_pad, P]
+
+    def train_rows(state, idx, images, labels, batch_idx):
+        """Local SGD of the clients ``idx`` from the global row, then the
+        uplink compressor: rows ``[S, P]``. A cohort's ``idx [B, S]``
+        trains lane by lane (rows ``[B, S, P]``), each lane's S clients
+        from its own row as one stack — its single run's products at
+        their shapes, so its bits — and compresses each lane's block on
+        its own."""
+        if idx.dim() > 1:
+            rows = torch.stack([
+                local_rows(lane_view(state, b), idx[b], images[b], labels[b],
+                           batch_idx[b]) for b in range(idx.shape[0])])
+        else:
+            rows = local_rows(state, idx, images, labels, batch_idx)
+        return compressor.apply_flat(rows, state.params, spec)
 
     def fold(state, idx, mask, rows, sizes):
         w = lane_rows(sizes, clamp(idx))
@@ -304,7 +340,11 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         plane.view(-1, plane.shape[-1]).index_copy_(
             0, store.reshape(-1), rows.reshape(-1, rows.shape[-1]))
         state.params.copy_(new_gvec)
-        return state._replace(opt_state=opt_state)
+        if opt_state is not None:
+            # in place, as the global row: a captured round's next replay
+            # reads the carry's own tensors (FedAvgM's momentum)
+            state.opt_state.copy_(opt_state)
+        return state
 
     def train_aggregate(state, idx, mask, images, labels, sizes, batch_idx):
         with record_function("fl.train"):
@@ -324,12 +364,68 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         state.labels.copy_(k_labels)
         return state
 
+    def init_channel(state, arr, h0):
+        """The carry with a fading channel's state set from its h_0 draw
+        (``[N, 2]``, a cohort's ``[B, N, 2]``); stateless channels leave
+        it ``None``."""
+        if not channel_stateful:
+            return state
+        return state._replace(channel=channel.init_state(h0, arr))
+
+    def step_channel(state, arr, w):
+        """The round's fade from its draw ``w`` (the channel's state
+        stepped in place); the faded ``arr``. A no-op without fading."""
+        if not fading:
+            return arr
+        if channel_stateful:
+            h, arr = channel.step_traced(w, state.channel, arr)
+            state.channel.copy_(h)
+            return arr
+        return channel.apply_traced(w, arr)
+
+    def fade_draws(draws):
+        """One fade draw a lane (``draws``: one draws object, or a
+        cohort's sequence), or ``None`` without fading."""
+        if not fading:
+            return None
+        if isinstance(draws, (list, tuple)):
+            return torch.stack([d.channel_step((N,)) for d in draws])
+        return draws.channel_step((N,))
+
+    def cross_inr(part, xgain):
+        """Each lane's I/N0 at its BS, ``[B]``: the ``xgain [B, N, C]``
+        rows of the devices the seed's OTHER cells transmit from
+        (``part [B, N]`` 0/1; own-cell columns are 0), lanes viewed as
+        ``[seeds, cells]``."""
+        C = cells
+        p = part.reshape(-1, C, N)
+        x = xgain.reshape(-1, C, N, C)
+        return torch.einsum("scn,scnk->sk", p, x).reshape(-1)
+
+    def participation(idx, mask):
+        """``[B, N]`` 0/1: the devices each lane selected (the sentinel N
+        of a padding lane matches none)."""
+        hit = idx[..., :, None] == torch.arange(N, device=idx.device)
+        return torch.any(hit & mask[..., :, None], dim=-2).to(torch.float32)
+
+    def add_inr(arr, inr):
+        """``arr`` with the round's ``inr [B]`` added to every device's
+        (``None``: unchanged); the solvers fold it into J once."""
+        if inr is None:
+            return arr
+        arr = dict(arr)
+        arr["inr"] = arr["inr"] + inr[:, None]
+        return arr
+
     def init_round(state, images, labels, sizes, batch_idx, arr,
-                   test_images, test_labels, draws):
-        """Round 0: :func:`cluster_round`, evaluate, allocate over all N.
-        A cohort's carry runs :func:`cluster_round` lane by lane, lane b
-        on ``batch_idx[b]`` and its own draws ``draws[b]``, then evaluates
-        and allocates every lane at once."""
+                   test_images, test_labels, draws, xgain=None):
+        """Round 0: :func:`cluster_round`, evaluate, the round's fade (its
+        draw after the K-means draws, as the reference's key splits),
+        allocate over all N (a dynamic cohort with every device of the
+        other cells interfering). A cohort's carry runs
+        :func:`cluster_round` lane by lane, lane b on ``batch_idx[b]``
+        and its own draws ``draws[b]``, then evaluates, fades and
+        allocates every lane at once."""
         if state.params.dim() == 1:
             state = cluster_round(state, images, labels, sizes, batch_idx,
                                   draws)
@@ -339,29 +435,41 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                               sizes[b], batch_idx[b], lane_draws)
         acc, per_class = evaluate_rows(state.params, test_images,
                                        test_labels, images)
+        arr = step_channel(state, arr, fade_draws(draws))
+        if dynamic:
+            arr = add_inr(arr, cross_inr(
+                torch.ones(arr["J"].shape, device=arr["J"].device), xgain))
         T, E, b, _ = allocator.allocate_traced(arr, B, None)
         return state, InitOutputs(accuracy=acc, T=T, E=E, band=masked_sum(b),
                                   per_class=per_class)
 
-    def select_phase(state, arr, draw=None):
-        """Divergence (rows ``[:N]`` of the plane) → select; ``draw`` is a
-        stochastic selector's (``[N]``, or ``[B, N]`` a cohort lane
-        each)."""
+    def select_phase(state, arr, draw=None, fade=None):
+        """Fade → divergence (rows ``[:N]`` of the plane) → select:
+        ``(faded arr, idx, mask)``. The fade comes first, so a channel-aware
+        selector (``icas``, ``rra``) sees the round's gains; ``draw`` is a
+        stochastic selector's (``[N]``, or ``[B, N]`` a cohort lane each),
+        ``fade`` the channel's."""
         with record_function("fl.select"):
+            arr = step_channel(state, arr, fade)
             if selector.needs_divergence:
                 div = weight_divergence_flat(
                     state.client_params[..., :N, :], state.params)
             else:
                 div = torch.zeros(state.labels.shape, dtype=torch.float32,
                                   device=state.params.device)
-            return selector.select_traced(draw, div, state.labels, arr, tctx)
+            idx, mask = selector.select_traced(draw, div, state.labels, arr,
+                                               tctx)
+            return arr, idx, mask
 
     def finish_phase(state, arr, idx, mask, images, labels, sizes,
-                     batch_idx, test_images, test_labels):
-        """allocate → train → fold → evaluate for one selection."""
+                     batch_idx, test_images, test_labels, inr=None):
+        """allocate → train → fold → evaluate for one selection; ``inr``
+        (``[B]``) adds the round's selection-driven interference before
+        the allocator."""
         with record_function("fl.allocate"):
             t = clamp(idx)
-            arr_sel = {k: lane_rows(v, t) for k, v in arr.items()}
+            arr_sel = add_inr({k: lane_rows(v, t) for k, v in arr.items()},
+                              inr)
             T, E, b, _ = allocator.allocate_traced(arr_sel, B, mask)
         state = train_aggregate(state, idx, mask, images, labels, sizes,
                                 batch_idx)
@@ -370,16 +478,29 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                                            test_labels, images)
         return state, RoundOutputs(accuracy=acc, T=T, E=E, selected=idx,
                                    mask=mask, band=masked_sum(b, mask),
-                                   per_class=per_class)
+                                   per_class=per_class, inr=inr)
+
+    def round_body(state, arr, xgain, images, labels, sizes, batch_idx,
+                   test_images, test_labels, draw=None, fade=None):
+        """One round: select, then (a dynamic cohort) the cross-cell
+        reduction of the round's selections, then allocate, train, fold
+        and evaluate. ``arr`` without ``xgain``. ``(state,
+        RoundOutputs)``."""
+        arr, idx, mask = select_phase(state, arr, draw, fade)
+        inr = cross_inr(participation(idx, mask), xgain) if dynamic else None
+        return finish_phase(state, arr, idx, mask, images, labels, sizes,
+                            batch_idx, test_images, test_labels, inr)
 
     return SimpleNamespace(
         spec=spec, N=N, B=B, local_iters=cfg.local_iters, batch_size=cfg.batch_size,
-        allocator=allocator, aggregator=aggregator,
+        allocator=allocator, aggregator=aggregator, compressor=compressor,
+        channel=channel, cells=cells, fading=fading, dynamic=dynamic,
         evaluate_row=evaluate_row, evaluate_rows=evaluate_rows,
         train_rows=train_rows, fold=fold,
         train_aggregate=train_aggregate, cluster_round=cluster_round,
+        init_channel=init_channel, step_channel=step_channel,
         init_round=init_round, select_phase=select_phase,
-        finish_phase=finish_phase)
+        finish_phase=finish_phase, round_body=round_body)
 
 
 class RoundInputs(NamedTuple):
@@ -447,27 +568,30 @@ class TracedProgram:
     test_labels, draws=, rounds=, with_init=)`` runs the initial round
     (``with_init``), then ``rounds`` rounds, and returns a
     :class:`TracedRunResult`. ``draws`` — one draws object, or a cohort's
-    sequence of one a lane — gives the initial round's batch indices and
-    K-means seeding, then every round's selector draw (a stochastic
-    selector's: ``draw_kind``) and ``[S_pad, L, batch]`` batch indices,
-    all drawn before the first round, in the order of
-    ``repro_torch.core.draws``. A cohort's carry and inputs are
-    lane-stacked (``lanes``: the carry's leading axis, set by the call);
-    its test set is one for all lanes or one a lane.
+    sequence of one a lane — gives a fading channel's h_0 first, then the
+    initial round's batch indices, K-means seeding and fade, then every
+    round's fade, selector draw (a stochastic selector's: ``draw_kind``)
+    and ``[S_pad, L, batch]`` batch indices, all drawn before the first
+    round, in the order of ``repro_torch.core.draws``. A cohort's carry
+    and inputs are lane-stacked (``lanes``: the carry's leading axis, set
+    by the call); its test set is one for all lanes or one a lane.
+    ``arr["xgain"]`` (a dynamic-interference cohort's cross gains) is
+    held apart from the arrays the solvers see.
 
     On the card the program owns static copies of the carry and the
     inputs: a call loads them by device copies, runs the initial round
     eagerly (its solve is SAO's own, a graph from its second call on)
     and replays the captured round once a round for every lane,
-    copying the round's selector draw and batch indices into the graph's
-    inputs first; no step reads back to the host. ``transfer_guard``
-    raises on any host sync from the initial round to the last replay
-    (sync debug mode "error"; the initial round's solve then runs eagerly,
-    as capturing its graph would wait for the card). The first call
-    captures the round (after one warm-up round on a side stream, which
-    builds and loads the kernels) and records ``capture_ms``. Kernel
-    wrappers count their launches at the capture, never on a replay. On
-    the CPU the round body runs eagerly on the caller's tensors.
+    copying the round's fade, selector draw and batch indices into the
+    graph's inputs first; no step reads back to the host.
+    ``transfer_guard`` raises on any host sync from the initial round to
+    the last replay (sync debug mode "error"; the initial round's solve
+    then runs eagerly, as capturing its graph would wait for the card).
+    The first call captures the round (after one warm-up round on a side
+    stream, which builds and loads the kernels) and records
+    ``capture_ms``. Kernel wrappers count their launches at the capture,
+    never on a replay. On the CPU the round body runs eagerly on the
+    caller's tensors.
     """
 
     def __init__(self, ph, device: torch.device, pad: int,
@@ -480,14 +604,17 @@ class TracedProgram:
         self.graph = None
         self.capture_ms = None
 
-    def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None):
-        """One round, eagerly: select, then allocate, train, fold and
-        evaluate. Returns ``(state, RoundOutputs)``."""
-        idx, mask = self.ph.select_phase(state, inputs.arr, draw)
-        return self.ph.finish_phase(state, inputs.arr, idx, mask,
-                                    inputs.images, inputs.labels,
-                                    inputs.sizes, batch_idx,
-                                    inputs.test_images, inputs.test_labels)
+    def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None,
+                   fade=None):
+        """One round, eagerly: fade, select, (a dynamic cohort: the
+        cross-cell interference), allocate, train, fold and evaluate.
+        Returns ``(state, RoundOutputs)``."""
+        arr = dict(inputs.arr)
+        xgain = arr.pop("xgain", None)
+        return self.ph.round_body(state, arr, xgain, inputs.images,
+                                  inputs.labels, inputs.sizes, batch_idx,
+                                  inputs.test_images, inputs.test_labels,
+                                  draw, fade)
 
     def _lead(self) -> tuple:
         return () if self.lanes is None else (self.lanes,)
@@ -507,6 +634,13 @@ class TracedProgram:
                 shape).contiguous()
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
+    def _fade_input(self):
+        """The fade draw's graph input (zeros until a replay loads one)."""
+        if not self.ph.fading:
+            return None
+        return torch.zeros(self._lead() + (self.ph.N, 2),
+                           dtype=torch.float32, device=self.device)
+
     def capture(self, state: RoundState, inputs: RoundInputs) -> None:
         """Capture the round over static copies of ``state`` and
         ``inputs`` (whose values the warm-up and the capture overwrite)."""
@@ -514,17 +648,19 @@ class TracedProgram:
         self.batch = torch.zeros(self._batch_shape(), dtype=torch.long,
                                  device=self.device)
         self.draw = self._draw_input()
+        self.fade = self._fade_input()
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side), eager_solves():
-            self.round_body(self.state, self.inputs, self.batch, self.draw)
+            self.round_body(self.state, self.inputs, self.batch, self.draw,
+                            self.fade)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _, self.out = self.round_body(self.state, self.inputs, self.batch,
-                                          self.draw)
+                                          self.draw, self.fade)
         torch.cuda.synchronize(self.device)
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -535,30 +671,37 @@ class TracedProgram:
         _copy_into(self.state, state)
         _copy_into(self.inputs, inputs)
 
-    def replay(self, batch_idx, draw=None) -> RoundOutputs:
+    def replay(self, batch_idx, draw=None, fade=None) -> RoundOutputs:
         """One captured round on the static carry, every lane at once:
-        load ``batch_idx`` (and a stochastic selector's ``draw``), replay;
-        the outputs are the graph's (the next replay overwrites them)."""
+        load ``batch_idx`` (and a stochastic selector's ``draw``, a fading
+        channel's ``fade``), replay; the outputs are the graph's (the next
+        replay overwrites them)."""
         self.batch.copy_(batch_idx)
         if self.draw is not None:
             self.draw.copy_(draw)
+        if self.fade is not None:
+            self.fade.copy_(fade)
         self.graph.replay()
         return self.out
 
     def _round_draws(self, lane_draws, n_samples: int):
-        """One round's ``(batch indices, selector draw)``: per lane, the
-        selector's draw first, then the batch indices; lane-stacked for a
-        cohort."""
-        batches, draws = [], []
+        """One round's ``(batch indices, selector draw, fade draw)``: per
+        lane, the fade first, then the selector's draw, then the batch
+        indices; lane-stacked for a cohort."""
+        batches, draws, fades = [], [], []
         shape = (self.pad, self.ph.local_iters, self.ph.batch_size)
         for d in lane_draws:
+            if self.ph.fading:
+                fades.append(d.channel_step((self.ph.N,)))
             if self.draw_kind is not None:
                 draws.append(d.selector_draw(self.draw_kind, self.ph.N))
             batches.append(d.batch_indices(*shape, n_samples))
-        if self.lanes is None:
-            return batches[0], (draws[0] if draws else None)
-        return (torch.stack(batches),
-                torch.stack(draws) if draws else None)
+
+        def lanes(x):
+            if not x:
+                return None
+            return x[0] if self.lanes is None else torch.stack(x)
+        return lanes(batches), lanes(draws), lanes(fades)
 
     def __call__(self, state: RoundState, images, labels, sizes, arr,
                  test_images, test_labels, *, draws, rounds: int,
@@ -570,15 +713,21 @@ class TracedProgram:
         # a cohort's carry is lane-stacked: a [B, P] global row
         self.lanes = (state.params.shape[0] if state.params.dim() > 1
                       else None)
+        lane_draws = [draws] if self.lanes is None else list(draws)
+        if len(lane_draws) != (self.lanes or 1):
+            raise ValueError(f"{len(lane_draws)} draws objects for "
+                             f"{self.lanes or 1} lanes")
+        if ph.fading and getattr(ph.channel, "stateful", False):
+            # the fade's h_0, the run's first draw: part of the carry
+            h0 = [d.channel_init((ph.N,)) for d in lane_draws]
+            state = ph.init_channel(
+                state, inputs.arr,
+                h0[0] if self.lanes is None else torch.stack(h0))
         if self.device.type == "cuda":
             if self.graph is None:
                 self.capture(state, inputs)
             self.load(state, inputs)
             state, inputs = self.state, self.inputs
-        lane_draws = [draws] if self.lanes is None else list(draws)
-        if len(lane_draws) != (self.lanes or 1):
-            raise ValueError(f"{len(lane_draws)} draws objects for "
-                             f"{self.lanes or 1} lanes")
         n_samples = inputs.images.shape[len(self._lead()) + 1]
         guard = contextlib.ExitStack()
         if transfer_guard:
@@ -590,22 +739,26 @@ class TracedProgram:
                 batch0 = [d.batch_indices(ph.N, ph.local_iters,
                                           ph.batch_size, n_samples)
                           for d in lane_draws]
+                arr0 = dict(inputs.arr)
+                xgain = arr0.pop("xgain", None)
                 state, init = ph.init_round(
                     state, inputs.images, inputs.labels, inputs.sizes,
                     batch0[0] if self.lanes is None else torch.stack(batch0),
-                    inputs.arr, inputs.test_images, inputs.test_labels,
-                    draws)
+                    arr0, inputs.test_images, inputs.test_labels,
+                    draws, xgain)
             per_round = [self._round_draws(lane_draws, n_samples)
                          for _ in range(rounds)]
             outs = []
-            for batch_idx, draw in per_round:
+            for batch_idx, draw, fade in per_round:
                 if self.graph is not None:
-                    out = _clone(self.replay(batch_idx, draw))
+                    out = _clone(self.replay(batch_idx, draw, fade))
                 else:
                     state, out = self.round_body(state, inputs, batch_idx,
-                                                 draw)
+                                                 draw, fade)
                 outs.append(out)
-            stacked = (RoundOutputs(*(torch.stack(v) for v in zip(*outs)))
+            stacked = (RoundOutputs(*(None if v[0] is None
+                                      else torch.stack(v)
+                                      for v in zip(*outs)))
                        if outs else None)
         return TracedRunResult(state=state, rounds=stacked, init=init)
 
@@ -631,7 +784,8 @@ def shapes_key(tensors) -> tuple:
 
 def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                tctx: TracedContext, feature_layer: str, device,
-               shapes: tuple, base=None) -> TracedProgram:
+               shapes: tuple, base=None, compressor=None, channel=None,
+               cells: int = 1) -> TracedProgram:
     """The device-resident program for one strategy bundle on ``device``
     at ``shapes`` (the shapes of the data it reads,
     :meth:`RoundInputs.shapes`: a cohort's lane-stacked, its test set one
@@ -639,21 +793,31 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     differ only in seed or data replay one captured round.
 
     A stochastic selector takes its draw from the caller's draws object
-    (:func:`selector_draw_kind`). The reference's other options
-    (compressors, channels, cells, faults) are no fields of the port's
-    spec, and its registries refuse the strategies it lacks, naming the
-    port.
+    (:func:`selector_draw_kind`), as does a fading ``channel``.
+    ``compressor`` (default ``none``) quantizes the uplink rows; ``cells >
+    1`` (a dynamic-interference cohort, lanes ``seed·cells + cell``)
+    couples each seed's cells through the round's cross-cell reduction.
+    The reference's other options (faults, churn, the paged store) are no
+    fields of the port's spec.
     """
+    if compressor is None:
+        from repro_torch.api.registry import COMPRESSORS
+        compressor = COMPRESSORS.resolve("none")
+    if not any(getattr(channel, a, False)
+               for a in ("stateful", "needs_rng", "dynamic")):
+        channel = None          # static, build-time interference: no hook
     draw_kind = selector_draw_kind(selector)
     device = torch.device(device)
     base_key = (None if base is None
                 else tuple(v.data_ptr() for v in base.values()))
     key = (cfg, selector, allocator, aggregator_cache_key(aggregator), tctx,
-           feature_layer, device, shapes, base_key)
+           feature_layer, device, shapes, base_key, compressor, channel,
+           cells)
     prog = _RUN_FN_CACHE.get(key)
     if prog is None:
         ph = build_round_phases(cfg, aggregator, selector, allocator, tctx,
-                                feature_layer, base)
+                                feature_layer, base, compressor=compressor,
+                                channel=channel, cells=cells)
         prog = _RUN_FN_CACHE[key] = TracedProgram(
             ph, device, selector.pad_size(tctx), draw_kind)
         while len(_RUN_FN_CACHE) > _RUN_FN_CACHE_MAX:

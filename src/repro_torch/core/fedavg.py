@@ -47,7 +47,8 @@ from torch.profiler import record_function
 import repro_torch.strategies  # noqa: F401  (populate the registries)
 from repro_torch.api.protocols import (Allocation, RoundState,
                                        SelectionContext, TracedContext)
-from repro_torch.api.registry import AGGREGATORS, ALLOCATORS, SELECTORS
+from repro_torch.api.registry import (AGGREGATORS, ALLOCATORS, CHANNELS,
+                                      COMPRESSORS, SELECTORS)
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.clustering import (clusters_from_labels,
                                          extract_features_flat)
@@ -109,11 +110,16 @@ def fp32_matmuls() -> None:
 class FLExperiment:
     """The synchronous dense FL loop on one device, driven from the host.
 
-    ``selection``, ``allocator`` and ``aggregator`` take a registered name,
-    the ``name:arg`` shorthand, a ``{"name", "params"}`` dict or an
-    instance; ``box_correct=True`` turns on the ``sao`` allocator's KKT box
-    correction (and raises for any other allocator). ``seed`` seeds the
-    selectors' host Generator ``rng`` and the default draws.
+    ``selection``, ``allocator``, ``aggregator``, ``compression`` and
+    ``channel`` take a registered name, the ``name:arg`` shorthand, a
+    ``{"name", "params"}`` dict or an instance; ``box_correct=True`` turns
+    on the ``sao`` allocator's KKT box correction (and raises for any
+    other allocator); ``aggregator=None`` is ``fedavgm:<server_momentum>``
+    when ``server_momentum > 0``, else ``fedavg``. A lossy compressor
+    prices the fleet's payload z_n at its ``payload_mbit`` (SAO reads it
+    through H = z·p and t_com). A fading ``channel`` redraws the gains
+    inside the device-resident run only. ``seed`` seeds the selectors'
+    host Generator ``rng`` and the default draws.
 
     ``draws`` replaces the default :class:`TorchDraws` (seeded with
     ``seed``): a parity test hands in a replay of the reference's key
@@ -130,7 +136,8 @@ class FLExperiment:
                  test_labels: np.ndarray, fleet: Fleet, fl: FLConfig, *,
                  device, bandwidth_mhz: float = 20.0, seed: int = 0,
                  batch_size: int = 32, selection=None, allocator="sao",
-                 aggregator="fedavg", box_correct: bool = False,
+                 aggregator=None, compression="none", channel="static",
+                 server_momentum: float = 0.0, box_correct: bool = False,
                  fedprox_mu: float = 0.0, draws=None):
         fp32_matmuls()
         self.device = torch.device(device)
@@ -150,7 +157,13 @@ class FLExperiment:
                                  "explicitly instead")
             self.allocator = dataclasses.replace(self.allocator,
                                                  box_correct=True)
+        if aggregator is None:
+            aggregator = (f"fedavgm:{server_momentum}"
+                          if server_momentum > 0 else "fedavg")
         self.aggregator = AGGREGATORS.resolve(aggregator)
+        self.aggregator.reset()
+        self.compressor = COMPRESSORS.resolve(compression)
+        self.channel = CHANNELS.resolve(channel)
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
         mdef = model_def_for(model_cfg)
@@ -165,9 +178,14 @@ class FLExperiment:
         params = self.draws.init_params(model_cfg)
         self.global_vec = flatten_vector(spec, params).to(self.device)
         self.client_plane = self.global_vec.repeat(fed.num_clients, 1)
-        if mdef.price_uploads:
-            self.fleet = dataclasses.replace(
-                fleet, z=np.full_like(fleet.z, spec.total * 32 / 1e6))
+        # a lossy uplink shrinks the payload; an adapter workload uploads
+        # its trainable rows only, never its frozen base
+        z = self.compressor.payload_mbit(spec.total, len(spec.names))
+        if z is None and mdef.price_uploads:
+            z = spec.total * 32 / 1e6
+        if z is not None:
+            self.fleet = dataclasses.replace(fleet,
+                                             z=np.full_like(fleet.z, z))
 
         def put(x):
             # token windows stay integer; images are float32
@@ -199,7 +217,8 @@ class FLExperiment:
             ph = self._ph = build_round_phases(
                 self.engine_cfg, self.aggregator, self.selector,
                 self.allocator, self.traced_context(),
-                self.fl.feature_layer, self.base)
+                self.fl.feature_layer, self.base,
+                compressor=self.compressor, channel=self.channel)
         return ph
 
     def _host_state(self) -> RoundState:
@@ -274,8 +293,10 @@ class FLExperiment:
         return np.asarray(selector.select(self.selection_context()))
 
     def allocation(self, idx) -> Allocation:
-        """Spectrum allocation for the selected devices."""
+        """Spectrum allocation for the selected devices (the fleet's
+        build-time ``inr`` folded in; no cross gains reach a solver)."""
         arr = fleet_arrays(self.fleet.select(np.asarray(idx)), self.device)
+        arr.pop("xgain", None)
         return self.allocator.allocate(arr, self.B)
 
     def allocate(self, idx):
@@ -296,10 +317,12 @@ class FLExperiment:
             return RoundResult(selected=idx, T_k=0.0, E_k=0.0, accuracy=acc,
                                per_class=per_class)
         t = self._index(idx)
+        arr = fleet_arrays(self.fleet, self.device)
+        arr.pop("xgain", None)
         state, out = self.phases().finish_phase(
-            self._host_state(), fleet_arrays(self.fleet, self.device), t,
-            None, self._images, self._labels, self._sizes,
-            self._batch_indices(len(t)), self.test_images, self.test_labels)
+            self._host_state(), arr, t, None, self._images, self._labels,
+            self._sizes, self._batch_indices(len(t)), self.test_images,
+            self.test_labels)
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
         return RoundResult(selected=idx, T_k=float(out.T), E_k=float(out.E),
                            accuracy=float(out.accuracy),
@@ -319,7 +342,12 @@ class FLExperiment:
         device (:meth:`_run_traced`); otherwise the host loop drives
         :meth:`round`, stopping once the test accuracy reaches the target
         (0 = never). A failed capture or launch raises: nothing falls back.
+        A single cell of a dynamic-interference fleet raises (its
+        interference comes from the other cells' selections: run the spec
+        through ``CohortRunner``), as does a fading channel on the host
+        loop.
         """
+        self._refuse_single_cell_view()
         rounds = rounds or self.fl.max_rounds
         target = (self.fl.target_accuracy
                   if target_accuracy is None else target_accuracy)
@@ -333,6 +361,13 @@ class FLExperiment:
     def _run_host(self, method, rounds: int, target: float,
                   include_initial_round: bool = True) -> FLHistory:
         """The host round loop, each round's wall clock in ``seconds``."""
+        self._refuse_single_cell_view()
+        if getattr(self.channel, "needs_rng", False):
+            raise ValueError(
+                f"channel {self.channel.registry_name!r} redraws fading "
+                "inside the device-resident run and has no host-loop "
+                "equivalent; run it with a traceable strategy bundle and "
+                "no target_accuracy (or through CohortRunner)")
         hist = FLHistory()
         if include_initial_round or self.clusters is None:
             t0 = time.perf_counter()
@@ -353,17 +388,29 @@ class FLExperiment:
                 break
         return hist
 
+    def _refuse_single_cell_view(self) -> None:
+        if (getattr(self.channel, "dynamic", False)
+                and self.fleet.num_cells > 1):
+            raise ValueError(
+                f"channel {self.channel.registry_name!r} computes per-round "
+                "interference from the OTHER cells' selections; a single-"
+                "cell FLExperiment cannot see them — run the multi-cell "
+                "spec through CohortRunner (build_cohort)")
+
     # ------------------------------------------------------------------
     # the device-resident run
     def traceable(self, selector=None) -> bool:
         """True when the strategy bundle implements the traced contracts
-        (``traceable = True`` and the aggregator's flat-state methods)."""
+        (``traceable = True``, the aggregator's flat-state methods and the
+        compressor's ``apply_flat``)."""
         selector = self.selector if selector is None else selector
         return (all(getattr(s, "traceable", False)
-                    for s in (selector, self.allocator, self.aggregator))
+                    for s in (selector, self.allocator, self.aggregator,
+                              self.compressor, self.channel))
                 and all(hasattr(self.aggregator, m)
                         for m in ("aggregate_flat", "init_flat_state",
-                                  "load_flat_state")))
+                                  "load_flat_state"))
+                and hasattr(self.compressor, "apply_flat"))
 
     def traced_context(self) -> TracedContext:
         return TracedContext(num_devices=self.fed.num_clients,
@@ -390,7 +437,8 @@ class FLExperiment:
 
     def traced_inputs(self) -> RoundInputs:
         """What the device-resident run reads besides the carry: the
-        clients' data, the fleet's arrays and the test set."""
+        clients' data, the fleet's arrays (with a dynamic fleet's cross
+        gains ``xgain``) and the test set."""
         return RoundInputs(images=self._images, labels=self._labels,
                            sizes=self._sizes,
                            arr=fleet_arrays(self.fleet, self.device),
@@ -433,7 +481,8 @@ class FLExperiment:
             self.engine_cfg, selector=selector, allocator=self.allocator,
             aggregator=self.aggregator, tctx=self.traced_context(),
             feature_layer=self.fl.feature_layer, device=self.device,
-            shapes=inputs.shapes(), base=self.base)
+            shapes=inputs.shapes(), base=self.base,
+            compressor=self.compressor, channel=self.channel)
         return prog(self.traced_state(selector), *inputs,
                     draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)
@@ -467,7 +516,7 @@ class FLExperiment:
                 accuracy=float(acc), per_class=per_class.astype(np.float32),
                 band_mhz=float(band)))
         if res.rounds is not None:
-            acc, T, E, sel, mask, band, per_class = vals
+            acc, T, E, sel, mask, band, per_class = vals[:7]
             for k in range(acc.shape[0]):
                 hist.append(RoundResult(
                     selected=sel[k][mask[k] > 0].astype(np.int64),
@@ -480,9 +529,10 @@ class FLExperiment:
 
 def history_parts(res: TracedRunResult) -> list:
     """The tensors of a traced run's history, in :class:`InitOutputs` then
-    :class:`RoundOutputs` order."""
-    return (([] if res.init is None else list(res.init))
-            + ([] if res.rounds is None else list(res.rounds)))
+    :class:`RoundOutputs` order (a slot a run leaves ``None`` left out)."""
+    return [t for t in (([] if res.init is None else list(res.init))
+                        + ([] if res.rounds is None else list(res.rounds)))
+            if t is not None]
 
 
 def to_host(tensors) -> list:

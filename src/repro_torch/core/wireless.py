@@ -7,8 +7,10 @@ r[Mbit/s] = b[MHz]·log2(1 + J/b) with J = h·p/N0 in MHz; inter-cell
 interference folds in as J_eff = J / (1 + inr).
 
 The per-device draw (:class:`Fleet`, :func:`sample_fleet`) is host numpy,
-byte-identical to ``repro.core.wireless``; :func:`fleet_arrays` hands the
-solver-facing constants to the device as fp32 tensors.
+byte-identical to ``repro.core.wireless``; multi-cell topologies and the
+channel models are built in ``repro_torch.api.scenario``.
+:func:`fleet_arrays` hands the solver-facing constants to the device as
+fp32 tensors.
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ def watt_to_dbm(w):
 
 @dataclass
 class Fleet:
-    """Per-device physical parameters for N devices (single cell)."""
+    """Per-device physical parameters for N devices, of one cell or of a
+    multi-cell topology (``repro_torch.api.scenario.build_fleet``)."""
     h: np.ndarray            # channel gain (linear)
     p: np.ndarray            # transmit power [W]
     z: np.ndarray            # model size [Mbit]
@@ -58,15 +61,31 @@ class Fleet:
     f_max: np.ndarray        # [GHz]
     e_cons: np.ndarray       # per-device energy budget [J]
     N0: float                # noise PSD [W/Hz]
+    cell: np.ndarray = None  # serving-cell index per device (0: one cell)
     inr: np.ndarray = None   # interference-to-noise ratio I/N0 (0: one cell)
+    xgain: np.ndarray = None  # [N, C] inr a device adds at each BS when it
+                              # transmits (dynamic interference; own-cell
+                              # column 0), else None
+    n_cells: int = None      # the topology's cell count (a sub-fleet keeps
+                              # its parent's)
 
     def __post_init__(self):
+        if self.cell is None:
+            self.cell = np.zeros(np.shape(self.h), np.int32)
         if self.inr is None:
             self.inr = np.zeros(np.shape(self.h), np.float64)
+        if self.n_cells is None:
+            self.n_cells = (int(np.max(self.cell)) + 1 if len(self.h)
+                            else 1)
 
     @property
     def num_devices(self) -> int:
         return len(self.h)
+
+    @property
+    def num_cells(self) -> int:
+        """Cell count of the topology this fleet was drawn from."""
+        return self.n_cells
 
     # --- the paper's composite constants, eqs (15)-(18), scaled units ---
     def J_mhz(self):
@@ -91,16 +110,27 @@ class Fleet:
                      C=self.C[idx], D=self.D[idx], L=self.L,
                      alpha=self.alpha[idx], f_min=self.f_min[idx],
                      f_max=self.f_max[idx], e_cons=self.e_cons[idx],
-                     N0=self.N0, inr=self.inr[idx])
+                     N0=self.N0, cell=self.cell[idx], inr=self.inr[idx],
+                     xgain=None if self.xgain is None else self.xgain[idx],
+                     n_cells=self.n_cells)
+
+    def cell_fleet(self, c: int) -> "Fleet":
+        """The sub-fleet cell ``c`` serves (device order kept;
+        ``num_cells`` stays the topology's)."""
+        return self.select(np.flatnonzero(np.asarray(self.cell) == c))
 
     def with_power(self, p_watt) -> "Fleet":
         """The same fleet at transmit power ``p_watt`` (one value or one
-        per device); Algorithm 6 probes these."""
+        per device); Algorithm 6 probes these. ``xgain`` rows scale with
+        their device's power (X[n, c] ∝ p_n)."""
         p = np.broadcast_to(np.asarray(p_watt, np.float64),
                             self.h.shape).copy()
+        xgain = (None if self.xgain is None
+                 else self.xgain * (p / self.p)[:, None])
         return Fleet(h=self.h, p=p, z=self.z, C=self.C, D=self.D, L=self.L,
                      alpha=self.alpha, f_min=self.f_min, f_max=self.f_max,
-                     e_cons=self.e_cons, N0=self.N0, inr=self.inr)
+                     e_cons=self.e_cons, N0=self.N0, cell=self.cell,
+                     inr=self.inr, xgain=xgain, n_cells=self.n_cells)
 
 
 def sample_fleet(num_devices: int = 100, seed: int = 0, *,
@@ -226,7 +256,10 @@ def round_totals(fleet_arrays, b_mhz, f_ghz):
 def fleet_arrays(fleet, device="cpu"):
     """The solver-facing constants (15)-(18) as fp32 tensors on ``device``:
     ``[N]`` each for one :class:`Fleet`, ``[B, N]`` stacked over the lanes
-    for a sequence of B fleets of N devices each (a cohort's seeds)."""
+    for a sequence of B fleets of N devices each (a cohort's lanes).
+    ``inr`` rides along for the solvers to fold into J; ``xgain`` (``[N,
+    C]``, ``[B, N, C]``) only for a dynamic-interference fleet, and the
+    round body pops it before any solver sees the dict."""
     if not isinstance(fleet, Fleet):
         lanes = [fleet_arrays(f, device) for f in fleet]
         return {k: torch.stack([a[k] for a in lanes]) for k in lanes[0]}
@@ -234,8 +267,11 @@ def fleet_arrays(fleet, device="cpu"):
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=device)
-    return {"J": t(fleet.J_mhz()), "U": t(fleet.U_gcycles()),
-            "G": t(fleet.G_joule_per_ghz2()), "H": t(fleet.H_joule()),
-            "z": t(fleet.z), "e_cons": t(fleet.e_cons),
-            "f_min": t(fleet.f_min), "f_max": t(fleet.f_max),
-            "inr": t(fleet.inr)}
+    out = {"J": t(fleet.J_mhz()), "U": t(fleet.U_gcycles()),
+           "G": t(fleet.G_joule_per_ghz2()), "H": t(fleet.H_joule()),
+           "z": t(fleet.z), "e_cons": t(fleet.e_cons),
+           "f_min": t(fleet.f_min), "f_max": t(fleet.f_max),
+           "inr": t(fleet.inr)}
+    if fleet.xgain is not None:
+        out["xgain"] = t(fleet.xgain)
+    return out

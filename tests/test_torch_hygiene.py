@@ -66,15 +66,16 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("aggregator", "trimmed:0.2"), ("aggregator", "clipnorm:1.0"),
     ("aggregator", "fedbuff:4"),
-    ("aggregator", "fedavgm:0.9"), ("compressor", "int8"),
+    ("faults", "outage:0.1"), ("compressor", "qsgd:4"),
     ("store", "paged"), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):
-    """A strategy the port lacks raises ``ValueError`` naming what it
-    supports, as does a model that is no registered workload; a reference
-    field that has one value in the port (compressor, store) is not a field
-    of the port's spec at all."""
+    """A strategy the port lacks raises ``ValueError`` naming the port and
+    what it supports, as does a model that is no registered workload; a
+    reference field the port has no counterpart for (the paged store,
+    faults) is not a field of the port's spec at all, and passing it
+    raises a ``TypeError`` that names the port."""
     from repro_torch.api import ExperimentSpec
-    if field == "aggregator":
+    if field in ("aggregator", "compressor"):
         with pytest.raises(ValueError, match="port"):
             ExperimentSpec(**{field: value})
     elif field == "model":
@@ -83,7 +84,7 @@ def test_spec_rejects_what_the_port_lacks(field, value):
                                  "tinyllama"):
             ExperimentSpec(**{field: value})
     else:
-        with pytest.raises(TypeError, match=field):
+        with pytest.raises(TypeError, match=f"{field}.*port"):
             ExperimentSpec(**{field: value})
 
 

@@ -55,6 +55,19 @@ class JaxReplayDraws:
                 for k in jax.random.split(key, local_iters)] for key in keys]
         return torch.tensor(np.asarray(idx), dtype=torch.long)
 
+    def channel_init(self, shape):
+        """The fade's h_0: the reference's ``_gm_init`` draw."""
+        return self._complex_normal(shape)
+
+    def channel_step(self, shape):
+        """One round's fade innovation: ``_gm_step``'s draw."""
+        return self._complex_normal(shape)
+
+    def _complex_normal(self, shape):
+        w = jax.random.normal(self._next(), tuple(shape) + (2,),
+                              jnp.float32) * float(np.sqrt(0.5))
+        return torch.tensor(np.asarray(w))
+
     def kmeans_seed(self, n, c):
         self.km_keys = jax.random.split(self._next(), c)
         self.km_n = n

@@ -97,7 +97,12 @@ def test_kmeans_predict_matches_reference(seed, c):
 def test_builtin_strategies_registered():
     assert set(SELECTORS.names()) == set(REF_SELECTORS.names())
     assert set(ALLOCATORS.names()) == set(REF_ALLOCATORS.names())
-    assert AGGREGATORS.names() == ["fedavg"]
+    assert AGGREGATORS.names() == ["fedavg", "fedavgm"]
+    from repro.api import CHANNELS as REF_CHANNELS
+    from repro.api import COMPRESSORS as REF_COMPRESSORS
+    from repro_torch.api.registry import CHANNELS, COMPRESSORS
+    assert CHANNELS.names() == REF_CHANNELS.names()
+    assert COMPRESSORS.names() == REF_COMPRESSORS.names()
 
 
 def test_duplicate_registration_raises():
@@ -121,7 +126,7 @@ def test_unknown_name_raises_and_lists_known():
 
 
 @pytest.mark.parametrize("kind,name", [
-    ("aggregator", "fedavgm:0.7"), ("aggregator", "trimmed:0.2"),
+    ("aggregator", "fedbuff:4:0.5"), ("aggregator", "trimmed:0.2"),
     ("aggregator", "clipnorm:1.0"), ("aggregator", "fedbuff:4")])
 def test_reference_strategies_the_port_lacks_name_the_port(kind, name):
     """A strategy the reference registers and the port does not yet have
