@@ -15,6 +15,8 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    the device launches one call makes; then ``ssd_scan``'s forward plus
    backward against autograd through its plain version; (d) the lane
    forms of ``flat_aggregate`` and ``pairwise_l2`` at the cohort's shapes;
+   a divergence (one centroid) runs on its plan of P alone, at the dense
+   plane's, the paged store's chunk, base-row and 1000-row shapes;
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
    agree (selections, T_k, E_k, the global row); ``run()`` takes the
@@ -66,7 +68,21 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     ``topk:0.01`` with FedAvgM, traced against the host loop, and SAO's T
     with the compressed payload below T with the full one; (e)
     ``rayleigh-block`` against ``gauss-markov:0`` from the same draws;
-11. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+11. the paged client store: (a) ``ExperimentSpec(clients=1000)`` on the
+    paged store (one active plane for the initial round, 8 chunks of 128
+    rows, the exact refresh) through ``run()`` against the dense host loop
+    from the same seed, the initial round and 3 rounds, bit for bit
+    (selections, T_k, E_k, the global row, divergences, the client tree),
+    each path's kernel launches equal to the counts derived from its
+    code; (b) 4000 clients: the initial round in 8 waves of 500 (the
+    streaming mean against one fold of the plane assembled on the card),
+    the minibatch K-means over 28 chunks, 3 rounds on the drift-bounded
+    divergence (every client's true divergence within its bound), no
+    allocation as large as the ``[N, P]`` plane; (c) 1e5 and 1e6 clients
+    under churn (lazy, vectorized partitions): 5 timed rounds each, the
+    rest of a round at 1e6 within 1.5x of 1e5's, the device's peak
+    growing by no more than the per-client data;
+12. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -201,7 +217,8 @@ def kernel_phase(torch, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flat_aggregate import (flat_aggregate,
                                                     flat_aggregate_plain)
-    from repro_torch.kernels.pairwise_l2 import (_launch, pairwise_l2,
+    from repro_torch.kernels.pairwise_l2 import (_launch, divergence_sq,
+                                                 pairwise_l2, plan_divergence,
                                                  plan_slabs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -249,42 +266,58 @@ def kernel_phase(torch, timer):
         rows.setdefault("flat_aggregate", []).append(r)
         del flat, flat_lib
 
-    # the CNN path's K-means (w_fc2) and divergence; the tinyllama path's
-    # divergence (S = 4 a round, N = 10 initially) and K-means (c = 4)
+    # the CNN path's K-means (w_fc2: the dense fit, a minibatch chunk) and
+    # divergence (the dense plane; the paged store's chunks, base row and
+    # 1000-row plane); the tinyllama path's divergence (S = 4 a round,
+    # N = 10 initially) and K-means (c = 4). A divergence (m = 1) runs
+    # the plan of P alone (divergence_sq), a K-means call plan_slabs.
     for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
-                    (10, 4, F_TINYLLAMA)):
+                    (10, 4, F_TINYLLAMA), (147, 1, P_MNIST),
+                    (128, 1, P_MNIST), (1, 1, P_MNIST), (1000, 1, P_MNIST),
+                    (147, 10, 2240)):
         x = torch.randn((n, f), generator=gen, device=DEVICE)
         c = torch.randn((m, f), generator=gen, device=DEVICE)
-        got, want = pairwise_l2(x, c), ref.pairwise_l2_ref(x, c)
+        fn = divergence_sq if m == 1 else pairwise_l2
+        got, want = fn(x, c), ref.pairwise_l2_ref(x, c)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, **L2_TOL)
         b_ms, b_by = bound((n * f + m * f + n * m) * 4, 3 * n * m * f)
-        slabs = plan_slabs(n, m, f)[0]
-        per_call = device_launches(torch, lambda: pairwise_l2(x, c))
+        slabs = (plan_divergence(f) if m == 1 else plan_slabs(n, m, f))[0]
+        per_call = device_launches(torch, lambda: fn(x, c))
         check(per_call == (1 if slabs == 1 else 2),
               f"pairwise_l2 [{n},{f}]x[{m},{f}]: {per_call} device launches "
               f"a call with {slabs} slabs")
         r = dict(shape=[n, m, f], max_abs_err=err, ok=bool(ok),
                  slabs=slabs, device_launches_per_call=per_call,
-                 ms=timer(lambda: pairwise_l2(x, c)),
+                 ms=timer(lambda: fn(x, c)),
                  plain_ms=timer(lambda: ref.pairwise_l2_ref(x, c)),
                  library_ms=timer(lambda: torch.cdist(x, c).square()),
                  bound_ms=b_ms, bound_by=b_by,
                  bound_rate=rate_name(FP32_FLOP_PER_S))
-        # the slab plan's block target, swept in this call (TARGET_BLOCKS
-        # is the one the wrapper uses)
-        r["slab_target_ms"] = {
-            t: timer(lambda t=t: _launch(x, c, *plan_slabs(n, m, f, t)))
-            for t in SLAB_TARGETS}
+        sweep = ""
+        if m == 1:
+            # the plan of the rows in the call, which the divergence ran on
+            # until its bits had to be the same at every row count
+            r["rows_plan_ms"] = timer(
+                lambda: _launch(x, c, *plan_slabs(n, m, f)))
+            sweep = (f" plan_slabs(n) ({plan_slabs(n, m, f)[0]} slabs) "
+                     f"ms={r['rows_plan_ms']:.4f}")
+        else:
+            # the slab plan's block target, swept in this call
+            # (TARGET_BLOCKS is the one the wrapper uses)
+            r["slab_target_ms"] = {
+                t: timer(lambda t=t: _launch(x, c, *plan_slabs(n, m, f, t)))
+                for t in SLAB_TARGETS}
+            sweep = " slab target sweep ms: " + ", ".join(
+                f"{t} blocks ({plan_slabs(n, m, f, t)[0]} slabs)={ms:.4f}"
+                for t, ms in r["slab_target_ms"].items())
         print(f"  pairwise_l2 [{n},{f}]x[{m},{f}] max_abs_err={err:.3e} "
               f"(tol rtol 1e-4 atol 1e-3: {'ok' if ok else 'FAIL'}) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms(cdist^2)={r['library_ms']:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) slabs={slabs} "
-              f"device_launches/call={per_call} slab target sweep ms: "
-              + ", ".join(f"{t} blocks ({plan_slabs(n, m, f, t)[0]} slabs)="
-                          f"{ms:.4f}" for t, ms in r["slab_target_ms"].items()))
+              f"device_launches/call={per_call}{sweep}")
         check(ok, f"pairwise_l2 [{n},{f}]x[{m},{f}] disagrees with its "
                   f"plain version: max_abs_err={err}")
         rows.setdefault("pairwise_l2", []).append(r)
@@ -308,7 +341,7 @@ def lane_kernel_rows(torch, timer, gen, lanes=8):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flat_aggregate import (flat_aggregate,
                                                     flat_aggregate_plain)
-    from repro_torch.kernels.pairwise_l2 import pairwise_l2, plan_slabs
+    from repro_torch.kernels.pairwise_l2 import divergence_sq, plan_divergence
 
     out = {}
     n, p = 10, P_MNIST
@@ -353,21 +386,21 @@ def lane_kernel_rows(torch, timer, gen, lanes=8):
     plane = torch.randn((lanes, rows_n, p), generator=gen, device=DEVICE)
     x = plane[:, :n]                    # a view: each lane at its stride
     c = torch.randn((lanes, m, p), generator=gen, device=DEVICE)
-    got, want = pairwise_l2(x, c), ref.pairwise_l2_ref(x, c)
+    got, want = divergence_sq(x, c), ref.pairwise_l2_ref(x, c)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, **L2_TOL))
     b_ms, b_by = bound((lanes * n * p + lanes * m * p + lanes * n * m) * 4,
                        3 * lanes * n * m * p)
-    slabs = plan_slabs(n, m, p)[0]            # each lane's own plan
-    per_call = device_launches(torch, lambda: pairwise_l2(x, c))
+    slabs = plan_divergence(p)[0]             # each lane's own plan
+    per_call = device_launches(torch, lambda: divergence_sq(x, c))
     check(per_call == (1 if slabs == 1 else 2),
           f"pairwise_l2 lanes: {per_call} device launches a call with "
           f"{slabs} slabs")
     shape = [lanes, n, m, p]
     r = dict(shape=shape, max_abs_err=err, ok=ok, slabs=slabs,
              device_launches_per_call=per_call,
-             ms=timer(lambda: pairwise_l2(x, c)),
+             ms=timer(lambda: divergence_sq(x, c)),
              plain_ms=timer(lambda: ref.pairwise_l2_ref(x, c)),
              library_ms=timer(lambda: torch.cdist(x, c).square()),
              bound_ms=b_ms, bound_by=b_by,
@@ -2060,6 +2093,366 @@ def rayleigh_phase(torch):
     check(equal, "(e) rayleigh-block and gauss-markov:0 differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paged client store
+# ---------------------------------------------------------------------------
+
+
+PAGED_ROUNDS = 3
+KMEANS_ITERS = 50                 # kmeans_fit's and the minibatch fit's
+SCALE_MAX_RATIO = 1.5             # rest of a round, 1e6 clients over 1e5
+                                  # (benchmarks/bench_round_breakdown.py)
+SCALE_SIZES = (100_000, 1_000_000)
+SCALE_ROUNDS = 5
+DIV_SLACK = dict(rtol=1e-5, atol=1e-4)   # fp32 slack of the drift bound
+
+
+def kmeans_launches(c, chunks=1):
+    """``pairwise_l2`` calls of one K-means fit into ``c`` clusters over a
+    stream of ``chunks`` chunks: k-means++ (c − 1 on the first chunk),
+    every Lloyd pass over every chunk, the last assignment."""
+    return (c - 1) + KMEANS_ITERS * chunks + chunks
+
+
+def counts_now(fns):
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def zero_counts(fns):
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def hold_counts(counts, expect, what):
+    """Fail unless every kernel's launches are ``expect``'s (0 where it
+    names none)."""
+    want = {name: expect.get(name, 0) for name in KERNELS}
+    print(f"  {what}: launches {counts}, derived {want}: "
+          f"{'agree' if counts == want else 'DIFFER'}")
+    check(counts == want, f"{what}: launches {counts}, not {want}")
+
+
+def paged_vs_dense_phase(torch, rounds=PAGED_ROUNDS):
+    """(a) ``ExperimentSpec(clients=1000)`` — the paper CNN at full width —
+    on the paged store (``k_max=1000``: the initial round is one active
+    plane; ``chunk_size=128``: 8 chunks; ``div_refresh_every=1``) through
+    ``run()``, against the dense host loop from the same seed: the initial
+    round and ``rounds`` rounds of ``divergence`` each. Selections, T_k,
+    E_k, accuracy, the global row, ``divergences()`` and ``client_tree()``
+    must agree bit for bit (each divergence's bits independent of the rows
+    in its call), and each path's launches equal the counts derived from
+    its code. Returns the paged run's launches."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+
+    fns = kernel_fns()
+    dense_spec = ExperimentSpec(clients=1000)
+    paged_spec = dense_spec.replace(store="paged", k_max=1000,
+                                    chunk_size=128, div_refresh_every=1)
+    n, c = dense_spec.clients, dense_spec.num_clusters
+    refresh = -(-n // paged_spec.chunk_size)
+    expect = {
+        "dense": {"flat_aggregate": 1 + rounds,
+                  "pairwise_l2": kmeans_launches(c) + rounds},
+        "paged": {"flat_aggregate": 1 + rounds,
+                  # a round: the base row, the refresh, the round's rows
+                  "pairwise_l2": kmeans_launches(c)
+                  + rounds * (1 + refresh + 1)}}
+    runs = {}
+    for name, spec in (("dense", dense_spec), ("paged", paged_spec)):
+        exp = build_experiment(spec, device=DEVICE)
+        torch.cuda.synchronize()
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        hist = (exp.run(rounds=rounds) if name == "paged"
+                else exp._run_host(None, rounds, 0.0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now(fns)
+        print(f"  {name}: the initial round + {rounds} rounds in "
+              f"{wall:.2f} s; round walls (s) "
+              + ", ".join(f"{s:.3f}" for s in hist.seconds))
+        hold_counts(counts, expect[name], f"(a) {name}")
+        runs[name] = (exp, hist, counts)
+    (dense, h_d, _), (paged, h_p, counts) = runs["dense"], runs["paged"]
+    for k, (a, b) in enumerate(zip(h_d.selected, h_p.selected)):
+        check(np.array_equal(a, b), f"(a) round {k}: paged selected "
+                                    f"{list(b)}, dense {list(a)}")
+    check(h_p.T_k == h_d.T_k and h_p.E_k == h_d.E_k,
+          f"(a) T_k/E_k differ: paged {h_p.T_k} {h_p.E_k}, dense {h_d.T_k} "
+          f"{h_d.E_k}")
+    check(h_p.accuracy == h_d.accuracy, "(a) accuracies differ")
+    check(bool(torch.equal(paged.global_vec, dense.global_vec)),
+          "(a) the global rows differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_p = paged.divergences()          # a refresh: 1000 rows in 8 chunks
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    d_d = dense.divergences()          # one call over the plane
+    dense_div_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(d_p, d_d), "(a) divergences differ: max abs "
+          f"{float(np.max(np.abs(d_p - d_d)))}")
+    t_p, t_d = paged.client_tree(), dense.client_tree()
+    check(all(np.array_equal(t_p[k], t_d[k]) for k in t_d),
+          "(a) the client trees differ")
+    print(f"  (a) paged = dense bit for bit: selections, T_k, E_k, "
+          f"accuracy, global row, divergences, client tree; divergences() "
+          f"{refresh_ms:.1f} ms paged (base row + {refresh} chunks of "
+          f"{paged_spec.chunk_size} rows assembled on the host and copied "
+          f"in), {dense_div_ms:.1f} ms dense (one call)")
+    return counts, dict(refresh_ms=refresh_ms, dense_div_ms=dense_div_ms,
+                        paged_s=h_p.seconds, dense_s=h_d.seconds)
+
+
+class LargestAllocation:
+    """The largest single device allocation made inside the block, from the
+    caching allocator's event record (``torch.cuda.memory``'s history, no
+    stack traces kept)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.largest = 0
+
+    def __enter__(self):
+        self.torch.cuda.memory._record_memory_history(
+            enabled="all", context=None, stacks="python",
+            max_entries=2_000_000)
+        return self
+
+    def __exit__(self, *exc):
+        mem = self.torch.cuda.memory
+        try:
+            snap = mem._snapshot()
+        finally:
+            mem._record_memory_history(enabled=None)
+        events = [e for trace in snap["device_traces"] for e in trace
+                  if e["action"] == "alloc"]
+        check(events, "the allocator recorded no allocation")
+        self.largest = max(e["size"] for e in events)
+        self.events = len(events)
+        return False
+
+
+def paged_waves_phase(torch, rounds=PAGED_ROUNDS):
+    """(b) ``ExperimentSpec(clients=4000, store="paged", k_max=500,
+    cluster="minibatch", div_refresh_every=0)``: the initial round in 8
+    waves of 500 with the streaming eq.-(4) mean, the minibatch K-means
+    over 28 chunks of 147 rows, then ``rounds`` rounds on the drift-bounded
+    signal. The streaming mean against one ``flat_aggregate`` of the 4000
+    rows assembled on the card (rtol 1e-5); every client's true
+    ‖w_n − g‖ within ``divergence ± drift``; the labels cover every row;
+    no allocation as large as the ``[N, P]`` plane; the launches derived
+    from the code."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.kernels import ops
+
+    fns = kernel_fns()
+    spec = ExperimentSpec(clients=4000, store="paged", k_max=500,
+                          cluster="minibatch", div_refresh_every=0)
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, p, c = spec.clients, exp.flat_spec.total, spec.num_clusters
+    waves, chunks = -(-n // exp.k_max), -(-n // exp.chunk_size)
+    plane_bytes = n * p * 4
+    data_bytes = torch.cuda.memory_allocated()
+    zero_counts(fns)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LargestAllocation(torch) as init_mem:
+        exp.initial_round()
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    init_counts = counts_now(fns)
+    hold_counts(init_counts, {"flat_aggregate": 1,
+                              "pairwise_l2": kmeans_launches(c, chunks)},
+                f"(b) the initial round ({waves} waves, the unit-row fold; "
+                f"minibatch K-means over {chunks} chunks)")
+    labels = exp.cluster_labels
+    check(len(labels) == n and 0 <= labels.min() and labels.max() < c,
+          f"(b) {len(labels)} labels in [{labels.min()}, {labels.max()}] for "
+          f"{n} clients and {c} clusters")
+    check(exp.store.num_touched == n, "(b) not every client was trained")
+
+    rows = torch.cat([torch.as_tensor(b).to(DEVICE)
+                      for b in exp.store.iter_chunks()])
+    sizes = torch.as_tensor(exp.fed.sizes, dtype=torch.float32,
+                            device=DEVICE)
+    want = ops.flat_aggregate(rows, sizes)
+    err = float((exp.global_vec - want).abs().max())
+    rel = float(((exp.global_vec - want).abs()
+                 / want.abs().clamp(min=1e-3)).max())
+    ok = bool(torch.allclose(exp.global_vec, want, rtol=1e-5, atol=1e-6))
+    print(f"  (b) the streaming mean of {waves} waves against one "
+          f"flat_aggregate of the {n} rows assembled on the card "
+          f"({rows.numel() * 4 / 2**30:.2f} GiB): max abs err {err:.3e}, "
+          f"max rel err {rel:.3e} where |mean| >= 1e-3 (tol rtol 1e-5, "
+          f"atol 1e-6: {'ok' if ok else 'FAIL'})")
+    check(ok, f"(b) the streaming mean differs from one fold by {err}")
+    del rows, want
+    torch.cuda.empty_cache()
+
+    zero_counts(fns)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LargestAllocation(torch) as round_mem:
+        hist = exp.run(rounds=rounds, include_initial_round=False)
+        torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    round_peak = torch.cuda.max_memory_allocated()
+    # round 1 refreshes every row (the initial round's write is forced);
+    # then the drift bounds the stale rows: the base row and the round's
+    hold_counts(counts_now(fns), {
+        "flat_aggregate": rounds,
+        "pairwise_l2": (1 + chunks + 1) + (rounds - 1) * 2},
+        f"(b) {rounds} rounds (div_refresh_every=0)")
+    check(len(hist.accuracy) == rounds, "(b) expected no initial round")
+
+    rows = torch.cat([torch.as_tensor(b).to(DEVICE)
+                      for b in exp.store.iter_chunks()])
+    true = ops.client_divergence(rows, exp.global_vec).cpu().numpy()
+    del rows
+    torch.cuda.empty_cache()
+    st = exp.stats
+    slack = DIV_SLACK["atol"] + DIV_SLACK["rtol"] * true
+    over = np.abs(true - st.divergence) - st.drift - slack
+    print(f"  (b) true divergence within divergence ± drift for every one "
+          f"of {n} clients: worst margin {float(over.max()):.3e} (<= 0), "
+          f"max drift {float(st.drift.max()):.4f}, stale rows "
+          f"{int((st.drift > 0).sum())}")
+    check(float(over.max()) <= 0.0, "(b) a divergence outside its drift "
+                                    "bound")
+    peak = max(init_peak, round_peak)
+    largest = max(init_mem.largest, round_mem.largest)
+    print(f"  (b) device memory: data {data_bytes / 2**20:.1f} MiB (the "
+          f"experiment's tensors and what earlier phases hold); peak "
+          f"{init_peak / 2**20:.1f} MiB over the initial round, "
+          f"{round_peak / 2**20:.1f} MiB over the rounds; data + N·P·4 = "
+          f"{(data_bytes + plane_bytes) / 2**20:.1f} MiB (peak "
+          f"{'below' if peak < data_bytes + plane_bytes else 'ABOVE'} it: "
+          f"the {exp.k_max}-client wave's training workspace counts too); "
+          f"the largest single allocation {largest / 2**20:.1f} MiB of "
+          f"{init_mem.events + round_mem.events} against the [N, P] "
+          f"plane's {plane_bytes / 2**20:.1f} MiB")
+    check(largest < plane_bytes, "(b) an allocation as large as the "
+                                 "[N, P] plane")
+    print(f"  (b) build {build_s:.1f} s, initial round {init_s:.1f} s, "
+          f"{rounds} rounds {rounds_s:.2f} s (walls "
+          + ", ".join(f"{s:.3f}" for s in hist.seconds) + ")")
+    return dict(peak=peak, data=data_bytes, largest=largest,
+                init_s=init_s)
+
+
+def warm_sao_graphs(torch, sizes):
+    """Capture SAO's graph for each set size in ``sizes`` (a shape's
+    second solve captures it, ``core/graphs.py``), so that no timed round
+    below pays an eager solve or a capture because churn changed its set
+    size."""
+    from repro_torch.api.registry import ALLOCATORS
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    sao = ALLOCATORS.resolve("sao")
+    for k in sizes:
+        arr = fleet_arrays(sample_fleet(k, seed=k), DEVICE)
+        arr.pop("xgain", None)
+        for _ in range(2):
+            sao.allocate(arr, 20.0)
+    torch.cuda.synchronize()
+
+
+def population_phase(torch, sizes=SCALE_SIZES, rounds=SCALE_ROUNDS):
+    """(c) ``ExperimentSpec(clients=N, store="paged", selection="random",
+    churn_leave=0.01, churn_join=0.1)`` — the paper CNN, S = 10, lazy and
+    vectorized partitions — at N = 1e5 and 1e6, as the reference's scale
+    sweep runs it: no initial round, one warm-up round, then ``rounds``
+    timed rounds each after ``_churn_step_host``; the selection (the one
+    deliberate O(N) step) timed apart. The rest of a round at 1e6 within
+    1.5x of 1e5's, and the device's peak growing from 1e5 to 1e6 by no
+    more than the [N, D] labels, the sizes and the fleet's fp32 arrays."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.data.partition import VECTORIZED_PARTITION_MIN
+
+    warm_sao_graphs(torch, range(7, 11))
+    out = {}
+    for n in sizes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        spec = ExperimentSpec(clients=n, store="paged", selection="random",
+                              churn_leave=0.01, churn_join=0.1)
+        t0 = time.perf_counter()
+        exp = build_experiment(spec, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(exp.fed.lazy and n >= VECTORIZED_PARTITION_MIN,
+              f"(c) N={n}: expected a lazy, vectorized partition")
+        exp.round("random")                      # warm-up
+        torch.cuda.synchronize()
+        walls, churn_ms, picked = [], [], []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            exp._churn_step_host()
+            churn_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = exp.round("random")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            picked.append(len(res.selected))
+            check(math.isfinite(res.T_k) and 0.0 <= res.accuracy <= 1.0,
+                  f"(c) N={n}: a bad round {res}")
+        sel = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            exp.select("random")
+            sel.append((time.perf_counter() - t0) * 1e3)
+        round_ms, sel_ms = float(np.median(walls)), float(np.median(sel))
+        peak = torch.cuda.max_memory_allocated() - before
+        check(bool(torch.isfinite(exp.global_vec).all()),
+              f"(c) N={n}: non-finite global row")
+        check(0 < exp.store.num_touched <= (rounds + 1) * 10,
+              f"(c) N={n}: {exp.store.num_touched} rows written")
+        out[n] = dict(build_s=build_s, round_ms=round_ms, sel_ms=sel_ms,
+                      rest_ms=round_ms - sel_ms,
+                      churn_ms=float(np.median(churn_ms)),
+                      store_mib=exp.store.nbytes / 2**20,
+                      stats_mib=exp.stats.nbytes / 2**20,
+                      peak_mib=peak / 2**20,
+                      per_client_bytes=exp.fed.labels.shape[1] * 4 + 4 + 9 * 4)
+        print(f"  (c) N={n}: build {build_s:.1f} s; round median "
+              f"{round_ms:.1f} ms (walls "
+              + ", ".join(f"{w:.1f}" for w in walls)
+              + f"; clients a round {picked}); selection {sel_ms:.2f} ms, "
+              f"rest {round_ms - sel_ms:.1f} ms; churn step "
+              f"{out[n]['churn_ms']:.2f} ms; host store "
+              f"{out[n]['store_mib']:.2f} MiB (+ stats "
+              f"{out[n]['stats_mib']:.2f} MiB); device peak "
+              f"{out[n]['peak_mib']:.1f} MiB over the build and rounds")
+        del exp, res
+    lo, hi = (out[n] for n in sizes)
+    ratio = hi["rest_ms"] / lo["rest_ms"]
+    print(f"  (c) rest of a round {sizes[1]} / {sizes[0]}: {ratio:.3f} (gate "
+          f"{SCALE_MAX_RATIO}); selection {hi['sel_ms']:.2f} against "
+          f"{lo['sel_ms']:.2f} ms")
+    check(ratio <= SCALE_MAX_RATIO, f"(c) the rest of a round grew "
+                                    f"{ratio:.2f}x from 1e5 to 1e6 clients")
+    growth = hi["peak_mib"] - lo["peak_mib"]
+    allow = (sizes[1] - sizes[0]) * lo["per_client_bytes"] / 2**20
+    print(f"  (c) device peak grew {growth:.1f} MiB from {sizes[0]} to "
+          f"{sizes[1]} clients; the [N, D] int32 labels, the sizes and the "
+          f"fleet's 9 fp32 arrays grow {allow:.1f} MiB")
+    check(growth <= allow, f"(c) device peak grew {growth:.1f} MiB, more "
+                           f"than the per-client data's {allow:.1f} MiB")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2183,7 +2576,24 @@ def main():
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
     print(f"  phase 10 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 11. the kernels")
+    print("== 11. the paged client store")
+    t11 = time.perf_counter()
+    print("  (a) ExperimentSpec(clients=1000) paged against the dense host "
+          "loop, 3 rounds")
+    by_path["paged store (phase 11a)"], _ = paged_vs_dense_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  (a) done at {time.perf_counter() - t_start:.1f} s")
+    print("  (b) 4000 clients: waves of 500, minibatch K-means, 3 rounds")
+    paged_waves_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  (b) done at {time.perf_counter() - t_start:.1f} s")
+    print("  (c) population scale: 1e5 and 1e6 clients under churn")
+    population_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    print(f"  phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 12. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -18,9 +18,13 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.paper_cnn import CNN_CONFIGS
 from repro_torch.core.wireless import sample_fleet
-from repro_torch.data.partition import partition_bias
+from repro_torch.data.partition import partition_bias, partition_bias_lazy
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.models.registry import model_def_for, workload_config
+
+#: clients at and above which a paged build keeps the partition lazy
+#: (index-backed); below it a paged experiment takes the image stack too
+LAZY_PARTITION_MIN = 50_000
 
 
 def fl_config_from_spec(spec: ExperimentSpec,
@@ -101,7 +105,9 @@ def build_experiment(spec: ExperimentSpec, device=None, *, cell: int = 0,
     (``(images, labels)``) replaces the held-out evaluation set. ``draws``
     replaces the experiment's default ``torch.Generator`` draws
     (``repro_torch.core.draws``). A workload that builds its own data (the
-    LoRA LMs) ignores ``spec.dataset``."""
+    LoRA LMs) ignores ``spec.dataset``. A paged fleet of at least
+    ``LAZY_PARTITION_MIN`` clients partitions lazily (per-client sample
+    indices into the pool, not an ``[N, D, H, W, C]`` image stack)."""
     from repro_torch.core.fedavg import FLExperiment   # imports the api
 
     dev = resolve_device(device)
@@ -122,9 +128,12 @@ def build_experiment(spec: ExperimentSpec, device=None, *, cell: int = 0,
         test_images, test_labels = test.images, test.labels
     else:
         test_images, test_labels = test_data
-    fed = partition_bias(ds, n, spec.samples_per_client, spec.sigma,
-                         seed=spec.resolved_partition_seed
-                         + CELL_SEED_STRIDE * cell)
+    partition = (partition_bias_lazy
+                 if spec.store == "paged" and n >= LAZY_PARTITION_MIN
+                 else partition_bias)
+    fed = partition(ds, n, spec.samples_per_client, spec.sigma,
+                    seed=spec.resolved_partition_seed
+                    + CELL_SEED_STRIDE * cell)
     exp = FLExperiment(
         model_cfg, fed, test_images, test_labels, fleet,
         fl_config_from_spec(spec, num_devices=n), device=dev,
@@ -134,7 +143,10 @@ def build_experiment(spec: ExperimentSpec, device=None, *, cell: int = 0,
         allocator=ALLOCATORS.resolve(spec.allocator),
         aggregator=AGGREGATORS.resolve(spec.aggregator),
         compression=COMPRESSORS.resolve(spec.compressor),
-        channel=channel, fedprox_mu=spec.fedprox_mu, draws=draws)
+        channel=channel, fedprox_mu=spec.fedprox_mu, draws=draws,
+        churn=(spec.churn_leave, spec.churn_join), store=spec.store,
+        k_max=spec.k_max, chunk_size=spec.chunk_size,
+        div_refresh_every=spec.div_refresh_every, cluster=spec.cluster)
     exp.spec = spec
     exp.cell = cell
     return exp

@@ -16,10 +16,13 @@ workload name (``"tinyllama"``, ``"mamba2-130m"``: LoRA LM rows).
 ``cohort`` is the number of seeds ``build_cohort`` runs as lanes of one
 captured round (``repro_torch.core.cohort``). ``fleet`` is the physical
 scenario (a ``FleetSpec`` or its dict: cells and channel model,
-``repro_torch.api.scenario``); ``compressor`` the uplink compression. The
-reference's fields the port has no counterpart for yet (``store``,
-``faults``, ``churn_leave``, …) are left out: passing one raises a
-``TypeError`` that names the port.
+``repro_torch.api.scenario``); ``compressor`` the uplink compression.
+``store`` picks the client store (``"paged"``: the population-scale
+host cold store, ``repro_torch.core.store``) with its knobs ``k_max``,
+``chunk_size``, ``div_refresh_every``, ``cluster`` and the round-level
+churn ``churn_leave``/``churn_join``. The reference's fields the port has
+no counterpart for yet (``p_shards``, ``faults``, ``quarantine_after``)
+are left out: passing one raises a ``TypeError`` that names the port.
 """
 from __future__ import annotations
 
@@ -73,6 +76,26 @@ class ExperimentSpec:
     feature_layer: str = "auto"            # K-means feature (Alg. 2)
     fedprox_mu: float = 0.0                # >0 → FedProx client objective
 
+    # ---- client parameter store (population-scale fleets) ------------
+    store: str = "dense"                   # "dense": the [N, P] device plane;
+                                           # "paged": the active plane on the
+                                           # device, the rest in a host cold
+                                           # store (repro_torch.core.store)
+    k_max: Optional[int] = None            # active-plane rows (paged);
+                                           # None → max(S, 256) capped at N
+    chunk_size: Optional[int] = None       # cold-store block rows (paged);
+                                           # None → ~64 MB blocks
+    div_refresh_every: int = 0             # paged divergence refresh cadence:
+                                           # 1 = every selection (the dense
+                                           # signal), 0 = lazy (drift-bounded)
+    cluster: str = "full"                  # Alg.-2 K-means fit: "full" (one
+                                           # [N, F] matrix) or "minibatch"
+                                           # (streamed, O(chunk) memory)
+
+    # ---- client churn (the paged store's round loop) -----------------
+    churn_leave: float = 0.0               # per-round P(available → gone)
+    churn_join: float = 0.0                # per-round P(gone → available)
+
     # ---- cohort (seeds as lanes of one captured round) ---------------
     cohort: int = 1                        # seeds seed..seed+cohort-1 run as
                                            # ONE program (build_cohort)
@@ -93,6 +116,24 @@ class ExperimentSpec:
     version: int = SPEC_VERSION
 
     def __post_init__(self):
+        if self.store not in ("dense", "paged"):
+            raise ValueError(f"store={self.store!r}: expected 'dense' or "
+                             "'paged'")
+        for name in ("k_max", "chunk_size"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be positive; got {v}")
+        if self.div_refresh_every < 0:
+            raise ValueError("div_refresh_every must be >= 0; got "
+                             f"{self.div_refresh_every}")
+        if self.cluster not in ("full", "minibatch"):
+            raise ValueError(f"cluster={self.cluster!r}: expected 'full' "
+                             "or 'minibatch'")
+        for name in ("churn_leave", "churn_join"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} is a per-round probability; "
+                                 f"expected 0 <= p <= 1, got {v}")
         if self.model not in ("auto", "cnn"):
             from repro_torch.models.registry import workload_names
             if self.model not in workload_names():
@@ -166,9 +207,7 @@ class ExperimentSpec:
 
 
 # the reference's fields the port has no counterpart for yet
-NOT_PORTED_FIELDS = ("store", "k_max", "chunk_size", "div_refresh_every",
-                     "cluster", "p_shards", "churn_leave", "churn_join",
-                     "faults", "quarantine_after")
+NOT_PORTED_FIELDS = ("p_shards", "faults", "quarantine_after")
 
 
 def _refuse_not_ported(init):

@@ -106,6 +106,67 @@ def kmeans_predict(centroids: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                                               centroids), dim=1)
 
 
+def _chunk_assign_stats(x: torch.Tensor, centroids: torch.Tensor, c: int):
+    """One chunk's Lloyd-pass statistics: (per-cluster feature sums
+    ``[C, F]``, per-cluster counts ``[C]``, the chunk's inertia)."""
+    d = ops.pairwise_sq_dists(x, centroids)
+    labels = torch.argmin(d, dim=1)
+    onehot = torch.nn.functional.one_hot(labels, c).to(torch.float32)
+    return (onehot.T @ x, onehot.sum(dim=0),
+            torch.sum(torch.min(d, dim=1).values))
+
+
+def kmeans_fit_minibatch(chunks, c: int, iters: int = 50, *, draws,
+                         device="cpu"):
+    """Lloyd's algorithm over a feature stream, O(chunk) in memory.
+
+    ``chunks`` is a CALLABLE returning a fresh iterator of ``[n_i, F]``
+    feature blocks (host arrays or tensors; the paged experiment's
+    ``iter_client_features``), so the ``[N, F]`` matrix never exists:
+    each pass folds every chunk's assignment sums and counts into ``[C,
+    F]`` accumulators and moves the centroids once — full-batch Lloyd,
+    a chunk at a time, on ``device``.
+
+    A SINGLE-chunk stream is :func:`kmeans_fit` verbatim (the small
+    fleet's pin); a stream of several seeds k-means++ (``draws``) on its
+    first chunk only. Returns ``(centroids, labels, inertia)``, the labels
+    of every streamed row in stream order."""
+    def load(block):
+        return torch.as_tensor(block, dtype=torch.float32).contiguous().to(
+            device)
+
+    first = None
+    multi = False
+    for block in chunks():
+        if first is None:
+            first = load(block)
+        else:
+            multi = True
+            break
+    if first is None:
+        raise ValueError("kmeans_fit_minibatch: empty feature stream")
+    if not multi:
+        return kmeans_fit(first, c, iters, draws=draws)
+
+    centroids = kmeans_plus_plus_init(first, c, draws)
+    for _ in range(iters):
+        sums = torch.zeros_like(centroids)
+        counts = torch.zeros((c,), dtype=torch.float32, device=first.device)
+        for block in chunks():
+            s, n, _ = _chunk_assign_stats(load(block), centroids, c)
+            sums = sums + s
+            counts = counts + n
+        new = sums / torch.clamp(counts, min=1.0)[:, None]
+        centroids = torch.where((counts > 0)[:, None], new, centroids)
+
+    labels, inertia = [], 0.0
+    for block in chunks():
+        d = ops.pairwise_sq_dists(load(block), centroids)
+        labels.append(torch.argmin(d, dim=1))
+        inertia += float(torch.sum(torch.min(d, dim=1).values))
+    return centroids, torch.cat(labels), inertia
+
+
 def clusters_from_labels(labels, c: int):
     """Algorithm 2 output form: list of index arrays {N_1..N_c}."""
     labels = np.asarray(labels.cpu() if isinstance(labels, torch.Tensor)

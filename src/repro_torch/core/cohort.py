@@ -109,12 +109,20 @@ class CohortRunner:
     ``TorchDraws(seed)`` (a parity test replays the reference's key
     streams). Requires every strategy to be traceable
     (``FLExperiment.traceable``) and, with cells, equal device counts
-    in every cell.
+    in every cell. A paged store raises: the cohort's carry is the dense
+    plane.
     """
 
     def __init__(self, spec, device=None,
                  draws: Optional[Callable[[int], object]] = None):
         from repro_torch.api.build import resolve_device
+        if getattr(spec, "store", "dense") != "dense":
+            raise ValueError(
+                "CohortRunner scans the dense [N, P] client plane as a "
+                "vmapped carry; a paged ClientStore serves rows on demand "
+                "(store.gather / iter_client_trees) through the host "
+                "drivers instead — run the seeds one at a time via "
+                "build_experiment(spec) / FLExperiment.run")
         self.spec = spec
         self.device = resolve_device(device)
         self.draws = draws

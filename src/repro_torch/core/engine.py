@@ -797,8 +797,9 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     ``compressor`` (default ``none``) quantizes the uplink rows; ``cells >
     1`` (a dynamic-interference cohort, lanes ``seed·cells + cell``)
     couples each seed's cells through the round's cross-cell reduction.
-    The reference's other options (faults, churn, the paged store) are no
-    fields of the port's spec.
+    The reference's faults are no field of the port's spec; its paged
+    store and churn run on the host loop only (``FLExperiment``), as in
+    the reference.
     """
     if compressor is None:
         from repro_torch.api.registry import COMPRESSORS

@@ -1,6 +1,6 @@
 """Federated-learning loop — paper Algorithm 1 + the Fig. 2 framework, over
-the dense ``[N, P]`` client plane, by one of two paths that give the same
-results:
+a client store (``repro_torch.core.store``): the dense ``[N, P]`` plane on
+the device, by one of two paths that give the same results:
 
 * the device-resident run (``repro_torch.core.engine.run_rounds``): the
   whole experiment's rounds as one round body on the device — on the card
@@ -27,6 +27,15 @@ Per round k:
 Clustering (Algorithm 2) happens once, after an initial all-device round,
 on the K-means features of the paper's chosen layer.
 
+With ``store="paged"`` (a population-scale fleet, N ≫ K) the clients' rows
+live in a cold store in host memory and the host loop runs each round on
+the active plane alone: the K selected rows gathered to the device as the
+round body's plane (indices local, 0..K−1), written back after it. The
+O(N) state is the per-client stats table, which serves the divergence
+signal (refreshed every ``div_refresh_every`` rounds, else bounded by its
+drift) and the churn mask. An initial round of more than ``k_max``
+clients trains in waves whose mean streams to the host.
+
 ``FLExperiment`` owns the experiment's state on one device — the global
 row, the client plane, the data, the K-means labels — one draws object
 (``repro_torch.core.draws``) that the model's random choices come from,
@@ -51,16 +60,27 @@ from repro_torch.api.registry import (AGGREGATORS, ALLOCATORS, CHANNELS,
                                       COMPRESSORS, SELECTORS)
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.clustering import (clusters_from_labels,
-                                         extract_features_flat)
+                                         extract_features_flat, kmeans_fit,
+                                         kmeans_fit_minibatch,
+                                         resolve_feature_columns)
 from repro_torch.core.divergence import weight_divergence_flat
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.engine import (EngineConfig, RoundInputs,
                                      TracedRunResult, build_round_phases,
                                      model_flat_spec, run_rounds)
+from repro_torch.core.store import ClientStats, build_store
 from repro_torch.core.wireless import Fleet, fleet_arrays
 from repro_torch.data.partition import FederatedData
+from repro_torch.kernels import ops
+from repro_torch.kernels.chunked import (default_chunk_size,
+                                         streaming_weighted_mean)
 from repro_torch.models.registry import model_def_for
-from repro_torch.utils.trees import flatten_vector
+from repro_torch.utils.trees import flatten_vector, unflatten_rows_np
+
+#: ``_rounds_since_refresh`` after a mass write that set no divergence
+#: (the initial round): the next ``divergences()`` refreshes every touched
+#: row, whatever ``div_refresh_every`` says
+FORCE_REFRESH = int(np.iinfo(np.int32).max)
 
 
 @dataclass
@@ -99,6 +119,34 @@ class FLHistory:
             self.seconds.append(seconds)
 
 
+def parse_churn(churn):
+    """A churn spec as the ``(p_leave, p_join)`` float pair: ``None`` (no
+    churn), one number or ``"0.3"`` (leave only), ``"p_leave:p_join"``, or
+    a 2-sequence; each a per-round Bernoulli probability in [0, 1]."""
+    if churn is None:
+        return (0.0, 0.0)
+    if isinstance(churn, str):
+        leave_s, _, join_s = churn.partition(":")
+        parts = (leave_s, join_s or "0")
+    elif isinstance(churn, (int, float)):
+        parts = (churn, 0.0)
+    else:
+        parts = tuple(churn)
+        if len(parts) != 2:
+            raise ValueError(
+                f"churn must be (p_leave, p_join); got {churn!r}")
+    try:
+        p = tuple(float(x) for x in parts)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"churn must be numeric 'P_LEAVE[:P_JOIN]'; got {churn!r}"
+        ) from None
+    if not all(0.0 <= x <= 1.0 for x in p):
+        raise ValueError(
+            f"churn probabilities must lie in [0, 1]; got {p}")
+    return p
+
+
 def fp32_matmuls() -> None:
     """Keep float32 products in full float32: PyTorch's cuDNN default runs
     fp32 convolutions in TF32 (about three decimal digits), which the
@@ -108,7 +156,7 @@ def fp32_matmuls() -> None:
 
 
 class FLExperiment:
-    """The synchronous dense FL loop on one device, driven from the host.
+    """The synchronous FL loop on one device, driven from the host.
 
     ``selection``, ``allocator``, ``aggregator``, ``compression`` and
     ``channel`` take a registered name, the ``name:arg`` shorthand, a
@@ -130,6 +178,20 @@ class FLExperiment:
     weights (the LoRA LM) gets them from ``draws.base_params`` and, as it
     uploads only its trainable rows, prices the fleet's payload at
     ``z = P·32/1e6`` Mbit.
+
+    ``store`` is the client store: ``"dense"`` (the plane on ``device``)
+    or ``"paged"`` (the host cold store; ``k_max`` rows at most on the
+    device at once, default ``min(N, max(S, 256))``; ``chunk_size`` rows a
+    cold block, default ``default_chunk_size(P)``, ~64 MB;
+    ``div_refresh_every`` rounds between refreshes of the touched rows'
+    divergences, 0 = never after the first, the signal then bounded by
+    ``stats.drift``). ``cluster`` fits Alg. 2's K-means on one ``[N, F]``
+    matrix (``"full"``) or streams it a chunk at a time
+    (``"minibatch"``). ``churn`` (``(p_leave, p_join)``, paged store only)
+    flips the stats table's availability mask before every round of
+    :meth:`run`. Index-backed data (``LazyFederatedData``) needs the paged
+    store; its rounds gather their clients' images from the pool on the
+    device.
     """
 
     def __init__(self, model_cfg, fed: FederatedData, test_images: np.ndarray,
@@ -138,7 +200,10 @@ class FLExperiment:
                  batch_size: int = 32, selection=None, allocator="sao",
                  aggregator=None, compression="none", channel="static",
                  server_momentum: float = 0.0, box_correct: bool = False,
-                 fedprox_mu: float = 0.0, draws=None):
+                 fedprox_mu: float = 0.0, draws=None, churn=None,
+                 store: str = "dense", k_max: Optional[int] = None,
+                 chunk_size: Optional[int] = None,
+                 div_refresh_every: int = 0, cluster: str = "full"):
         fp32_matmuls()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -164,6 +229,20 @@ class FLExperiment:
         self.aggregator.reset()
         self.compressor = COMPRESSORS.resolve(compression)
         self.channel = CHANNELS.resolve(channel)
+        self.churn = parse_churn(churn)
+        if (self.churn != (0.0, 0.0) and store != "paged"
+                and not getattr(self.aggregator, "async_capable", False)):
+            raise ValueError(
+                "client churn needs an engine that tracks availability: "
+                "the paged client store (store='paged'), whose round loop "
+                "flips the stats table's availability mask, or the "
+                "buffered-asynchronous engine (an async-capable aggregator, "
+                "e.g. 'fedbuff:4', not in the PyTorch port (repro_torch) "
+                "yet)")
+        if cluster not in ("full", "minibatch"):
+            raise ValueError(
+                f"cluster must be 'full' or 'minibatch'; got {cluster!r}")
+        self.cluster_mode = cluster
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
         mdef = model_def_for(model_cfg)
@@ -177,7 +256,16 @@ class FLExperiment:
 
         params = self.draws.init_params(model_cfg)
         self.global_vec = flatten_vector(spec, params).to(self.device)
-        self.client_plane = self.global_vec.repeat(fed.num_clients, 1)
+        n = fed.num_clients
+        self.chunk_size = int(chunk_size or default_chunk_size(spec.total))
+        self.k_max = int(k_max or min(n, max(fl.devices_per_round, 256)))
+        self._store = build_store(store, self.global_vec, n, self.chunk_size,
+                                  stage_rows=self.k_max)
+        self._div_refresh_every = int(div_refresh_every)
+        self._rounds_since_refresh = FORCE_REFRESH
+        # the global row the stats table's drift is measured from
+        self._gvec_host = (self.global_vec.to("cpu", copy=True).numpy()
+                           if store == "paged" else None)
         # a lossy uplink shrinks the payload; an adapter workload uploads
         # its trainable rows only, never its frozen base
         z = self.compressor.payload_mbit(spec.total, len(spec.names))
@@ -196,16 +284,75 @@ class FLExperiment:
 
         self.test_images = put(test_images)
         self.test_labels = put(test_labels)
-        self._images = put(fed.images)
-        self._labels = put(fed.labels)
+        if getattr(fed, "lazy", False):
+            # per-client sample indices into a shared pool: a round
+            # gathers its clients' images from the pool on the device
+            if store != "paged":
+                raise ValueError(
+                    "lazy federated data (index-backed partition) requires "
+                    "store='paged'; the dense and traced paths consume the "
+                    "materialized [N, D, ...] image stack")
+            self._pool_images = put(fed.pool_images)
+            self._images = None
+        else:
+            self._pool_images = None
+            self._images = put(fed.images)
+        # the paged store keeps the [N, D] labels as they come (int32: half
+        # the bytes of int64 at N = 1e6) and widens a round's rows
+        self._labels = (torch.as_tensor(fed.labels, device=self.device)
+                        if store == "paged" else put(fed.labels))
         self._sizes = put(fed.sizes)
+        self._sizes_host = np.asarray(fed.sizes)
+        self._num_samples = fed.labels.shape[1]
         self.clusters: Optional[List[np.ndarray]] = None
         self.cluster_labels: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
+    @property
+    def store(self):
+        """The client store (``DenseStore`` | ``PagedStore``)."""
+        return self._store
+
+    @property
+    def stats(self) -> ClientStats:
+        """The O(N) per-client statistics table, owned by the store."""
+        return self._store.stats
+
+    @property
+    def client_plane(self) -> torch.Tensor:
+        """The dense ``[N, P]`` plane on the device (updated in place by
+        the round loop). A paged store keeps none: gather the rows you need
+        through the store instead."""
+        if self._store.kind != "dense":
+            raise AttributeError(
+                "store='paged' keeps no [N, P] client buffer; gather "
+                "active rows with exp.store.gather(idx), page the cold "
+                "store with iter_client_trees()/iter_client_features(), "
+                "or read the O(N) exp.stats table")
+        return self._store.buffer
+
+    @client_plane.setter
+    def client_plane(self, value: torch.Tensor) -> None:
+        if self._store.kind != "dense":
+            raise AttributeError(
+                "store='paged' keeps no [N, P] client buffer to assign; "
+                "persist trained rows through exp.store.scatter(idx, rows)")
+        self._store.buffer = value
+
     def _index(self, idx) -> torch.Tensor:
         return torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                device=self.device)
+
+    def _client_data(self, idx):
+        """The clients ``idx``'s ``(images, labels, sizes)`` on the device:
+        a row gather, or for index-backed data a gather from the pool."""
+        g = self._index(idx)
+        if self._pool_images is None:
+            images = self._images[g]
+        else:
+            images = self._pool_images[self._index(
+                self.fed.indices[np.asarray(idx)])]
+        return images, self._labels[g].long(), self._sizes[g]
 
     def phases(self):
         """The round body (``build_round_phases``) for the experiment's
@@ -244,34 +391,184 @@ class FLExperiment:
         return float(acc), per_class.cpu().numpy()
 
     def _batch_indices(self, n: int) -> torch.Tensor:
+        """``[n, L, batch]`` sample indices: one draw for the clients of one
+        training call (a round's K, a wave's), never the fleet's."""
         return self.draws.batch_indices(n, self.fl.local_iters,
-                                        self.batch_size,
-                                        self._images.shape[1])
+                                        self.batch_size, self._num_samples)
 
-    def client_features(self, layer: Optional[str] = None) -> torch.Tensor:
-        """K-means feature matrix ``[N, F]`` (Alg. 2's input): a column
-        view of the plane."""
+    def _chunk(self, chunk_size: Optional[int]) -> int:
+        return int(chunk_size) if chunk_size else self.chunk_size
+
+    def client_features(self, layer: Optional[str] = None,
+                        chunk_size: Optional[int] = None) -> torch.Tensor:
+        """K-means feature matrix ``[N, F]`` (Alg. 2's input) on the
+        device: a column view of the dense plane, or assembled from the
+        paged store ``chunk_size`` rows at a time (the same columns), so
+        only the ``[N, F]`` block ever exists."""
         layer = self.fl.feature_layer if layer is None else layer
-        return extract_features_flat(self.client_plane, layer,
-                                     self.flat_spec)
+        if self._store.kind == "dense":
+            return extract_features_flat(self.client_plane, layer,
+                                         self.flat_spec)
+        blocks = [blk for _, blk in self.iter_client_features(layer,
+                                                              chunk_size)]
+        return torch.as_tensor(np.concatenate(blocks, axis=0)).to(
+            self.device)
+
+    def iter_client_features(self, layer: Optional[str] = None,
+                             chunk_size: Optional[int] = None):
+        """``(start_row, [c, F] host feature block)`` pairs — the
+        O(chunk·P) stream form of :meth:`client_features`."""
+        layer = self.fl.feature_layer if layer is None else layer
+        cols = resolve_feature_columns(self.flat_spec, layer)
+        start = 0
+        for block in self._store.iter_chunks(self._chunk(chunk_size)):
+            yield start, block if cols is None else block[:, cols]
+            start += block.shape[0]
+
+    def client_tree(self, chunk_size: Optional[int] = None):
+        """The client store as ``{name: [N, ...]}`` host arrays — a COPY,
+        assembled ``chunk_size`` rows at a time (beyond the O(N·P)
+        result, one chunk): :meth:`iter_client_trees` streams it."""
+        spec = self.flat_spec
+        n = self.fed.num_clients
+        leaves = {name: np.empty((n,) + shape, dt)
+                  for name, shape, dt in zip(spec.names, spec.shapes,
+                                             spec.dtypes)}
+        for start, tree in self.iter_client_trees(chunk_size):
+            for name, leaf in tree.items():
+                leaves[name][start:start + leaf.shape[0]] = leaf
+        return leaves
+
+    def iter_client_trees(self, chunk_size: Optional[int] = None):
+        """``(start_row, {name: [c, ...]})`` blocks of at most
+        ``chunk_size`` clients — O(chunk·P) at a time."""
+        start = 0
+        for block in self._store.iter_chunks(self._chunk(chunk_size)):
+            yield start, unflatten_rows_np(self.flat_spec, block)
+            start += block.shape[0]
 
     # ------------------------------------------------------------------
     def initial_round(self) -> None:
-        """Round 0: all devices train; then K-means clustering (Alg. 2) —
-        the round body's ``cluster_round`` on the experiment's state."""
-        state = self.phases().cluster_round(
-            self._host_state(), self._images, self._labels, self._sizes,
-            self._batch_indices(self.fed.num_clients), self.draws)
+        """Round 0: all devices train and fold (the round body's
+        ``train_aggregate``), then K-means clustering (Alg. 2), one fit or
+        streamed (``cluster``). On the paged store the fleet trains as the
+        active plane when N ≤ ``k_max`` (the dense loop's bits), else in
+        waves of ``k_max`` (:meth:`_initial_round_waves`); the stats table
+        then asks the next divergences to refresh every row."""
+        n = self.fed.num_clients
+        idx = np.arange(n)
+        ph = self.phases()
+        if self._store.kind == "dense":
+            state = ph.train_aggregate(
+                self._host_state(), self._index(idx), None, self._images,
+                self._labels, self._sizes, self._batch_indices(n))
+            self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
+        elif n <= self.k_max:
+            self._on_active(idx, lambda state, t, images, labels, sizes: (
+                ph.train_aggregate(state, t, None, images, labels, sizes,
+                                   self._batch_indices(n)), None))
+        else:
+            self._initial_round_waves(idx)
+        c = self.fl.num_clusters
+        if self.cluster_mode == "minibatch":
+            chunks = lambda: (blk for _, blk in self.iter_client_features())
+            _, labels, _ = kmeans_fit_minibatch(chunks, c, draws=self.draws,
+                                                device=self.device)
+        else:
+            _, labels, _ = kmeans_fit(self.client_features(), c,
+                                      draws=self.draws)
+        self.cluster_labels = labels.cpu().numpy()
+        self.clusters = clusters_from_labels(self.cluster_labels, c)
+        if self._store.kind == "paged":
+            self._finish_paged_round(idx)
+
+    def _on_active(self, idx, run):
+        """``run(state, local, images, labels, sizes) -> (state, out)`` on
+        the active plane of ``idx``: the store's rows gathered to the
+        device as the carry's plane, ``local`` = 0..K−1 their indices in
+        it, the clients' data gathered beside them; the plane's rows
+        written back to the store after. Returns ``(rows, out)``."""
+        block = self._store.gather(idx)
+        state = RoundState(params=self.global_vec, client_params=block,
+                           opt_state=self.aggregator.init_flat_state(
+                               self.global_vec),
+                           labels=None)
+        local = torch.arange(len(idx), device=self.device)
+        state, out = run(state, local, *self._client_data(idx))
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
-        self.cluster_labels = state.labels.cpu().numpy()
-        self.clusters = clusters_from_labels(self.cluster_labels,
-                                             self.fl.num_clusters)
+        self._store.scatter(idx, block)
+        return block, out
+
+    def _initial_round_waves(self, idx: np.ndarray) -> None:
+        """All devices train in waves of ``k_max`` (the device holds one
+        ``[k_max, P]`` block at a time), each wave from the same global row
+        on its own batch draw, its rows written to the store; the eq.-(4)
+        mean streams over the waves (``streaming_weighted_mean``: not the
+        bits of one fold, so a single wave takes the active plane
+        instead), then goes through the aggregator as one row of weight 1,
+        so a stateful server (momentum) sees one eq.-(4) mean."""
+        ph = self.phases()
+        state = RoundState(params=self.global_vec, client_params=None,
+                           opt_state=None, labels=None)
+
+        def waves():
+            for s in range(0, len(idx), self.k_max):
+                w_idx = idx[s:s + self.k_max]
+                images, labels, _ = self._client_data(w_idx)
+                rows = ph.train_rows(
+                    state, torch.arange(len(w_idx), device=self.device),
+                    images, labels, self._batch_indices(len(w_idx)))
+                self._store.scatter(w_idx, rows)
+                yield rows, self._sizes_host[w_idx]
+
+        mean = streaming_weighted_mean(waves(), self.flat_spec.total)
+        gvec = self.global_vec
+        new_gvec, opt_state = self.aggregator.aggregate_flat(
+            gvec, torch.as_tensor(mean, device=self.device)[None],
+            torch.ones(1, device=self.device),
+            self.aggregator.init_flat_state(gvec))
+        gvec.copy_(new_gvec)
+        self.aggregator.load_flat_state(opt_state, self.flat_spec)
 
     def divergences(self) -> np.ndarray:
-        """Per-client ‖w_n − w_g‖ — the §IV-C selection signal, one row
-        reduction over the plane."""
-        return weight_divergence_flat(self.client_plane,
-                                      self.global_vec).cpu().numpy()
+        """Per-client ‖w_n − w_g‖ — the §IV-C selection signal: one row
+        reduction over the dense plane, or served from the paged store's
+        stats table (:meth:`_paged_divergences`)."""
+        if self._store.kind == "dense":
+            return weight_divergence_flat(self.client_plane,
+                                          self.global_vec).cpu().numpy()
+        return self._paged_divergences()
+
+    def _paged_divergences(self) -> np.ndarray:
+        """The stats table's divergences: every untouched client IS the
+        base row, so one ``[1, P]`` reduction gives all of theirs (the same
+        bits as a row of a dense sweep); the touched rows keep their last
+        refresh, redone in ``chunk_size`` batches every
+        ``div_refresh_every`` rounds (1 = every round = the dense signal
+        exactly; 0 = only when forced, staleness bounded by
+        ``stats.drift``)."""
+        store, stats = self._store, self.stats
+        gvec = self.global_vec
+        base = torch.as_tensor(store.base).to(self.device)[None, :]
+        base_d = ops.client_divergence(base, gvec).cpu().numpy()[0]
+        untouched = ~store.touched
+        stats.divergence[untouched] = base_d
+        stats.drift[untouched] = 0.0
+        every = self._div_refresh_every
+        # a forced refresh covers a mass write that set no divergence (the
+        # initial round), so even every = 0 never serves an unset entry
+        forced = self._rounds_since_refresh >= FORCE_REFRESH
+        if (store.num_touched
+                and (forced or (every > 0
+                                and self._rounds_since_refresh >= every))):
+            tidx = np.flatnonzero(store.touched)
+            for s in range(0, len(tidx), self.chunk_size):
+                batch = tidx[s:s + self.chunk_size]
+                stats.divergence[batch] = ops.client_divergence(
+                    store.gather(batch), gvec).cpu().numpy()
+            stats.drift[store.touched] = 0.0
+            self._rounds_since_refresh = 0
+        return stats.divergence.copy()
 
     def selection_context(self) -> SelectionContext:
         return SelectionContext(
@@ -307,15 +604,23 @@ class FLExperiment:
         """One full FL round: select on the host, then the round body's
         ``finish_phase`` (allocate → train → fold → evaluate) eagerly on
         the experiment's state, each phase a profiler span (``fl.select``
-        …). ``method`` picks the selector as in :meth:`select`. A
-        selection that comes back empty is an explicit no-op round:
-        nothing trains, T_k = E_k = 0."""
+        …). ``method`` picks the selector as in :meth:`select`. On the
+        paged store the selection keeps only the clients the stats table
+        marks available, and the round runs on their active plane
+        (:meth:`_paged_round`). A selection that comes back empty (or
+        churned out) is an explicit no-op round: nothing trains,
+        T_k = E_k = 0."""
         with record_function("fl.select"):
             idx = self.select(method)
+        paged = self._store.kind == "paged"
+        if paged:
+            idx = idx[self.stats.avail[idx]]
         if idx.size == 0:
             acc, per_class = self.evaluate()
             return RoundResult(selected=idx, T_k=0.0, E_k=0.0, accuracy=acc,
                                per_class=per_class)
+        if paged:
+            return self._paged_round(idx)
         t = self._index(idx)
         arr = fleet_arrays(self.fleet, self.device)
         arr.pop("xgain", None)
@@ -328,6 +633,58 @@ class FLExperiment:
                            accuracy=float(out.accuracy),
                            per_class=out.per_class.cpu().numpy(),
                            band_mhz=float(out.band))
+
+    def _paged_round(self, idx: np.ndarray) -> RoundResult:
+        """The round body's ``finish_phase`` on the active plane of ``idx``
+        (fleet arrays of the selection alone, no O(N) upload), then the
+        stats table's upkeep."""
+        arr = fleet_arrays(self.fleet.select(idx), self.device)
+        arr.pop("xgain", None)
+        ph = self.phases()
+        rows, out = self._on_active(
+            idx, lambda state, t, images, labels, sizes: ph.finish_phase(
+                state, arr, t, None, images, labels, sizes,
+                self._batch_indices(len(t)), self.test_images,
+                self.test_labels))
+        self._finish_paged_round(idx, rows)
+        return RoundResult(selected=idx, T_k=float(out.T), E_k=float(out.E),
+                           accuracy=float(out.accuracy),
+                           per_class=out.per_class.cpu().numpy(),
+                           band_mhz=float(out.band))
+
+    def _finish_paged_round(self, idx: np.ndarray, rows=None) -> None:
+        """The stats table after a paged round: every stale entry's drift
+        grows by ‖g_new − g_old‖, the round's trained ``rows`` get exact
+        divergences (one O(K·P) reduction of rows already on the device),
+        ages advance. ``rows = None`` (the initial round's mass write)
+        forces the next :meth:`divergences` to refresh."""
+        gvec_host = self.global_vec.to("cpu", copy=True).numpy()
+        st = self.stats
+        delta = float(np.linalg.norm(gvec_host - self._gvec_host))
+        st.drift[self._store.touched] += delta
+        if rows is not None:
+            st.divergence[idx] = ops.client_divergence(
+                rows, self.global_vec).cpu().numpy()
+            st.drift[idx] = 0.0
+        st.age[:] += 1
+        st.age[idx] = 0
+        self._gvec_host = gvec_host
+        if rows is None:
+            self._rounds_since_refresh = FORCE_REFRESH
+        else:
+            self._rounds_since_refresh = min(
+                self._rounds_since_refresh + 1, FORCE_REFRESH - 1)
+
+    def _churn_step_host(self) -> None:
+        """Round-level Bernoulli churn on the stats table's availability
+        mask, from the host Generator ``rng``: a departed client's cold row
+        stays as it is and is picked up again on rejoin."""
+        p_leave, p_join = self.churn
+        n = self.fed.num_clients
+        leave = self.rng.random(n) < p_leave
+        join = self.rng.random(n) < p_join
+        avail = self.stats.avail
+        avail[:] = np.where(avail, ~leave, join)
 
     def run(self, method=None, rounds: Optional[int] = None,
             target_accuracy: Optional[float] = None,
@@ -345,7 +702,10 @@ class FLExperiment:
         A single cell of a dynamic-interference fleet raises (its
         interference comes from the other cells' selections: run the spec
         through ``CohortRunner``), as does a fading channel on the host
-        loop.
+        loop. A paged store always takes the host loop (the device-resident
+        run's carry is the ``[N, P]`` plane it exists to avoid), which
+        skips the initial round unless asked for or the selector needs
+        clusters, and churns the availability mask before each round.
         """
         self._refuse_single_cell_view()
         rounds = rounds or self.fl.max_rounds
@@ -353,6 +713,16 @@ class FLExperiment:
                   if target_accuracy is None else target_accuracy)
         selector = (self.selector if method is None
                     else SELECTORS.resolve(method))
+        if self._store.kind == "paged":
+            if (getattr(self.channel, "needs_rng", False)
+                    or getattr(self.channel, "stateful", False)):
+                raise ValueError(
+                    f"channel {self.channel.registry_name!r} redraws fading "
+                    "inside the device-resident run; store='paged' drives "
+                    "the host loop — use the static channel (or "
+                    "store='dense')")
+            return self._run_host(method, rounds, target,
+                                  include_initial_round)
         if (not target and not getattr(selector, "needs_rng", True)
                 and self.traceable(selector)):
             return self._run_traced(selector, rounds, include_initial_round)
@@ -360,7 +730,12 @@ class FLExperiment:
 
     def _run_host(self, method, rounds: int, target: float,
                   include_initial_round: bool = True) -> FLHistory:
-        """The host round loop, each round's wall clock in ``seconds``."""
+        """The host round loop, each round's wall clock in ``seconds``.
+        The initial round runs when asked for or when there are no
+        clusters yet — on the paged store only when the selector needs
+        them (a million-client fleet under a cluster-free policy never
+        trains every client); with churn, the mask steps before each
+        round."""
         self._refuse_single_cell_view()
         if getattr(self.channel, "needs_rng", False):
             raise ValueError(
@@ -369,7 +744,11 @@ class FLExperiment:
                 "equivalent; run it with a traceable strategy bundle and "
                 "no target_accuracy (or through CohortRunner)")
         hist = FLHistory()
-        if include_initial_round or self.clusters is None:
+        selector = (self.selector if method is None
+                    else SELECTORS.resolve(method))
+        need_clusters = (self._store.kind == "dense"
+                         or getattr(selector, "needs_clusters", False))
+        if include_initial_round or (self.clusters is None and need_clusters):
             t0 = time.perf_counter()
             self.initial_round()
             acc, per_class = self.evaluate()
@@ -379,8 +758,11 @@ class FLExperiment:
                 selected=all_idx, T_k=float(a.T), E_k=float(a.E),
                 accuracy=acc, per_class=per_class,
                 band_mhz=float(torch.sum(a.b))), time.perf_counter() - t0)
+        churn_on = self.churn != (0.0, 0.0)
         for k in range(rounds):
             t0 = time.perf_counter()
+            if churn_on:
+                self._churn_step_host()
             res = self.round(method)
             hist.append(res, time.perf_counter() - t0)
             if target and res.accuracy >= target:

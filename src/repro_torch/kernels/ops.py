@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flat_aggregate import flat_aggregate as _flat_agg
+from repro_torch.kernels.pairwise_l2 import divergence_sq as _divergence_sq
 from repro_torch.kernels.pairwise_l2 import pairwise_l2 as _pairwise
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
@@ -55,13 +56,39 @@ def client_divergence(flat, gvec):
     """[N] weight divergences ‖flat_n − g‖₂ against the flat global row —
     §IV-C's selection signal; ``[B, N]`` for a plane ``[B, N, P]`` against
     one global row a lane ``[B, P]``. CUDA: the pairwise kernel with each
-    lane's global row as its one centroid. CPU: the direct
+    lane's global row as its one centroid, on a slab plan of P alone, so
+    a row's bits do not depend on the rows beside it in the call (the
+    paged store reduces the plane in chunks). CPU: the direct
     subtract-square-reduce."""
     if flat.is_cuda:
         g = gvec.to(torch.float32)[..., None, :]
-        return torch.sqrt(_pairwise(flat.to(torch.float32), g)[..., 0])
-    diff = flat.to(torch.float32) - gvec.to(torch.float32)[..., None, :]
-    return torch.sqrt(torch.sum(torch.square(diff), dim=-1))
+        return torch.sqrt(_divergence_sq(flat.to(torch.float32), g)[..., 0])
+    sq = torch.square(flat.to(torch.float32)
+                      - gvec.to(torch.float32)[..., None, :])
+    if sq[..., 0].numel() == 1:
+        # one output: torch would split its row over threads and add the
+        # parts in another order; as one of two rows it keeps the order of
+        # a row among many, so a row's bits do not depend on its call
+        two = sq.expand(*sq.shape[:-2], 2, sq.shape[-1])
+        return torch.sqrt(torch.sum(two, dim=-1))[..., :1]
+    return torch.sqrt(torch.sum(sq, dim=-1))
+
+
+def chunked_client_divergence(rows, gvec, *, chunk_size=None):
+    """Streaming form of :func:`client_divergence` for the paged client
+    store: ``rows`` (an array or an iterable of ``[c, P]`` blocks, e.g.
+    ``PagedStore.iter_chunks()``) one chunk at a time, each row's bits as
+    in one call. A host ``[N]`` fp32 array."""
+    from repro_torch.kernels.chunked import chunked_client_divergence as impl
+    return impl(rows, gvec, chunk_size=chunk_size)
+
+
+def chunked_pairwise(rows, centroids, *, chunk_size=None):
+    """Streaming form of :func:`pairwise_sq_dists` over row chunks —
+    K-means assignment against a cold store without the ``[N, P]`` plane.
+    A host ``[N, M]`` fp32 array."""
+    from repro_torch.kernels.chunked import chunked_pairwise as impl
+    return impl(rows, centroids, chunk_size=chunk_size)
 
 
 def attention(q, k, v, *, causal: bool = True, window=None):

@@ -15,9 +15,13 @@ flops per eight bytes read). The kernel computes the direct ``Σ(x−c)²``
 — not the TPU body's per-slab ``‖x‖²+‖c‖²−2x·c``, which cancels badly
 for a client row close to the global row — with one block per ``(n, m)``
 pair and slab of F and a fixed-shape tree reduction. When the pairs are
-few (the divergence: M = 1) F is cut into slabs (:func:`plan_slabs`, a
-function of the shapes alone, not of the card) and a second launch adds
-each pair's slab partials in a fixed order: no atomics, deterministic.
+few F is cut into slabs (:func:`plan_slabs`, a function of the shapes
+alone, not of the card) and a second launch adds each pair's slab
+partials in a fixed order: no atomics, deterministic. The divergence
+(M = 1, :func:`divergence_sq`) cuts F into slabs of a fixed width
+(:func:`plan_divergence`, a function of F alone), so a row's bits do not
+depend on how many rows share its call: a plane reduced in chunks gives
+the bits of one call over all its rows.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
              + (ctypes.c_void_p,))
 TARGET_BLOCKS = 528                # about four blocks an SM of an H100
 MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
+DIVERGENCE_SLAB = 8128             # the divergence's slab: plan_slabs(40, 1,
+                                   # 113744)'s width, the main path's plan
 
 
 def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
@@ -52,6 +58,17 @@ def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
     return max(1, -(-f // width)), width
 
 
+def plan_divergence(f: int):
+    """``(slabs, width)`` of the one-centroid call: F cut into slabs of
+    ``DIVERGENCE_SLAB`` columns (one slab, ``f`` rounded up to a multiple
+    of 4, when F is narrower). A function of F alone — not of the rows in
+    the call, as :func:`plan_slabs` is — so each row's divergence is the
+    same bits whether it is reduced alone, in a chunk or in the whole
+    plane."""
+    width = min(DIVERGENCE_SLAB, max(4, -(-f // 4) * 4))
+    return max(1, -(-f // width)), width
+
+
 def _rows_contiguous(t: torch.Tensor) -> bool:
     """Each lane of ``t`` (``[.., R, F]``) is a row-major ``[R, F]`` block;
     the lanes may lie at any stride."""
@@ -67,6 +84,26 @@ def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     takes ``ref.pairwise_l2_ref``."""
     if not x.is_cuda:
         return ref.pairwise_l2_ref(x, c)
+    _check(x, c)
+    *_, n, f = x.shape
+    return _launch(x, c, *plan_slabs(n, c.shape[-2], f))
+
+
+def divergence_sq(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """:func:`pairwise_l2` against one centroid (``g [1, F]``, ``[B, 1,
+    F]`` lane by lane) on the slab plan of :func:`plan_divergence`: each
+    row's ``[.., 1]`` result is the same bits at any number of rows."""
+    if not x.is_cuda:
+        return ref.pairwise_l2_ref(x, g)
+    _check(x, g)
+    if g.shape[-2] != 1:
+        raise ValueError(f"divergence_sq: want one centroid; got "
+                         f"{tuple(g.shape)}")
+    return _launch(x, g, *plan_divergence(x.shape[-1]))
+
+
+def _check(x, c) -> None:
+    """The kernel's contract: shapes, dtype, device, layout, sizes."""
     if (x.dim() not in (2, 3) or c.dim() != x.dim()
             or x.shape[-1] != c.shape[-1] or x.shape[:-2] != c.shape[:-2]):
         raise ValueError(f"pairwise_l2: want x [N, F] and c [M, F], or "
@@ -85,7 +122,6 @@ def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if max(n * f, m * f, b * n * m) >= 2 ** 31:
         raise ValueError(f"pairwise_l2: {tuple(x.shape)}x{tuple(c.shape)} "
                          "exceeds the kernel's 32-bit sizes")
-    return _launch(x, c, *plan_slabs(n, m, f))
 
 
 def _launch(x, c, slabs: int, width: int):

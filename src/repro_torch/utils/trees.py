@@ -87,6 +87,20 @@ def unflatten_rows(spec: StackFlattenSpec,
                                                spec.dtypes)}
 
 
+def unflatten_rows_np(spec: StackFlattenSpec,
+                      rows: np.ndarray) -> Dict[str, np.ndarray]:
+    """Host-numpy twin of :func:`unflatten_rows`: ``[K, P]`` host rows ->
+    ``{name: [K, ...]}`` (views where the dtype already matches), so the
+    paged store's chunks unflatten with no device round trip."""
+    rows = np.asarray(rows)
+    k = rows.shape[0]
+    return {n: np.asarray(rows[:, off:off + size], dtype=dt)
+            .reshape((k,) + shape)
+            for n, off, size, shape, dt in zip(spec.names, spec.offsets,
+                                               spec.sizes, spec.shapes,
+                                               spec.dtypes)}
+
+
 def unflatten_vector(spec: StackFlattenSpec,
                      vec: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One flat ``[P]`` row -> the model's ``{name: tensor}``."""

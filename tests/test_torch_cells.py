@@ -248,13 +248,22 @@ def test_unported_aggregators_name_the_port(value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("store", "paged"), ("faults", "outage:0.1"), ("churn_leave", 0.1),
-    ("quarantine_after", 2)])
+    ("p_shards", 2), ("faults", "outage:0.1"), ("quarantine_after", 2)])
 def test_unported_fields_name_the_port(field, value):
     with pytest.raises(TypeError, match=f"{field}.*port"):
         ExperimentSpec(**{field: value})
     with pytest.raises(ValueError, match="unknown ExperimentSpec fields"):
         ExperimentSpec.from_dict({field: value})
+
+
+def test_churn_on_the_dense_store_is_refused():
+    """Churn is a field of the port's spec; as in the reference, it needs
+    the paged store (or an asynchronous aggregator, which the port lacks)
+    to track availability."""
+    spec = ExperimentSpec(**TINY, churn_leave=0.1)
+    assert ExperimentSpec.from_dict(spec.to_dict()) == spec
+    with pytest.raises(ValueError, match="churn.*store='paged'"):
+        build_experiment(spec, device="cpu")
 
 
 def test_cohort_history_carries_cells_and_inr():

@@ -637,3 +637,45 @@ def test_fedavgm_replays_equal_eager_rounds(cuda):
     for g, w in zip(got, (state.params, state.opt_state,
                           state.client_params)):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the paged client store
+# ---------------------------------------------------------------------------
+
+
+def test_divergence_bits_do_not_depend_on_the_rows_in_the_call(cuda):
+    """The one-centroid call's slab plan is a function of P alone: each
+    row's divergence is the same bits alone, in a chunk or in the plane
+    (``plan_slabs`` of n gave 14, 4 and 1 slabs at n = 40, 147, 600)."""
+    plane = torch.tensor(_normal(11, 600, 113_744), device=cuda)
+    g = torch.tensor(_normal(12, 113_744), device=cuda)
+    whole = ops.client_divergence(plane, g)
+    for chunk in (1, 10, 40, 128, 147):
+        parts = torch.cat([ops.client_divergence(plane[s:s + chunk], g)
+                           for s in range(0, 600, chunk)])
+        assert torch.equal(parts, whole), chunk
+    torch.testing.assert_close(whole.cpu(), ops.client_divergence(
+        plane.cpu(), g.cpu()), rtol=1e-5, atol=1e-5)
+
+
+def test_paged_store_on_the_card_equals_the_dense_host_loop(cuda):
+    """``store="paged"`` with 3 chunks of the plane and the exact refresh
+    against the dense host loop from the same seed, on the card: the
+    selections, T_k, E_k, the global row, the divergences and the client
+    tree bit for bit."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    spec = ExperimentSpec(**dict(TINY, clients=12))
+    dense = build_experiment(spec, device=cuda)
+    h_d = dense._run_host(None, 3, 0.0)
+    paged = build_experiment(spec.replace(store="paged", chunk_size=5,
+                                          div_refresh_every=1), device=cuda)
+    h_p = paged.run()
+    for a, b in zip(h_d.selected, h_p.selected):
+        np.testing.assert_array_equal(a, b)
+    assert h_p.T_k == h_d.T_k and h_p.E_k == h_d.E_k
+    assert torch.equal(paged.global_vec, dense.global_vec)
+    np.testing.assert_array_equal(paged.divergences(), dense.divergences())
+    want, got = dense.client_tree(), paged.client_tree()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])

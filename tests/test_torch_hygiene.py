@@ -67,11 +67,11 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
     ("aggregator", "trimmed:0.2"), ("aggregator", "clipnorm:1.0"),
     ("aggregator", "fedbuff:4"),
     ("faults", "outage:0.1"), ("compressor", "qsgd:4"),
-    ("store", "paged"), ("model", "gpt-17")])
+    ("p_shards", 2), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):
     """A strategy the port lacks raises ``ValueError`` naming the port and
     what it supports, as does a model that is no registered workload; a
-    reference field the port has no counterpart for (the paged store,
+    reference field the port has no counterpart for (``p_shards``,
     faults) is not a field of the port's spec at all, and passing it
     raises a ``TypeError`` that names the port."""
     from repro_torch.api import ExperimentSpec
