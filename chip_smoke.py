@@ -16,7 +16,9 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    backward against autograd through its plain version; (d) the lane
    forms of ``flat_aggregate`` and ``pairwise_l2`` at the cohort's shapes;
    a divergence (one centroid) runs on its plan of P alone, at the dense
-   plane's, the paged store's chunk, base-row and 1000-row shapes;
+   plane's, the paged store's chunk, base-row and 1000-row shapes; and the
+   asynchronous tick's: the fold of its M = 4 candidates ([4, 113744],
+   and [2, 4, 113744] in a cohort of 2) and their divergence;
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
    agree (selections, T_k, E_k, the global row); ``run()`` takes the
@@ -82,7 +84,23 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     under churn (lazy, vectorized partitions): 5 timed rounds each, the
     rest of a round at 1e6 within 1.5x of 1e5's, the device's peak
     growing by no more than the per-client data;
-12. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+12. the buffered-asynchronous engine: (a) a tiny ``fedbuff:2:0.5`` run
+    under churn on the CPU and on the card from the same draws, which must
+    agree; (b) ``ExperimentSpec(aggregator="fedbuff:10:0")`` against
+    ``ExperimentSpec()`` traced, 5 ticks, bit for bit; (c)
+    ``fedbuff:4:0.5`` with churn 0.05/0.2 at full width for 8 ticks: one
+    capture and one replay a tick, 0 host syncs, staleness > 0 on some
+    tick and at most 4 updates a fire, no unavailable client dispatched
+    (tick by tick), ms a tick against the synchronous replay, the
+    kernels' launches held to the counts derived from the tick's code,
+    one replay profiled; (d) the same with ``cohort=2``: one captured
+    tick for both lanes, each lane its seed's single run bit for bit; (e)
+    200 clients under ``icas``, the dense tick against the paged store's
+    four pieces, 3 ticks, bit for bit; (f) the paged tick at 1e5 and 1e6
+    clients (``random``, S = 16, ``fedbuff:4``): the rest of a tick at
+    1e6 within 1.5x of 1e5's, the device's peak growing by no more than
+    the per-client columns;
+13. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -230,7 +248,8 @@ def kernel_phase(torch, timer):
     # the CNN path's folds (N = 10 a round, 40 at the initial round), a
     # wide fleet, and the LM paths' folds (S = 4 a round, N = 10 initially)
     for n, p in ((10, P_MNIST), (40, P_MNIST), (100, P_MNIST),
-                 (4, P_TINYLLAMA), (10, P_TINYLLAMA), (4, P_MAMBA2)):
+                 (4, P_TINYLLAMA), (10, P_TINYLLAMA), (4, P_MAMBA2),
+                 (4, P_MNIST)):
         flat = torch.randn((n, p), generator=gen, device=DEVICE)
         w = torch.rand((n,), generator=gen, device=DEVICE) + 0.1
         flat[n // 2] = float("nan")              # a NaN row at weight 0
@@ -274,7 +293,7 @@ def kernel_phase(torch, timer):
     for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
                     (10, 4, F_TINYLLAMA), (147, 1, P_MNIST),
                     (128, 1, P_MNIST), (1, 1, P_MNIST), (1000, 1, P_MNIST),
-                    (147, 10, 2240)):
+                    (147, 10, 2240), (4, 1, P_MNIST)):
         x = torch.randn((n, f), generator=gen, device=DEVICE)
         c = torch.randn((m, f), generator=gen, device=DEVICE)
         fn = divergence_sq if m == 1 else pairwise_l2
@@ -324,14 +343,19 @@ def kernel_phase(torch, timer):
     for lanes in (8, 6):        # phase 9's seed cohort, phase 10's cells
         for name, r in lane_kernel_rows(torch, timer, gen, lanes).items():
             rows[name].append(r)
+    # phase 12(d)'s asynchronous cohort: the fold of each lane's M = 4
+    # candidates, one launch for both lanes
+    rows["flat_aggregate"].append(lane_kernel_rows(
+        torch, timer, gen, 2, n=4, divergence=False)["flat_aggregate"])
     rows["flash_attention"] = attention_rows(torch, timer, gen)
     rows["ssd_scan"] = ssd_rows(torch, timer, gen)
     return rows
 
 
-def lane_kernel_rows(torch, timer, gen, lanes=8):
+def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True):
     """(d) The lane forms on the cohort paths (phase 9's 8 lanes, phase
-    10's 6: 2 seeds × 3 cells), here for 8:
+    10's 6: 2 seeds × 3 cells; phase 12(d)'s 2, its fold of ``n`` = 4
+    candidates a lane, without ``divergence``), here for 8:
     ``flat_aggregate`` at [8, 10, 113744] (a round's fold, every lane in
     one launch) and ``pairwise_l2`` at [8, 40, 113744] × [8, 1, 113744]
     (the divergence: the first 40 rows of each lane of an [8, 50, 113744]
@@ -344,7 +368,7 @@ def lane_kernel_rows(torch, timer, gen, lanes=8):
     from repro_torch.kernels.pairwise_l2 import divergence_sq, plan_divergence
 
     out = {}
-    n, p = 10, P_MNIST
+    p = P_MNIST
     flat = torch.randn((lanes, n, p), generator=gen, device=DEVICE)
     w = torch.rand((lanes, n), generator=gen, device=DEVICE) + 0.1
     flat[:, n // 2] = float("nan")              # a NaN row at weight 0
@@ -381,6 +405,8 @@ def lane_kernel_rows(torch, timer, gen, lanes=8):
               f"version: max_abs_err={err}")
     out["flat_aggregate"] = r
     del flat, flat_lib
+    if not divergence:
+        return out
 
     n, m, rows_n = 40, 1, 50
     plane = torch.randn((lanes, rows_n, p), generator=gen, device=DEVICE)
@@ -639,6 +665,12 @@ class _CpuDraws:
 
     def channel_step(self, shape):
         return self.inner.channel_step(shape).to(self.device)
+
+    def churn_step(self, n):
+        return tuple(u.to(self.device) for u in self.inner.churn_step(n))
+
+    def selector_draw(self, kind, n):
+        return self.inner.selector_draw(kind, n).to(self.device)
 
     def kmeans_seed(self, n, c):
         return self.inner.kmeans_seed(n, c).to(self.device)
@@ -1290,15 +1322,15 @@ def idle_share(busy_ms, window_ms):
     return 1.0 - busy_ms / window_ms
 
 
-def profile_replay(torch, prog, batch, draw=None, fade=None):
+def profile_replay(torch, prog, batch, draw=None, fade=None, churn=None):
     """One replay of ``prog``'s captured round under ``torch.profiler``
     (``profiled_device_work``): its device launches, busy ms, the launches
     of each FL kernel and of each device function, the marks kept before
     and after it, and its own device window [ms]."""
     from collections import defaultdict
-    prog.replay(batch, draw, fade)
+    prog.replay(batch, draw, fade, churn)
     work, before, after, window = profiled_device_work(
-        torch, lambda: prog.replay(batch, draw, fade), "the replay")
+        torch, lambda: prog.replay(batch, draw, fade, churn), "the replay")
     by_name = defaultdict(lambda: [0, 0.0])
     for name, ms in work:
         by_name[name][0] += 1
@@ -1378,7 +1410,7 @@ def single_program(exp):
         aggregator=exp.aggregator, tctx=exp.traced_context(),
         feature_layer=exp.fl.feature_layer, device=exp.device,
         shapes=exp.traced_inputs().shapes(), base=exp.base,
-        compressor=exp.compressor, channel=exp.channel)
+        compressor=exp.compressor, channel=exp.channel, churn=exp.churn)
 
 
 def traced_phase(torch, rounds=5):
@@ -2453,6 +2485,485 @@ def population_phase(torch, sizes=SCALE_SIZES, rounds=SCALE_ROUNDS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the buffered-asynchronous engine
+# ---------------------------------------------------------------------------
+
+
+ASYNC = dict(aggregator="fedbuff:4:0.5", churn_leave=0.05, churn_join=0.2)
+ASYNC_TICKS = 8
+ASYNC_M = 4
+ASYNC_SCALE_TICKS = 5
+# the per-client device columns of the paged tick at population scale
+# [bytes]: the [N, 128] int32 labels, the sizes, the fleet's 9 fp32
+# arrays, the stats table (4 + 4 + 4 + 4 + 1 + 4 + 4 + 4), the carry's
+# int64 K-means labels, and the tick's [N] temporaries (the permutation
+# draw's uniforms and order, the completion times and their padded copy,
+# their order and ranks, the masks)
+ASYNC_PER_CLIENT = dict(labels=128 * 4, sizes=4, fleet=9 * 4, stats=29,
+                        kmeans_labels=8,
+                        tick=4 + 8 + 4 + 4 + 8 + 8 + 8 + 4)
+
+
+def async_agreement(torch):
+    """(a) A tiny ``fedbuff:2:0.5`` run under churn 0.3/0.3 on the CPU
+    (eager) and on the card (the captured tick), from the same draws: the
+    same selections, participation, active counts and staleness; T_k and
+    E_k within rtol 2e-3, the global row within atol 1e-4."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    spec = ExperimentSpec(dataset="fashion", clients=8, samples_per_client=16,
+                          train_samples=160, test_samples=80, local_iters=2,
+                          batch_size=8, devices_per_round=4, num_clusters=4,
+                          rounds=4, aggregator="fedbuff:2:0.5",
+                          churn_leave=0.3, churn_join=0.3)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        exp = build_experiment(spec, device=dev, draws=_CpuDraws(0, dev))
+        out[dev] = (exp.run(), exp.global_vec.cpu())
+    (h_cpu, g_cpu), (h_gpu, g_gpu) = out["cpu"], out[DEVICE]
+    check(h_gpu.seconds == [], "(a) the card's run was not the captured tick")
+    for k, (a, b) in enumerate(zip(h_cpu.selected, h_gpu.selected)):
+        check(list(a) == list(b), f"(a) tick {k}: dispatched {list(b)} on "
+                                  f"the card, {list(a)} on the CPU")
+    for name in ("participation", "active", "staleness"):
+        a, b = getattr(h_cpu, name), getattr(h_gpu, name)
+        check(a == b, f"(a) {name} {b} on the card, {a} on the CPU")
+    for name in ("T_k", "E_k"):
+        a, b = getattr(h_cpu, name), getattr(h_gpu, name)
+        check(all(math.isclose(x, y, rel_tol=2e-3) for x, y in zip(a, b)),
+              f"(a) {name} {b} on the card, {a} on the CPU")
+    err = float((g_cpu - g_gpu).abs().max())
+    print(f"  (a) tiny fedbuff:2:0.5 under churn 0.3/0.3, CPU vs card: "
+          f"dispatches, participation {h_gpu.participation}, active "
+          f"{h_gpu.active} and staleness {h_gpu.staleness} equal; T_k/E_k "
+          f"within rtol 2e-3; global row max_abs_err={err:.3e} (tol 1e-4)")
+    check(err <= 1e-4, f"(a) the global row differs by {err}")
+
+
+def async_degenerate_phase(torch, ticks=5):
+    """(b) ``fedbuff:10:0`` on ``ExperimentSpec()`` (M = S_pad = 10, no
+    churn: the tick's static branch is the synchronous round body) against
+    the synchronous traced run from the same seed: every history value
+    and the global row bit for bit. Returns the synchronous experiment."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    sync = build_experiment(ExperimentSpec(), device=DEVICE)
+    h_s = sync.run(rounds=ticks)
+    deg = build_experiment(ExperimentSpec(aggregator="fedbuff:10:0"),
+                           device=DEVICE)
+    h_d = deg.run(rounds=ticks)
+    torch.cuda.synchronize()
+    check(h_s.seconds == [] and h_d.seconds == [],
+          "(b) a run did not take the device-resident path")
+    check(single_program(deg).ph.degenerate,
+          "(b) fedbuff:10:0 did not take the synchronous branch")
+    for k, (a, b) in enumerate(zip(h_s.selected, h_d.selected)):
+        check(np.array_equal(a, b), f"(b) round {k}: {list(b)} against "
+                                    f"the synchronous {list(a)}")
+    for name in ("accuracy", "T_k", "E_k", "band_mhz"):
+        check(getattr(h_s, name) == getattr(h_d, name),
+              f"(b) {name} differs from the synchronous run's")
+    check(bool(torch.equal(sync.global_vec, deg.global_vec)),
+          "(b) the global rows differ")
+    check(h_d.staleness == [0.0] * ticks and h_d.participation == [10.0] * ticks
+          and h_d.active == [40.0] * ticks,
+          f"(b) traces {h_d.participation} {h_d.staleness} {h_d.active}")
+    print(f"  (b) fedbuff:10:0 = ExperimentSpec() traced over the initial "
+          f"round + {ticks} ticks bit for bit: selections, accuracy, T_k, "
+          f"E_k, band, global row; participation 10, staleness 0, active 40")
+    return sync
+
+
+def async_tick_phase(torch, sync, ticks=ASYNC_TICKS):
+    """(c) ``ExperimentSpec(aggregator="fedbuff:4:0.5", churn_leave=0.05,
+    churn_join=0.2)`` — the paper CNN at full width — through ``run()``:
+    the initial round and ``ticks`` ticks, one capture and one replay a
+    tick. A second run from the same seed with sync debug mode "warn" (host
+    syncs counted from the initial round to the last replay) must repeat
+    it; a third, one tick a ``run()`` call, must repeat it too while
+    showing each tick's availability (no unavailable client dispatched, no
+    unavailable client in flight). Then ms a tick against ``sync``'s
+    replay, one replay profiled, and the kernels' launches of a whole run
+    under the profiler held to the counts derived from the tick's code:
+    ``flat_aggregate`` the initial round's fold + one candidate fold a
+    tick, ``pairwise_l2`` the K-means + two a tick (the selection's
+    divergence over the plane, the candidates')."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+
+    spec = ExperimentSpec(**ASYNC)
+    fns = kernel_fns()
+    exp = build_experiment(spec, device=DEVICE)
+    prog = single_program(exp)
+    calls = {"capture": 0, "replay": 0}
+    for name in calls:
+        def counted(*a, _name=name, _fn=getattr(prog, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(prog, name, counted)
+    t0 = time.perf_counter()
+    hist = exp.run(rounds=ticks)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(hist.seconds == [] and calls == {"capture": 1, "replay": ticks},
+          f"(c) {calls} for {ticks} ticks, not one capture and a replay a "
+          "tick")
+    check(single_program(exp) is prog, "(c) run() used another program")
+    for k in range(len(hist.accuracy)):
+        extra = ("" if k == 0 else
+                 f" participation={hist.participation[k - 1]:.0f} "
+                 f"staleness={hist.staleness[k - 1]:.3f} "
+                 f"active={hist.active[k - 1]:.0f}")
+        print(f"  (c) tick {k}: accuracy={hist.accuracy[k]:.4f} "
+              f"T={hist.T_k[k]:.6f} s E={hist.E_k[k]:.6f} J "
+              f"dispatched={list(map(int, hist.selected[k]))}{extra}")
+    check(all(math.isfinite(v) for v in hist.accuracy + hist.T_k + hist.E_k),
+          "(c) a non-finite history value")
+    check(max(hist.staleness) > 0, "(c) no tick folded a stale update")
+    check(all(p <= ASYNC_M for p in hist.participation),
+          f"(c) a fire folded more than {ASYNC_M}: {hist.participation}")
+    check(bool(torch.isfinite(exp.global_vec).all()), "(c) non-finite row")
+
+    # a second run from the same seed, host syncs counted
+    again = build_experiment(spec, device=DEVICE)
+    state, inputs = again.traced_state(), again.traced_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = prog(state, *inputs, draws=again.draws, rounds=ticks,
+                       with_init=True)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    check(res.rounds.accuracy.cpu().tolist() == hist.accuracy[1:]
+          and res.rounds.T.cpu().tolist() == hist.T_k[1:],
+          "(c) a second run from the same seed differs")
+    print(f"  (c) first run (initial round + {ticks} ticks, capture "
+          f"included) {first_ms:.1f} ms; capture {prog.capture_ms:.1f} ms; a "
+          f"second run {second_ms:.1f} ms, {enqueue_ms:.1f} ms of it "
+          f"enqueueing; host syncs in it: {len(syncs)}"
+          f"{' ' + syncs[0][:120] if syncs else ''}")
+    check(not syncs, "(c) the asynchronous run waited for the card")
+
+    # tick by tick from the same seed: the mask each tick selected under
+    steps = build_experiment(spec, device=DEVICE)
+    for k in range(ticks):
+        h = steps.run(rounds=1, include_initial_round=(k == 0))
+        st = steps.stats
+        sel = h.selected[-1]
+        check(bool(np.all(st.avail[sel])),
+              f"(c) tick {k + 1}: dispatched {list(sel)}, not all "
+              f"available {list(np.flatnonzero(st.avail))}")
+        check(bool(np.all(np.isinf(st.t_done[~st.avail]))),
+              f"(c) tick {k + 1}: an unavailable client in flight")
+        check(np.array_equal(sel, hist.selected[k + 1])
+              and h.accuracy[-1] == hist.accuracy[k + 1]
+              and h.participation == [hist.participation[k]],
+              f"(c) tick {k + 1} run alone differs from the {ticks}-tick run")
+    check(bool(torch.equal(steps.global_vec, exp.global_vec)),
+          "(c) the tick-by-tick run's global row differs")
+    print(f"  (c) one tick a run() call from the same seed: every dispatch "
+          f"among the available clients, no unavailable client in flight, "
+          f"the history and the global row of the {ticks}-tick run bit for "
+          f"bit (the clock {float(steps.stats.t_now):.4f} s continued)")
+
+    # ms a tick against the synchronous replay, in turns
+    sprog = single_program(sync)
+    batch = exp.draws.batch_indices(prog.pad, spec.local_iters,
+                                    spec.batch_size, spec.samples_per_client)
+    churn = torch.ones((2, spec.clients), device=DEVICE)   # nobody moves
+    prog.load(exp.traced_state(), exp.traced_inputs())
+    sprog.load(sync.traced_state(), sync.traced_inputs())
+    walls = {"async": [], "sync": []}
+    for _ in range(3):
+        for name, fn in (("sync", lambda: sprog.replay(batch)),
+                         ("async", lambda: prog.replay(batch, churn=churn)),
+                         ("async", lambda: prog.replay(batch, churn=churn)),
+                         ("sync", lambda: sprog.replay(batch))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in walls.items()}
+    n_dev, busy, inside, by_name, kept, window = profile_replay(
+        torch, prog, batch, churn=churn)
+    print(f"  (c) tick wall (host clock, synchronised; median of 6, in "
+          f"turns): asynchronous {ms['async']:.1f} ms, the synchronous "
+          f"replay {ms['sync']:.1f} ms ({ms['async'] / ms['sync']:.3f}x)")
+    print(f"  (c) one profiled tick: {n_dev} device launches, {busy:.2f} ms "
+          f"busy in its own device window of {window:.2f} ms: idle share "
+          f"{idle_share(busy, window):.4f}; inside it: {inside} (marks kept "
+          f"before and after it: {kept[0]} and {kept[1]})")
+    for i, (name, (n, t)) in enumerate(sorted(by_name.items(),
+                                              key=lambda kv: -kv[1][1])[:5]):
+        print(f"  kernel #{i + 1} {name[:72]}: {n} launches, {t:.3f} ms")
+    tick_expect = {"flat_aggregate": 1, "pairwise_l2": 2}
+    check(inside == tick_expect, f"(c) a tick launched {inside}, derived "
+                                 f"{tick_expect}")
+
+    third = build_experiment(spec, device=DEVICE)
+    state, inputs = third.traced_state(), third.traced_inputs()
+    launches, wrapped = path_launches(torch, fns, lambda: prog(
+        state, *inputs, draws=third.draws, rounds=ticks, with_init=True),
+        ticks, "(c) the asynchronous path")
+    c = spec.num_clusters
+    hold_counts(launches, {
+        "flat_aggregate": 1 + ticks * tick_expect["flat_aggregate"],
+        "pairwise_l2": kmeans_launches(c) + ticks * tick_expect["pairwise_l2"]},
+        "(c) a whole run (initial round + ticks) under the profiler")
+    hold_path_launches(launches, wrapped, inside, ticks,
+                       "(c) the asynchronous path")
+    return exp, hist, launches, dict(
+        tick_ms=ms["async"], sync_ms=ms["sync"], capture_ms=prog.capture_ms,
+        device_launches=n_dev, busy_ms=busy, window_ms=window)
+
+
+def async_cohort_phase(torch, single, h_single, ticks=ASYNC_TICKS):
+    """(d) The spec of (c) with ``cohort=2``: the initial round and
+    ``ticks`` replays of ONE captured tick for both lanes under
+    ``transfer_guard`` and the profiler (the path's launches); lane 0
+    against (c)'s run of seed 0 (``single``, ``h_single``) and lane 1
+    against a single run of seed 1, bit for bit: dispatches, accuracy,
+    T_k, E_k, the traces and the global row."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+
+    spec = ExperimentSpec(**ASYNC, cohort=2)
+    fns = kernel_fns()
+    runner = build_cohort(spec)
+    t0 = time.perf_counter()
+    first = runner.run(rounds=ticks)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    prog = runner.program
+    check(prog.graph is not None and prog.lanes == 2,
+          "(d) the cohort's tick was not captured as one graph for 2 lanes")
+    ch, guarded_ms, launches, wrapped = profiled_cohort_run(
+        torch, fns, runner, ticks, "(d) the asynchronous cohort")
+    check(runner.program is prog, "(d) the second cohort run captured again")
+    check(same_history(first, ch)
+          and np.array_equal(first.staleness, ch.staleness),
+          "(d) two cohort runs from the same seeds differ")
+    check(ch.participation.shape == (2, ticks)
+          and ch.staleness.shape == (2, ticks),
+          f"(d) traces of shape {ch.participation.shape}")
+    singles = [(single, h_single)]
+    one = build_experiment(spec.replace(seed=spec.seed + 1, cohort=1),
+                           device=DEVICE)
+    singles.append((one, one.run(rounds=ticks)))
+    for i, (e, h) in enumerate(singles):
+        hi = ch.history(i)
+        lane = runner.experiments[i]
+        check(all(np.array_equal(a, b) for a, b in zip(hi.selected,
+                                                      h.selected)),
+              f"(d) lane {i}: dispatches differ from its single run")
+        for name in ("accuracy", "T_k", "E_k", "participation", "staleness",
+                     "active"):
+            check(getattr(hi, name) == getattr(h, name),
+                  f"(d) lane {i}: {name} {getattr(hi, name)} against its "
+                  f"single run's {getattr(h, name)}")
+        check(bool(torch.equal(lane.global_vec, e.global_vec)),
+              f"(d) lane {i}: the global row differs from its single run's")
+    print(f"  (d) cohort of 2 (seeds {ch.seeds}): first run {first_ms:.1f} "
+          f"ms, capture {prog.capture_ms:.1f} ms; a second under "
+          f"transfer_guard and the profiler {guarded_ms:.1f} ms, equal; "
+          f"each lane its seed's single run bit for bit; staleness "
+          f"{ch.staleness.tolist()}")
+    inside = {"flat_aggregate": 1, "pairwise_l2": 2}     # one a tick, lanes
+    hold_path_launches(launches, wrapped, inside, ticks,
+                       "(d) the asynchronous cohort")
+    return launches
+
+
+def preset_clusters(exp):
+    """One cluster label for every client (the ``icas`` runs need none):
+    a dense run without its initial round then consumes no K-means draws,
+    as a paged one does not."""
+    import numpy as np
+    from repro_torch.core.clustering import clusters_from_labels
+    exp.cluster_labels = np.zeros(exp.fed.num_clients, np.int64)
+    exp.clusters = clusters_from_labels(exp.cluster_labels,
+                                        exp.fl.num_clusters)
+    return exp
+
+
+def async_paged_phase(torch, ticks=3):
+    """(e) ``clients=200, aggregator="fedbuff:4:0.5", selection="icas"``
+    under churn 0.05/0.2: the dense tick (captured) against the paged
+    store's four pieces (``k_max=200, div_refresh_every=1``) from the same
+    seed, ``ticks`` ticks without the initial round: the history, the
+    global row and the stats table's ``age``, ``t_done``, ``avail`` and
+    ``t_now`` bit for bit. The paged run's launches equal the counts
+    derived from its code: a fold a tick; a tick's divergences the base
+    row, the touched rows in chunks, the candidates."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+
+    fns = kernel_fns()
+    spec = ExperimentSpec(clients=200, selection="icas", **ASYNC)
+    runs = {}
+    for name, s in (("dense", spec),
+                    ("paged", spec.replace(store="paged", k_max=200,
+                                           div_refresh_every=1))):
+        exp = preset_clusters(build_experiment(s, device=DEVICE))
+        torch.cuda.synchronize()
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        h = exp.run(rounds=ticks, include_initial_round=False)
+        torch.cuda.synchronize()
+        runs[name] = (exp, h, counts_now(fns),
+                      (time.perf_counter() - t0) * 1e3)
+    (d, h_d, _, d_ms), (p, h_p, counts, p_ms) = runs["dense"], runs["paged"]
+    chunk = p.chunk_size
+    touched, refresh = set(), 0
+    for sel in h_p.selected:
+        refresh += -(-len(touched) // chunk)
+        touched |= set(map(int, sel))
+    hold_counts(counts, {"flat_aggregate": ticks,
+                         "pairwise_l2": 2 * ticks + refresh},
+                f"(e) the paged run ({ticks} ticks, {refresh} refresh "
+                f"chunks of up to {chunk} rows)")
+    for k, (a, b) in enumerate(zip(h_d.selected, h_p.selected)):
+        check(np.array_equal(a, b), f"(e) tick {k}: paged {list(b)}, dense "
+                                    f"{list(a)}")
+    for name in ("accuracy", "T_k", "E_k", "band_mhz", "participation",
+                 "staleness", "active"):
+        check(getattr(h_d, name) == getattr(h_p, name),
+              f"(e) {name}: dense {getattr(h_d, name)}, paged "
+              f"{getattr(h_p, name)}")
+    check(bool(torch.equal(d.global_vec, p.global_vec)),
+          "(e) the global rows differ")
+    for col in ("age", "t_done", "avail", "t_now"):
+        check(np.array_equal(getattr(d.stats, col), getattr(p.stats, col)),
+              f"(e) the stats column {col} differs")
+    print(f"  (e) 200 clients, icas, churn 0.05/0.2: dense tick ≡ paged "
+          f"pieces over {ticks} ticks bit for bit (history, traces "
+          f"{h_p.participation} / {h_p.staleness} / {h_p.active}, global "
+          f"row, age/t_done/avail/t_now); dense {d_ms:.1f} ms (capture "
+          f"included), paged {p_ms:.1f} ms (ticks "
+          + ", ".join(f"{s * 1e3:.1f}" for s in h_p.seconds) + " ms)")
+    return counts
+
+
+def warm_async_sao(torch, pad):
+    """Capture SAO's graph for the asynchronous tick's masked ``pad``-lane
+    solve (its key's second solve), so that no timed tick pays it."""
+    from repro_torch.api.registry import ALLOCATORS
+    from repro_torch.core.wireless import fleet_arrays, sample_fleet
+    sao = ALLOCATORS.resolve("sao")
+    arr = fleet_arrays(sample_fleet(pad, seed=pad), DEVICE)
+    arr.pop("xgain", None)
+    mask = torch.ones(pad, dtype=torch.bool, device=DEVICE)
+    for _ in range(2):
+        sao.allocate_traced(arr, 20.0, mask)
+    torch.cuda.synchronize()
+
+
+def async_population_phase(torch, sizes=SCALE_SIZES,
+                           ticks=ASYNC_SCALE_TICKS):
+    """(f) ``ExperimentSpec(clients=N, store="paged", selection="random",
+    devices_per_round=16, aggregator="fedbuff:4")`` — the paper CNN, lazy
+    partitions, no initial round — at N = 1e5 and 1e6, as the reference's
+    ``bench_async.py`` scale sweep: one warm-up tick, then ``ticks``
+    timed ticks; the O(N) scheduler pieces (``sched`` + ``plan``) timed
+    apart on the same carry. The rest of a tick at 1e6 within 1.5x of
+    1e5's, and the device's peak growing by no more than the per-client
+    columns (``ASYNC_PER_CLIENT``)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core.async_engine import build_paged_async
+    from repro_torch.core.wireless import fleet_arrays
+
+    warm_async_sao(torch, 16)
+    out = {}
+    for n in sizes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        spec = ExperimentSpec(clients=n, store="paged", selection="random",
+                              devices_per_round=16, aggregator="fedbuff:4")
+        t0 = time.perf_counter()
+        exp = build_experiment(spec, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(exp.fed.lazy, f"(f) N={n}: expected a lazy partition")
+        exp.run(rounds=1, include_initial_round=False)     # warm-up
+        torch.cuda.synchronize()
+        h = exp.run(rounds=ticks, include_initial_round=False)
+        torch.cuda.synchronize()
+        check(len(h.accuracy) == ticks and all(
+            math.isfinite(t) for t in h.T_k), f"(f) N={n}: a bad tick")
+        check(all(p <= 4 for p in h.participation),
+              f"(f) N={n}: participation {h.participation}")
+        prog = build_paged_async(
+            exp.engine_cfg, exp.aggregator, exp.selector, exp.allocator,
+            exp.traced_context(), exp.fl.feature_layer,
+            compressor=exp.compressor, channel=exp.channel, churn=exp.churn)
+        arr = fleet_arrays(exp.fleet, DEVICE)
+        arr.pop("xgain", None)
+        state = exp.traced_state()
+        sched_ms, plan_ms = [], []
+        for _ in range(ticks):
+            draw = exp.draws.selector_draw("permutation", n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, arr_f, idx, mask = prog.sched(state, arr, draw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prog.plan(st, arr_f, idx, mask, exp._sizes)
+            torch.cuda.synchronize()
+            sched_ms.append((t1 - t0) * 1e3)
+            plan_ms.append((time.perf_counter() - t1) * 1e3)
+        del state, st, arr, arr_f
+        tick_ms = float(np.median(h.seconds)) * 1e3
+        s_ms = float(np.median(np.add(sched_ms, plan_ms)))
+        peak = torch.cuda.max_memory_allocated() - before
+        out[n] = dict(build_s=build_s, tick_ms=tick_ms, sched_ms=s_ms,
+                      rest_ms=tick_ms - s_ms, peak_mib=peak / 2**20,
+                      staged=len(exp.store._staged),
+                      in_flight=int(np.isfinite(exp.stats.t_done).sum()),
+                      t_now=float(exp.stats.t_now))
+        print(f"  (f) N={n}: build {build_s:.1f} s; tick median "
+              f"{tick_ms:.1f} ms (walls "
+              + ", ".join(f"{w * 1e3:.1f}" for w in h.seconds)
+              + f"); sched + plan {s_ms:.2f} ms (sched "
+              f"{float(np.median(sched_ms)):.2f}, plan, with SAO's solve, "
+              f"{float(np.median(plan_ms)):.2f}), rest {tick_ms - s_ms:.1f} "
+              f"ms; participation {h.participation}, staleness "
+              f"{[round(x, 3) for x in h.staleness]}; in flight "
+              f"{out[n]['in_flight']}, staged rows {out[n]['staged']}; "
+              f"device peak {out[n]['peak_mib']:.1f} MiB over the build and "
+              f"ticks")
+        del exp, h, prog
+    lo, hi = (out[n] for n in sizes)
+    ratio = hi["rest_ms"] / lo["rest_ms"]
+    print(f"  (f) rest of a tick {sizes[1]} / {sizes[0]}: {ratio:.3f} (gate "
+          f"{SCALE_MAX_RATIO}); sched + plan {hi['sched_ms']:.2f} against "
+          f"{lo['sched_ms']:.2f} ms")
+    check(ratio <= SCALE_MAX_RATIO, f"(f) the rest of a tick grew "
+                                    f"{ratio:.2f}x from 1e5 to 1e6 clients")
+    growth = hi["peak_mib"] - lo["peak_mib"]
+    per_client = sum(ASYNC_PER_CLIENT.values())
+    allow = (sizes[1] - sizes[0]) * per_client / 2**20
+    print(f"  (f) device peak grew {growth:.1f} MiB from {sizes[0]} to "
+          f"{sizes[1]} clients; the per-client columns ({per_client} B: "
+          f"{ASYNC_PER_CLIENT}) grow {allow:.1f} MiB")
+    check(growth <= allow, f"(f) device peak grew {growth:.1f} MiB, more "
+                           f"than the per-client columns' {allow:.1f} MiB")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2593,7 +3104,32 @@ def main():
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     print(f"  phase 11 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 12. the kernels")
+    print("== 12. the buffered-asynchronous engine")
+    t12 = time.perf_counter()
+    print("  (a) CPU and card agree: tiny fedbuff:2:0.5 under churn")
+    async_agreement(torch)
+    print("  (b) fedbuff:10:0 against ExperimentSpec() traced, 5 ticks")
+    sync = async_degenerate_phase(torch)
+    print(f"  (c) {ASYNC} at full width, {ASYNC_TICKS} ticks")
+    single, h_single, by_path["async tick (phase 12c)"], _ = async_tick_phase(
+        torch, sync)
+    del sync
+    torch.cuda.empty_cache()
+    print("  (d) the same with cohort=2: one captured tick for both lanes")
+    by_path["async cohort of 2 (phase 12d)"] = async_cohort_phase(
+        torch, single, h_single)
+    del single
+    torch.cuda.empty_cache()
+    print("  (e) 200 clients: the dense tick against the paged pieces")
+    by_path["async paged, 200 clients (phase 12e)"] = async_paged_phase(torch)
+    torch.cuda.empty_cache()
+    print("  (f) the paged tick at 1e5 and 1e6 clients")
+    async_population_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    print(f"  phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 13. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -66,10 +66,21 @@ class RoundState(NamedTuple):
       channel       : a fading channel's state, the ``[N, 2]`` (re, im)
                       fade amplitude (``None`` for a stateless channel),
                       set at the start of each device-resident run
+      sched         : the per-client statistics table
+                      (``repro_torch.core.store.ClientStats`` with tensor
+                      columns: divergence, drift, age, in-flight
+                      completion time, availability, cell, fault counts,
+                      the virtual clock) when the buffered-asynchronous
+                      engine runs the ticks (``repro_torch.core.
+                      async_engine``); ``None`` on a synchronous run. The
+                      store's host table is the source of truth: the
+                      carry holds a device copy of it, folded back after
+                      the run.
 
     The aggregator's state is FedAvgM's ``[P]`` momentum. A cohort's carry
     (``repro_torch.core.cohort``) stacks B of these on a leading lane
-    axis: ``[B, P]``, ``[B, N + S_pad, P]``, ``[B, N]``, ``[B, N, 2]``.
+    axis: ``[B, P]``, ``[B, N + S_pad, P]``, ``[B, N]``, ``[B, N, 2]``;
+    ``sched``'s columns ``[B, N]`` and its clock ``[B]``.
 
     The reference's PRNG ``key`` has no slot: the port's draws are
     arguments of the round (``repro_torch.core.draws``).
@@ -79,6 +90,7 @@ class RoundState(NamedTuple):
     opt_state: Any
     labels: Any
     channel: Any = None
+    sched: Any = None
 
 
 @dataclass(frozen=True)

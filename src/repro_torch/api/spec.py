@@ -19,8 +19,10 @@ scenario (a ``FleetSpec`` or its dict: cells and channel model,
 ``repro_torch.api.scenario``); ``compressor`` the uplink compression.
 ``store`` picks the client store (``"paged"``: the population-scale
 host cold store, ``repro_torch.core.store``) with its knobs ``k_max``,
-``chunk_size``, ``div_refresh_every``, ``cluster`` and the round-level
-churn ``churn_leave``/``churn_join``. The reference's fields the port has
+``chunk_size``, ``div_refresh_every``, ``cluster`` and the churn
+``churn_leave``/``churn_join`` (stepped before each paged round, or
+inside each tick of the buffered-asynchronous engine,
+``aggregator="fedbuff:M[:alpha]"``). The reference's fields the port has
 no counterpart for yet (``p_shards``, ``faults``, ``quarantine_after``)
 are left out: passing one raises a ``TypeError`` that names the port.
 """
@@ -92,7 +94,9 @@ class ExperimentSpec:
                                            # [N, F] matrix) or "minibatch"
                                            # (streamed, O(chunk) memory)
 
-    # ---- client churn (the paged store's round loop) -----------------
+    # ---- client churn (the paged store's round loop, or the tick of
+    # the buffered-asynchronous engine: an async-capable aggregator,
+    # aggregator="fedbuff:M[:alpha]", on either store) ------------------
     churn_leave: float = 0.0               # per-round P(available → gone)
     churn_join: float = 0.0                # per-round P(gone → available)
 

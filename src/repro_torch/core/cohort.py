@@ -32,9 +32,16 @@ draws object (``TorchDraws.selector_draw``), not from the host Generator
 of the host loop: a lane is reproducible from its seed and equals its
 seed's ``traced_run(..., draws=)``, but not its host-loop run.
 
-Not ported (one card, synchronous rounds): the reference's device mesh
-over the cohort axis (``cohort_mesh``, ``_mesh_pad``) and the
-asynchronous traces (``participation``, ``staleness``, ``active``).
+An async-capable aggregator (``fedbuff``) makes the captured round the
+buffered-asynchronous tick (``repro_torch.core.async_engine``) for every
+lane at once: each lane's churn, completion ranks and fire act on its own
+``[N]`` columns of the stacked stats table, the fold is one lane-form
+``flat_aggregate`` launch, and training stays lane by lane, so a lane is
+its seed's single asynchronous run. The history then carries the ticks'
+``participation``, ``staleness`` and ``active`` traces.
+
+Not ported (one card): the reference's device mesh over the cohort axis
+(``cohort_mesh``, ``_mesh_pad``).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ import torch
 from repro_torch.core.engine import (RoundInputs, TracedRunResult,
                                      lane_view, run_rounds)
 from repro_torch.core.fedavg import (FLExperiment, FLHistory, history_parts,
-                                     to_host)
+                                     rounds_by_name, to_host)
 from repro_torch.core.wireless import fleet_arrays
 
 __all__ = ["CohortHistory", "CohortRunner"]
@@ -69,6 +76,11 @@ class CohortHistory:
     inr: Optional[np.ndarray] = None  # [B, rounds] the round's selection-
                                       # driven I/N0 at each lane's BS
                                       # (dynamic interference only)
+    # the buffered-asynchronous engine's per-tick traces (None on a
+    # synchronous cohort), [B, rounds] each
+    participation: Optional[np.ndarray] = None  # updates folded
+    staleness: Optional[np.ndarray] = None      # their mean age at the fold
+    active: Optional[np.ndarray] = None         # the available fleet
 
     @property
     def lane_cells(self) -> List[int]:
@@ -80,7 +92,8 @@ class CohortHistory:
 
     def history(self, i: int) -> FLHistory:
         """Lane ``i``'s run as a plain ``FLHistory`` (padding stripped), in
-        the reference's layout: accuracy, T_k, E_k and the selections."""
+        the reference's layout: accuracy, T_k, E_k and the selections (and
+        an asynchronous cohort's traces)."""
         hist = FLHistory()
         hist.accuracy = [float(a) for a in self.accuracy[i]]
         hist.T_k = [float(t) for t in self.T_k[i]]
@@ -89,6 +102,10 @@ class CohortHistory:
             hist.selected.append(np.arange(self.num_devices))
         hist.selected.extend(self.selected[i][k][self.mask[i][k]]
                              for k in range(self.selected.shape[1]))
+        for name in ("participation", "staleness", "active"):
+            trace = getattr(self, name)
+            if trace is not None:
+                setattr(hist, name, [float(x) for x in trace[i]])
         return hist
 
     @property
@@ -98,6 +115,17 @@ class CohortHistory:
 
 def _stack(tensors):
     return torch.stack(list(tensors))
+
+
+def _stack_lanes(parts):
+    """One carry slot of every lane stacked on a leading lane axis: a
+    tensor, or a table of tensor columns (the stats table), column by
+    column; ``None`` stays ``None``."""
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0], tuple):
+        return type(parts[0])(*(_stack(col) for col in zip(*parts)))
+    return _stack(parts)
 
 
 class CohortRunner:
@@ -187,7 +215,7 @@ class CohortRunner:
                       else 1)
 
         state = type(e0.traced_state())(*(
-            None if parts[0] is None else _stack(parts)
+            _stack_lanes(parts)
             for parts in zip(*(e.traced_state() for e in exps))))
         lanes = [e.traced_inputs() for e in exps]
         # one evaluation set for the whole cohort iff every seed resolves
@@ -207,7 +235,7 @@ class CohortRunner:
             aggregator=e0.aggregator, tctx=e0.traced_context(),
             feature_layer=e0.fl.feature_layer, device=self.device,
             shapes=inputs.shapes(), base=e0.base, compressor=e0.compressor,
-            channel=e0.channel, cells=prog_cells)
+            channel=e0.channel, cells=prog_cells, churn=e0.churn)
         res = prog(state, *inputs, draws=[e.draws for e in exps],
                    rounds=rounds, with_init=True,
                    transfer_guard=transfer_guard)
@@ -224,16 +252,17 @@ class CohortRunner:
                  cells: int = 1) -> CohortHistory:
         """``vals``: :func:`history_parts` of a cohort's run on the host —
         the initial round's ``[B]`` values, then the rounds' ``[R, B,
-        ...]`` (``inr`` last, where the run has it)."""
+        ...]`` (``inr`` and the asynchronous traces where the run has
+        them)."""
         acc0, T0, E0 = (v[:, None] for v in vals[:3])
-        rounds = vals[len(res.init):]
-        acc, T, E, sel, mask = (np.moveaxis(v, 0, 1) for v in rounds[:5])
-        inr = (np.moveaxis(rounds[7], 0, 1) if res.rounds.inr is not None
-               else None)
+        r = {k: np.moveaxis(v, 0, 1) for k, v in rounds_by_name(
+            res.rounds, vals[len(res.init):]).items()}
         return CohortHistory(
             seeds=list(seeds),
-            accuracy=np.concatenate([acc0, acc], axis=1),
-            T_k=np.concatenate([T0, T], axis=1),
-            E_k=np.concatenate([E0, E], axis=1),
-            selected=sel.astype(np.int64), mask=mask > 0, with_init=True,
-            num_devices=num_devices, cells=cells, inr=inr)
+            accuracy=np.concatenate([acc0, r["accuracy"]], axis=1),
+            T_k=np.concatenate([T0, r["T"]], axis=1),
+            E_k=np.concatenate([E0, r["E"]], axis=1),
+            selected=r["selected"].astype(np.int64), mask=r["mask"] > 0,
+            with_init=True, num_devices=num_devices, cells=cells,
+            inr=r.get("inr"), participation=r.get("participation"),
+            staleness=r.get("staleness"), active=r.get("active"))

@@ -3,10 +3,11 @@
 Every random choice on the FL path comes from one draws object owned by
 the experiment: the initial parameters, each round's local-SGD batch
 indices, the k-means++ seeding choices, on the device-resident run of a
-stochastic selector each round's selector draw, and under a fading
-channel (``repro_torch.api.scenario``) its CN(0,1) draws — nothing else
-on this path draws — plus, for a workload with frozen weights (the LoRA
-LM), that base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
+stochastic selector each round's selector draw, under a fading channel
+(``repro_torch.api.scenario``) its CN(0,1) draws, and under the
+buffered-asynchronous engine's churn each tick's leave and join uniforms
+— nothing else on this path draws — plus, for a workload with frozen
+weights (the LoRA LM), that base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
 experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
 give different numbers for one seed, so a parity test hands the experiment
 an object with the same methods that replays the reference's draws.
@@ -19,6 +20,14 @@ choices, then (fading) the initial round's fade step (``channel_step``);
 then per round the fade step (fading), the selector's draw (where the
 selector takes one), and the round's batch indices. The device-resident
 run makes every round's draws before its first round.
+
+A tick of the buffered-asynchronous engine (``repro_torch.core.
+async_engine``) draws in the same order with churn first: the churn step
+(``churn_step``: the leave uniforms, then the join uniforms), the fade
+step, the selector's draw, then the batch indices — the reference's key
+splits (the churn split, then ``select_phase``'s fade and selector splits,
+then training's). A stochastic selector always takes its draw here: the
+asynchronous engine has no host loop.
 """
 from __future__ import annotations
 
@@ -70,6 +79,15 @@ class TorchDraws:
             return torch.argsort(u, stable=True)
         raise ValueError(f"unknown selector draw {kind!r}; the port draws "
                          "'uniform' or 'permutation'")
+
+    def churn_step(self, n: int):
+        """One tick's churn draw over ``n`` clients: ``(leave, join)``,
+        ``[n]`` uniforms in [0, 1) each (a client leaves where its leave
+        uniform is below p_leave, rejoins where its join uniform is below
+        p_join)."""
+        leave = torch.rand((n,), generator=self.generator, device=self.device)
+        join = torch.rand((n,), generator=self.generator, device=self.device)
+        return leave, join
 
     def _complex_normal(self, shape) -> torch.Tensor:
         return torch.randn(tuple(shape) + (2,), generator=self.generator,

@@ -24,6 +24,11 @@ updates in place — serves both ways to run rounds:
   (``FLExperiment.history_from_traced``). On the CPU the same body runs
   eagerly.
 
+The buffered-asynchronous engine (``repro_torch.core.async_engine``:
+FedBuff ticks, churn) builds its tick from the same closures and is
+captured and replayed the same way, its churn draws graph inputs like the
+fade.
+
 The wireless scenario rides the same body: a fading channel
 (``repro_torch.api.scenario``) steps its carried state at the start of
 each round from a CN(0,1) draw handed in like the selector's, so the
@@ -162,7 +167,10 @@ class RoundOutputs(NamedTuple):
     """What a round leaves in the history: ``[R]`` / ``[R, S_pad]`` /
     ``[R, classes]`` once stacked. ``band`` is Σ b_n of the allocation;
     ``inr`` the round's selection-driven I/N0 at each lane's BS (a
-    dynamic-interference cohort only, else ``None``)."""
+    dynamic-interference cohort only, else ``None``). The last three are
+    the buffered-asynchronous engine's per-tick traces: the updates the
+    buffer folded, their mean age at the fold and the available fleet's
+    size (``None`` on a synchronous run)."""
     accuracy: Any
     T: Any
     E: Any
@@ -171,6 +179,9 @@ class RoundOutputs(NamedTuple):
     band: Any
     per_class: Any
     inr: Any = None
+    participation: Any = None
+    staleness: Any = None
+    active: Any = None
 
 
 class InitOutputs(NamedTuple):
@@ -184,7 +195,8 @@ class InitOutputs(NamedTuple):
 
 class TracedRunResult(NamedTuple):
     """Everything one traced run returns, still on the device. ``state``
-    is the program's carry: copy out what outlives the next run."""
+    is the program's carry (an asynchronous run's with its stats table,
+    ``state.sched``): copy out what outlives the next run."""
     state: RoundState
     rounds: Optional[RoundOutputs]       # None for rounds = 0
     init: Optional[InitOutputs] = None   # None without the initial round
@@ -233,15 +245,18 @@ def lane_view(tree, b: int):
 
 def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                        tctx: TracedContext, feature_layer: str, base=None,
-                       *, compressor=None, channel=None, cells: int = 1):
-    """The closures a round is made of (the full-plane subset of the
-    reference's ``build_round_phases``), over a :class:`RoundState` they
-    update in place:
+                       *, compressor=None, channel=None, cells: int = 1,
+                       plane: str = "full"):
+    """The closures a round is made of (the reference's
+    ``build_round_phases``), over a :class:`RoundState` they update in
+    place:
 
     ``init_channel``/``step_channel`` (a fading channel's state: h_0, then
-    one AR(1) step a round from the draw handed in), ``train_rows`` (local
-    SGD of an index set, then the ``compressor``), ``fold`` (store the
-    rows into the plane + the eq.-(4) masked fold), ``train_aggregate``
+    one AR(1) step a round from the draw handed in), ``train_gathered``
+    (local SGD of clients' data already gathered, then the
+    ``compressor``), ``train_rows`` (the same for an index set),
+    ``store_rows`` (the rows into the plane), ``fold`` (``store_rows`` +
+    the eq.-(4) masked fold), ``train_aggregate``
     (the two), ``cluster_round`` (Alg. 1 line 1 + Alg. 2: all devices
     train and fold, K-means), ``init_round`` (``cluster_round``, then
     evaluate, fade and allocate over all N), ``select_phase`` (fade →
@@ -258,6 +273,12 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     channel's cohort): lane ``s·cells + c`` is seed s's cell c, and
     ``cross_inr`` couples each seed's cells.
 
+    ``plane`` is what client state the carry holds: ``"full"``, the plane
+    (divergence is its row reduction); ``"stats"``, the per-client stats
+    table alone (``state.sched``, the paged store's asynchronous ticks):
+    ``select_phase`` reads ``state.sched.divergence`` and the caller
+    persists the rows ``train_gathered`` gives through its store.
+
     Padding lanes hold the sentinel N: data is gathered at ``min(idx,
     N − 1)`` (JAX clamps a gather), their weight is 0, and lane j's row is
     written to plane row ``N + j``, which nothing reads (JAX drops an
@@ -267,6 +288,9 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     rows too (a block's scale and top-k threshold span all ``S_pad``
     rows, as the reference's do).
     """
+    if plane not in ("full", "stats"):
+        raise ValueError(f"unknown carry plane {plane!r}; expected 'full' "
+                         "or 'stats'")
     if compressor is None:
         from repro_torch.api.registry import COMPRESSORS
         compressor = COMPRESSORS.resolve("none")
@@ -301,13 +325,26 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                 for b, g in enumerate(gvec)]
         return tuple(torch.stack(v) for v in zip(*outs))
 
+    def gathered_rows(state, images_sel, labels_sel, batch_idx):
+        """Local SGD from the global row of clients whose data is
+        ``images_sel [S, ...]``: ``[S, P]``."""
+        params = unflatten_vector(spec, state.params)
+        stacked = local_update(params, images_sel, labels_sel, batch_idx)
+        return flatten_stacked(spec, stacked)                 # [S_pad, P]
+
     def local_rows(state, idx, images, labels, batch_idx):
         """Local SGD of the clients ``idx`` from the global row: ``[S,
         P]``."""
         t = clamp(idx)
-        params = unflatten_vector(spec, state.params)
-        stacked = local_update(params, images[t], labels[t], batch_idx)
-        return flatten_stacked(spec, stacked)                 # [S_pad, P]
+        return gathered_rows(state, images[t], labels[t], batch_idx)
+
+    def train_gathered(state, images_sel, labels_sel, batch_idx):
+        """:func:`train_rows` of data already gathered (one run's): the
+        paged store's tick trains its cohort's rows, gathered by the host
+        at ``min(idx, N − 1)``, and writes no plane."""
+        return compressor.apply_flat(
+            gathered_rows(state, images_sel, labels_sel, batch_idx),
+            state.params, spec)
 
     def train_rows(state, idx, images, labels, batch_idx):
         """Local SGD of the clients ``idx`` from the global row, then the
@@ -324,21 +361,27 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
             rows = local_rows(state, idx, images, labels, batch_idx)
         return compressor.apply_flat(rows, state.params, spec)
 
-    def fold(state, idx, mask, rows, sizes):
-        w = lane_rows(sizes, clamp(idx))
+    def store_rows(state, idx, mask, rows):
+        """Write ``rows`` into the plane at ``idx``, padding lane j (off
+        ``mask``) at row ``N + j``."""
         store = idx
         if mask is not None:
-            w = torch.where(mask, w, torch.zeros_like(w))
             pads = torch.arange(idx.shape[-1], device=idx.device)
             store = torch.where(mask, idx, N + pads)
-        new_gvec, opt_state = aggregator.aggregate_flat(
-            state.params, rows, w, state.opt_state)
         plane = state.client_params
         if store.dim() > 1:         # cohort lane b writes its own plane b
             lanes = torch.arange(store.shape[0], device=store.device)
             store = store + plane.shape[-2] * lanes[:, None]
         plane.view(-1, plane.shape[-1]).index_copy_(
             0, store.reshape(-1), rows.reshape(-1, rows.shape[-1]))
+
+    def fold(state, idx, mask, rows, sizes):
+        w = lane_rows(sizes, clamp(idx))
+        if mask is not None:
+            w = torch.where(mask, w, torch.zeros_like(w))
+        new_gvec, opt_state = aggregator.aggregate_flat(
+            state.params, rows, w, state.opt_state)
+        store_rows(state, idx, mask, rows)
         state.params.copy_(new_gvec)
         if opt_state is not None:
             # in place, as the global row: a captured round's next replay
@@ -451,7 +494,9 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         ``fade`` the channel's."""
         with record_function("fl.select"):
             arr = step_channel(state, arr, fade)
-            if selector.needs_divergence:
+            if selector.needs_divergence and plane == "stats":
+                div = state.sched.divergence
+            elif selector.needs_divergence:
                 div = weight_divergence_flat(
                     state.client_params[..., :N, :], state.params)
             else:
@@ -495,8 +540,11 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         spec=spec, N=N, B=B, local_iters=cfg.local_iters, batch_size=cfg.batch_size,
         allocator=allocator, aggregator=aggregator, compressor=compressor,
         channel=channel, cells=cells, fading=fading, dynamic=dynamic,
-        evaluate_row=evaluate_row, evaluate_rows=evaluate_rows,
-        train_rows=train_rows, fold=fold,
+        plane=plane, churn_on=False, needs_sched=plane == "stats",
+        evaluate_row=evaluate_row,
+        evaluate_rows=evaluate_rows, clamp=clamp,
+        train_gathered=train_gathered, train_rows=train_rows,
+        store_rows=store_rows, fold=fold,
         train_aggregate=train_aggregate, cluster_round=cluster_round,
         init_channel=init_channel, step_channel=step_channel,
         init_round=init_round, select_phase=select_phase,
@@ -570,9 +618,10 @@ class TracedProgram:
     :class:`TracedRunResult`. ``draws`` — one draws object, or a cohort's
     sequence of one a lane — gives a fading channel's h_0 first, then the
     initial round's batch indices, K-means seeding and fade, then every
-    round's fade, selector draw (a stochastic selector's: ``draw_kind``)
-    and ``[S_pad, L, batch]`` batch indices, all drawn before the first
-    round, in the order of ``repro_torch.core.draws``. A cohort's carry
+    round's churn (an asynchronous tick's: ``churn_step``), fade, selector
+    draw (a stochastic selector's: ``draw_kind``) and ``[S_pad, L,
+    batch]`` batch indices, all drawn before the first round, in the
+    order of ``repro_torch.core.draws``. A cohort's carry
     and inputs are lane-stacked (``lanes``: the carry's leading axis, set
     by the call); its test set is one for all lanes or one a lane.
     ``arr["xgain"]`` (a dynamic-interference cohort's cross gains) is
@@ -583,7 +632,8 @@ class TracedProgram:
     eagerly (its solve is SAO's own, a graph from its second call on)
     and replays the captured round once a round for every lane,
     copying the round's fade, selector draw and batch indices into the
-    graph's inputs first; no step reads back to the host.
+    graph's inputs first (and a churning tick's leave and join uniforms);
+    no step reads back to the host.
     ``transfer_guard`` raises on any host sync from the initial round to
     the last replay (sync debug mode "error"; the initial round's solve
     then runs eagerly, as capturing its graph would wait for the card).
@@ -605,16 +655,19 @@ class TracedProgram:
         self.capture_ms = None
 
     def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None,
-                   fade=None):
+                   fade=None, churn=None):
         """One round, eagerly: fade, select, (a dynamic cohort: the
-        cross-cell interference), allocate, train, fold and evaluate.
-        Returns ``(state, RoundOutputs)``."""
+        cross-cell interference), allocate, train, fold and evaluate — or
+        one asynchronous tick, ``churn`` its leave and join uniforms
+        (``[2, N]``, a lane each ``[B, 2, N]``). Returns ``(state,
+        RoundOutputs)``."""
         arr = dict(inputs.arr)
         xgain = arr.pop("xgain", None)
+        extra = {} if churn is None else {"churn": churn}
         return self.ph.round_body(state, arr, xgain, inputs.images,
                                   inputs.labels, inputs.sizes, batch_idx,
                                   inputs.test_images, inputs.test_labels,
-                                  draw, fade)
+                                  draw, fade, **extra)
 
     def _lead(self) -> tuple:
         return () if self.lanes is None else (self.lanes,)
@@ -641,6 +694,14 @@ class TracedProgram:
         return torch.zeros(self._lead() + (self.ph.N, 2),
                            dtype=torch.float32, device=self.device)
 
+    def _churn_input(self):
+        """The churn draw's graph input, ``[2, N]`` leave and join
+        uniforms (ones until a replay loads one: nobody moves)."""
+        if not self.ph.churn_on:
+            return None
+        return torch.ones(self._lead() + (2, self.ph.N), dtype=torch.float32,
+                          device=self.device)
+
     def capture(self, state: RoundState, inputs: RoundInputs) -> None:
         """Capture the round over static copies of ``state`` and
         ``inputs`` (whose values the warm-up and the capture overwrite)."""
@@ -649,18 +710,19 @@ class TracedProgram:
                                  device=self.device)
         self.draw = self._draw_input()
         self.fade = self._fade_input()
+        self.churn = self._churn_input()
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side), eager_solves():
             self.round_body(self.state, self.inputs, self.batch, self.draw,
-                            self.fade)
+                            self.fade, self.churn)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _, self.out = self.round_body(self.state, self.inputs, self.batch,
-                                          self.draw, self.fade)
+                                          self.draw, self.fade, self.churn)
         torch.cuda.synchronize(self.device)
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -671,26 +733,30 @@ class TracedProgram:
         _copy_into(self.state, state)
         _copy_into(self.inputs, inputs)
 
-    def replay(self, batch_idx, draw=None, fade=None) -> RoundOutputs:
+    def replay(self, batch_idx, draw=None, fade=None,
+               churn=None) -> RoundOutputs:
         """One captured round on the static carry, every lane at once:
         load ``batch_idx`` (and a stochastic selector's ``draw``, a fading
-        channel's ``fade``), replay; the outputs are the graph's (the next
-        replay overwrites them)."""
+        channel's ``fade``, a churning tick's ``churn``), replay; the
+        outputs are the graph's (the next replay overwrites them)."""
         self.batch.copy_(batch_idx)
-        if self.draw is not None:
-            self.draw.copy_(draw)
-        if self.fade is not None:
-            self.fade.copy_(fade)
+        for static, value in ((self.draw, draw), (self.fade, fade),
+                              (self.churn, churn)):
+            if static is not None:
+                static.copy_(value)
         self.graph.replay()
         return self.out
 
     def _round_draws(self, lane_draws, n_samples: int):
-        """One round's ``(batch indices, selector draw, fade draw)``: per
-        lane, the fade first, then the selector's draw, then the batch
-        indices; lane-stacked for a cohort."""
-        batches, draws, fades = [], [], []
+        """One round's ``(batch indices, selector draw, fade draw, churn
+        draw)``: per lane, the churn first (an asynchronous tick's leave
+        and join uniforms, ``[2, N]``), then the fade, the selector's draw
+        and the batch indices; lane-stacked for a cohort."""
+        batches, draws, fades, churns = [], [], [], []
         shape = (self.pad, self.ph.local_iters, self.ph.batch_size)
         for d in lane_draws:
+            if self.ph.churn_on:
+                churns.append(torch.stack(d.churn_step(self.ph.N)))
             if self.ph.fading:
                 fades.append(d.channel_step((self.ph.N,)))
             if self.draw_kind is not None:
@@ -701,7 +767,7 @@ class TracedProgram:
             if not x:
                 return None
             return x[0] if self.lanes is None else torch.stack(x)
-        return lanes(batches), lanes(draws), lanes(fades)
+        return lanes(batches), lanes(draws), lanes(fades), lanes(churns)
 
     def __call__(self, state: RoundState, images, labels, sizes, arr,
                  test_images, test_labels, *, draws, rounds: int,
@@ -717,6 +783,11 @@ class TracedProgram:
         if len(lane_draws) != (self.lanes or 1):
             raise ValueError(f"{len(lane_draws)} draws objects for "
                              f"{self.lanes or 1} lanes")
+        if ph.needs_sched and state.sched is None:
+            raise ValueError(
+                "the buffered-asynchronous engine's carry needs the "
+                "per-client stats table (RoundState.sched: "
+                "ClientStats.device())")
         if ph.fading and getattr(ph.channel, "stateful", False):
             # the fade's h_0, the run's first draw: part of the carry
             h0 = [d.channel_init((ph.N,)) for d in lane_draws]
@@ -749,12 +820,12 @@ class TracedProgram:
             per_round = [self._round_draws(lane_draws, n_samples)
                          for _ in range(rounds)]
             outs = []
-            for batch_idx, draw, fade in per_round:
+            for batch_idx, draw, fade, churn in per_round:
                 if self.graph is not None:
-                    out = _clone(self.replay(batch_idx, draw, fade))
+                    out = _clone(self.replay(batch_idx, draw, fade, churn))
                 else:
                     state, out = self.round_body(state, inputs, batch_idx,
-                                                 draw, fade)
+                                                 draw, fade, churn)
                 outs.append(out)
             stacked = (RoundOutputs(*(None if v[0] is None
                                       else torch.stack(v)
@@ -785,7 +856,7 @@ def shapes_key(tensors) -> tuple:
 def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                tctx: TracedContext, feature_layer: str, device,
                shapes: tuple, base=None, compressor=None, channel=None,
-               cells: int = 1) -> TracedProgram:
+               cells: int = 1, churn=None) -> TracedProgram:
     """The device-resident program for one strategy bundle on ``device``
     at ``shapes`` (the shapes of the data it reads,
     :meth:`RoundInputs.shapes`: a cohort's lane-stacked, its test set one
@@ -797,10 +868,27 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     ``compressor`` (default ``none``) quantizes the uplink rows; ``cells >
     1`` (a dynamic-interference cohort, lanes ``seed·cells + cell``)
     couples each seed's cells through the round's cross-cell reduction.
-    The reference's faults are no field of the port's spec; its paged
-    store and churn run on the host loop only (``FLExperiment``), as in
-    the reference.
+
+    An async-capable aggregator (``fedbuff:M[:alpha]``) swaps the round
+    for the buffered-asynchronous tick (``repro_torch.core.async_engine``)
+    — the same program, its rounds virtual-time ticks — and ``churn``
+    (``(p_leave, p_join)``, per-tick Bernoulli probabilities) flips the
+    availability mask the carry's stats table holds. Churn without such an
+    aggregator, and such an aggregator with ``cells > 1``, raise. The
+    reference's faults are no field of the port's spec.
     """
+    churn = (0.0, 0.0) if churn is None else (float(churn[0]),
+                                              float(churn[1]))
+    is_async = getattr(aggregator, "async_capable", False)
+    if not is_async and churn != (0.0, 0.0):
+        raise ValueError(
+            "client churn is a property of the buffered-asynchronous "
+            "engine; configure an async-capable aggregator "
+            "(e.g. 'fedbuff:4') to enable it")
+    if is_async and cells > 1:
+        raise ValueError(
+            "the buffered-asynchronous engine runs single-cell programs "
+            "only; run multi-cell fleets with a synchronous aggregator")
     if compressor is None:
         from repro_torch.api.registry import COMPRESSORS
         compressor = COMPRESSORS.resolve("none")
@@ -813,12 +901,20 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                 else tuple(v.data_ptr() for v in base.values()))
     key = (cfg, selector, allocator, aggregator_cache_key(aggregator), tctx,
            feature_layer, device, shapes, base_key, compressor, channel,
-           cells)
+           cells, churn)
     prog = _RUN_FN_CACHE.get(key)
     if prog is None:
-        ph = build_round_phases(cfg, aggregator, selector, allocator, tctx,
-                                feature_layer, base, compressor=compressor,
-                                channel=channel, cells=cells)
+        if is_async:
+            from repro_torch.core.async_engine import build_async_phases
+            ph = build_async_phases(cfg, aggregator, selector, allocator,
+                                    tctx, feature_layer, base,
+                                    compressor=compressor, channel=channel,
+                                    churn=churn)
+        else:
+            ph = build_round_phases(cfg, aggregator, selector, allocator,
+                                    tctx, feature_layer, base,
+                                    compressor=compressor, channel=channel,
+                                    cells=cells)
         prog = _RUN_FN_CACHE[key] = TracedProgram(
             ph, device, selector.pad_size(tctx), draw_kind)
         while len(_RUN_FN_CACHE) > _RUN_FN_CACHE_MAX:

@@ -36,6 +36,14 @@ signal (refreshed every ``div_refresh_every`` rounds, else bounded by its
 drift) and the churn mask. An initial round of more than ``k_max``
 clients trains in waves whose mean streams to the host.
 
+An async-capable aggregator (``fedbuff:M[:alpha]``) runs buffered-
+asynchronous ticks (``repro_torch.core.async_engine``) in place of
+rounds, with churn inside the tick: on the dense store the device-
+resident run (one captured tick, replayed), on the paged store a host
+composition of the tick's four pieces (:meth:`FLExperiment.
+_run_async_paged`). The scheduler's columns ride the stats table, so a
+second ``run()`` continues the virtual clock.
+
 ``FLExperiment`` owns the experiment's state on one device — the global
 row, the client plane, the data, the K-means labels — one draws object
 (``repro_torch.core.draws``) that the model's random choices come from,
@@ -59,6 +67,7 @@ from repro_torch.api.protocols import (Allocation, RoundState,
 from repro_torch.api.registry import (AGGREGATORS, ALLOCATORS, CHANNELS,
                                       COMPRESSORS, SELECTORS)
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.async_engine import parse_churn
 from repro_torch.core.clustering import (clusters_from_labels,
                                          extract_features_flat, kmeans_fit,
                                          kmeans_fit_minibatch,
@@ -66,8 +75,9 @@ from repro_torch.core.clustering import (clusters_from_labels,
 from repro_torch.core.divergence import weight_divergence_flat
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.engine import (EngineConfig, RoundInputs,
-                                     TracedRunResult, build_round_phases,
-                                     model_flat_spec, run_rounds)
+                                     RoundOutputs, TracedRunResult,
+                                     build_round_phases, model_flat_spec,
+                                     run_rounds, selector_draw_kind)
 from repro_torch.core.store import ClientStats, build_store
 from repro_torch.core.wireless import Fleet, fleet_arrays
 from repro_torch.data.partition import FederatedData
@@ -107,6 +117,12 @@ class FLHistory:
     # rounds have no host boundary of their own to time
     seconds: List[float] = field(default_factory=list)
     per_class: List[np.ndarray] = field(default_factory=list)
+    # the buffered-asynchronous engine's per-tick traces (empty on a
+    # synchronous run): updates folded, their mean age at the fold, the
+    # available fleet's size
+    participation: List[float] = field(default_factory=list)
+    staleness: List[float] = field(default_factory=list)
+    active: List[float] = field(default_factory=list)
 
     def append(self, res: RoundResult, seconds: Optional[float] = None):
         self.accuracy.append(float(res.accuracy))
@@ -117,34 +133,6 @@ class FLHistory:
         self.band_mhz.append(float(res.band_mhz))
         if seconds is not None:
             self.seconds.append(seconds)
-
-
-def parse_churn(churn):
-    """A churn spec as the ``(p_leave, p_join)`` float pair: ``None`` (no
-    churn), one number or ``"0.3"`` (leave only), ``"p_leave:p_join"``, or
-    a 2-sequence; each a per-round Bernoulli probability in [0, 1]."""
-    if churn is None:
-        return (0.0, 0.0)
-    if isinstance(churn, str):
-        leave_s, _, join_s = churn.partition(":")
-        parts = (leave_s, join_s or "0")
-    elif isinstance(churn, (int, float)):
-        parts = (churn, 0.0)
-    else:
-        parts = tuple(churn)
-        if len(parts) != 2:
-            raise ValueError(
-                f"churn must be (p_leave, p_join); got {churn!r}")
-    try:
-        p = tuple(float(x) for x in parts)
-    except (TypeError, ValueError):
-        raise ValueError(
-            f"churn must be numeric 'P_LEAVE[:P_JOIN]'; got {churn!r}"
-        ) from None
-    if not all(0.0 <= x <= 1.0 for x in p):
-        raise ValueError(
-            f"churn probabilities must lie in [0, 1]; got {p}")
-    return p
 
 
 def fp32_matmuls() -> None:
@@ -187,9 +175,10 @@ class FLExperiment:
     divergences, 0 = never after the first, the signal then bounded by
     ``stats.drift``). ``cluster`` fits Alg. 2's K-means on one ``[N, F]``
     matrix (``"full"``) or streams it a chunk at a time
-    (``"minibatch"``). ``churn`` (``(p_leave, p_join)``, paged store only)
-    flips the stats table's availability mask before every round of
-    :meth:`run`. Index-backed data (``LazyFederatedData``) needs the paged
+    (``"minibatch"``). ``churn`` (``(p_leave, p_join)``) flips the stats
+    table's availability mask before every round of :meth:`run` on the
+    paged store, and inside every tick of an async-capable aggregator on
+    either store. Index-backed data (``LazyFederatedData``) needs the paged
     store; its rounds gather their clients' images from the pool on the
     device.
     """
@@ -237,8 +226,7 @@ class FLExperiment:
                 "the paged client store (store='paged'), whose round loop "
                 "flips the stats table's availability mask, or the "
                 "buffered-asynchronous engine (an async-capable aggregator, "
-                "e.g. 'fedbuff:4', not in the PyTorch port (repro_torch) "
-                "yet)")
+                "e.g. 'fedbuff:4')")
         if cluster not in ("full", "minibatch"):
             raise ValueError(
                 f"cluster must be 'full' or 'minibatch'; got {cluster!r}")
@@ -706,6 +694,13 @@ class FLExperiment:
         run's carry is the ``[N, P]`` plane it exists to avoid), which
         skips the initial round unless asked for or the selector needs
         clusters, and churns the availability mask before each round.
+
+        An async-capable aggregator (``fedbuff``) runs ticks instead, with
+        churn inside each: on the dense store the device-resident run
+        (:meth:`_run_traced`; a stochastic selector takes its draws from
+        the experiment's draws object, as the asynchronous engine has no
+        host loop, and an accuracy target raises), on the paged store
+        :meth:`_run_async_paged`, which stops at the target.
         """
         self._refuse_single_cell_view()
         rounds = rounds or self.fl.max_rounds
@@ -713,6 +708,11 @@ class FLExperiment:
                   if target_accuracy is None else target_accuracy)
         selector = (self.selector if method is None
                     else SELECTORS.resolve(method))
+        is_async = getattr(self.aggregator, "async_capable", False)
+        if is_async and not self.traceable(selector):
+            raise ValueError(
+                "the buffered-asynchronous engine needs a fully traceable "
+                "strategy bundle (selector/allocator/compressor/channel)")
         if self._store.kind == "paged":
             if (getattr(self.channel, "needs_rng", False)
                     or getattr(self.channel, "stateful", False)):
@@ -721,8 +721,20 @@ class FLExperiment:
                     "inside the device-resident run; store='paged' drives "
                     "the host loop — use the static channel (or "
                     "store='dense')")
+            if is_async:
+                return self._run_async_paged(selector, rounds, target,
+                                             include_initial_round)
             return self._run_host(method, rounds, target,
                                   include_initial_round)
+        if is_async:
+            if target:
+                raise ValueError(
+                    "the dense buffered-asynchronous engine runs as one "
+                    "device-resident program and cannot stop early on "
+                    "target_accuracy; use store='paged' (a host-composed "
+                    "tick) or no target")
+            return self._run_traced(selector, rounds, include_initial_round,
+                                    draws=self.draws)
         if (not target and not getattr(selector, "needs_rng", True)
                 and self.traceable(selector)):
             return self._run_traced(selector, rounds, include_initial_round)
@@ -746,18 +758,7 @@ class FLExperiment:
         hist = FLHistory()
         selector = (self.selector if method is None
                     else SELECTORS.resolve(method))
-        need_clusters = (self._store.kind == "dense"
-                         or getattr(selector, "needs_clusters", False))
-        if include_initial_round or (self.clusters is None and need_clusters):
-            t0 = time.perf_counter()
-            self.initial_round()
-            acc, per_class = self.evaluate()
-            all_idx = np.arange(self.fed.num_clients)
-            a = self.allocation(all_idx)
-            hist.append(RoundResult(
-                selected=all_idx, T_k=float(a.T), E_k=float(a.E),
-                accuracy=acc, per_class=per_class,
-                band_mhz=float(torch.sum(a.b))), time.perf_counter() - t0)
+        self._maybe_initial_round(hist, selector, include_initial_round)
         churn_on = self.churn != (0.0, 0.0)
         for k in range(rounds):
             t0 = time.perf_counter()
@@ -769,6 +770,128 @@ class FLExperiment:
                 hist.rounds_to_target = k + 1
                 break
         return hist
+
+    def _maybe_initial_round(self, hist: FLHistory, selector,
+                             include_initial_round: bool) -> None:
+        """The initial round, recorded as round 0 of ``hist``, when asked
+        for or when there are no clusters yet — on the paged store only
+        when the selector needs them (a million-client fleet under a
+        cluster-free policy never trains every client)."""
+        need_clusters = (self._store.kind == "dense"
+                         or getattr(selector, "needs_clusters", False))
+        if not (include_initial_round
+                or (self.clusters is None and need_clusters)):
+            return
+        t0 = time.perf_counter()
+        self.initial_round()
+        acc, per_class = self.evaluate()
+        all_idx = np.arange(self.fed.num_clients)
+        a = self.allocation(all_idx)
+        hist.append(RoundResult(
+            selected=all_idx, T_k=float(a.T), E_k=float(a.E),
+            accuracy=acc, per_class=per_class,
+            band_mhz=float(torch.sum(a.b))), time.perf_counter() - t0)
+
+    def _run_async_paged(self, selector, rounds: int, target: float,
+                         include_initial_round: bool = True) -> FLHistory:
+        """Buffered-asynchronous ticks over the paged store: the host
+        composition of ``async_engine.build_paged_async``'s pieces with
+        store paging in between, each tick's wall clock in ``seconds``.
+
+        A tick: (host) the stats table's divergences per the
+        ``div_refresh_every`` cadence into the carry → ``sched`` (churn →
+        select → in-flight filter) → (host) the cohort's data gathered at
+        ``min(idx, N − 1)`` → ``plan`` → ``train`` → (host) ``store.stage``
+        of the dispatched rows and ``gather_staged`` of the M candidates →
+        ``fire`` → (host) the fired rows released, ‖g_new − g_old‖ into
+        the drift bounds, the fired clients' refreshed divergences. The
+        device holds O(k_max·P + M·P) at any N; the draws are the dense
+        tick's, in its order, so at ``div_refresh_every=1`` the run is the
+        dense store's bit for bit. The initial round runs as in
+        :meth:`_run_host`; ``target`` stops the run early."""
+        from repro_torch.core.async_engine import build_paged_async
+        prog = build_paged_async(
+            self.engine_cfg, self.aggregator, selector, self.allocator,
+            self.traced_context(), self.fl.feature_layer, self.base,
+            compressor=self.compressor, channel=self.channel,
+            churn=self.churn)
+        hist = FLHistory()
+        self._maybe_initial_round(hist, selector, include_initial_round)
+        arr = fleet_arrays(self.fleet, self.device)
+        arr.pop("xgain", None)
+        store, stats, n = self._store, self.stats, self.fed.num_clients
+        kind = selector_draw_kind(selector)
+        needs_div = getattr(selector, "needs_divergence", False)
+        state = self.traced_state(selector)
+        for k in range(rounds):
+            t0 = time.perf_counter()
+            churn = (torch.stack(self.draws.churn_step(n))
+                     if prog.churn_on else None)
+            draw = (None if kind is None
+                    else self.draws.selector_draw(kind, n))
+            batch = self._batch_indices(prog.pad)
+            if needs_div:
+                div = torch.as_tensor(self._paged_divergences(),
+                                      device=self.device)
+                state = state._replace(
+                    sched=state.sched._replace(divergence=div))
+            state, arr_f, idx, mask = prog.sched(state, arr, draw, churn)
+            idx_h, mask_h = to_host([idx, mask])
+            idx_h, mask_h = idx_h.astype(np.int64), mask_h > 0
+            # padding lanes read client N − 1's data, train, and are
+            # dropped by the mask (the dense tick's clamped gather)
+            images, labels, _ = self._client_data(np.minimum(idx_h, n - 1))
+            (state, T, E, band, cand, fired_cand, w_cand,
+             traces) = prog.plan(state, arr_f, idx, mask, self._sizes)
+            rows = prog.train(state, images, labels, batch)
+            live = idx_h[mask_h]
+            if live.size:
+                store.stage(live, rows[self._index(np.flatnonzero(mask_h))])
+            cand_h, fired_h = to_host([cand, fired_cand])
+            cand_h, fired_h = cand_h.astype(np.int64), fired_h > 0
+            cand_rows = store.gather_staged(cand_h)
+            state, acc, per_class, div_cand, g_delta = prog.fire(
+                state, cand_rows, w_cand, fired_cand, self.test_images,
+                self.test_labels)
+            fired_ids = cand_h[fired_h]
+            store.release_staged(fired_ids)
+            (acc, g_delta, T, E, band, part, stale, active, div_cand,
+             per_class) = to_host([acc, g_delta, T, E, band, *traces,
+                                   div_cand, per_class])
+            # the stats table after the fold: every stale bound grows by
+            # the fold's global step (0 on an empty fire), the fired
+            # clients get their refreshed divergence
+            stats.drift[store.touched] += float(g_delta)
+            stats.divergence[fired_ids] = div_cand[fired_h]
+            stats.drift[fired_ids] = 0.0
+            # the next refresh measures against the new global row
+            self.global_vec.copy_(state.params)
+            self._gvec_host = state.params.to("cpu", copy=True).numpy()
+            self._rounds_since_refresh = min(
+                self._rounds_since_refresh + 1, FORCE_REFRESH - 1)
+            hist.append(RoundResult(selected=live, T_k=float(T),
+                                    E_k=float(E), accuracy=float(acc),
+                                    per_class=per_class.astype(np.float32),
+                                    band_mhz=float(band)),
+                        time.perf_counter() - t0)
+            hist.participation.append(float(part))
+            hist.staleness.append(float(stale))
+            hist.active.append(float(active))
+            if target and float(acc) >= target:
+                hist.rounds_to_target = k + 1
+                break
+        self._fold_async_carry(state)
+        return hist
+
+    def _fold_async_carry(self, state: RoundState) -> None:
+        """An asynchronous carry back into the experiment: the global row,
+        the server state and the scheduler's columns of the stats table
+        (its divergence and drift the host keeps up itself)."""
+        self.global_vec.copy_(state.params)
+        self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
+        for col in ("age", "t_done", "avail", "t_now", "faults", "strikes"):
+            np.copyto(getattr(self.stats, col),
+                      getattr(state.sched, col).cpu().numpy())
 
     def _refuse_single_cell_view(self) -> None:
         if (getattr(self.channel, "dynamic", False)
@@ -804,18 +927,27 @@ class FLExperiment:
     def traced_state(self, selector=None) -> RoundState:
         """The experiment's mutable state as a fresh carry: the global row,
         the client plane with ``selector.pad_size`` rows after it for the
-        padding lanes' writes, the aggregator's state and the K-means
-        labels (zeros before the initial round)."""
+        padding lanes' writes (none on the paged store, whose ticks carry
+        no plane), the aggregator's state, the K-means labels (zeros
+        before the initial round) and, for an async-capable aggregator, a
+        device copy of the stats table (``sched``: a second run continues
+        its virtual clock)."""
         selector = self.selector if selector is None else selector
         n = self.fed.num_clients
-        pad = selector.pad_size(self.traced_context())
-        plane = torch.zeros((n + pad, self.client_plane.shape[1]),
-                            dtype=self.client_plane.dtype, device=self.device)
-        plane[:n] = self.client_plane
+        plane = None
+        if self._store.kind == "dense":
+            pad = selector.pad_size(self.traced_context())
+            plane = torch.zeros((n + pad, self.client_plane.shape[1]),
+                                dtype=self.client_plane.dtype,
+                                device=self.device)
+            plane[:n] = self.client_plane
         gvec = self.global_vec.clone()
+        sched = (self.stats.device(self.device)
+                 if getattr(self.aggregator, "async_capable", False)
+                 else None)
         return RoundState(params=gvec, client_params=plane,
                           opt_state=self.aggregator.init_flat_state(gvec),
-                          labels=self._labels_tensor())
+                          labels=self._labels_tensor(), sched=sched)
 
     def traced_inputs(self) -> RoundInputs:
         """What the device-resident run reads besides the carry: the
@@ -831,11 +963,14 @@ class FLExperiment:
                           labels: Optional[np.ndarray] = None) -> None:
         """Copy a finished carry back into the experiment (the padding rows
         sliced off), so the host loop or another run continues from it.
-        ``labels``: the carry's K-means labels already on the host."""
+        ``labels``: the carry's K-means labels already on the host. An
+        asynchronous carry's stats table is copied into the store's."""
         n = self.fed.num_clients
         self.global_vec = state.params.clone()
         self.client_plane = state.client_params[:n].clone()
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
+        if state.sched is not None:
+            self.stats.load(state.sched)
         self.cluster_labels = (state.labels.cpu().numpy() if labels is None
                                else np.asarray(labels, dtype=np.int64))
         self.clusters = clusters_from_labels(self.cluster_labels,
@@ -864,17 +999,20 @@ class FLExperiment:
             aggregator=self.aggregator, tctx=self.traced_context(),
             feature_layer=self.fl.feature_layer, device=self.device,
             shapes=inputs.shapes(), base=self.base,
-            compressor=self.compressor, channel=self.channel)
+            compressor=self.compressor, channel=self.channel,
+            churn=self.churn)
         return prog(self.traced_state(selector), *inputs,
                     draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)
 
     def _run_traced(self, selector, rounds: int,
-                    include_initial_round: bool = True) -> FLHistory:
+                    include_initial_round: bool = True,
+                    draws=None) -> FLHistory:
         """:meth:`traced_run`, then its history and the carry's labels in
         one device-to-host transfer, and the carry back into the
         experiment."""
-        res = self.traced_run(selector, rounds, include_initial_round)
+        res = self.traced_run(selector, rounds, include_initial_round,
+                              draws=draws)
         *vals, labels = to_host(history_parts(res) + [res.state.labels])
         self.load_traced_state(res.state, labels=labels)
         return self.history_from_traced(res, self.fed.num_clients, vals)
@@ -883,10 +1021,11 @@ class FLExperiment:
     def history_from_traced(res: TracedRunResult, num_devices: int,
                             values=None) -> FLHistory:
         """A traced run's history: accuracy, T_k, E_k, Σ b_n, per-class
-        accuracy and the selections (padding lanes stripped), read in one
-        transfer (``values``: :func:`history_parts` already on the host).
-        ``seconds`` stays empty: the rounds have no host boundary of their
-        own to time. (A cohort's lanes: ``CohortHistory.history``.)"""
+        accuracy and the selections (padding lanes stripped), and an
+        asynchronous run's traces, read in one transfer (``values``:
+        :func:`history_parts` already on the host). ``seconds`` stays
+        empty: the rounds have no host boundary of their own to time. (A
+        cohort's lanes: ``CohortHistory.history``.)"""
         vals = list(to_host(history_parts(res)) if values is None
                     else values)
         hist = FLHistory()
@@ -898,14 +1037,18 @@ class FLExperiment:
                 accuracy=float(acc), per_class=per_class.astype(np.float32),
                 band_mhz=float(band)))
         if res.rounds is not None:
-            acc, T, E, sel, mask, band, per_class = vals[:7]
-            for k in range(acc.shape[0]):
+            r = rounds_by_name(res.rounds, vals)
+            for k in range(r["accuracy"].shape[0]):
                 hist.append(RoundResult(
-                    selected=sel[k][mask[k] > 0].astype(np.int64),
-                    T_k=float(T[k]), E_k=float(E[k]),
-                    accuracy=float(acc[k]),
-                    per_class=per_class[k].astype(np.float32),
-                    band_mhz=float(band[k])))
+                    selected=r["selected"][k][r["mask"][k] > 0].astype(
+                        np.int64),
+                    T_k=float(r["T"][k]), E_k=float(r["E"][k]),
+                    accuracy=float(r["accuracy"][k]),
+                    per_class=r["per_class"][k].astype(np.float32),
+                    band_mhz=float(r["band"][k])))
+            for name in ("participation", "staleness", "active"):
+                if name in r:
+                    getattr(hist, name).extend(float(x) for x in r[name])
         return hist
 
 
@@ -915,6 +1058,14 @@ def history_parts(res: TracedRunResult) -> list:
     return [t for t in (([] if res.init is None else list(res.init))
                         + ([] if res.rounds is None else list(res.rounds)))
             if t is not None]
+
+
+def rounds_by_name(rounds: RoundOutputs, values) -> dict:
+    """The host arrays ``values`` of ``rounds``' slots that are not
+    ``None`` (in :class:`RoundOutputs` order, as :func:`history_parts`
+    lists them after the initial round's), keyed by slot name."""
+    names = [n for n, t in zip(RoundOutputs._fields, rounds) if t is not None]
+    return dict(zip(names, values))
 
 
 def to_host(tensors) -> list:

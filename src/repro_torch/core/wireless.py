@@ -225,13 +225,15 @@ def device_scalar(x, device) -> torch.Tensor:
 def masked_max(x, mask=None, empty=0.0, keepdim: bool = False):
     """Max over the real lanes, the last axis (so one max per row of a
     leading batch: a cohort's seeds, a grid of deadlines); a row whose
-    mask is all False gives ``empty``."""
+    mask is all False gives ``empty`` (a number, or a tensor of the
+    result's shape, e.g. a tick's clock: nothing reads it on the host)."""
     if mask is None:
         return torch.amax(x, dim=-1, keepdim=keepdim)
     m = torch.amax(torch.where(mask, x, torch.full_like(x, -float("inf"))),
                    dim=-1, keepdim=keepdim)
-    return torch.where(torch.any(mask, dim=-1, keepdim=keepdim), m,
-                       torch.full_like(m, empty))
+    if not isinstance(empty, torch.Tensor):
+        empty = torch.full_like(m, empty)
+    return torch.where(torch.any(mask, dim=-1, keepdim=keepdim), m, empty)
 
 
 def masked_sum(x, mask=None, keepdim: bool = False):

@@ -1,8 +1,8 @@
-"""Registered server aggregation strategies: eq. (4) FedAvg and the
-beyond-paper FedAvgM server momentum, on the flat plane
-(``repro.strategies.aggregators``).
+"""Registered server aggregation strategies: eq. (4) FedAvg, the
+beyond-paper FedAvgM server momentum and FedBuff's buffered asynchronous
+fold, on the flat plane (``repro.strategies.aggregators``).
 
-Both implement the flat contract the round body drives: ``aggregate_flat``
+All implement the flat contract the round body drives: ``aggregate_flat``
 folds the round's ``[S, P]`` rows with one ``ops.flat_aggregate`` row
 reduction (the hand-written kernel on the card); ``init_flat_state``
 builds the server state carried in ``RoundState.opt_state`` (``None``, or
@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.api.registry import AGGREGATORS, Strategy
+from repro_torch.api.registry import AGGREGATORS, Strategy, StrategyError
 from repro_torch.core.algorithms import ServerMomentum
 from repro_torch.kernels import ops
 from repro_torch.utils.trees import (flatten_vector, stack_flatten_spec,
@@ -51,6 +51,79 @@ class FedAvgAggregator(Strategy):
         """``(new global row, new server state)``: rows ``[S, P]`` and
         weights ``[S]`` give ``[P]``; with a leading lane axis (``[B, S,
         P]``, ``[B, S]``) one global row a lane, ``[B, P]``."""
+        return ops.flat_aggregate(rows, weights), opt_state
+
+    def load_flat_state(self, opt_state, spec) -> None:
+        pass
+
+    def reset(self) -> None:
+        pass
+
+
+@AGGREGATORS.register("fedbuff")
+@dataclass(frozen=True)
+class FedBuffAggregator(Strategy):
+    """FedBuff (Nguyen et al. 2022): buffered asynchronous aggregation,
+    spelled ``fedbuff:M[:alpha]``. The buffer fires when ``m`` updates
+    have landed, folding them with staleness-discounted weights ``w ∝ (1 +
+    age)^(-alpha)``.
+
+    ``async_capable`` routes a run to the buffered-asynchronous engine
+    (``repro_torch.core.async_engine``), which discounts the weights with
+    :meth:`staleness_weights` first; ``aggregate_flat`` is then FedAvg's
+    one row reduction, so ``fedbuff:M:0`` with M at least the padded
+    selection and no churn is the synchronous round bit for bit."""
+
+    m: int = 10
+    alpha: float = 0.0
+
+    fuses_with_engine = False
+    traceable = True
+    async_capable = True
+
+    def __post_init__(self):
+        if self.m < 1:
+            raise StrategyError(
+                f"fedbuff buffer size must be >= 1 (got {self.m})")
+        if self.alpha < 0:
+            raise StrategyError(
+                f"fedbuff staleness exponent must be >= 0 (got {self.alpha})")
+
+    @classmethod
+    def from_string(cls, arg):
+        """``M[:alpha]`` (the registry splits ``fedbuff:M:alpha`` at its
+        first colon)."""
+        if arg is None or arg == "":
+            return cls()
+        m_s, _, alpha_s = arg.partition(":")
+        try:
+            m = int(m_s)
+            alpha = float(alpha_s) if alpha_s else 0.0
+        except ValueError:
+            raise StrategyError(
+                f"fedbuff:{arg}: expected 'M[:alpha]' with integer M and "
+                "float alpha") from None
+        return cls(m=m, alpha=alpha)
+
+    @property
+    def buffer_size(self) -> int:
+        return self.m
+
+    @property
+    def staleness_alpha(self) -> float:
+        return self.alpha
+
+    def staleness_weights(self, age: torch.Tensor) -> torch.Tensor:
+        """``(1 + age)^(-alpha)``; at ``alpha == 0`` ones, so no ``pow``
+        touches the weights."""
+        if self.alpha == 0.0:
+            return torch.ones_like(age)
+        return torch.pow(1.0 + age, -self.alpha)
+
+    def init_flat_state(self, global_vec: torch.Tensor):
+        return None
+
+    def aggregate_flat(self, global_vec, rows, weights, opt_state=None):
         return ops.flat_aggregate(rows, weights), opt_state
 
     def load_flat_state(self, opt_state, spec) -> None:

@@ -118,7 +118,8 @@ class DivergenceSelector(Strategy):
                       ctx: TracedContext):
         return select_divergence_traced(
             divergences, labels, num_clusters=ctx.num_clusters,
-            s=ctx.selected_per_cluster, num_devices=ctx.num_devices)
+            s=ctx.selected_per_cluster, num_devices=ctx.num_devices,
+            avail=arr.get("avail") if isinstance(arr, dict) else None)
 
 
 @SELECTORS.register("icas")

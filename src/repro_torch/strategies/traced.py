@@ -23,6 +23,13 @@ Every policy also takes a leading lane axis (a cohort's seeds, where the
 reference ``vmap``s): divergences, labels, draws and fleet arrays of
 ``[B, N]`` give ``idx``/``mask`` of ``[B, pad]``, each lane the selection
 its own inputs give alone.
+
+Under the buffered-asynchronous engine's churn the fleet arrays carry an
+``avail`` mask (1.0 / 0.0, ``repro_torch.core.async_engine``): the
+divergence and ICAS policies sink an unavailable device's score to −inf,
+so it wins no slot (the stable sort keeps −inf last, and a −inf winner
+is marked invalid), and stochastic scheduling gives it probability 0.
+Without the key each policy is the program it was.
 """
 from __future__ import annotations
 
@@ -74,9 +81,18 @@ def _per_cluster_topk(scores, labels, num_clusters: int, s: int,
     return idx.reshape(lead + (-1,)), valid.reshape(lead + (-1,))
 
 
+def _sink_unavailable(scores, avail):
+    """``scores`` with the devices ``avail`` marks gone at −inf."""
+    return torch.where(avail > 0.0, scores,
+                       torch.full_like(scores, -float("inf")))
+
+
 def select_divergence_traced(divergences, labels, *, num_clusters: int,
-                             s: int, num_devices: int):
-    """Algorithm 4: the top-s weight divergence of each cluster."""
+                             s: int, num_devices: int, avail=None):
+    """Algorithm 4: the top-s weight divergence of each cluster; under
+    churn (``avail``) of its available devices only."""
+    if avail is not None:
+        divergences = _sink_unavailable(divergences, avail)
     return _per_cluster_topk(divergences, labels, num_clusters, s,
                              num_devices)
 
@@ -96,7 +112,10 @@ def select_random_traced(permutation, *, num_devices: int, S: int):
 
 def select_icas_traced(divergences, arr, *, bandwidth_mhz: float,
                        num_devices: int, S: int, beta: float):
-    """ICAS: importance × channel rate, a geometric blend; the top S."""
+    """ICAS: importance × channel rate, a geometric blend; the top S.
+    Under churn (``arr["avail"]``) the unavailable devices score −inf, and
+    only finite winners stay valid (the rest point at the sentinel N)."""
+    avail = arr.get("avail")
     arr = effective_arrays(arr)
     rates = rate_at(arr, bandwidth_mhz / num_devices)
     u = divergences / torch.clamp(
@@ -104,8 +123,13 @@ def select_icas_traced(divergences, arr, *, bandwidth_mhz: float,
     r = rates / torch.clamp(torch.amax(rates, dim=-1, keepdim=True),
                             min=1e-12)
     score = torch.pow(u, beta) * torch.pow(r, 1.0 - beta)
-    _, idx = _stable_top(score, S)
-    return idx, torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    if avail is None:
+        _, idx = _stable_top(score, S)
+        return idx, torch.ones(idx.shape, dtype=torch.bool,
+                               device=idx.device)
+    top, idx = _stable_top(_sink_unavailable(score, avail), S)
+    valid = torch.isfinite(top)
+    return torch.where(valid, idx, num_devices), valid
 
 
 def select_stochastic_sched_traced(uniforms, arr, *, bandwidth_mhz: float,
@@ -113,11 +137,16 @@ def select_stochastic_sched_traced(uniforms, arr, *, bandwidth_mhz: float,
     """Churn-aware stochastic scheduling (Perazzone et al., arXiv
     2201.07912): each device joins independently with a probability
     proportional to its energy headroom over its per-round cost,
-    normalised to an expected set size of S; never empty. N lanes."""
+    normalised to an expected set size of S; never empty. N lanes. Under
+    churn (``arr["avail"]``) an unavailable device's ratio is 0: it is
+    never drawn."""
+    avail = arr.get("avail")
     arr = effective_arrays(arr)
     cost = (arr["H"] / rate_at(arr, bandwidth_mhz / S)
             + arr["G"] * torch.square(arr["f_max"]))
     ratio = arr["e_cons"] / torch.clamp(cost, min=1e-12)
+    if avail is not None:
+        ratio = ratio * avail
     total = torch.sum(ratio, dim=-1, keepdim=True)
     p = torch.clamp(S * ratio / torch.clamp(total, min=1e-12), 0.0, 1.0)
     return _participants(uniforms < p, ratio, num_devices)

@@ -679,3 +679,68 @@ def test_paged_store_on_the_card_equals_the_dense_host_loop(cuda):
     want, got = dense.client_tree(), paged.client_tree()
     for name in want:
         np.testing.assert_array_equal(got[name], want[name])
+
+
+# ---------------------------------------------------------------------------
+# the buffered-asynchronous engine
+# ---------------------------------------------------------------------------
+
+
+def test_async_replays_equal_eager_ticks(cuda):
+    """Three replays of the captured FedBuff tick under churn against three
+    eager ticks of the same round body from the same carry, batch indices
+    and churn uniforms: the global row, the plane, the stats table and
+    every output bit for bit."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core import engine
+    from repro_torch.core.graphs import eager_solves
+    spec = ExperimentSpec(**TINY, aggregator="fedbuff:2:0.5",
+                          churn_leave=0.3, churn_join=0.3)
+    exp = build_experiment(spec, device=cuda)
+    hist = exp.run(rounds=1)             # the initial round + one tick
+    assert hist.seconds == [] and len(hist.participation) == 1
+    inputs = exp.traced_inputs()
+    prog = engine.run_rounds(
+        exp.engine_cfg, selector=exp.selector, allocator=exp.allocator,
+        aggregator=exp.aggregator, tctx=exp.traced_context(),
+        feature_layer=exp.fl.feature_layer, device=exp.device,
+        shapes=inputs.shapes(), compressor=exp.compressor,
+        channel=exp.channel, churn=exp.churn)
+    assert prog.graph is not None and prog.ph.churn_on
+    draws = [(exp.draws.batch_indices(prog.pad, 2, 8, 16),
+              torch.stack(exp.draws.churn_step(8))) for _ in range(3)]
+    prog.load(exp.traced_state(), inputs)
+    got = [[None if t is None else t.clone()
+            for t in prog.replay(b, churn=c)] for b, c in draws]
+    got_state = [t.clone() for t in (prog.state.params,
+                                     prog.state.client_params,
+                                     *prog.state.sched)]
+    state = exp.traced_state()
+    want = []
+    with eager_solves():
+        for b, c in draws:
+            state, out = prog.round_body(state, inputs, b, churn=c)
+            want.append(out)
+    torch.cuda.synchronize()
+    for g_out, w_out in zip(got, want):
+        for name, g, w in zip(engine.RoundOutputs._fields, g_out, w_out):
+            assert (g is None) == (w is None), name
+            assert g is None or torch.equal(g, w), name
+    for g, w in zip(got_state, (state.params, state.client_params,
+                                *state.sched)):
+        assert torch.equal(g, w)
+
+
+def test_async_candidate_fold_matches_plain(cuda):
+    """The tick's fold of its M = 4 candidates at the paper CNN's width,
+    a weight-0 NaN row among them, against the plain version."""
+    flat = torch.tensor(_normal(40, 4, 113_744), device=cuda)
+    w = torch.tensor([0.5, 0.0, 1.0, 0.25], device=cuda)
+    flat[1] = float("nan")
+    before = flat_aggregate.launches
+    got = ops.flat_aggregate(flat, w)
+    torch.cuda.synchronize()
+    assert flat_aggregate.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, flat_aggregate_plain(
+        flat, w / w.sum()), **AGG_TOL)

@@ -65,7 +65,7 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("aggregator", "trimmed:0.2"), ("aggregator", "clipnorm:1.0"),
-    ("aggregator", "fedbuff:4"),
+    ("aggregator", "clipnorm"),
     ("faults", "outage:0.1"), ("compressor", "qsgd:4"),
     ("p_shards", 2), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):

@@ -225,7 +225,7 @@ def test_paged_refusals(paged_run):
     with pytest.raises(ValueError, match="store='paged'"):
         build_experiment(fading, device="cpu").run()
     with pytest.raises(StrategyError, match="port"):
-        ExperimentSpec(**SPEC, **EXACT, aggregator="fedbuff:4")
+        ExperimentSpec(**SPEC, **EXACT, aggregator="trimmed:0.2")
     with pytest.raises(ValueError, match="paged"):
         build_cohort(ExperimentSpec(**SPEC, **EXACT), device="cpu")
 

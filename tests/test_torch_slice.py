@@ -55,6 +55,13 @@ class JaxReplayDraws:
                 for k in jax.random.split(key, local_iters)] for key in keys]
         return torch.tensor(np.asarray(idx), dtype=torch.long)
 
+    def churn_step(self, n):
+        """One tick's churn: the reference's ``churn_step`` splits one key
+        off the stream, then that key into the leave and join keys."""
+        k_leave, k_join = jax.random.split(self._next())
+        return tuple(torch.tensor(np.asarray(jax.random.uniform(k, (n,))))
+                     for k in (k_leave, k_join))
+
     def channel_init(self, shape):
         """The fade's h_0: the reference's ``_gm_init`` draw."""
         return self._complex_normal(shape)

@@ -121,6 +121,56 @@ def test_traced_selector_matches_reference(name, seed):
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
 
 
+# the asynchronous engine's churn mask: most devices gone, so a cluster
+# (and ICAS's top S) runs out of available devices
+AVAIL_MASKS = {"few": [0, 3, 4, 9], "none": [], "all": list(range(N))}
+
+
+@pytest.mark.parametrize("avail", sorted(AVAIL_MASKS))
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["divergence", "icas", "icas:0.3",
+                                  "stochastic-sched", "kmeans_random",
+                                  "random", "rra"])
+def test_traced_selector_with_churn_mask_matches_reference(name, seed,
+                                                          avail):
+    """``arr["avail"]`` (1.0 / 0.0): the divergence and ICAS policies rank
+    only available devices (an unavailable winner points at the sentinel
+    and is masked), stochastic scheduling never draws one; the other
+    policies ignore the key, as the reference's do."""
+    port, ref = _selector_inputs(seed)
+    a = np.zeros(N, np.float32)
+    a[AVAIL_MASKS[avail]] = 1.0
+    port["arr"] = dict(port["arr"], avail=torch.tensor(a))
+    ref["arr"] = dict(ref["arr"], avail=jnp.asarray(a))
+    got_sel, want_sel = SELECTORS.resolve(name), REF_SELECTORS.resolve(name)
+    key = jax.random.PRNGKey(20 + seed)
+    want_idx, want_mask = want_sel.select_traced(
+        key if want_sel.needs_rng else None, ref["div"], ref["labels"],
+        ref["arr"], ref["ctx"])
+    got_idx, got_mask = got_sel.select_traced(
+        _draw(name, key), port["div"], port["labels"], port["arr"],
+        port["ctx"])
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    if name in ("divergence", "icas", "icas:0.3") or (
+            name == "stochastic-sched" and avail != "none"):
+        assert set(got_idx[got_mask].tolist()) <= set(AVAIL_MASKS[avail])
+
+
+def test_churn_mask_keeps_ties_in_index_order():
+    """Sunk devices sort last among −inf ties in index order (the stable
+    descending sort), and are marked invalid: lanes 1 and 3 of ``[3, 1, 3,
+    2, 3]`` left, so the cluster's top 2 are lanes 0 and 2 and a third slot
+    would get none."""
+    sel = SELECTORS.resolve("divergence")
+    ctx = TracedContext(5, 6, 3, 2, 20.0)
+    arr = {"avail": torch.tensor([1.0, 0.0, 1.0, 0.0, 0.0])}
+    idx, mask = sel.select_traced(None, torch.tensor([3.0, 1, 3, 2, 3]),
+                                  torch.zeros(5, dtype=torch.long), arr, ctx)
+    assert idx.tolist() == [0, 2, 5, 5, 5, 5]
+    assert mask.tolist() == [True, True, False, False, False, False]
+
+
 def test_ties_go_to_the_lower_index_and_small_clusters_pad():
     """On ``[3, 1, 3, 2, 3]`` in one cluster the top 2 are lanes 0 and 2
     (``lax.top_k``; ``torch.topk`` gives 2 and 4); the empty cluster pads
