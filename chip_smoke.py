@@ -100,7 +100,24 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     clients (``random``, S = 16, ``fedbuff:4``): the rest of a tick at
     1e6 within 1.5x of 1e5's, the device's peak growing by no more than
     the per-client columns;
-13. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+13. faults, quarantine and checkpoint/resume (``repro_torch.core.faults``,
+    ``repro_torch.train.checkpoint``): (a) a tiny faulty host loop
+    (``outage:0.2,corrupt:0.2,byzantine:0.1``, quarantine after 1 strike)
+    on the CPU and on the card from the same draws, under ``trimmed:0.2``
+    and ``clipnorm:1.0``: selections and counts equal, the row within
+    1e-4; (b) ``ExperimentSpec(faults="outage:0.1,corrupt:0.05,
+    byzantine:0.1", quarantine_after=2, aggregator="trimmed:0.2")``, 5
+    rounds, traced against the host loop bit for bit, 0 host syncs, the
+    faulty replay beside ``ExperimentSpec()``'s (ms, launches, idle
+    share), the path's kernel launches; (c) a deadline above the rounds'
+    T* (the deadline-free run bit for bit) and far below it (every round
+    the all-failed no-op); (d) 200 clients under churn and faults, the
+    dense tick against the paged pieces bit for bit; (e) kill and resume
+    on the dense host loop, the paged loop and the paged asynchronous
+    loop, 6 rounds against 3 + a snapshot + 3, bit for bit; (f)
+    ``flat_aggregate`` with NaN rows at weight 0 at [10, 113744], the live
+    rows' fold bit for bit, its ms against its bound;
+14. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -677,6 +694,12 @@ class _CpuDraws:
 
     def kmeans_choice(self, i, p):
         return self.inner.kmeans_choice(i, p.cpu()).to(self.device)
+
+    def fault_masks(self, spec, shape):
+        return self.inner.fault_masks(spec, shape).to(self.device)
+
+    def byzantine(self, spec, n):
+        return self.inner.byzantine(spec, n)
 
 
 def agreement_phase(torch):
@@ -1322,15 +1345,17 @@ def idle_share(busy_ms, window_ms):
     return 1.0 - busy_ms / window_ms
 
 
-def profile_replay(torch, prog, batch, draw=None, fade=None, churn=None):
+def profile_replay(torch, prog, batch, draw=None, fade=None, churn=None,
+                   fault=None):
     """One replay of ``prog``'s captured round under ``torch.profiler``
     (``profiled_device_work``): its device launches, busy ms, the launches
     of each FL kernel and of each device function, the marks kept before
     and after it, and its own device window [ms]."""
     from collections import defaultdict
-    prog.replay(batch, draw, fade, churn)
+    prog.replay(batch, draw, fade, churn, fault)
     work, before, after, window = profiled_device_work(
-        torch, lambda: prog.replay(batch, draw, fade, churn), "the replay")
+        torch, lambda: prog.replay(batch, draw, fade, churn, fault),
+        "the replay")
     by_name = defaultdict(lambda: [0, 0.0])
     for name, ms in work:
         by_name[name][0] += 1
@@ -1410,7 +1435,8 @@ def single_program(exp):
         aggregator=exp.aggregator, tctx=exp.traced_context(),
         feature_layer=exp.fl.feature_layer, device=exp.device,
         shapes=exp.traced_inputs().shapes(), base=exp.base,
-        compressor=exp.compressor, channel=exp.channel, churn=exp.churn)
+        compressor=exp.compressor, channel=exp.channel, churn=exp.churn,
+        **exp._fault_args())
 
 
 def traced_phase(torch, rounds=5):
@@ -2964,6 +2990,489 @@ def async_population_phase(torch, sizes=SCALE_SIZES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. faults, quarantine and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+FAULTS_TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
+                   train_samples=160, test_samples=80, local_iters=2,
+                   batch_size=8, devices_per_round=4, num_clusters=4)
+FAULTS_FULL = dict(faults="outage:0.1,corrupt:0.05,byzantine:0.1",
+                   quarantine_after=2)
+FAULTS_ASYNC = dict(clients=200, selection="icas", aggregator="fedbuff:2:0.5",
+                    faults="outage:0.2,corrupt:0.3", quarantine_after=2,
+                    churn_leave=0.05, churn_join=0.1)
+FAULTS_ROUNDS = 5
+FREE_REPLAY_LAUNCHES = 54_991     # ExperimentSpec()'s replay (PERF.md, 19b)
+# the selectors' top-k (strategies/traced.py::_stable_top) sorts an int32
+# key that ranks NaN last, as lax.top_k does: a shift, an and, a xor, an
+# isnan, the fill of the where's scalar, the where and the gather of the
+# values, once for the round's one selection, where the float sort's
+# values were a slice
+TOPK_KEY_LAUNCHES = 7
+SCHED_COLUMNS = ("age", "t_done", "avail", "t_now", "cell", "faults",
+                 "strikes")
+
+
+def faults_agreement(torch, rounds=3):
+    """(a) A tiny faulty host loop on the CPU and on the card from the same
+    draws (the CPU's, the byzantine subset included): selections and the
+    fault and strike counts equal, the row within atol 1e-4, T/E within
+    rtol 2e-3; once under ``trimmed:0.2``, once under ``clipnorm:1.0``
+    (its fold through the kernel). Returns the card's clipnorm run's
+    kernel launches."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    fns = kernel_fns()
+    launches = None
+    for agg in ("trimmed:0.2", "clipnorm:1.0"):
+        spec = ExperimentSpec(**FAULTS_TINY, aggregator=agg,
+                              faults="outage:0.2,corrupt:0.2,byzantine:0.1",
+                              quarantine_after=1)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            exp = build_experiment(spec, device=dev, draws=_CpuDraws(0, dev))
+            zero_counts(fns)
+            h = exp.run(rounds=rounds, target_accuracy=2.0)   # host loop
+            out[dev] = (h, exp.global_vec.cpu(), exp.stats)
+            if dev == DEVICE:
+                counts = counts_now(fns)
+        (h_c, g_c, st_c), (h_g, g_g, st_g) = out["cpu"], out[DEVICE]
+        check(len(h_g.seconds) == rounds + 1, f"(a) {agg}: not the host loop")
+        for k, (a, b) in enumerate(zip(h_c.selected, h_g.selected)):
+            check(np.array_equal(a, b), f"(a) {agg}: round {k} selected "
+                                        f"{list(b)} on the card, {list(a)} "
+                                        "on the CPU")
+        for col in ("faults", "strikes"):
+            check(np.array_equal(getattr(st_c, col), getattr(st_g, col)),
+                  f"(a) {agg}: {col} {getattr(st_g, col)} on the card, "
+                  f"{getattr(st_c, col)} on the CPU")
+        for name in ("T_k", "E_k"):
+            a, b = getattr(h_c, name), getattr(h_g, name)
+            check(all(math.isclose(x, y, rel_tol=2e-3) for x, y in zip(a, b)),
+                  f"(a) {agg}: {name} {b} on the card, {a} on the CPU")
+        err = float((g_c - g_g).abs().max())
+        check(err <= 1e-4, f"(a) {agg}: global row differs by {err}")
+        check(bool(torch.isfinite(g_g).all()), f"(a) {agg}: non-finite row")
+        print(f"  (a) {agg}, {rounds} host-loop rounds: selections, faults "
+              f"{st_g.faults.astype(int).tolist()} and strikes "
+              f"{st_g.strikes.astype(int).tolist()} equal; global row "
+              f"max_abs_err={err:.3e} (tol 1e-4); T_k/E_k within rtol 2e-3;"
+              f" card launches {counts}")
+        if agg.startswith("clipnorm"):
+            check(counts["flat_aggregate"] == rounds + 1,
+                  f"(a) clipnorm: {counts['flat_aggregate']} folds through "
+                  f"the kernel, not {rounds + 1}")
+            launches = counts
+    return launches
+
+
+def _replay_turns(torch, progs, reps=3):
+    """Median wall [ms] of synchronised replays, the programs in turns
+    (``progs``: name → (program, replay args))."""
+    import numpy as np
+    walls = {name: [] for name in progs}
+    order = list(progs) + list(progs)[::-1]
+    for _ in range(reps):
+        for name in order:
+            prog, kw = progs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.replay(**kw)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def faults_traced_phase(torch, rounds=FAULTS_ROUNDS):
+    """(b) ``ExperimentSpec(faults="outage:0.1,corrupt:0.05,byzantine:0.1",
+    quarantine_after=2, aggregator="trimmed:0.2")``: the device-resident
+    run (one captured round, the fault draw a graph input) against the
+    host loop from the same seed, ``rounds`` rounds: accuracy, the global
+    row, the selections and the fault and strike counts bit for bit. A
+    second run counts host syncs (0); the faulty replay and
+    ``ExperimentSpec()``'s beside it in turns, each profiled; the path's
+    kernel launches from a profiled run."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core.faults import draw_fault_masks
+
+    spec = ExperimentSpec(**FAULTS_FULL, aggregator="trimmed:0.2")
+    fns = kernel_fns()
+    traced = build_experiment(spec, device=DEVICE)
+    host = build_experiment(spec, device=DEVICE)
+    t0 = time.perf_counter()
+    h_t = traced.run(rounds=rounds)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(h_t.seconds == [], "(b) run() did not take the device-resident "
+                             "path")
+    h_h = host._run_host(None, rounds, 0.0)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(h_t.selected, h_h.selected)):
+        check(np.array_equal(a, b), f"(b) round {k}: traced {list(a)}, host "
+                                    f"loop {list(b)}")
+    for name in ("accuracy", "T_k", "E_k", "band_mhz"):
+        check(getattr(h_t, name) == getattr(h_h, name),
+              f"(b) {name}: traced {getattr(h_t, name)}, host loop "
+              f"{getattr(h_h, name)}")
+    check(bool(torch.equal(traced.global_vec, host.global_vec)),
+          "(b) the global rows differ")
+    for col in ("faults", "strikes"):
+        check(np.array_equal(getattr(traced.stats, col),
+                             getattr(host.stats, col)),
+              f"(b) {col}: traced {getattr(traced.stats, col)}, host loop "
+              f"{getattr(host.stats, col)}")
+    check(bool(torch.isfinite(traced.global_vec).all()), "(b) non-finite "
+                                                         "row")
+    prog = single_program(traced)
+    check(prog.graph is not None and prog.ph.faults_on,
+          "(b) the faulty round was not captured")
+    print(f"  (b) {spec.faults}, quarantine_after=2, trimmed:0.2, {rounds} "
+          f"rounds: traced ≡ host loop bit for bit (accuracy "
+          f"{[round(a, 4) for a in h_t.accuracy]}, global row, selections, "
+          f"faults {traced.stats.faults.astype(int).tolist()}, strikes "
+          f"{traced.stats.strikes.astype(int).tolist()}); first traced run "
+          f"{first_ms:.1f} ms, capture {prog.capture_ms:.1f} ms")
+
+    # the fault-free ExperimentSpec() beside it, its round captured
+    free = build_experiment(ExperimentSpec(), device=DEVICE)
+    free.run(rounds=1)
+    fprog = single_program(free)
+    check(fprog.graph is not None, "(b) the fault-free round was not "
+                                   "captured")
+
+    # a second run of each from its seed (the graph cached): host syncs
+    # from the initial round to the last replay
+    again = build_experiment(spec, device=DEVICE)
+    for name, p, s in (("faulty", prog, spec), ("fault-free", fprog,
+                                                 ExperimentSpec())):
+        exp = again if p is prog else build_experiment(s, device=DEVICE)
+        state, inputs = exp.traced_state(), exp.traced_inputs()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = p(state, *inputs, draws=exp.draws, rounds=rounds,
+                        with_init=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        print(f"  (b) a second {name} run (graph cached), the initial round "
+              f"and {rounds} replays: host syncs {len(syncs)}"
+              f"{' ' + syncs[0][:120] if syncs else ''}")
+        check(not syncs, f"(b) the {name} traced run waited for the card")
+        if p is prog:
+            check(res.rounds.accuracy.cpu().tolist() == h_t.accuracy[1:],
+                  "(b) a second faulty run from the same seed gave other "
+                  "accuracies")
+    batch = again.draws.batch_indices(prog.pad, spec.local_iters,
+                                      spec.batch_size, spec.samples_per_client)
+    fault = draw_fault_masks(spec.faults, (prog.pad,), again.draws)
+    prog.load(again.traced_state(), again.traced_inputs())
+    fprog.load(free.traced_state(), free.traced_inputs())
+    ms = _replay_turns(torch, {"faulty": (prog, dict(batch_idx=batch,
+                                                      fault=fault)),
+                               "free": (fprog, dict(batch_idx=batch))})
+    prof = {}
+    for name, p, kw in (("faulty", prog, dict(fault=fault)),
+                        ("free", fprog, {})):
+        n_dev, busy, inside, _, kept, window = profile_replay(
+            torch, p, batch, **kw)
+        prof[name] = dict(device_launches=n_dev, busy_ms=busy,
+                          window_ms=window, idle=idle_share(busy, window),
+                          inside=inside, replay_ms=ms[name])
+        print(f"  (b) {name} replay: {ms[name]:.1f} ms (median of 6, in "
+              f"turns, synchronised), {n_dev} device launches, {busy:.2f} ms "
+              f"busy in a window of {window:.2f} ms: idle share "
+              f"{idle_share(busy, window):.4f}; FL kernels inside {inside} "
+              f"(marks kept {kept[0]} and {kept[1]})")
+    free_n = prof["free"]["device_launches"]
+    diff = free_n - FREE_REPLAY_LAUNCHES
+    print(f"  (b) the fault-free replay's launches {free_n} against PERF.md's "
+          f"{FREE_REPLAY_LAUNCHES} (call 19b): {diff:+d}"
+          + (" = the selection's NaN-last top-k key (+"
+             f"{TOPK_KEY_LAUNCHES})" if diff == TOPK_KEY_LAUNCHES else
+             f", not the top-k key's +{TOPK_KEY_LAUNCHES} alone")
+          + f"; the faulty replay's {prof['faulty']['device_launches']} "
+            f"({prof['faulty']['device_launches'] - free_n:+d}: trimmed's "
+            "sort in place of the fold kernel, the fault arms, the guard "
+            "and the counts)")
+    # trimmed:0.2 folds by a sort: no fold kernel; one divergence each
+    check(prof["faulty"]["inside"] == {"flat_aggregate": 0,
+                                       "pairwise_l2": 1}
+          and prof["free"]["inside"] == {"flat_aggregate": 1,
+                                         "pairwise_l2": 1},
+          f"(b) the replays launched {prof['faulty']['inside']} (faulty) "
+          f"and {prof['free']['inside']} (fault-free)")
+
+    third = build_experiment(spec, device=DEVICE)
+    state, inputs = third.traced_state(), third.traced_inputs()
+    launches, wrapped = path_launches(torch, fns, lambda: prog(
+        state, *inputs, draws=third.draws, rounds=rounds, with_init=True),
+        rounds, "(b) the faulty device-resident path")
+    hold_path_launches(launches, wrapped, prof["faulty"]["inside"], rounds,
+                       "(b) the faulty device-resident path",
+                       replayed=("pairwise_l2",))
+    return launches, prof
+
+
+def deadline_phase(torch, rounds=3):
+    """(c) ``ExperimentSpec(aggregator="fedavgm:0.9")`` traced, then a
+    deadline on each side of the rounds' T*: at twice the largest T_k
+    nothing drops and the run is the deadline-free run bit for bit (a
+    deadline takes no draw); at a thousandth of the least every round is
+    the all-failed no-op — the row and the momentum pass through."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.utils.trees import flatten_vector
+    base_spec = ExperimentSpec(aggregator="fedavgm:0.9")
+    base = build_experiment(base_spec, device=DEVICE)
+    h0 = base.run(rounds=rounds)
+    T_max, T_min = max(h0.T_k[1:]), min(h0.T_k[1:])
+    above = build_experiment(base_spec.replace(faults=f"deadline:{2 * T_max}"),
+                             device=DEVICE)
+    h1 = above.run(rounds=rounds)
+    for name in ("accuracy", "T_k", "E_k", "band_mhz"):
+        check(getattr(h1, name) == getattr(h0, name),
+              f"(c) above T*: {name} {getattr(h1, name)}, without a "
+              f"deadline {getattr(h0, name)}")
+    for a, b in zip(h0.selected, h1.selected):
+        check(list(a) == list(b), "(c) above T*: other selections")
+    check(bool(torch.equal(above.global_vec, base.global_vec)),
+          "(c) above T*: the global row differs from the deadline-free run")
+    check(above.stats.faults.sum() == 0, "(c) above T*: a dispatch dropped")
+    below = build_experiment(base_spec.replace(
+        faults=f"deadline:{1e-3 * T_min}"), device=DEVICE)
+    below.initial_round()
+    g0 = below.global_vec.clone()
+    v0 = flatten_vector(below.flat_spec, below.aggregator._opt.v).clone()
+    h2 = below.run(rounds=rounds, include_initial_round=False)
+    check(h2.seconds == [], "(c) below T*: not the device-resident run")
+    check(bool(torch.equal(below.global_vec, g0)),
+          "(c) below T*: the global row moved")
+    check(bool(torch.equal(flatten_vector(below.flat_spec,
+                                          below.aggregator._opt.v), v0)),
+          "(c) below T*: the momentum moved")
+    want = rounds * base_spec.devices_per_round
+    check(below.stats.faults.sum() == want,
+          f"(c) below T*: {below.stats.faults.sum()} drops, not {want}")
+    print(f"  (c) T* over {rounds} rounds {T_min:.6f}–{T_max:.6f} s: a "
+          f"deadline of {2 * T_max:.6f} s drops nothing and is the "
+          f"deadline-free run bit for bit; one of {1e-3 * T_min:.3e} s drops "
+          f"all {want} dispatches, the row and the momentum unchanged "
+          f"(accuracy {[round(a, 4) for a in h2.accuracy]})")
+
+
+def faults_async_phase(torch, ticks=3):
+    """(d) 200 clients, ``fedbuff:2:0.5``, ``outage:0.2,corrupt:0.3``,
+    quarantine after 2 strikes, churn 0.05/0.1: the dense tick (captured)
+    against the paged store's four pieces, ``ticks`` ticks without the
+    initial round: the history, the global row and every scheduler
+    column of the stats table (the counts included) bit for bit."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_experiment
+    spec = ExperimentSpec(**FAULTS_ASYNC)
+    runs = {}
+    for name, s in (("dense", spec),
+                    ("paged", spec.replace(store="paged", k_max=200,
+                                           div_refresh_every=1))):
+        exp = preset_clusters(build_experiment(s, device=DEVICE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = exp.run(rounds=ticks, include_initial_round=False)
+        torch.cuda.synchronize()
+        runs[name] = (exp, h, (time.perf_counter() - t0) * 1e3)
+    (d, h_d, d_ms), (p, h_p, p_ms) = runs["dense"], runs["paged"]
+    for k, (a, b) in enumerate(zip(h_d.selected, h_p.selected)):
+        check(np.array_equal(a, b), f"(d) tick {k}: paged {list(b)}, dense "
+                                    f"{list(a)}")
+    for name in ("accuracy", "T_k", "E_k", "band_mhz", "participation",
+                 "staleness", "active"):
+        check(getattr(h_d, name) == getattr(h_p, name),
+              f"(d) {name}: dense {getattr(h_d, name)}, paged "
+              f"{getattr(h_p, name)}")
+    check(bool(torch.equal(d.global_vec, p.global_vec)),
+          "(d) the global rows differ")
+    for col in SCHED_COLUMNS:
+        check(np.array_equal(getattr(d.stats, col), getattr(p.stats, col)),
+              f"(d) the stats column {col} differs")
+    check(d.stats.faults.sum() > 0, "(d) no fault was injected")
+    print(f"  (d) dense tick ≡ paged pieces over {ticks} ticks bit for bit "
+          f"(history, participation {h_p.participation}, global row, "
+          f"{'/'.join(SCHED_COLUMNS)}; faults {int(d.stats.faults.sum())}, "
+          f"strikes {int(d.stats.strikes.sum())}); dense {d_ms:.1f} ms "
+          f"(capture included), paged {p_ms:.1f} ms")
+
+
+def _same_resumed(torch, full, h_full, res, h_res, what):
+    import numpy as np
+    for name in ("accuracy", "T_k", "E_k", "band_mhz", "participation",
+                 "staleness", "active"):
+        check(getattr(h_full, name) == getattr(h_res, name),
+              f"(e) {what}: {name} {getattr(h_res, name)} resumed, "
+              f"{getattr(h_full, name)} uninterrupted")
+    for a, b in zip(h_full.selected, h_res.selected):
+        check(np.array_equal(a, b), f"(e) {what}: other selections")
+    check(bool(torch.equal(full.global_vec, res.global_vec)),
+          f"(e) {what}: the global rows differ")
+    for col in full.stats._fields:
+        check(np.array_equal(getattr(full.stats, col),
+                             getattr(res.stats, col)),
+              f"(e) {what}: the stats column {col} differs")
+
+
+def resume_phase(torch, tmp, rounds=6, cut=3):
+    """(e) Kill and resume on three host loops: ``rounds`` rounds (ticks)
+    uninterrupted; ``cut`` with a snapshot; a fresh experiment loads it
+    and runs the rest — the global row, the history and every stats
+    column bit for bit. The dense synchronous host loop and the paged
+    loop at ``ExperimentSpec()``'s width with (b)'s faults, the paged
+    asynchronous loop with (d)'s settings. Returns the dense resumed
+    run's kernel launches and each loop's write/read ms and MiB."""
+    import os
+    from repro_torch.api import ExperimentSpec, build_experiment
+    fns = kernel_fns()
+    loops = (
+        ("dense host loop", ExperimentSpec(**FAULTS_FULL), 2.0, False),
+        ("paged loop", ExperimentSpec(**FAULTS_FULL, store="paged",
+                                      div_refresh_every=1), None, False),
+        ("paged asynchronous loop", ExperimentSpec(
+            **FAULTS_ASYNC, store="paged", k_max=200, div_refresh_every=1),
+         None, True))
+    out, launches = {}, None
+    for what, spec, target, preset in loops:
+        d = os.path.join(tmp, what.replace(" ", "_"))
+
+        def build():
+            exp = build_experiment(spec, device=DEVICE)
+            return preset_clusters(exp) if preset else exp
+        full = build()
+        h_full = full.run(rounds=rounds, target_accuracy=target,
+                          include_initial_round=not preset)
+        part = build()
+        part.run(rounds=cut, target_accuracy=target,
+                 include_initial_round=not preset, checkpoint_every=cut,
+                 checkpoint_dir=d, checkpoint_spec=spec.to_dict())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part.save_checkpoint(os.path.join(tmp, "timed"), cut)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        snap = os.path.join(d, "round_%06d" % cut)
+        mib = sum(os.path.getsize(os.path.join(snap, f))
+                  for f in os.listdir(snap)) / 2 ** 20
+        res = build_experiment(spec, device=DEVICE)
+        t0 = time.perf_counter()
+        rnd, hist = res.load_checkpoint(d, expected_spec=spec.to_dict())
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        check(rnd == cut, f"(e) {what}: resumed at {rnd}")
+        zero_counts(fns)
+        h_res = res.run(rounds=rounds - cut, include_initial_round=False,
+                        target_accuracy=target, checkpoint_offset=rnd,
+                        history=hist)
+        torch.cuda.synchronize()
+        counts = counts_now(fns)
+        _same_resumed(torch, full, h_full, res, h_res, what)
+        out[what] = dict(write_ms=write_ms, read_ms=read_ms, mib=mib)
+        if launches is None:
+            launches = counts
+        print(f"  (e) {what}: {rounds} uninterrupted ≡ {cut} + snapshot + a "
+              f"fresh experiment + {rounds - cut} bit for bit (global row, "
+              f"history, every stats column; faults "
+              f"{int(full.stats.faults.sum())}, strikes "
+              f"{int(full.stats.strikes.sum())}); snapshot {mib:.2f} MiB, "
+              f"write {write_ms:.1f} ms, read {read_ms:.1f} ms; the resumed "
+              f"run's launches {counts}")
+    return launches, out
+
+
+def nan_fold_row(torch, timer):
+    """(f) ``flat_aggregate`` at a faulty round's fold, [10, 113744] with
+    3 NaN rows at weight 0: finite, bit for bit the fold of the 7 live
+    rows alone; its ms against the bound of the live rows' bytes at 3.35
+    TB/s, the plain version's and ``torch.mv``'s (time only: it gives NaN
+    there)."""
+    from repro_torch.kernels.flat_aggregate import (flat_aggregate,
+                                                    flat_aggregate_plain)
+    n, p, dead = 10, P_MNIST, (1, 4, 8)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    flat = torch.randn((n, p), generator=gen, device=DEVICE)
+    w = torch.rand((n,), generator=gen, device=DEVICE) + 0.1
+    for i in dead:
+        flat[i] = float("nan")
+        w[i] = 0.0
+    w = w / w.sum()
+    live = torch.tensor([i for i in range(n) if i not in dead],
+                        device=DEVICE)
+    got = flat_aggregate(flat, w)
+    alone = flat_aggregate(flat[live].contiguous(), w[live].contiguous())
+    want = flat_aggregate_plain(flat, w)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "(f) non-finite fold")
+    check(bool(torch.equal(got, alone)), "(f) the fold with NaN rows at "
+                                         "weight 0 is not the live rows' "
+                                         "fold bit for bit")
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **AGG_TOL))
+    check(ok, f"(f) disagrees with its plain version: {err}")
+    k = n - len(dead)
+    b_ms, b_by = bound(k * p * 4 + n * 4 + p * 4, 2 * k * p)
+    r = dict(shape=[n, p], nan_rows=len(dead), max_abs_err=err, ok=ok,
+             device_launches_per_call=device_launches(
+                 torch, lambda: flat_aggregate(flat, w)),
+             ms=timer(lambda: flat_aggregate(flat, w)),
+             plain_ms=timer(lambda: flat_aggregate_plain(flat, w)),
+             library_ms=timer(lambda: torch.mv(flat.t(), w)),
+             bound_ms=b_ms, bound_by=b_by,
+             bound_rate=rate_name(FP32_FLOP_PER_S))
+    print(f"  (f) flat_aggregate [{n},{p}] with {len(dead)} NaN rows at "
+          f"weight 0: finite, ≡ the {k} live rows' fold bit for bit; "
+          f"max_abs_err={err:.3e} (tol 2e-5) ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} library_ms(torch.mv, NaN out: time "
+          f"only)={r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+          f"3.35 TB/s) device_launches/call={r['device_launches_per_call']}")
+    return r
+
+
+def faults_phase(torch, rows):
+    """13. (a)–(f); ``rows``: phase 2's table, which gains (f)'s row."""
+    import tempfile
+    by_path = {}
+    print("  (a) CPU and card agree: a tiny faulty host loop, trimmed and "
+          "clipnorm")
+    by_path["faulty host loop, clipnorm (phase 13a)"] = faults_agreement(
+        torch)
+    torch.cuda.empty_cache()
+    print(f"  (b) {FAULTS_FULL}, trimmed:0.2: traced against the host loop, "
+          f"{FAULTS_ROUNDS} rounds")
+    launches, prof = faults_traced_phase(torch)
+    by_path["faulty device-resident run (phase 13b)"] = launches
+    torch.cuda.empty_cache()
+    print("  (c) a deadline on both sides of the rounds' T*")
+    deadline_phase(torch)
+    torch.cuda.empty_cache()
+    print("  (d) 200 clients, faults under churn: dense tick against the "
+          "paged pieces")
+    faults_async_phase(torch)
+    torch.cuda.empty_cache()
+    print("  (e) kill and resume: the dense host loop, the paged loop, the "
+          "paged asynchronous loop")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        launches, snaps = resume_phase(torch, tmp)
+    by_path["resumed dense host loop (phase 13e)"] = launches
+    torch.cuda.empty_cache()
+    print("  (f) flat_aggregate with NaN rows at weight 0")
+    timer = Timer(torch)
+    rows["flat_aggregate"].append(nan_fold_row(torch, timer))
+    del timer
+    torch.cuda.empty_cache()
+    return by_path, dict(traced=prof, snapshots=snaps)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3129,7 +3638,14 @@ def main():
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
     print(f"  phase 12 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 13. the kernels")
+    print("== 13. faults, quarantine and checkpoint/resume")
+    t13 = time.perf_counter()
+    fault_paths, _ = faults_phase(torch, rows)
+    by_path.update(fault_paths)
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    print(f"  phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 14. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

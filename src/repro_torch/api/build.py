@@ -146,7 +146,8 @@ def build_experiment(spec: ExperimentSpec, device=None, *, cell: int = 0,
         channel=channel, fedprox_mu=spec.fedprox_mu, draws=draws,
         churn=(spec.churn_leave, spec.churn_join), store=spec.store,
         k_max=spec.k_max, chunk_size=spec.chunk_size,
-        div_refresh_every=spec.div_refresh_every, cluster=spec.cluster)
+        div_refresh_every=spec.div_refresh_every, cluster=spec.cluster,
+        faults=spec.faults, quarantine_after=spec.quarantine_after)
     exp.spec = spec
     exp.cell = cell
     return exp
@@ -162,9 +163,17 @@ def build_cohort(spec: ExperimentSpec, device=None, *, draws=None):
 
     Every strategy must be traceable, and a stochastic selector must name
     its draw (``draw_kind``): a selector the cohort lacks raises here,
-    naming the port."""
+    naming the port. Faults and quarantine are refused, as in the
+    reference."""
     from repro_torch.core.cohort import CohortRunner     # imports the api
     from repro_torch.core.engine import selector_draw_kind
 
+    if ((spec.faults is not None and spec.faults.active)
+            or spec.quarantine_after > 0):
+        raise ValueError(
+            "fault injection / quarantine is not wired into the vmapped "
+            "cohort program yet — run the spec through build_experiment "
+            "(single-lane) instead, or drop the faults/quarantine_after "
+            "fields")
     selector_draw_kind(SELECTORS.resolve(spec.selection))
     return CohortRunner(spec, device, draws=draws)

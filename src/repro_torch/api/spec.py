@@ -22,9 +22,12 @@ host cold store, ``repro_torch.core.store``) with its knobs ``k_max``,
 ``chunk_size``, ``div_refresh_every``, ``cluster`` and the churn
 ``churn_leave``/``churn_join`` (stepped before each paged round, or
 inside each tick of the buffered-asynchronous engine,
-``aggregator="fedbuff:M[:alpha]"``). The reference's fields the port has
-no counterpart for yet (``p_shards``, ``faults``, ``quarantine_after``)
-are left out: passing one raises a ``TypeError`` that names the port.
+``aggregator="fedbuff:M[:alpha]"``). ``faults`` (a ``FaultSpec``, its
+dict or the compact ``"outage:0.1,corrupt:0.01"``,
+``repro_torch.core.faults``) and ``quarantine_after`` arm the
+fault-tolerant runtime. The one reference field the port has no
+counterpart for yet (``p_shards``) is left out: passing it raises a
+``TypeError`` that names the port.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Any, Dict, Optional, Union
 import repro_torch.strategies  # noqa: F401  (populate the registries)
 from repro_torch.api.registry import get_registry
 from repro_torch.api.scenario import FleetSpec
+from repro_torch.core.faults import FaultSpec
 
 SPEC_VERSION = 1
 
@@ -100,6 +104,14 @@ class ExperimentSpec:
     churn_leave: float = 0.0               # per-round P(available → gone)
     churn_join: float = 0.0                # per-round P(gone → available)
 
+    # ---- fault injection / robustness (repro_torch.core.faults) -------
+    faults: Optional[Any] = None           # FaultSpec, its dict form, or the
+                                           # compact "outage:0.1,corrupt:0.01"
+                                           # string; None → fault-free
+    quarantine_after: int = 0              # strikes (non-finite uploads)
+                                           # before a client is excluded from
+                                           # selection like avail=False; 0=off
+
     # ---- cohort (seeds as lanes of one captured round) ---------------
     cohort: int = 1                        # seeds seed..seed+cohort-1 run as
                                            # ONE program (build_cohort)
@@ -145,6 +157,10 @@ class ExperimentSpec:
                                  f"{('auto', 'cnn') + workload_names()}")
         if self.fleet is not None and not isinstance(self.fleet, FleetSpec):
             object.__setattr__(self, "fleet", FleetSpec.from_dict(self.fleet))
+        if self.quarantine_after < 0:
+            raise ValueError("quarantine_after must be >= 0; got "
+                             f"{self.quarantine_after}")
+        object.__setattr__(self, "faults", FaultSpec.normalize(self.faults))
         for name, kind in (("selection", "selector"),
                            ("allocator", "allocator"),
                            ("aggregator", "aggregator"),
@@ -211,7 +227,7 @@ class ExperimentSpec:
 
 
 # the reference's fields the port has no counterpart for yet
-NOT_PORTED_FIELDS = ("p_shards", "faults", "quarantine_after")
+NOT_PORTED_FIELDS = ("p_shards",)
 
 
 def _refuse_not_ported(init):

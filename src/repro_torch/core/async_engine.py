@@ -32,6 +32,14 @@ buffer at least the padded selection and no churn every dispatch fires
 whole, so the tick takes a static branch that IS the synchronous round
 body, and ``fedbuff:M:0`` is the synchronous run bit for bit.
 
+Under a fault spec (``repro_torch.core.faults``) a tick takes its fault
+draw at dispatch, as the reference's ``_async_fault_plan`` does: a lost or
+corrupted upload is priced ``+inf`` (it never completes, never fires, is
+never stored) and counted in the stats table's ``faults`` (a corrupted
+one in ``strikes`` too), the byzantine clients' rows are transformed after
+training, the fire's candidates pass the non-finite guard, and under
+quarantine a client with ``quarantine_after`` strikes is never selected.
+
 The paged store runs the same math as four pieces (``sched``, ``plan``,
 ``train``, ``fire``: :func:`build_paged_async`) over a carry that holds
 the O(N) stats columns and the global row only, composed on the host
@@ -47,6 +55,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.engine import (EngineConfig, RoundOutputs,
                                      build_round_phases, lane_rows)
+from repro_torch.core.faults import chan_outage_threshold
 from repro_torch.core.wireless import completion_times, masked_max, masked_sum
 from repro_torch.kernels import ops
 
@@ -89,15 +98,17 @@ def _last(x, idx):
 def _tick_math(ph, aggregator, churn):
     """The tick's pieces shared by the dense tick and the paged pieces, so
     the two compute the same bits: churn → select → in-flight filter
-    (``schedule``), allocate → price → stamp (``dispatch``), the fire
-    plan (``fire_plan``), the guarded fold (``fold``) and the stats
-    table after it (``settle``). Each returns new tensors and leaves the
-    carry as it is."""
+    (``schedule``), allocate → price → (faults) → stamp (``dispatch``),
+    the fire plan (``fire_plan``), the non-finite guard on the candidates
+    (``guard``), the guarded fold (``fold``) and the stats table after it
+    (``settle``). Each returns new tensors and leaves the carry as it
+    is."""
     N = ph.N
     M = int(aggregator.buffer_size)
     alpha = float(aggregator.staleness_alpha)
     p_leave, p_join = churn
     churn_on = p_leave > 0.0 or p_join > 0.0
+    faults = ph.faults
     inf = float("inf")
 
     def churn_step(sched, u):
@@ -132,20 +143,48 @@ def _tick_math(ph, aggregator, churn):
         idx = torch.where(mask, idx, torch.full_like(idx, N))
         return state, arr_f, idx, mask
 
-    def dispatch(sched, arr_f, idx, mask):
-        """Allocate over the dispatched lanes and stamp their completion
+    def fault_plan(state, sched, idx, mask, d, fault):
+        """The dispatch-side faults (the reference's ``_async_fault_plan``,
+        one function for the dense tick and the paged ``plan``): the drawn
+        drops and corruptions, the channel-coupled and deadline drops. A
+        failed upload is priced ``+inf`` — it never completes, never fires
+        and is never stored — and counts in ``faults`` (a corrupt one, seen
+        on receipt, in ``strikes`` too). Returns ``(sched, d, good)``,
+        ``good`` the lanes whose rows may reach the store."""
+        drop, corrupt = fault[0], fault[1]
+        if faults.chan_outage > 0.0:
+            gain = torch.sum(torch.square(state.channel), dim=-1)
+            drop = drop | (_last(gain, ph.clamp(idx))
+                           < chan_outage_threshold(faults.chan_outage))
+        if faults.deadline > 0.0:
+            drop = drop | (d > faults.deadline)
+        bad = (drop | corrupt) & mask
+        sched = sched._replace(
+            faults=ph.add_counts(sched.faults, idx, mask, bad),
+            strikes=ph.add_counts(sched.strikes, idx, mask, corrupt & mask))
+        return (sched, torch.where(bad, torch.full_like(d, inf), d),
+                mask & ~bad)
+
+    def dispatch(state, sched, arr_f, idx, mask, fault=None):
+        """Allocate over the dispatched lanes, price them, apply the
+        dispatch's faults (an active fault spec) and stamp the completion
         times ``t_now + d`` into ``t_done`` (a padding lane's write goes to
-        a column past N). Returns ``(T, E, band, t_done)``."""
+        a column past N). Returns ``(T, E, band, t_done, sched, good)``:
+        ``sched`` with the fault counts, ``good`` the lanes whose rows may
+        be stored (``mask`` without faults)."""
         t = ph.clamp(idx)
         arr_sel = {k: lane_rows(v, t) for k, v in arr_f.items()}
         T, E, b, f = ph.allocator.allocate_traced(arr_sel, ph.B, mask)
         d = completion_times(arr_sel, b, f, mask)        # +inf on padding
+        good = mask
+        if ph.faults_on:
+            sched, d, good = fault_plan(state, sched, idx, mask, d, fault)
         pads = torch.arange(idx.shape[-1], device=idx.device)
         store = torch.where(mask, idx, N + pads)
         ext = torch.cat([sched.t_done,
                          torch.full_like(d, inf)], dim=-1)
         ext = ext.scatter(-1, store, sched.t_now[..., None] + d)
-        return T, E, masked_sum(b, mask), ext[..., :N]
+        return T, E, masked_sum(b, mask), ext[..., :N], sched, good
 
     def fire_plan(sched, t_done, sizes):
         """The M earliest in-flight completions fire (fewer in flight: all
@@ -175,14 +214,26 @@ def _tick_math(ph, aggregator, churn):
                                cand=cand, fired_cand=fired_cand,
                                w_cand=w_cand, traces=(part, stale, active))
 
-    def fold(state, cand_rows, w_cand, fired_cand):
-        """The M candidate rows' fold; an empty fire passes the global row
-        (and the server state) through. Returns ``(new row, new server
-        state, ‖g_new − g_old‖)`` — a tensor ``where``, never a host
-        branch."""
+    def guard(sched, cand, cand_rows, w_cand, fired_cand):
+        """The receive-side non-finite guard on the fire's candidates
+        (under faults or quarantine): a fired NaN/Inf row is weighted out
+        and strikes its sender. Returns ``(sched, w_cand, ok_cand,
+        bad_cand)``, ``ok_cand`` the candidates whose rows were folded."""
+        finite = torch.all(torch.isfinite(cand_rows), dim=-1)
+        bad = fired_cand & ~finite
+        sched = sched._replace(strikes=ph.add_counts(sched.strikes, cand,
+                                                     None, bad))
+        return (sched, torch.where(finite, w_cand, torch.zeros_like(w_cand)),
+                fired_cand & finite, bad)
+
+    def fold(state, cand_rows, w_cand, live):
+        """The M candidate rows' fold; with no ``live`` candidate (an empty
+        fire, or every fired row guarded out) the global row and the
+        server state pass through. Returns ``(new row, new server state,
+        ‖g_new − g_old‖)`` — a tensor ``where``, never a host branch."""
         agg, opt = aggregator.aggregate_flat(state.params, cand_rows, w_cand,
                                              state.opt_state)
-        any_fired = torch.any(fired_cand, dim=-1, keepdim=True)
+        any_fired = torch.any(live, dim=-1, keepdim=True)
         new_gvec = torch.where(any_fired, agg, state.params)
         if opt is not None:
             opt = torch.where(any_fired, opt, state.opt_state)
@@ -199,8 +250,8 @@ def _tick_math(ph, aggregator, churn):
             t_now=plan.t_fire)
 
     return SimpleNamespace(M=M, churn_on=churn_on, schedule=schedule,
-                           dispatch=dispatch, fire_plan=fire_plan, fold=fold,
-                           settle=settle)
+                           dispatch=dispatch, fire_plan=fire_plan,
+                           guard=guard, fold=fold, settle=settle)
 
 
 def _write_sched(dst, src) -> None:
@@ -213,7 +264,9 @@ def _write_sched(dst, src) -> None:
 
 def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
                        tctx, feature_layer: str, base=None, *,
-                       compressor=None, channel=None, churn=(0.0, 0.0)):
+                       compressor=None, channel=None, churn=(0.0, 0.0),
+                       faults=None, quarantine_after: int = 0,
+                       byzantine=None):
     """The round closures of ``engine.build_round_phases`` with the
     buffered-asynchronous tick as ``round_body(state, arr, xgain, images,
     labels, sizes, batch_idx, test_images, test_labels, draw, fade,
@@ -235,36 +288,59 @@ def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
 
     Every tensor may carry a cohort's leading lane axis. With ``M >=
     S_pad`` and no churn the tick is the synchronous ``round_body``
-    itself, the traces welded on (staleness 0, the whole fleet active)."""
+    itself, the traces welded on (staleness 0, the whole fleet active).
+
+    Under ``faults`` (and ``quarantine_after``, ``byzantine``: as for
+    ``build_round_phases``) the tick takes its fault draw (``fault``,
+    ``[2, S_pad]``) at dispatch: a lost or corrupted upload is priced
+    ``+inf`` and never stored, the byzantine lanes' rows are transformed
+    after training, the fire's candidates pass the non-finite guard, and
+    a quarantined client is never selected; one run's carry only."""
     ph = build_round_phases(cfg, aggregator, selector, allocator, tctx,
                             feature_layer, base, compressor=compressor,
-                            channel=channel)
+                            channel=channel, faults=faults,
+                            quarantine_after=quarantine_after,
+                            byzantine=byzantine)
     tm = _tick_math(ph, aggregator, churn)
     N = ph.N
     degenerate = tm.M >= selector.pad_size(tctx) and not tm.churn_on
 
     def tick(state, arr, xgain, images, labels, sizes, batch_idx,
-             test_images, test_labels, draw=None, fade=None, churn=None):
+             test_images, test_labels, draw=None, fade=None, churn=None,
+             fault=None):
         sched0 = state.sched
         state, arr_f, idx, mask = tm.schedule(state, arr, draw, fade, churn)
-        sched = state.sched
         with record_function("fl.allocate"):
-            T, E, band, t_done = tm.dispatch(sched, arr_f, idx, mask)
+            T, E, band, t_done, sched, good = tm.dispatch(
+                state, state.sched, arr_f, idx, mask, fault)
         with record_function("fl.train"):
             rows = ph.train_rows(state, idx, images, labels, batch_idx)
+            if ph.byzantine:
+                rows = ph.byz_transform(idx, state.params, rows)
         with record_function("fl.aggregate"):
-            ph.store_rows(state, idx, mask, rows)
+            ph.store_rows(state, idx, mask, rows,
+                          good if ph.faults_on else None)
             plan = tm.fire_plan(sched, t_done, sizes)
             cand_rows = lane_rows(state.client_params, plan.cand)
-            new_gvec, opt, g_delta = tm.fold(state, cand_rows, plan.w_cand,
-                                             plan.fired_cand)
+            w_cand, live, ok_cand = plan.w_cand, plan.fired_cand, None
+            refreshed = plan.fired
+            if ph.track_faults:
+                sched, w_cand, ok_cand, bad = tm.guard(
+                    sched, plan.cand, cand_rows, w_cand, plan.fired_cand)
+                live = w_cand > 0.0
+                # a guarded row refreshed nothing: its client leaves
+                # flight but keeps accruing drift
+                guarded = torch.zeros_like(plan.fired).scatter(-1, plan.cand,
+                                                               bad)
+                refreshed = plan.fired & ~guarded
+            new_gvec, opt, g_delta = tm.fold(state, cand_rows, w_cand, live)
             div_cand = ops.client_divergence(cand_rows, new_gvec)
             sched = tm.settle(sched, t_done, plan)._replace(
                 divergence=sched.divergence.scatter(
                     -1, plan.cand, torch.where(
-                        plan.fired_cand, div_cand,
-                        _last(sched.divergence, plan.cand))),
-                drift=torch.where(plan.fired,
+                        plan.fired_cand if ok_cand is None else ok_cand,
+                        div_cand, _last(sched.divergence, plan.cand))),
+                drift=torch.where(refreshed,
                                   torch.zeros_like(sched.drift),
                                   sched.drift + g_delta[..., None]))
             _write_sched(sched0, sched)
@@ -281,11 +357,12 @@ def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
             active=active)
 
     def sync_tick(state, arr, xgain, images, labels, sizes, batch_idx,
-                  test_images, test_labels, draw=None, fade=None):
+                  test_images, test_labels, draw=None, fade=None,
+                  fault=None):
         """The degenerate branch: the synchronous round body verbatim."""
         state, out = ph.round_body(state, arr, xgain, images, labels, sizes,
                                    batch_idx, test_images, test_labels,
-                                   draw, fade)
+                                   draw, fade, fault)
         lead = out.mask.shape[:-1]
         dev = out.mask.device
         return state, out._replace(
@@ -296,14 +373,19 @@ def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
     out = SimpleNamespace(**vars(ph))
     out.round_body = sync_tick if degenerate else tick
     out.churn_on = tm.churn_on
-    out.needs_sched = not degenerate
+    out.needs_sched = not degenerate or ph.track_faults
     out.degenerate = degenerate
+    # the tick draws its faults at dispatch, before training's batch
+    # indices; the synchronous branch after them, as the round does
+    out.fault_first = not degenerate
     return out
 
 
 def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
                       tctx, feature_layer: str, base=None, *,
-                      compressor=None, channel=None, churn=(0.0, 0.0)):
+                      compressor=None, channel=None, churn=(0.0, 0.0),
+                      faults=None, quarantine_after: int = 0,
+                      byzantine=None):
     """One buffered-asynchronous tick over a paged store, as four eager
     pieces the host composes with store paging in between
     (``FLExperiment._run_async_paged``). The carry holds the global row,
@@ -315,52 +397,68 @@ def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
     ``sched(state, arr, draw, churn)``
         churn → select → in-flight filter: ``(state, arr_f, idx, mask)``;
         every O(N) selection op.
-    ``plan(state, arr_f, idx, mask, sizes)``
-        allocate → price → stamp → fire plan; advances ``age``,
-        ``t_done`` and ``t_now``: ``(state, T, E, band, cand,
-        fired_cand, w_cand, (part, stale, active))``.
-    ``train(state, images_sel, labels_sel, batch_idx)``
-        O(K·P) local SGD of the host-gathered cohort: rows.
-    ``fire(state, cand_rows, w_cand, fired_cand, test_images,
+    ``plan(state, arr_f, idx, mask, sizes, fault)``
+        allocate → price → (faults) → stamp → fire plan; advances
+        ``age``, ``t_done`` and ``t_now``: ``(state, T, E, band, cand,
+        fired_cand, w_cand, good, (part, stale, active))``, ``good`` the
+        dispatched lanes whose rows may be stored.
+    ``train(state, images_sel, labels_sel, batch_idx, idx)``
+        O(K·P) local SGD of the host-gathered cohort (the byzantine
+        lanes' rows transformed): rows.
+    ``fire(state, cand, cand_rows, w_cand, fired_cand, test_images,
     test_labels)``
-        O(M·P) fold of the candidate rows staged back from the store,
-        the empty-fire guard, evaluation: ``(state, accuracy, per_class,
-        div_cand, g_delta)``.
+        O(M·P) fold of the candidate rows staged back from the store (the
+        non-finite guard first, under faults or quarantine), the
+        empty-fire guard, evaluation: ``(state, accuracy, per_class,
+        div_cand, g_delta, ok_cand)``, ``ok_cand`` the candidates whose
+        rows were folded.
     """
     ph = build_round_phases(cfg, aggregator, selector, allocator, tctx,
                             feature_layer, base, compressor=compressor,
-                            channel=channel, plane="stats")
+                            channel=channel, plane="stats", faults=faults,
+                            quarantine_after=quarantine_after,
+                            byzantine=byzantine)
     tm = _tick_math(ph, aggregator, churn)
 
     def sched(state, arr, draw=None, churn=None):
         with record_function("fl.select"):
             return tm.schedule(state, arr, draw, None, churn)
 
-    def plan(state, arr_f, idx, mask, sizes):
+    def plan(state, arr_f, idx, mask, sizes, fault=None):
         with record_function("fl.allocate"):
-            T, E, band, t_done = tm.dispatch(state.sched, arr_f, idx, mask)
-            p = tm.fire_plan(state.sched, t_done, sizes)
-            state = state._replace(sched=tm.settle(state.sched, t_done, p))
-        return (state, T, E, band, p.cand, p.fired_cand, p.w_cand,
+            T, E, band, t_done, sched, good = tm.dispatch(
+                state, state.sched, arr_f, idx, mask, fault)
+            p = tm.fire_plan(sched, t_done, sizes)
+            state = state._replace(sched=tm.settle(sched, t_done, p))
+        return (state, T, E, band, p.cand, p.fired_cand, p.w_cand, good,
                 p.traces)
 
-    def train(state, images_sel, labels_sel, batch_idx):
+    def train(state, images_sel, labels_sel, batch_idx, idx=None):
         with record_function("fl.train"):
-            return ph.train_gathered(state, images_sel, labels_sel,
+            rows = ph.train_gathered(state, images_sel, labels_sel,
                                      batch_idx)
+            if ph.byzantine:
+                rows = ph.byz_transform(idx, state.params, rows)
+            return rows
 
-    def fire(state, cand_rows, w_cand, fired_cand, test_images,
+    def fire(state, cand, cand_rows, w_cand, fired_cand, test_images,
              test_labels):
         with record_function("fl.aggregate"):
-            new_gvec, opt, g_delta = tm.fold(state, cand_rows, w_cand,
-                                             fired_cand)
+            live = ok_cand = fired_cand
+            if ph.track_faults:
+                sched, w_cand, ok_cand, _ = tm.guard(
+                    state.sched, cand, cand_rows, w_cand, fired_cand)
+                state = state._replace(sched=sched)
+                live = w_cand > 0.0
+            new_gvec, opt, g_delta = tm.fold(state, cand_rows, w_cand, live)
             div_cand = ops.client_divergence(cand_rows, new_gvec)
             state = state._replace(params=new_gvec, opt_state=opt)
         with record_function("fl.evaluate"):
             acc, per_class = ph.evaluate_row(new_gvec, test_images,
                                              test_labels)
-        return state, acc, per_class, div_cand, g_delta
+        return state, acc, per_class, div_cand, g_delta, ok_cand
 
     return SimpleNamespace(churn_on=tm.churn_on, pad=selector.pad_size(tctx),
+                           faults_on=ph.faults_on,
                            sched=sched, plan=plan, train=train, fire=fire)
 

@@ -5,10 +5,13 @@ the experiment: the initial parameters, each round's local-SGD batch
 indices, the k-means++ seeding choices, on the device-resident run of a
 stochastic selector each round's selector draw, under a fading channel
 (``repro_torch.api.scenario``) its CN(0,1) draws, and under the
-buffered-asynchronous engine's churn each tick's leave and join uniforms
-— nothing else on this path draws — plus, for a workload with frozen
-weights (the LoRA LM), that base. :class:`TorchDraws` is the default, a ``torch.Generator`` on the
-experiment's device seeded from ``spec.seed``. ``jax.random`` and torch
+buffered-asynchronous engine's churn each tick's leave and join uniforms,
+under faults (``repro_torch.core.faults``) each dispatch's drop and
+corrupt masks — nothing else on this path draws — plus, for a workload
+with frozen weights (the LoRA LM), that base, and the byzantine subset of
+a fault spec, each from a stream of its own. :class:`TorchDraws` is the
+default, a ``torch.Generator`` on the experiment's device seeded from
+``spec.seed``. ``jax.random`` and torch
 give different numbers for one seed, so a parity test hands the experiment
 an object with the same methods that replays the reference's draws.
 
@@ -18,16 +21,22 @@ device-resident run under a fading channel, the fade's h_0
 (``channel_init``); the initial round's batch indices, then its k-means++
 choices, then (fading) the initial round's fade step (``channel_step``);
 then per round the fade step (fading), the selector's draw (where the
-selector takes one), and the round's batch indices. The device-resident
-run makes every round's draws before its first round.
+selector takes one), the round's batch indices and, under an active
+fault spec, the round's fault masks (the reference splits its fault key
+after training). The device-resident run makes every round's draws
+before its first round.
 
 A tick of the buffered-asynchronous engine (``repro_torch.core.
 async_engine``) draws in the same order with churn first: the churn step
 (``churn_step``: the leave uniforms, then the join uniforms), the fade
-step, the selector's draw, then the batch indices — the reference's key
-splits (the churn split, then ``select_phase``'s fade and selector splits,
-then training's). A stochastic selector always takes its draw here: the
-asynchronous engine has no host loop.
+step, the selector's draw, under faults the dispatch's fault masks, then
+the batch indices — the reference's key splits (the churn split, then
+``select_phase``'s fade and selector splits, ``_async_fault_plan``'s at
+dispatch, then training's); the paged tick's pieces draw in the same
+order. A stochastic selector always takes its draw here.
+
+``state()`` and ``load_state()`` save and restore the generator, so a run
+resumed from a checkpoint draws what the uninterrupted run would have.
 """
 from __future__ import annotations
 
@@ -88,6 +97,34 @@ class TorchDraws:
         leave = torch.rand((n,), generator=self.generator, device=self.device)
         join = torch.rand((n,), generator=self.generator, device=self.device)
         return leave, join
+
+    def fault_masks(self, spec, shape) -> torch.Tensor:
+        """One dispatch's faults over ``shape`` lanes: ``[2, *shape]``
+        bool, the drop mask (uniform < ``spec.outage``) then the corrupt
+        mask (uniform < ``spec.corrupt``). Both uniforms are drawn at any
+        rates, so the stream's position never depends on them."""
+        u = torch.rand((2,) + tuple(shape), generator=self.generator,
+                       device=self.device)
+        return torch.stack([u[0] < spec.outage, u[1] < spec.corrupt])
+
+    @staticmethod
+    def byzantine(spec, n: int) -> torch.Tensor:
+        """The fixed adversarial subset of ``n`` clients, ``[n]`` bool on
+        the CPU: uniforms below ``spec.byzantine`` from a CPU generator
+        seeded with ``spec.seed`` — its own stream (as the reference draws
+        from ``PRNGKey(spec.seed)``), the same subset on every device."""
+        g = torch.Generator(device="cpu")
+        g.manual_seed(int(spec.seed))
+        return torch.rand((n,), generator=g) < spec.byzantine
+
+    def state(self) -> dict:
+        """The generator's state, ``{"generator": uint8 tensor}``."""
+        return {"generator": self.generator.get_state()}
+
+    def load_state(self, state: dict) -> None:
+        """Restore a :meth:`state`."""
+        self.generator.set_state(torch.as_tensor(state["generator"],
+                                                 dtype=torch.uint8).cpu())
 
     def _complex_normal(self, shape) -> torch.Tensor:
         return torch.randn(tuple(shape) + (2,), generator=self.generator,

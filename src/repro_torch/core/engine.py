@@ -24,6 +24,13 @@ updates in place — serves both ways to run rounds:
   (``FLExperiment.history_from_traced``). On the CPU the same body runs
   eagerly.
 
+Under a fault spec (``repro_torch.core.faults``) every selection round
+injects its failures after training — lost uploads, NaN rows, byzantine
+rows, stragglers past a deadline — with the round's fault draw a graph
+input beside the batch indices; the non-finite guard and the counts in
+the stats table ride the same body, as does quarantine in selection, so
+the host loop and the captured round stay one computation.
+
 The buffered-asynchronous engine (``repro_torch.core.async_engine``:
 FedBuff ticks, churn) builds its tick from the same closures and is
 captured and replayed the same way, its churn draws graph inputs like the
@@ -59,14 +66,16 @@ from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.api.protocols import RoundState, TracedContext
 from repro_torch.core.clustering import extract_features_flat, kmeans_fit
 from repro_torch.core.divergence import weight_divergence_flat
+from repro_torch.core.faults import chan_outage_threshold, draw_fault_masks
 from repro_torch.core.graphs import eager_solves
-from repro_torch.core.wireless import masked_sum
+from repro_torch.core.wireless import completion_times, masked_sum
 from repro_torch.models.registry import model_def_for
 from repro_torch.utils.trees import (StackFlattenSpec, flatten_stacked,
                                      stack_flatten_spec, unflatten_vector)
@@ -170,7 +179,9 @@ class RoundOutputs(NamedTuple):
     dynamic-interference cohort only, else ``None``). The last three are
     the buffered-asynchronous engine's per-tick traces: the updates the
     buffer folded, their mean age at the fold and the available fleet's
-    size (``None`` on a synchronous run)."""
+    size (``None`` on a synchronous run). ``kept`` marks, under an active
+    fault spec, the lanes whose trained rows reached the store (``None``
+    otherwise)."""
     accuracy: Any
     T: Any
     E: Any
@@ -182,6 +193,7 @@ class RoundOutputs(NamedTuple):
     participation: Any = None
     staleness: Any = None
     active: Any = None
+    kept: Any = None
 
 
 class InitOutputs(NamedTuple):
@@ -246,7 +258,8 @@ def lane_view(tree, b: int):
 def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                        tctx: TracedContext, feature_layer: str, base=None,
                        *, compressor=None, channel=None, cells: int = 1,
-                       plane: str = "full"):
+                       plane: str = "full", faults=None,
+                       quarantine_after: int = 0, byzantine=None):
     """The closures a round is made of (the reference's
     ``build_round_phases``), over a :class:`RoundState` they update in
     place:
@@ -274,7 +287,11 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     ``cross_inr`` couples each seed's cells.
 
     ``plane`` is what client state the carry holds: ``"full"``, the plane
-    (divergence is its row reduction); ``"stats"``, the per-client stats
+    with a spare row for each lane (``[N + S_pad, P]``: the device-resident
+    run's and the dense tick's carry; divergence is its row reduction);
+    ``"rows"``, a plane of exactly its clients (the host loop's ``[N,
+    P]``, a paged round's active plane), which no padding lane reaches;
+    ``"stats"``, the per-client stats
     table alone (``state.sched``, the paged store's asynchronous ticks):
     ``select_phase`` reads ``state.sched.divergence`` and the caller
     persists the rows ``train_gathered`` gives through its store.
@@ -287,10 +304,26 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     depend on the order of the writes. The compressor sees the padding
     rows too (a block's scale and top-k threshold span all ``S_pad``
     rows, as the reference's do).
+
+    ``faults`` (a ``repro_torch.core.faults.FaultSpec``) arms the fault
+    phase of every selection round (``finish_phase``; the all-device
+    round never): after training, the round's fault draw (``fault``,
+    ``[2, S]`` bool: drop, corrupt) drops uploads (i.i.d., under a deep
+    fade of the stateful channel, or past the ``deadline`` on the
+    round's own completion times), corrupts rows to NaN and turns the
+    ``byzantine`` clients' rows (a host ``[N]`` bool mask) adversarial;
+    lost rows are weighted out of the fold, corrupted ones by the
+    non-finite guard, which strikes their senders, and neither reaches
+    the plane; ``sched.faults`` and ``sched.strikes`` count them. When no
+    upload survives, the global row and the server state pass through
+    (a tensor ``where``). ``quarantine_after > 0`` drops clients with as
+    many strikes from every selection, like ``avail=False``. Both need
+    the stats table in the carry (``sched``), and one run's carry (no
+    lane axis).
     """
-    if plane not in ("full", "stats"):
-        raise ValueError(f"unknown carry plane {plane!r}; expected 'full' "
-                         "or 'stats'")
+    if plane not in ("full", "rows", "stats"):
+        raise ValueError(f"unknown carry plane {plane!r}; expected 'full', "
+                         "'rows' or 'stats'")
     if compressor is None:
         from repro_torch.api.registry import COMPRESSORS
         compressor = COMPRESSORS.resolve("none")
@@ -302,9 +335,94 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     channel_rng = bool(getattr(channel, "needs_rng", False))
     fading = channel_stateful or channel_rng
     dynamic = cells > 1 and bool(getattr(channel, "dynamic", False))
+    faults_on = faults is not None and faults.active
+    track_faults = faults_on or quarantine_after > 0
+    if faults_on and faults.chan_outage > 0.0 and not channel_stateful:
+        raise ValueError(
+            "chan_outage faults derive the drop probability from the fade "
+            "state riding the carry; configure a stateful channel "
+            "(e.g. 'gauss-markov')")
+    byz_host = None
+    if faults_on and faults.byzantine > 0.0:
+        if byzantine is None or len(byzantine) != N:
+            raise ValueError("byzantine faults need the [N] adversarial "
+                             "subset (faults.byzantine_clients)")
+        # one False sentinel lane, so the padding lanes' N stays honest
+        byz_host = np.concatenate([np.asarray(byzantine, bool),
+                                   np.zeros(1, bool)])
+    byz_on = {}                 # the subset on each device, copied once
 
     def clamp(idx):
         return torch.clamp(idx, max=N - 1)
+
+    def byz_lanes(idx):
+        """The lanes of ``idx`` (global client ids, the sentinel N
+        allowed) whose senders are byzantine."""
+        dev = idx.device
+        if dev not in byz_on:
+            byz_on[dev] = torch.as_tensor(byz_host).to(dev)
+        return byz_on[dev][idx]
+
+    def byz_transform(idx, gvec, rows):
+        """The byzantine lanes' rows as ``g − byz_scale·(w − g)``: finite
+        but extreme, so only a robust fold defends against them."""
+        g = gvec[..., None, :]
+        return torch.where(byz_lanes(idx)[..., None],
+                           g - faults.byz_scale * (rows - g), rows)
+
+    def add_counts(col, idx, mask, ev):
+        """``col`` with ``ev`` added at ``idx`` (0/1 adds: their order
+        leaves the bits alone), padding lane j (off ``mask``) at column
+        ``len(col) + j`` of a longer copy, cut off after: a new tensor."""
+        n = col.shape[-1]
+        store = idx
+        if mask is not None:
+            pads = torch.arange(idx.shape[-1], device=idx.device)
+            store = torch.where(mask, idx, n + pads)
+        ext = torch.cat([col, torch.zeros(idx.shape, dtype=col.dtype,
+                                          device=col.device)], dim=-1)
+        return ext.scatter_add(-1, store, ev.to(col.dtype))[..., :n]
+
+    def inject_faults(state, idx, mask, rows, w, fault, d=None,
+                      clients=None):
+        """The post-train fault phase (the reference's ``inject_faults``):
+        the drawn drops and corruptions, the channel-coupled and deadline
+        drops, the byzantine transform. Returns the (corrupted,
+        transformed) rows, the weights with lost uploads at 0 and the
+        lanes whose rows may reach the plane (byzantine rows do: the
+        adversary's state is real)."""
+        drop, corrupt = fault[0], fault[1]
+        if faults.chan_outage > 0.0:
+            # unit-mean exponential fade power of the carry: the upload
+            # fails exactly when this round's fade is deep
+            gain = torch.sum(torch.square(state.channel), dim=-1)
+            drop = drop | (gain[clamp(idx)]
+                           < chan_outage_threshold(faults.chan_outage))
+        if faults.deadline > 0.0 and d is not None:
+            drop = drop | (d > faults.deadline)
+        if byz_host is not None:
+            rows = byz_transform(idx if clients is None else clients,
+                                 state.params, rows)
+        if faults.corrupt > 0.0:
+            rows = torch.where(corrupt[..., None],
+                               torch.full((), float("nan"),
+                                          device=rows.device), rows)
+        ev = drop | corrupt
+        keep = ~ev
+        if mask is not None:
+            ev, keep = ev & mask, keep & mask
+        state.sched.faults.copy_(add_counts(state.sched.faults, idx, mask,
+                                            ev))
+        return rows, torch.where(drop, torch.zeros_like(w), w), keep
+
+    def finite_guard(state, idx, mask, rows, w):
+        """The receive-side non-finite guard: a NaN/Inf row is weighted
+        out of the fold and STRIKES its sender (``quarantine_after``
+        strikes keep a client out of selection)."""
+        finite = torch.all(torch.isfinite(rows), dim=-1)
+        state.sched.strikes.copy_(add_counts(state.sched.strikes, idx, mask,
+                                             ~finite & (w > 0.0)))
+        return torch.where(finite, w, torch.zeros_like(w))
 
     def evaluate_row(gvec, test_images, test_labels):
         """``(accuracy, per_class)`` tensors of the global row ``gvec``."""
@@ -361,46 +479,80 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
             rows = local_rows(state, idx, images, labels, batch_idx)
         return compressor.apply_flat(rows, state.params, spec)
 
-    def store_rows(state, idx, mask, rows):
-        """Write ``rows`` into the plane at ``idx``, padding lane j (off
-        ``mask``) at row ``N + j``."""
+    def store_rows(state, idx, mask, rows, keep=None):
+        """Write ``rows`` into the plane at ``idx``. A lane that must not
+        land — a padding lane (off ``mask``), a lost or corrupted upload
+        (off ``keep``, which implies ``mask``) — goes to the spare row
+        ``N + j`` of a ``plane="full"`` carry; on a ``plane="rows"`` plane
+        (its lanes distinct clients) its row is written back as it was."""
+        land = mask if keep is None else keep
         store = idx
-        if mask is not None:
-            pads = torch.arange(idx.shape[-1], device=idx.device)
-            store = torch.where(mask, idx, N + pads)
-        plane = state.client_params
+        target = state.client_params
+        if land is not None:
+            if plane == "rows":
+                rows = torch.where(land[..., None], rows,
+                                   lane_rows(target, idx))
+            else:
+                pads = torch.arange(idx.shape[-1], device=idx.device)
+                store = torch.where(land, idx, N + pads)
         if store.dim() > 1:         # cohort lane b writes its own plane b
             lanes = torch.arange(store.shape[0], device=store.device)
-            store = store + plane.shape[-2] * lanes[:, None]
-        plane.view(-1, plane.shape[-1]).index_copy_(
+            store = store + target.shape[-2] * lanes[:, None]
+        target.view(-1, target.shape[-1]).index_copy_(
             0, store.reshape(-1), rows.reshape(-1, rows.shape[-1]))
 
-    def fold(state, idx, mask, rows, sizes):
+    def fold(state, idx, mask, rows, sizes, armed=False, fault=None, d=None,
+             clients=None):
+        """The eq.-(4) fold of ``rows`` into the global row, then
+        :func:`store_rows`; ``armed`` (a selection round under faults or
+        quarantine) runs the fault phase and the non-finite guard first,
+        ``kept`` the lanes that reached the plane (``None`` unless faults
+        are on). ``clients``: the lanes' global ids where ``idx`` indexes
+        an active plane. Returns ``(state, kept)``."""
         w = lane_rows(sizes, clamp(idx))
         if mask is not None:
             w = torch.where(mask, w, torch.zeros_like(w))
+        keep = None
+        if armed and faults_on:
+            if fault is None:
+                raise ValueError("a faulty round needs its fault draw "
+                                 "(faults.draw_fault_masks)")
+            rows, w, keep = inject_faults(state, idx, mask, rows, w, fault,
+                                          d, clients)
+        if armed:
+            w = finite_guard(state, idx, mask, rows, w)
         new_gvec, opt_state = aggregator.aggregate_flat(
             state.params, rows, w, state.opt_state)
-        store_rows(state, idx, mask, rows)
+        if armed:
+            # all failed: the global row and the server state pass through
+            # instead of folding an empty (zeroed) cohort
+            any_ok = torch.any(w > 0.0, dim=-1, keepdim=True)
+            new_gvec = torch.where(any_ok, new_gvec, state.params)
+            if opt_state is not None:
+                opt_state = torch.where(any_ok, opt_state, state.opt_state)
+        store_rows(state, idx, mask, rows, keep)
         state.params.copy_(new_gvec)
         if opt_state is not None:
             # in place, as the global row: a captured round's next replay
             # reads the carry's own tensors (FedAvgM's momentum)
             state.opt_state.copy_(opt_state)
-        return state
+        return state, keep
 
-    def train_aggregate(state, idx, mask, images, labels, sizes, batch_idx):
+    def train_aggregate(state, idx, mask, images, labels, sizes, batch_idx,
+                        **arms):
+        """Train ``idx``, then :func:`fold` (``arms``: its fault
+        arguments). Returns ``(state, kept)``."""
         with record_function("fl.train"):
             rows = train_rows(state, idx, images, labels, batch_idx)
         with record_function("fl.aggregate"):
-            return fold(state, idx, mask, rows, sizes)
+            return fold(state, idx, mask, rows, sizes, **arms)
 
     def cluster_round(state, images, labels, sizes, batch_idx, draws):
         """All devices train and fold, then K-means on the feature layer
         (seeded from ``draws``) into ``state.labels``. One lane's."""
         all_idx = torch.arange(N, device=state.params.device)
-        state = train_aggregate(state, all_idx, None, images, labels, sizes,
-                                batch_idx)
+        state, _ = train_aggregate(state, all_idx, None, images, labels,
+                                   sizes, batch_idx)
         feats = extract_features_flat(state.client_params[:N], feature_layer,
                                       spec)
         _, k_labels, _ = kmeans_fit(feats, tctx.num_clusters, draws=draws)
@@ -491,7 +643,9 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         ``(faded arr, idx, mask)``. The fade comes first, so a channel-aware
         selector (``icas``, ``rra``) sees the round's gains; ``draw`` is a
         stochastic selector's (``[N]``, or ``[B, N]`` a cohort lane each),
-        ``fade`` the channel's."""
+        ``fade`` the channel's. Under quarantine a client with
+        ``quarantine_after`` strikes leaves the selection like an
+        unavailable one (its lane masked, at the sentinel N)."""
         with record_function("fl.select"):
             arr = step_channel(state, arr, fade)
             if selector.needs_divergence and plane == "stats":
@@ -504,43 +658,65 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                                   device=state.params.device)
             idx, mask = selector.select_traced(draw, div, state.labels, arr,
                                                tctx)
+            if quarantine_after > 0:
+                ok = state.sched.strikes < float(quarantine_after)
+                okpad = torch.cat([ok, torch.zeros_like(ok[..., :1])],
+                                  dim=-1)
+                mask = mask & torch.gather(okpad, -1, idx)
+                idx = torch.where(mask, idx, torch.full_like(idx, N))
             return arr, idx, mask
 
     def finish_phase(state, arr, idx, mask, images, labels, sizes,
-                     batch_idx, test_images, test_labels, inr=None):
+                     batch_idx, test_images, test_labels, inr=None,
+                     fault=None, clients=None):
         """allocate → train → fold → evaluate for one selection; ``inr``
         (``[B]``) adds the round's selection-driven interference before
-        the allocator."""
+        the allocator. Under faults or quarantine the fold is armed:
+        ``fault`` is the round's fault draw, the deadline reads the
+        round's completion times, ``clients`` the lanes' global ids where
+        ``idx`` indexes an active plane."""
         with record_function("fl.allocate"):
             t = clamp(idx)
             arr_sel = add_inr({k: lane_rows(v, t) for k, v in arr.items()},
                               inr)
-            T, E, b, _ = allocator.allocate_traced(arr_sel, B, mask)
-        state = train_aggregate(state, idx, mask, images, labels, sizes,
-                                batch_idx)
+            T, E, b, f = allocator.allocate_traced(arr_sel, B, mask)
+        arms = {}
+        if track_faults:
+            arms = dict(armed=True, fault=fault, clients=clients)
+            if faults_on and faults.deadline > 0.0:
+                # eqs. (5)+(8), as the asynchronous tick prices: an update
+                # past the deadline is a straggler the server abandons
+                arms["d"] = completion_times(arr_sel, b, f, mask)
+        state, kept = train_aggregate(state, idx, mask, images, labels,
+                                      sizes, batch_idx, **arms)
         with record_function("fl.evaluate"):
             acc, per_class = evaluate_rows(state.params, test_images,
                                            test_labels, images)
         return state, RoundOutputs(accuracy=acc, T=T, E=E, selected=idx,
                                    mask=mask, band=masked_sum(b, mask),
-                                   per_class=per_class, inr=inr)
+                                   per_class=per_class, inr=inr, kept=kept)
 
     def round_body(state, arr, xgain, images, labels, sizes, batch_idx,
-                   test_images, test_labels, draw=None, fade=None):
+                   test_images, test_labels, draw=None, fade=None,
+                   fault=None):
         """One round: select, then (a dynamic cohort) the cross-cell
         reduction of the round's selections, then allocate, train, fold
-        and evaluate. ``arr`` without ``xgain``. ``(state,
-        RoundOutputs)``."""
+        and evaluate. ``arr`` without ``xgain``; ``fault``: the round's
+        fault draw. ``(state, RoundOutputs)``."""
         arr, idx, mask = select_phase(state, arr, draw, fade)
         inr = cross_inr(participation(idx, mask), xgain) if dynamic else None
         return finish_phase(state, arr, idx, mask, images, labels, sizes,
-                            batch_idx, test_images, test_labels, inr)
+                            batch_idx, test_images, test_labels, inr, fault)
 
     return SimpleNamespace(
         spec=spec, N=N, B=B, local_iters=cfg.local_iters, batch_size=cfg.batch_size,
         allocator=allocator, aggregator=aggregator, compressor=compressor,
         channel=channel, cells=cells, fading=fading, dynamic=dynamic,
-        plane=plane, churn_on=False, needs_sched=plane == "stats",
+        plane=plane, churn_on=False,
+        needs_sched=plane == "stats" or track_faults,
+        faults=faults, faults_on=faults_on, track_faults=track_faults,
+        fault_first=False, byzantine=byz_host is not None,
+        byz_transform=byz_transform, add_counts=add_counts,
         evaluate_row=evaluate_row,
         evaluate_rows=evaluate_rows, clamp=clamp,
         train_gathered=train_gathered, train_rows=train_rows,
@@ -619,11 +795,12 @@ class TracedProgram:
     sequence of one a lane — gives a fading channel's h_0 first, then the
     initial round's batch indices, K-means seeding and fade, then every
     round's churn (an asynchronous tick's: ``churn_step``), fade, selector
-    draw (a stochastic selector's: ``draw_kind``) and ``[S_pad, L,
-    batch]`` batch indices, all drawn before the first round, in the
-    order of ``repro_torch.core.draws``. A cohort's carry
-    and inputs are lane-stacked (``lanes``: the carry's leading axis, set
-    by the call); its test set is one for all lanes or one a lane.
+    draw (a stochastic selector's: ``draw_kind``), ``[S_pad, L, batch]``
+    batch indices and fault draw (under an active fault spec), all drawn
+    before the first round, in the order of ``repro_torch.core.draws``. A
+    cohort's carry and inputs are lane-stacked (``lanes``: the carry's
+    leading axis, set by the call); its test set is one for all lanes or
+    one a lane.
     ``arr["xgain"]`` (a dynamic-interference cohort's cross gains) is
     held apart from the arrays the solvers see.
 
@@ -632,7 +809,8 @@ class TracedProgram:
     eagerly (its solve is SAO's own, a graph from its second call on)
     and replays the captured round once a round for every lane,
     copying the round's fade, selector draw and batch indices into the
-    graph's inputs first (and a churning tick's leave and join uniforms);
+    graph's inputs first (and a churning tick's leave and join uniforms,
+    a faulty round's fault draw);
     no step reads back to the host.
     ``transfer_guard`` raises on any host sync from the initial round to
     the last replay (sync debug mode "error"; the initial round's solve
@@ -655,15 +833,17 @@ class TracedProgram:
         self.capture_ms = None
 
     def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None,
-                   fade=None, churn=None):
+                   fade=None, churn=None, fault=None):
         """One round, eagerly: fade, select, (a dynamic cohort: the
         cross-cell interference), allocate, train, fold and evaluate — or
         one asynchronous tick, ``churn`` its leave and join uniforms
-        (``[2, N]``, a lane each ``[B, 2, N]``). Returns ``(state,
-        RoundOutputs)``."""
+        (``[2, N]``, a lane each ``[B, 2, N]``); ``fault`` the round's
+        fault draw (``[2, S_pad]``). Returns ``(state, RoundOutputs)``."""
         arr = dict(inputs.arr)
         xgain = arr.pop("xgain", None)
         extra = {} if churn is None else {"churn": churn}
+        if fault is not None:
+            extra["fault"] = fault
         return self.ph.round_body(state, arr, xgain, inputs.images,
                                   inputs.labels, inputs.sizes, batch_idx,
                                   inputs.test_images, inputs.test_labels,
@@ -702,6 +882,14 @@ class TracedProgram:
         return torch.ones(self._lead() + (2, self.ph.N), dtype=torch.float32,
                           device=self.device)
 
+    def _fault_input(self):
+        """The fault draw's graph input, ``[2, S_pad]`` (nothing fails
+        until a replay loads one)."""
+        if not self.ph.faults_on:
+            return None
+        return torch.zeros(self._lead() + (2, self.pad), dtype=torch.bool,
+                           device=self.device)
+
     def capture(self, state: RoundState, inputs: RoundInputs) -> None:
         """Capture the round over static copies of ``state`` and
         ``inputs`` (whose values the warm-up and the capture overwrite)."""
@@ -711,18 +899,20 @@ class TracedProgram:
         self.draw = self._draw_input()
         self.fade = self._fade_input()
         self.churn = self._churn_input()
+        self.fault = self._fault_input()
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side), eager_solves():
             self.round_body(self.state, self.inputs, self.batch, self.draw,
-                            self.fade, self.churn)
+                            self.fade, self.churn, self.fault)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _, self.out = self.round_body(self.state, self.inputs, self.batch,
-                                          self.draw, self.fade, self.churn)
+                                          self.draw, self.fade, self.churn,
+                                          self.fault)
         torch.cuda.synchronize(self.device)
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -733,15 +923,16 @@ class TracedProgram:
         _copy_into(self.state, state)
         _copy_into(self.inputs, inputs)
 
-    def replay(self, batch_idx, draw=None, fade=None,
-               churn=None) -> RoundOutputs:
+    def replay(self, batch_idx, draw=None, fade=None, churn=None,
+               fault=None) -> RoundOutputs:
         """One captured round on the static carry, every lane at once:
         load ``batch_idx`` (and a stochastic selector's ``draw``, a fading
-        channel's ``fade``, a churning tick's ``churn``), replay; the
-        outputs are the graph's (the next replay overwrites them)."""
+        channel's ``fade``, a churning tick's ``churn``, a faulty round's
+        ``fault``), replay; the outputs are the graph's (the next replay
+        overwrites them)."""
         self.batch.copy_(batch_idx)
         for static, value in ((self.draw, draw), (self.fade, fade),
-                              (self.churn, churn)):
+                              (self.churn, churn), (self.fault, fault)):
             if static is not None:
                 static.copy_(value)
         self.graph.replay()
@@ -749,25 +940,33 @@ class TracedProgram:
 
     def _round_draws(self, lane_draws, n_samples: int):
         """One round's ``(batch indices, selector draw, fade draw, churn
-        draw)``: per lane, the churn first (an asynchronous tick's leave
-        and join uniforms, ``[2, N]``), then the fade, the selector's draw
-        and the batch indices; lane-stacked for a cohort."""
-        batches, draws, fades, churns = [], [], [], []
-        shape = (self.pad, self.ph.local_iters, self.ph.batch_size)
+        draw, fault draw)``: per lane, the churn first (an asynchronous
+        tick's leave and join uniforms, ``[2, N]``), then the fade, the
+        selector's draw and the batch indices, the fault draw after them
+        (a tick's before the batch indices, at dispatch); lane-stacked for
+        a cohort."""
+        ph = self.ph
+        batches, draws, fades, churns, faults = [], [], [], [], []
+        shape = (self.pad, ph.local_iters, ph.batch_size)
         for d in lane_draws:
-            if self.ph.churn_on:
-                churns.append(torch.stack(d.churn_step(self.ph.N)))
-            if self.ph.fading:
-                fades.append(d.channel_step((self.ph.N,)))
+            if ph.churn_on:
+                churns.append(torch.stack(d.churn_step(ph.N)))
+            if ph.fading:
+                fades.append(d.channel_step((ph.N,)))
             if self.draw_kind is not None:
-                draws.append(d.selector_draw(self.draw_kind, self.ph.N))
+                draws.append(d.selector_draw(self.draw_kind, ph.N))
+            if ph.faults_on and ph.fault_first:
+                faults.append(draw_fault_masks(ph.faults, (self.pad,), d))
             batches.append(d.batch_indices(*shape, n_samples))
+            if ph.faults_on and not ph.fault_first:
+                faults.append(draw_fault_masks(ph.faults, (self.pad,), d))
 
         def lanes(x):
             if not x:
                 return None
             return x[0] if self.lanes is None else torch.stack(x)
-        return lanes(batches), lanes(draws), lanes(fades), lanes(churns)
+        return (lanes(batches), lanes(draws), lanes(fades), lanes(churns),
+                lanes(faults))
 
     def __call__(self, state: RoundState, images, labels, sizes, arr,
                  test_images, test_labels, *, draws, rounds: int,
@@ -785,9 +984,9 @@ class TracedProgram:
                              f"{self.lanes or 1} lanes")
         if ph.needs_sched and state.sched is None:
             raise ValueError(
-                "the buffered-asynchronous engine's carry needs the "
-                "per-client stats table (RoundState.sched: "
-                "ClientStats.device())")
+                "the buffered-asynchronous engine's carry, and a carry "
+                "under faults or quarantine, needs the per-client stats "
+                "table (RoundState.sched: ClientStats.device())")
         if ph.fading and getattr(ph.channel, "stateful", False):
             # the fade's h_0, the run's first draw: part of the carry
             h0 = [d.channel_init((ph.N,)) for d in lane_draws]
@@ -820,12 +1019,13 @@ class TracedProgram:
             per_round = [self._round_draws(lane_draws, n_samples)
                          for _ in range(rounds)]
             outs = []
-            for batch_idx, draw, fade, churn in per_round:
+            for batch_idx, draw, fade, churn, fault in per_round:
                 if self.graph is not None:
-                    out = _clone(self.replay(batch_idx, draw, fade, churn))
+                    out = _clone(self.replay(batch_idx, draw, fade, churn,
+                                             fault))
                 else:
                     state, out = self.round_body(state, inputs, batch_idx,
-                                                 draw, fade, churn)
+                                                 draw, fade, churn, fault)
                 outs.append(out)
             stacked = (RoundOutputs(*(None if v[0] is None
                                       else torch.stack(v)
@@ -856,7 +1056,8 @@ def shapes_key(tensors) -> tuple:
 def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                tctx: TracedContext, feature_layer: str, device,
                shapes: tuple, base=None, compressor=None, channel=None,
-               cells: int = 1, churn=None) -> TracedProgram:
+               cells: int = 1, churn=None, faults=None,
+               quarantine_after: int = 0, byzantine=None) -> TracedProgram:
     """The device-resident program for one strategy bundle on ``device``
     at ``shapes`` (the shapes of the data it reads,
     :meth:`RoundInputs.shapes`: a cohort's lane-stacked, its test set one
@@ -874,8 +1075,12 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     — the same program, its rounds virtual-time ticks — and ``churn``
     (``(p_leave, p_join)``, per-tick Bernoulli probabilities) flips the
     availability mask the carry's stats table holds. Churn without such an
-    aggregator, and such an aggregator with ``cells > 1``, raise. The
-    reference's faults are no field of the port's spec.
+    aggregator, and such an aggregator with ``cells > 1``, raise.
+
+    ``faults``, ``quarantine_after`` and ``byzantine`` (the ``[N]``
+    adversarial subset) arm the fault-tolerant round or tick
+    (``build_round_phases``); its fault draw is a graph input beside the
+    batch indices. With ``cells > 1`` they raise, as in the reference.
     """
     churn = (0.0, 0.0) if churn is None else (float(churn[0]),
                                               float(churn[1]))
@@ -889,6 +1094,11 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
         raise ValueError(
             "the buffered-asynchronous engine runs single-cell programs "
             "only; run multi-cell fleets with a synchronous aggregator")
+    track_faults = ((faults is not None and faults.active)
+                    or quarantine_after > 0)
+    if track_faults and cells > 1:
+        raise ValueError(
+            "fault injection / quarantine runs single-cell programs only")
     if compressor is None:
         from repro_torch.api.registry import COMPRESSORS
         compressor = COMPRESSORS.resolve("none")
@@ -899,22 +1109,26 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     device = torch.device(device)
     base_key = (None if base is None
                 else tuple(v.data_ptr() for v in base.values()))
+    byz_key = (None if byzantine is None
+               else np.asarray(byzantine, bool).tobytes())
     key = (cfg, selector, allocator, aggregator_cache_key(aggregator), tctx,
            feature_layer, device, shapes, base_key, compressor, channel,
-           cells, churn)
+           cells, churn, faults, quarantine_after, byz_key)
     prog = _RUN_FN_CACHE.get(key)
     if prog is None:
+        arms = dict(faults=faults, quarantine_after=quarantine_after,
+                    byzantine=byzantine)
         if is_async:
             from repro_torch.core.async_engine import build_async_phases
             ph = build_async_phases(cfg, aggregator, selector, allocator,
                                     tctx, feature_layer, base,
                                     compressor=compressor, channel=channel,
-                                    churn=churn)
+                                    churn=churn, **arms)
         else:
             ph = build_round_phases(cfg, aggregator, selector, allocator,
                                     tctx, feature_layer, base,
                                     compressor=compressor, channel=channel,
-                                    cells=cells)
+                                    cells=cells, **arms)
         prog = _RUN_FN_CACHE[key] = TracedProgram(
             ph, device, selector.pad_size(tctx), draw_kind)
         while len(_RUN_FN_CACHE) > _RUN_FN_CACHE_MAX:

@@ -53,6 +53,9 @@ Build it from a declarative spec with ``repro_torch.api.build_experiment``.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
+import shutil
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -74,6 +77,8 @@ from repro_torch.core.clustering import (clusters_from_labels,
                                          resolve_feature_columns)
 from repro_torch.core.divergence import weight_divergence_flat
 from repro_torch.core.draws import TorchDraws
+from repro_torch.core.faults import (FaultSpec, byzantine_clients,
+                                     draw_fault_masks)
 from repro_torch.core.engine import (EngineConfig, RoundInputs,
                                      RoundOutputs, TracedRunResult,
                                      build_round_phases, model_flat_spec,
@@ -85,7 +90,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import (default_chunk_size,
                                          streaming_weighted_mean)
 from repro_torch.models.registry import model_def_for
-from repro_torch.utils.trees import flatten_vector, unflatten_rows_np
+from repro_torch.utils.trees import (flatten_stacked, flatten_vector,
+                                     unflatten_rows_np)
 
 #: ``_rounds_since_refresh`` after a mass write that set no divergence
 #: (the initial round): the next ``divergences()`` refreshes every touched
@@ -124,6 +130,17 @@ class FLHistory:
     staleness: List[float] = field(default_factory=list)
     active: List[float] = field(default_factory=list)
 
+    _ROUNDS = ("accuracy", "T_k", "E_k", "selected", "band_mhz", "seconds",
+               "per_class", "participation", "staleness", "active")
+
+    @property
+    def total_T(self) -> float:
+        return float(np.sum(self.T_k))
+
+    @property
+    def total_E(self) -> float:
+        return float(np.sum(self.E_k))
+
     def append(self, res: RoundResult, seconds: Optional[float] = None):
         self.accuracy.append(float(res.accuracy))
         self.per_class.append(np.asarray(res.per_class))
@@ -133,6 +150,62 @@ class FLHistory:
         self.band_mhz.append(float(res.band_mhz))
         if seconds is not None:
             self.seconds.append(seconds)
+
+    def extend(self, other: "FLHistory") -> "FLHistory":
+        """``other``'s rounds after this history's (a resumed run's rounds
+        after the restored prefix)."""
+        for name in self._ROUNDS:
+            getattr(self, name).extend(getattr(other, name))
+        if self.rounds_to_target is None:
+            self.rounds_to_target = other.rounds_to_target
+        return self
+
+    def to_dict(self) -> dict:
+        """The JSON form (a checkpoint's manifest)."""
+        d = {name: [float(x) for x in getattr(self, name)]
+             for name in self._ROUNDS
+             if name not in ("selected", "per_class")}
+        d["selected"] = [np.asarray(s).tolist() for s in self.selected]
+        d["per_class"] = [np.asarray(p).tolist() for p in self.per_class]
+        d["rounds_to_target"] = self.rounds_to_target
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FLHistory":
+        hist = cls(rounds_to_target=d.get("rounds_to_target"))
+        for name in cls._ROUNDS:
+            getattr(hist, name).extend(d.get(name, []))
+        hist.selected = [np.asarray(s, np.int64) for s in hist.selected]
+        hist.per_class = [np.asarray(p, np.float32) for p in hist.per_class]
+        return hist
+
+
+class _Checkpointer:
+    """The ``run()`` checkpoint knobs for the host loops: a snapshot every
+    ``every`` completed rounds, counted from ``offset`` so a resumed run
+    keeps the original round numbers."""
+
+    def __init__(self, exp: "FLExperiment", directory: str, every: int,
+                 offset: int, spec_dict: Optional[dict]):
+        if every <= 0:
+            raise ValueError(f"checkpoint_every must be > 0; got {every}")
+        self.exp = exp
+        self.directory = directory
+        self.every = every
+        self.offset = offset
+        self.spec_dict = spec_dict
+
+    def due(self, k: int) -> bool:
+        return (self.offset + k + 1) % self.every == 0
+
+    def save(self, k: int, hist: FLHistory) -> str:
+        return self.exp.save_checkpoint(
+            self.directory, self.offset + k + 1, history=hist,
+            spec_dict=self.spec_dict)
+
+    def maybe(self, k: int, hist: FLHistory) -> None:
+        if self.due(k):
+            self.save(k, hist)
 
 
 def fp32_matmuls() -> None:
@@ -181,6 +254,15 @@ class FLExperiment:
     either store. Index-backed data (``LazyFederatedData``) needs the paged
     store; its rounds gather their clients' images from the pool on the
     device.
+
+    ``faults`` (a ``FaultSpec``, its dict or compact string,
+    ``repro_torch.core.faults``) injects failures into every selection
+    round or tick on every path, and ``quarantine_after > 0`` keeps a
+    client with that many strikes (non-finite uploads) out of selection;
+    the stats table's ``faults`` and ``strikes`` count them. ``run(
+    checkpoint_every=, checkpoint_dir=)`` snapshots the host loops
+    (:meth:`save_checkpoint`); :meth:`load_checkpoint` resumes a fresh
+    experiment from one, bit for bit.
     """
 
     def __init__(self, model_cfg, fed: FederatedData, test_images: np.ndarray,
@@ -192,7 +274,8 @@ class FLExperiment:
                  fedprox_mu: float = 0.0, draws=None, churn=None,
                  store: str = "dense", k_max: Optional[int] = None,
                  chunk_size: Optional[int] = None,
-                 div_refresh_every: int = 0, cluster: str = "full"):
+                 div_refresh_every: int = 0, cluster: str = "full",
+                 faults=None, quarantine_after: int = 0):
         fp32_matmuls()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -233,6 +316,22 @@ class FLExperiment:
         self.cluster_mode = cluster
         self.draws = draws if draws is not None else TorchDraws(seed,
                                                                 self.device)
+        self.faults = FaultSpec.normalize(faults)
+        self.quarantine_after = int(quarantine_after)
+        if self.quarantine_after < 0:
+            raise ValueError("quarantine_after must be >= 0; got "
+                             f"{quarantine_after}")
+        if (self.faults is not None and self.faults.chan_outage > 0.0
+                and not getattr(self.channel, "stateful", False)):
+            raise ValueError(
+                "faults: chan_outage derives upload failures from the "
+                "Gauss-Markov fade state and needs a stateful channel "
+                "(e.g. channel='gauss-markov'); got "
+                f"{self.channel.registry_name!r}")
+        self._byz_mask = (byzantine_clients(self.faults, fed.num_clients,
+                                            self.draws)
+                          if self._faults_on and self.faults.byzantine > 0.0
+                          else None)
         mdef = model_def_for(model_cfg)
         self.base = (self.draws.base_params(model_cfg)
                      if mdef.base is not None else None)
@@ -307,6 +406,20 @@ class FLExperiment:
         return self._store.stats
 
     @property
+    def _faults_on(self) -> bool:
+        return self.faults is not None and self.faults.active
+
+    @property
+    def _track_faults(self) -> bool:
+        return self._faults_on or self.quarantine_after > 0
+
+    def _fault_args(self) -> dict:
+        """The round body's fault arguments (``build_round_phases``)."""
+        return dict(faults=self.faults,
+                    quarantine_after=self.quarantine_after,
+                    byzantine=self._byz_mask)
+
+    @property
     def client_plane(self) -> torch.Tensor:
         """The dense ``[N, P]`` plane on the device (updated in place by
         the round loop). A paged store keeps none: gather the rows you need
@@ -353,18 +466,23 @@ class FLExperiment:
                 self.engine_cfg, self.aggregator, self.selector,
                 self.allocator, self.traced_context(),
                 self.fl.feature_layer, self.base,
-                compressor=self.compressor, channel=self.channel)
+                compressor=self.compressor, channel=self.channel,
+                plane="rows", **self._fault_args())
         return ph
 
     def _host_state(self) -> RoundState:
         """The experiment's own state as the round body's carry: the
         global row and the plane themselves (updated in place), the
-        aggregator's state and the K-means labels."""
+        aggregator's state and the K-means labels; under faults or
+        quarantine a device copy of the stats table (:meth:`_round`
+        copies its counts back)."""
         return RoundState(params=self.global_vec,
                           client_params=self.client_plane,
                           opt_state=self.aggregator.init_flat_state(
                               self.global_vec),
-                          labels=self._labels_tensor())
+                          labels=self._labels_tensor(),
+                          sched=(self.stats.device(self.device)
+                                 if self._track_faults else None))
 
     def _labels_tensor(self) -> torch.Tensor:
         n = self.fed.num_clients
@@ -436,6 +554,47 @@ class FLExperiment:
             start += block.shape[0]
 
     # ------------------------------------------------------------------
+    # the host API of the figure scripts (the reference's train_clients,
+    # aggregate and store_clients), through the round body's own pieces
+    def train_clients(self, idx):
+        """Local updates of the clients ``idx`` from the global row (one
+        batch draw for them), after the uplink compressor: their models
+        as ``{name: [S, ...]}`` tensors."""
+        idx = np.asarray(idx)
+        images, labels, _ = self._client_data(idx)
+        state = RoundState(params=self.global_vec, client_params=None,
+                           opt_state=None, labels=None)
+        rows = self.phases().train_rows(
+            state, torch.arange(len(idx), device=self.device), images,
+            labels, self._batch_indices(len(idx)))
+        spec = self.flat_spec
+        return {name: rows[:, off:off + size].reshape((len(idx),) + shape)
+                for name, off, size, shape in zip(spec.names, spec.offsets,
+                                                  spec.sizes, spec.shapes)}
+
+    def aggregate(self, stacked_params, idx) -> None:
+        """The server fold of the clients ``idx``'s models (``{name: [S,
+        ...]}`` or ``[S, P]`` rows) into the global row, weighted by their
+        sample counts: the aggregator's flat fold (eq. (4) by default)."""
+        rows = self._rows_of(stacked_params)
+        gvec = self.global_vec
+        new_gvec, opt_state = self.aggregator.aggregate_flat(
+            gvec, rows, self._sizes[self._index(idx)],
+            self.aggregator.init_flat_state(gvec))
+        gvec.copy_(new_gvec)
+        self.aggregator.load_flat_state(opt_state, self.flat_spec)
+
+    def store_clients(self, stacked_params, idx) -> None:
+        """Write the clients ``idx``'s models (``{name: [S, ...]}`` or
+        ``[S, P]`` rows) into the client store."""
+        self._store.scatter(np.asarray(idx), self._rows_of(stacked_params))
+
+    def _rows_of(self, stacked_params) -> torch.Tensor:
+        if isinstance(stacked_params, torch.Tensor):
+            return stacked_params
+        return flatten_stacked(self.flat_spec, stacked_params)
+
+    # ------------------------------------------------------------------
     def initial_round(self) -> None:
         """Round 0: all devices train and fold (the round body's
         ``train_aggregate``), then K-means clustering (Alg. 2), one fit or
@@ -447,14 +606,14 @@ class FLExperiment:
         idx = np.arange(n)
         ph = self.phases()
         if self._store.kind == "dense":
-            state = ph.train_aggregate(
+            state, _ = ph.train_aggregate(
                 self._host_state(), self._index(idx), None, self._images,
                 self._labels, self._sizes, self._batch_indices(n))
             self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
         elif n <= self.k_max:
             self._on_active(idx, lambda state, t, images, labels, sizes: (
                 ph.train_aggregate(state, t, None, images, labels, sizes,
-                                   self._batch_indices(n)), None))
+                                   self._batch_indices(n))[0], None))
         else:
             self._initial_round_waves(idx)
         c = self.fl.num_clusters
@@ -470,22 +629,30 @@ class FLExperiment:
         if self._store.kind == "paged":
             self._finish_paged_round(idx)
 
-    def _on_active(self, idx, run):
+    def _on_active(self, idx, run, sched=None):
         """``run(state, local, images, labels, sizes) -> (state, out)`` on
         the active plane of ``idx``: the store's rows gathered to the
         device as the carry's plane, ``local`` = 0..K−1 their indices in
-        it, the clients' data gathered beside them; the plane's rows
-        written back to the store after. Returns ``(rows, out)``."""
+        it, the clients' data gathered beside them (``sched``: the carry's
+        stats table, the active clients' entries); the plane's rows
+        written back to the store after — under faults only the lanes
+        ``out.kept`` marks (a lost or corrupted upload never lands).
+        Returns ``(stored ids, their rows, out)``."""
         block = self._store.gather(idx)
         state = RoundState(params=self.global_vec, client_params=block,
                            opt_state=self.aggregator.init_flat_state(
                                self.global_vec),
-                           labels=None)
+                           labels=None, sched=sched)
         local = torch.arange(len(idx), device=self.device)
         state, out = run(state, local, *self._client_data(idx))
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
-        self._store.scatter(idx, block)
-        return block, out
+        kept = getattr(out, "kept", None)
+        if kept is not None:
+            sel = np.flatnonzero(to_host([kept])[0] > 0)
+            idx, block = idx[sel], block[self._index(sel)]
+        if len(idx):
+            self._store.scatter(idx, block)
+        return idx, block, out
 
     def _initial_round_waves(self, idx: np.ndarray) -> None:
         """All devices train in waves of ``k_max`` (the device holds one
@@ -603,38 +770,86 @@ class FLExperiment:
         paged = self._store.kind == "paged"
         if paged:
             idx = idx[self.stats.avail[idx]]
-        if idx.size == 0:
+        live = idx
+        if self.quarantine_after > 0:
+            ok = self.stats.strikes[idx] < float(self.quarantine_after)
+            live = idx[ok]
+        if live.size == 0:
             acc, per_class = self.evaluate()
-            return RoundResult(selected=idx, T_k=0.0, E_k=0.0, accuracy=acc,
+            return RoundResult(selected=live, T_k=0.0, E_k=0.0, accuracy=acc,
                                per_class=per_class)
+        if self._faults_on and self.faults.chan_outage > 0.0:
+            raise ValueError(
+                "faults: chan_outage needs the fade state the scanned "
+                "program carries; the host round loop has none — run a "
+                "traceable bundle with no target_accuracy (store='dense')")
         if paged:
-            return self._paged_round(idx)
+            return self._paged_round(live)
         t = self._index(idx)
+        # a quarantined client keeps its lane, masked, as on the
+        # device-resident run, so both draw over the same lanes
+        mask = (None if live is idx
+                else torch.as_tensor(ok).to(self.device))
         arr = fleet_arrays(self.fleet, self.device)
         arr.pop("xgain", None)
+        state = self._host_state()
+        batch = self._batch_indices(len(t))
         state, out = self.phases().finish_phase(
-            self._host_state(), arr, t, None, self._images, self._labels,
-            self._sizes, self._batch_indices(len(t)), self.test_images,
-            self.test_labels)
+            state, arr, t, mask, self._images, self._labels, self._sizes,
+            batch, self.test_images, self.test_labels,
+            fault=self._fault_draw(len(t)))
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
-        return RoundResult(selected=idx, T_k=float(out.T), E_k=float(out.E),
+        if self._track_faults:
+            self._load_counts(state.sched, idx)
+        return RoundResult(selected=live, T_k=float(out.T), E_k=float(out.E),
                            accuracy=float(out.accuracy),
                            per_class=out.per_class.cpu().numpy(),
                            band_mhz=float(out.band))
 
+    def _fault_draw(self, lanes: int):
+        """A round's fault draw over ``lanes`` dispatched clients (``None``
+        without an active fault spec)."""
+        if not self._faults_on:
+            return None
+        return draw_fault_masks(self.faults, (lanes,), self.draws)
+
+    def _load_counts(self, sched, idx, local: bool = False) -> None:
+        """The ``faults`` and ``strikes`` a round's carry counted, into the
+        stats table (``local``: the carry holds the active clients' ``idx``
+        entries only)."""
+        faults, strikes = to_host([sched.faults, sched.strikes])
+        for col, new in ((self.stats.faults, faults),
+                         (self.stats.strikes, strikes)):
+            if local:
+                col[idx] = new
+            else:
+                col[:] = new
+
     def _paged_round(self, idx: np.ndarray) -> RoundResult:
         """The round body's ``finish_phase`` on the active plane of ``idx``
         (fleet arrays of the selection alone, no O(N) upload), then the
-        stats table's upkeep."""
+        stats table's upkeep — under faults of the rows that landed only
+        (none landed: no upkeep, as nothing moved)."""
         arr = fleet_arrays(self.fleet.select(idx), self.device)
         arr.pop("xgain", None)
         ph = self.phases()
-        rows, out = self._on_active(
-            idx, lambda state, t, images, labels, sizes: ph.finish_phase(
-                state, arr, t, None, images, labels, sizes,
-                self._batch_indices(len(t)), self.test_images,
-                self.test_labels))
-        self._finish_paged_round(idx, rows)
+        sched = None
+        if self._track_faults:
+            sched = ClientStats(*(c[idx] if c.ndim else c
+                                  for c in self.stats)).device(self.device)
+
+        def run(state, t, images, labels, sizes):
+            batch = self._batch_indices(len(t))
+            return ph.finish_phase(
+                state, arr, t, None, images, labels, sizes, batch,
+                self.test_images, self.test_labels,
+                fault=self._fault_draw(len(t)), clients=self._index(idx))
+
+        stored, rows, out = self._on_active(idx, run, sched)
+        if sched is not None:
+            self._load_counts(sched, idx, local=True)
+        if out.kept is None or len(stored):
+            self._finish_paged_round(stored, rows)
         return RoundResult(selected=idx, T_k=float(out.T), E_k=float(out.E),
                            accuracy=float(out.accuracy),
                            per_class=out.per_class.cpu().numpy(),
@@ -676,7 +891,12 @@ class FLExperiment:
 
     def run(self, method=None, rounds: Optional[int] = None,
             target_accuracy: Optional[float] = None,
-            include_initial_round: bool = True) -> FLHistory:
+            include_initial_round: bool = True, *,
+            checkpoint_every: int = 0,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_offset: int = 0,
+            checkpoint_spec: Optional[dict] = None,
+            history: Optional[FLHistory] = None) -> FLHistory:
         """The initial round (recorded as round 0, all devices; skipped when
         ``include_initial_round`` is False and the clusters exist), then
         ``rounds`` rounds with the selector ``method``.
@@ -701,11 +921,26 @@ class FLExperiment:
         the experiment's draws object, as the asynchronous engine has no
         host loop, and an accuracy target raises), on the paged store
         :meth:`_run_async_paged`, which stops at the target.
+
+        ``checkpoint_every > 0`` snapshots every that many rounds (or
+        ticks) into ``checkpoint_dir`` (:meth:`save_checkpoint`, with
+        ``checkpoint_spec`` in the manifest), the round numbers counted
+        from ``checkpoint_offset``; it drives a host loop, never the
+        device-resident run, so the dense asynchronous engine and a
+        fading channel refuse it. ``history`` (a resumed run's, from
+        :meth:`load_checkpoint`) gets this run's rounds after its own.
         """
         self._refuse_single_cell_view()
         rounds = rounds or self.fl.max_rounds
         target = (self.fl.target_accuracy
                   if target_accuracy is None else target_accuracy)
+        ck = None
+        if checkpoint_every:
+            if not checkpoint_dir:
+                raise ValueError(
+                    "checkpoint_every > 0 needs a checkpoint_dir")
+            ck = _Checkpointer(self, checkpoint_dir, int(checkpoint_every),
+                               int(checkpoint_offset), checkpoint_spec)
         selector = (self.selector if method is None
                     else SELECTORS.resolve(method))
         is_async = getattr(self.aggregator, "async_capable", False)
@@ -723,9 +958,10 @@ class FLExperiment:
                     "store='dense')")
             if is_async:
                 return self._run_async_paged(selector, rounds, target,
-                                             include_initial_round)
+                                             include_initial_round, history,
+                                             ck)
             return self._run_host(method, rounds, target,
-                                  include_initial_round)
+                                  include_initial_round, history, ck)
         if is_async:
             if target:
                 raise ValueError(
@@ -733,29 +969,46 @@ class FLExperiment:
                     "device-resident program and cannot stop early on "
                     "target_accuracy; use store='paged' (a host-composed "
                     "tick) or no target")
-            return self._run_traced(selector, rounds, include_initial_round,
-                                    draws=self.draws)
+            if ck is not None:
+                raise ValueError(
+                    "the dense buffered-asynchronous engine runs as ONE "
+                    "scanned program with no host boundary to snapshot "
+                    "at; checkpoint with store='paged' (the host-composed "
+                    "async loop) or checkpoint_every=0")
+            out = self._run_traced(selector, rounds, include_initial_round,
+                                   draws=self.draws)
+            return history.extend(out) if history is not None else out
         if (not target and not getattr(selector, "needs_rng", True)
-                and self.traceable(selector)):
-            return self._run_traced(selector, rounds, include_initial_round)
-        return self._run_host(method, rounds, target, include_initial_round)
+                and self.traceable(selector) and ck is None):
+            out = self._run_traced(selector, rounds, include_initial_round)
+            return history.extend(out) if history is not None else out
+        return self._run_host(method, rounds, target, include_initial_round,
+                              history, ck)
 
     def _run_host(self, method, rounds: int, target: float,
-                  include_initial_round: bool = True) -> FLHistory:
+                  include_initial_round: bool = True,
+                  history: Optional[FLHistory] = None,
+                  ck: Optional[_Checkpointer] = None) -> FLHistory:
         """The host round loop, each round's wall clock in ``seconds``.
         The initial round runs when asked for or when there are no
         clusters yet — on the paged store only when the selector needs
         them (a million-client fleet under a cluster-free policy never
         trains every client); with churn, the mask steps before each
-        round."""
+        round; ``ck`` snapshots when due."""
         self._refuse_single_cell_view()
+        if ck is not None and getattr(self.channel, "stateful", False):
+            raise ValueError(
+                f"channel {self.channel.registry_name!r} carries fade "
+                "state only the scanned program steps; checkpointing "
+                "drives the host round loop — use the static channel or "
+                "checkpoint_every=0")
         if getattr(self.channel, "needs_rng", False):
             raise ValueError(
                 f"channel {self.channel.registry_name!r} redraws fading "
                 "inside the device-resident run and has no host-loop "
                 "equivalent; run it with a traceable strategy bundle and "
                 "no target_accuracy (or through CohortRunner)")
-        hist = FLHistory()
+        hist = history if history is not None else FLHistory()
         selector = (self.selector if method is None
                     else SELECTORS.resolve(method))
         self._maybe_initial_round(hist, selector, include_initial_round)
@@ -766,6 +1019,8 @@ class FLExperiment:
                 self._churn_step_host()
             res = self.round(method)
             hist.append(res, time.perf_counter() - t0)
+            if ck is not None:
+                ck.maybe(k, hist)
             if target and res.accuracy >= target:
                 hist.rounds_to_target = k + 1
                 break
@@ -793,7 +1048,9 @@ class FLExperiment:
             band_mhz=float(torch.sum(a.b))), time.perf_counter() - t0)
 
     def _run_async_paged(self, selector, rounds: int, target: float,
-                         include_initial_round: bool = True) -> FLHistory:
+                         include_initial_round: bool = True,
+                         history: Optional[FLHistory] = None,
+                         ck: Optional[_Checkpointer] = None) -> FLHistory:
         """Buffered-asynchronous ticks over the paged store: the host
         composition of ``async_engine.build_paged_async``'s pieces with
         store paging in between, each tick's wall clock in ``seconds``.
@@ -808,14 +1065,17 @@ class FLExperiment:
         device holds O(k_max·P + M·P) at any N; the draws are the dense
         tick's, in its order, so at ``div_refresh_every=1`` the run is the
         dense store's bit for bit. The initial round runs as in
-        :meth:`_run_host`; ``target`` stops the run early."""
+        :meth:`_run_host`; ``target`` stops the run early. Under faults
+        only the dispatches ``plan`` marks good are staged, and only the
+        candidates the guard folded refresh their divergence; ``ck``
+        folds the carry into the experiment and snapshots when due."""
         from repro_torch.core.async_engine import build_paged_async
         prog = build_paged_async(
             self.engine_cfg, self.aggregator, selector, self.allocator,
             self.traced_context(), self.fl.feature_layer, self.base,
             compressor=self.compressor, channel=self.channel,
-            churn=self.churn)
-        hist = FLHistory()
+            churn=self.churn, **self._fault_args())
+        hist = history if history is not None else FLHistory()
         self._maybe_initial_round(hist, selector, include_initial_round)
         arr = fleet_arrays(self.fleet, self.device)
         arr.pop("xgain", None)
@@ -829,6 +1089,7 @@ class FLExperiment:
                      if prog.churn_on else None)
             draw = (None if kind is None
                     else self.draws.selector_draw(kind, n))
+            fault = self._fault_draw(prog.pad)
             batch = self._batch_indices(prog.pad)
             if needs_div:
                 div = torch.as_tensor(self._paged_divergences(),
@@ -841,29 +1102,37 @@ class FLExperiment:
             # padding lanes read client N − 1's data, train, and are
             # dropped by the mask (the dense tick's clamped gather)
             images, labels, _ = self._client_data(np.minimum(idx_h, n - 1))
-            (state, T, E, band, cand, fired_cand, w_cand,
-             traces) = prog.plan(state, arr_f, idx, mask, self._sizes)
-            rows = prog.train(state, images, labels, batch)
+            (state, T, E, band, cand, fired_cand, w_cand, good,
+             traces) = prog.plan(state, arr_f, idx, mask, self._sizes,
+                                 fault)
+            rows = prog.train(state, images, labels, batch, idx)
             live = idx_h[mask_h]
-            if live.size:
-                store.stage(live, rows[self._index(np.flatnonzero(mask_h))])
+            # the good lanes only (the mask, fault-free): a lost or
+            # corrupted dispatch never reaches the store
+            good_h = (mask_h if not prog.faults_on
+                      else to_host([good])[0] > 0)
+            if good_h.any():
+                store.stage(idx_h[good_h],
+                            rows[self._index(np.flatnonzero(good_h))])
             cand_h, fired_h = to_host([cand, fired_cand])
             cand_h, fired_h = cand_h.astype(np.int64), fired_h > 0
             cand_rows = store.gather_staged(cand_h)
-            state, acc, per_class, div_cand, g_delta = prog.fire(
-                state, cand_rows, w_cand, fired_cand, self.test_images,
-                self.test_labels)
+            state, acc, per_class, div_cand, g_delta, ok_cand = prog.fire(
+                state, cand, cand_rows, w_cand, fired_cand,
+                self.test_images, self.test_labels)
             fired_ids = cand_h[fired_h]
             store.release_staged(fired_ids)
             (acc, g_delta, T, E, band, part, stale, active, div_cand,
-             per_class) = to_host([acc, g_delta, T, E, band, *traces,
-                                   div_cand, per_class])
+             per_class, ok_h) = to_host([acc, g_delta, T, E, band, *traces,
+                                         div_cand, per_class, ok_cand])
             # the stats table after the fold: every stale bound grows by
-            # the fold's global step (0 on an empty fire), the fired
-            # clients get their refreshed divergence
+            # the fold's global step (0 on an empty fire), the candidates
+            # folded get their refreshed divergence (a guarded row's entry
+            # must not turn NaN)
+            ok_h = ok_h > 0
             stats.drift[store.touched] += float(g_delta)
-            stats.divergence[fired_ids] = div_cand[fired_h]
-            stats.drift[fired_ids] = 0.0
+            stats.divergence[cand_h[ok_h]] = div_cand[ok_h]
+            stats.drift[cand_h[ok_h]] = 0.0
             # the next refresh measures against the new global row
             self.global_vec.copy_(state.params)
             self._gvec_host = state.params.to("cpu", copy=True).numpy()
@@ -877,6 +1146,11 @@ class FLExperiment:
             hist.participation.append(float(part))
             hist.staleness.append(float(stale))
             hist.active.append(float(active))
+            if ck is not None and ck.due(k):
+                # the carry into the experiment (read-only on it), the
+                # snapshot, then the same carry drives on
+                self._fold_async_carry(state)
+                ck.save(k, hist)
             if target and float(acc) >= target:
                 hist.rounds_to_target = k + 1
                 break
@@ -892,6 +1166,140 @@ class FLExperiment:
         for col in ("age", "t_done", "avail", "t_now", "faults", "strikes"):
             np.copyto(getattr(self.stats, col),
                       getattr(state.sched, col).cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume (repro_torch.train.checkpoint)
+    def save_checkpoint(self, directory: str, round_idx: int,
+                        history: Optional[FLHistory] = None,
+                        spec_dict: Optional[dict] = None,
+                        keep_last: int = 3) -> str:
+        """An atomic snapshot of the whole experiment in
+        ``directory/round_%06d/``: the global row, the draws' generator
+        state (a ``uint8`` leaf), the aggregator's flat state, the K-means
+        labels and the stats table (``leaves.npz`` + ``manifest.json``),
+        and the client store as ``store_*.npz`` blocks of ``chunk_size``
+        rows (a paged store writes its touched rows only). The numpy
+        Generator's state, the history and the spec ride in the manifest.
+        The snapshot is written under a temporary name, ``os.replace``d
+        into place, then ``LATEST`` flips; the ``keep_last`` newest
+        snapshots stay. Returns the snapshot's path."""
+        from repro_torch.train import checkpoint as ckpt
+        os.makedirs(directory, exist_ok=True)
+        final = os.path.join(directory, "round_%06d" % int(round_idx))
+        tmp = final + ".tmp"
+        for stale in (tmp, final):
+            if os.path.isdir(stale):
+                shutil.rmtree(stale)
+        opt = self.aggregator.init_flat_state(self.global_vec)
+        tree = {"gvec": self.global_vec,
+                "opt": np.zeros((0,), np.float32) if opt is None else opt,
+                "labels": self._labels_tensor(),
+                "draws": self.draws.state(),
+                "stats": dict(self.stats._asdict())}
+        extra = {
+            "round": int(round_idx),
+            "store_kind": self._store.kind,
+            "opt_none": opt is None,
+            "has_clusters": self.cluster_labels is not None,
+            "rounds_since_refresh": int(self._rounds_since_refresh),
+            "rng_state": self.rng.bit_generator.state,
+            "spec": spec_dict,
+            "history": None if history is None else history.to_dict(),
+        }
+        ckpt.save_checkpoint(tmp, tree, step=int(round_idx), extra=extra)
+        self._save_store_rows(tmp)
+        os.replace(tmp, final)
+        ckpt.write_latest(directory, os.path.basename(final))
+        if keep_last:
+            snaps = sorted(d for d in os.listdir(directory)
+                           if d.startswith("round_")
+                           and not d.endswith(".tmp"))
+            for name in snaps[:-keep_last]:
+                shutil.rmtree(os.path.join(directory, name),
+                              ignore_errors=True)
+        return final
+
+    def _snapshot_template(self, opt_none: bool) -> dict:
+        """A snapshot's leaves, shaped and typed as :meth:`load_checkpoint`
+        restores them."""
+        return {"gvec": self.global_vec,
+                "opt": (np.zeros((0,), np.float32) if opt_none
+                        else torch.zeros_like(self.global_vec)),
+                "labels": torch.zeros((self.fed.num_clients,),
+                                      dtype=torch.long),
+                "draws": self.draws.state(),
+                "stats": dict(self.stats._asdict())}
+
+    def _save_store_rows(self, path: str) -> None:
+        """The client store as ``store_*.npz`` blocks of ``{idx, rows}``,
+        ``chunk_size`` rows at a time."""
+        store = self._store
+        if store.kind == "paged":
+            tidx = np.flatnonzero(store.touched)
+            for ci, s in enumerate(range(0, tidx.size, self.chunk_size)):
+                b = tidx[s:s + self.chunk_size]
+                np.savez(os.path.join(path, "store_%05d.npz" % ci),
+                         idx=b, rows=store.gather(b).cpu().numpy())
+            return
+        start = 0
+        for ci, block in enumerate(store.iter_chunks(self.chunk_size)):
+            c = block.shape[0]
+            np.savez(os.path.join(path, "store_%05d.npz" % ci),
+                     idx=np.arange(start, start + c), rows=block)
+            start += c
+
+    def load_checkpoint(self, directory: str,
+                        expected_spec: Optional[dict] = None):
+        """Restore a :meth:`save_checkpoint` snapshot into this freshly
+        built experiment (the same spec: ``expected_spec`` is checked
+        against the one the manifest recorded). ``directory`` is the
+        snapshot or a parent of ``round_*`` snapshots with ``LATEST``.
+        Returns ``(round_idx, history)``: hand them to :meth:`run` as
+        ``checkpoint_offset`` and ``history`` with
+        ``include_initial_round=False``, and the run goes on as the
+        uninterrupted one, bit for bit."""
+        from repro_torch.train import checkpoint as ckpt
+        path = ckpt.latest_checkpoint(directory)
+        extra = ckpt.checkpoint_extra(path)
+        if extra.get("store_kind") != self._store.kind:
+            raise ValueError(
+                f"checkpoint was taken on store={extra.get('store_kind')!r}"
+                f" but this experiment runs store={self._store.kind!r}")
+        if (expected_spec is not None and extra.get("spec") is not None
+                and extra["spec"] != expected_spec):
+            diff = sorted(k for k in set(extra["spec"]) | set(expected_spec)
+                          if extra["spec"].get(k) != expected_spec.get(k))
+            raise ValueError(
+                "checkpoint spec does not match this experiment's spec "
+                f"(differing fields: {diff}); resume rebuilds from the "
+                "checkpoint's own spec")
+        tree = ckpt.load_checkpoint(path, self._snapshot_template(
+            extra["opt_none"]))
+        self.global_vec.copy_(tree["gvec"])
+        self.draws.load_state(tree["draws"])
+        if extra["has_clusters"]:
+            self.cluster_labels = tree["labels"].numpy()
+            self.clusters = clusters_from_labels(self.cluster_labels,
+                                                 self.fl.num_clusters)
+        else:
+            self.cluster_labels = self.clusters = None
+        self.aggregator.reset()
+        if not extra["opt_none"]:
+            self.aggregator.load_flat_state(tree["opt"], self.flat_spec)
+        for name, arr in tree["stats"].items():
+            np.copyto(getattr(self.stats, name), arr)
+        self.rng.bit_generator.state = extra["rng_state"]
+        self._rounds_since_refresh = int(extra["rounds_since_refresh"])
+        for fn in sorted(glob.glob(os.path.join(path, "store_*.npz"))):
+            with np.load(fn) as data:
+                idx, rows = data["idx"], data["rows"]
+            if idx.size:
+                self._store.scatter(idx, torch.as_tensor(rows))
+        if self._store.kind == "paged":
+            self._gvec_host = self.global_vec.to("cpu", copy=True).numpy()
+        hist = (None if extra.get("history") is None
+                else FLHistory.from_dict(extra["history"]))
+        return int(extra["round"]), hist
 
     def _refuse_single_cell_view(self) -> None:
         if (getattr(self.channel, "dynamic", False)
@@ -929,9 +1337,10 @@ class FLExperiment:
         the client plane with ``selector.pad_size`` rows after it for the
         padding lanes' writes (none on the paged store, whose ticks carry
         no plane), the aggregator's state, the K-means labels (zeros
-        before the initial round) and, for an async-capable aggregator, a
-        device copy of the stats table (``sched``: a second run continues
-        its virtual clock)."""
+        before the initial round) and, for an async-capable aggregator or
+        under faults or quarantine, a device copy of the stats table
+        (``sched``: a second run continues its virtual clock and its
+        counts)."""
         selector = self.selector if selector is None else selector
         n = self.fed.num_clients
         plane = None
@@ -943,7 +1352,8 @@ class FLExperiment:
             plane[:n] = self.client_plane
         gvec = self.global_vec.clone()
         sched = (self.stats.device(self.device)
-                 if getattr(self.aggregator, "async_capable", False)
+                 if (getattr(self.aggregator, "async_capable", False)
+                     or self._track_faults)
                  else None)
         return RoundState(params=gvec, client_params=plane,
                           opt_state=self.aggregator.init_flat_state(gvec),
@@ -1000,7 +1410,7 @@ class FLExperiment:
             feature_layer=self.fl.feature_layer, device=self.device,
             shapes=inputs.shapes(), base=self.base,
             compressor=self.compressor, channel=self.channel,
-            churn=self.churn)
+            churn=self.churn, **self._fault_args())
         return prog(self.traced_state(selector), *inputs,
                     draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)

@@ -1,6 +1,7 @@
 """Registered server aggregation strategies: eq. (4) FedAvg, the
-beyond-paper FedAvgM server momentum and FedBuff's buffered asynchronous
-fold, on the flat plane (``repro.strategies.aggregators``).
+beyond-paper FedAvgM server momentum, FedBuff's buffered asynchronous
+fold and the robust folds ``trimmed:f`` and ``clipnorm:c``, on the flat
+plane (``repro.strategies.aggregators``).
 
 All implement the flat contract the round body drives: ``aggregate_flat``
 folds the round's ``[S, P]`` rows with one ``ops.flat_aggregate`` row
@@ -18,8 +19,8 @@ import torch
 from repro_torch.api.registry import AGGREGATORS, Strategy, StrategyError
 from repro_torch.core.algorithms import ServerMomentum
 from repro_torch.kernels import ops
-from repro_torch.utils.trees import (flatten_vector, stack_flatten_spec,
-                                     unflatten_vector)
+from repro_torch.utils.trees import (flatten_stacked, flatten_vector,
+                                     stack_flatten_spec, unflatten_vector)
 
 
 def weighted_mean_stacked(stacked, weights):
@@ -173,3 +174,96 @@ class FedAvgMAggregator(Strategy):
 
     def load_flat_state(self, opt_state, spec) -> None:
         self._opt.v = unflatten_vector(spec, opt_state.clone())
+
+
+class _FlatRobustMixin:
+    """The host plumbing the robust folds share: stateless on the server,
+    and the stacked ``{name: [S, ...]}`` contract served through the flat
+    fold, so the host and the round body share one implementation."""
+
+    fuses_with_engine = False
+    traceable = True
+
+    def reset(self) -> None:
+        pass
+
+    def init_flat_state(self, global_vec: torch.Tensor):
+        return None
+
+    def load_flat_state(self, opt_state, spec) -> None:
+        pass
+
+    def aggregate(self, global_params, stacked_params, weights):
+        """The host form over ``{name: tensor}`` models."""
+        spec = stack_flatten_spec(global_params)
+        gvec = flatten_vector(spec, global_params)
+        rows = flatten_stacked(spec, stacked_params)
+        vec, _ = self.aggregate_flat(gvec, rows,
+                                     weights.to(torch.float32), None)
+        return unflatten_vector(spec, vec)
+
+
+@AGGREGATORS.register("trimmed")
+@dataclass
+class TrimmedMeanAggregator(_FlatRobustMixin, Strategy):
+    """Coordinate-wise trimmed mean (Yin et al. 2018), ``trimmed:f`` with
+    ``f ∈ [0, 0.5)``: per coordinate, sort the participating rows, drop
+    the ``⌊f·k⌋`` smallest and largest of the ``k`` participants and
+    average the rest UNWEIGHTED (rank-based: D_n weighting does not
+    compose with it). A byzantine row that negates and amplifies lands in
+    the trimmed tails coordinate by coordinate.
+
+    Zero-weight lanes (padding, lost and guarded uploads) sort to ``+inf``
+    above every real value, so ranks ``[0, k)`` are the participants;
+    ``f = 0`` is the unweighted mean of the participants. A sort, not a
+    kernel: the reference runs it as ``jnp.sort`` outside any Pallas
+    kernel. Rows ``[S, P]`` or lanes ``[B, S, P]``."""
+
+    f: float = 0.1
+
+    def __post_init__(self):
+        if not 0.0 <= self.f < 0.5:
+            raise StrategyError(
+                f"trimmed-mean fraction must lie in [0, 0.5); got {self.f}")
+
+    def aggregate_flat(self, global_vec, rows, weights, opt_state=None):
+        valid = weights.to(torch.float32) > 0.0                # [.., S]
+        k = torch.sum(valid.to(torch.int64), dim=-1, keepdim=True)
+        t = torch.floor(self.f * k.to(torch.float32)).to(torch.int64)
+        inf = torch.full((), float("inf"), device=rows.device)
+        srt = torch.sort(torch.where(valid[..., None], rows, inf),
+                         dim=-2).values
+        ranks = torch.arange(rows.shape[-2], device=rows.device)
+        keep = (ranks >= t) & (ranks < k - t)                  # [.., S]
+        total = torch.sum(torch.where(keep[..., None], srt,
+                                      torch.zeros_like(inf)), dim=-2)
+        denom = torch.clamp(k - 2 * t, min=1).to(torch.float32)
+        return total / denom, opt_state
+
+
+@AGGREGATORS.register("clipnorm")
+@dataclass
+class ClipNormAggregator(_FlatRobustMixin, Strategy):
+    """Eq. (4) with per-client update-norm clipping, ``clipnorm:c`` (``c >
+    0``, in flat-plane L2 units): each row's delta from the global row is
+    scaled to ``‖w_n − g‖ ≤ c`` before the weighted mean, which bounds any
+    one client's pull and keeps the D_n weighting. The clipped rows fold
+    through ``ops.flat_aggregate`` (the hand kernel on the card); a NaN
+    row stays NaN through the clip, and its weight, zeroed by the
+    non-finite guard before the fold, keeps it out."""
+
+    c: float = 1.0
+
+    def __post_init__(self):
+        if not self.c > 0.0:
+            raise StrategyError(
+                f"clipnorm radius must be > 0; got {self.c}")
+
+    def aggregate_flat(self, global_vec, rows, weights, opt_state=None):
+        g = global_vec[..., None, :]
+        delta = rows - g
+        nrm = torch.sqrt(torch.sum(torch.square(delta), dim=-1,
+                                   keepdim=True))
+        scale = torch.clamp(self.c / torch.clamp(nrm, min=1e-12), max=1.0)
+        clipped = g + delta * scale
+        return ops.flat_aggregate(clipped, weights), opt_state

@@ -12,7 +12,13 @@ Each returns ``(idx, mask)`` of a static length (the selector's
   aggregation weights and keeps them out of the allocators' reductions.
 
 Top-k is a stable descending sort, so ties go to the lower index as in
-``lax.top_k`` (``torch.topk`` does not promise that). The stochastic
+``lax.top_k`` (``torch.topk`` does not promise that). A NaN score (the
+divergence of a non-finite row: a byzantine row past fp32's range, or a
+training blow-up) ranks last, below −inf: ``lax.top_k`` orders floats
+totally and puts the NaN that x86 arithmetic makes (its sign bit set)
+there, where ``torch.sort`` would rank it first and mask its cluster.
+Every NaN ranks last here, whatever its sign, so the card (whose
+arithmetic NaN is positive) ranks it as the CPU does. The stochastic
 policies take their random input as a tensor — ``[N]`` uniforms, or a
 permutation of N for ``random`` — so a caller decides where it comes from
 and a test can feed the reference's ``jax.random`` draws; nothing draws
@@ -41,9 +47,16 @@ from repro_torch.core.wireless import (device_scalar, effective_arrays,
 
 def _stable_top(scores: torch.Tensor, k: int):
     """``(values, indices)`` of the ``k`` largest along the last axis,
-    descending, the lower index first on ties (``lax.top_k``)."""
-    values, order = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[..., :k], order[..., :k]
+    descending, the lower index first on ties (``lax.top_k``), a NaN
+    below −inf. The sort runs on fp32's bits as ordered integers (a
+    negative float's magnitude bits flipped), a NaN's key the least."""
+    bits = scores.to(torch.float32).view(torch.int32)
+    key = torch.bitwise_xor(bits, torch.bitwise_and(bits >> 31, 0x7FFFFFFF))
+    key = torch.where(torch.isnan(scores), torch.iinfo(torch.int32).min,
+                      key)
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    order = order[..., :k]
+    return torch.gather(scores, -1, order), order
 
 
 def rate_at(arr, band_mhz: float) -> torch.Tensor:

@@ -7,10 +7,12 @@ captured tick, replayed).
     weights' properties (Hypothesis, as the reference's suite);
 (b) the port's dense asynchronous run against the reference's
     ``build_experiment(spec).run()``, replaying its key stream
-    (``JaxReplayDraws``, with its churn split), with and without churn:
-    dispatches, participation and active counts equal, staleness rtol
-    1e-6, T_k/E_k rtol 2e-3, the global row atol 1e-4, accuracy within one
-    test sample;
+    (``FaultReplayDraws``, with its churn split and its fault masks at
+    dispatch), with and without churn, and under faults, byzantine
+    clients and quarantine with churn: dispatches, participation and
+    active counts equal, staleness rtol 1e-6, T_k/E_k rtol 2e-3, the
+    global row atol 1e-4, accuracy within one test sample, the fault and
+    strike counts equal;
 (c) the degenerate pin (``fedbuff:M>=S_pad:0``, no churn ≡ the synchronous
     traced run, bit for bit, port against port), the empty fire as a
     no-op, churn never dispatching an unavailable client, the virtual
@@ -39,13 +41,15 @@ from repro_torch.core.wireless import (completion_times, fleet_arrays,
                                        sample_fleet)
 from tests.hypothesis_compat import given, settings, st
 
-from test_torch_slice import JaxReplayDraws
+from test_torch_slice import FaultReplayDraws
 
 TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             train_samples=160, test_samples=80, local_iters=2, batch_size=8,
             rounds=3, devices_per_round=4, num_clusters=4,
             learning_rate=0.05)
 CHURN = dict(churn_leave=0.3, churn_join=0.3)
+FAULTS = dict(faults="outage:0.2,corrupt:0.3,byzantine:0.2",
+              quarantine_after=2, churn_leave=0.05, churn_join=0.1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -167,13 +171,14 @@ def test_staleness_weights_discount_strictly(alpha):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=[{}, CHURN], ids=["no-churn", "churn"])
+@pytest.fixture(scope="module", params=[{}, CHURN, FAULTS],
+                ids=["no-churn", "churn", "faults"])
 def ref_and_port(request):
     spec = dict(TINY, aggregator="fedbuff:2:0.5", **request.param)
     ref = ref_build_experiment(RefSpec(**spec))
     h_ref = ref.run()
     port = build_experiment(ExperimentSpec(**spec), device="cpu",
-                            draws=JaxReplayDraws(0))
+                            draws=FaultReplayDraws(0))
     h_port = port.run()
     assert h_port.seconds == []               # the device-resident path
     return ref, h_ref, port, h_port
@@ -205,13 +210,59 @@ def test_async_run_matches_reference_state(ref_and_port):
     np.testing.assert_allclose(
         port.global_vec.numpy(),
         np.asarray(tree_flatten_vector(ref.global_params)), atol=1e-4)
-    for col in ("avail", "age"):
+    for col in ("avail", "age", "faults", "strikes"):
         np.testing.assert_array_equal(getattr(port.stats, col),
-                                      np.asarray(getattr(ref.stats, col)))
+                                      np.asarray(getattr(ref.stats, col)),
+                                      err_msg=col)
+    if port.faults is not None:      # the fault arms and quarantine ran
+        assert port.stats.faults.sum() > 0
+        assert port.stats.strikes.max() >= FAULTS["quarantine_after"]
     for col in ("t_done", "t_now"):
         np.testing.assert_allclose(getattr(port.stats, col),
                                    np.asarray(getattr(ref.stats, col)),
                                    rtol=2e-3)
+    for col in ("divergence", "drift"):
+        np.testing.assert_allclose(getattr(port.stats, col),
+                                   np.asarray(getattr(ref.stats, col)),
+                                   rtol=2e-3, atol=1e-4, err_msg=col)
+
+
+def test_async_guard_matches_reference():
+    """A byzantine row past fp32's range (``byz_scale:1e39``) is
+    non-finite: it persists to the plane, where its divergence is NaN and
+    ranks last in selection (as ``lax.top_k`` ranks x86's NaN), then
+    fires, and the receive-side guard weights it out and strikes its
+    sender, who leaves flight without a refresh: its drift grows on while
+    a finite fired row's resets. Two ticks against the reference: the
+    dispatches, the counts, the drift and divergence columns and the
+    row."""
+    spec = dict(TINY, rounds=2, aggregator="fedbuff:2:0.5", churn_leave=0.05,
+                churn_join=0.1,
+                faults="outage:0.1,corrupt:0.1,byzantine:0.6,byz_scale:1e39")
+    ref = ref_build_experiment(RefSpec(**spec))
+    h_ref = ref.run()
+    port = build_experiment(ExperimentSpec(**spec), device="cpu",
+                            draws=FaultReplayDraws(0))
+    h_port = port.run()
+    for a, b in zip(h_port.selected, h_ref.selected):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert h_port.participation == h_ref.participation
+    for col in ("faults", "strikes", "age", "avail"):
+        np.testing.assert_array_equal(getattr(port.stats, col),
+                                      np.asarray(getattr(ref.stats, col)),
+                                      err_msg=col)
+    for col in ("divergence", "drift"):
+        np.testing.assert_allclose(getattr(port.stats, col),
+                                   np.asarray(getattr(ref.stats, col)),
+                                   rtol=2e-3, atol=1e-4, err_msg=col)
+    np.testing.assert_allclose(
+        port.global_vec.numpy(),
+        np.asarray(tree_flatten_vector(ref.global_params)), atol=1e-4)
+    # the guard struck more than the corrupt dispatches did, and a struck
+    # client kept its drift
+    assert port.stats.strikes.sum() > port.stats.faults.sum()
+    assert (port.stats.drift[port.stats.strikes > 0] > 0).any()
+    assert not np.isfinite(port.client_plane.numpy()).all()
 
 
 # ---------------------------------------------------------------------------

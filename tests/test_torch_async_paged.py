@@ -11,7 +11,9 @@ flight every tick).
     ``div_refresh_every=1`` reproduces the dense tick's divergence over
     the plane, the candidates' fold sums in the same order;
 (b) the paged run against the reference's, replaying its key stream, at
-    ``test_torch_slice.py``'s tolerances;
+    ``test_torch_slice.py``'s tolerances, under churn and under faults,
+    byzantine clients and quarantine with churn (the fault and strike
+    counts equal);
 (c) churn cancels in-flight work (the scheduler and ``stats.avail`` are
     one table), the clock and the divergence/drift columns persist across
     ``run()`` calls, ``target_accuracy`` stops early, nothing of the
@@ -29,7 +31,7 @@ from repro.utils.trees import tree_flatten_vector
 from repro_torch.api import ExperimentSpec, build_experiment
 from repro_torch.core.clustering import clusters_from_labels
 
-from test_torch_slice import JaxReplayDraws
+from test_torch_slice import FaultReplayDraws
 
 TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             train_samples=160, test_samples=80, local_iters=2, batch_size=8,
@@ -38,6 +40,10 @@ TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             aggregator="fedbuff:2:0.5")
 PAGED = dict(store="paged", k_max=8, div_refresh_every=1)
 CHURN = dict(churn_leave=0.3, churn_join=0.3)
+FAULTS = dict(faults="outage:0.2,corrupt:0.3,byzantine:0.2",
+              quarantine_after=1, churn_leave=0.05, churn_join=0.1)
+GUARD = dict(faults="outage:0.1,corrupt:0.1,byzantine:0.6,byz_scale:1e39",
+             churn_leave=0.05, churn_join=0.1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -97,12 +103,12 @@ def test_async_dense_paged_bit_identical(extra):
 # ---------------------------------------------------------------------------
 
 
-def test_async_paged_matches_reference():
-    spec = dict(TINY, **PAGED, **CHURN)
+def _matches_reference(extra):
+    spec = dict(TINY, **PAGED, **extra)
     ref = _preset_clusters(ref_build_experiment(RefSpec(**spec)),
                            clusters=ref_clusters)
     h_ref = ref.run(rounds=TINY["rounds"], include_initial_round=False)
-    port, h_port = _run(spec, draws=JaxReplayDraws(0))
+    port, h_port = _run(spec, draws=FaultReplayDraws(0))
     for a, b in zip(h_port.selected, h_ref.selected):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert h_port.participation == h_ref.participation
@@ -116,6 +122,47 @@ def test_async_paged_matches_reference():
         port.global_vec.numpy(),
         np.asarray(tree_flatten_vector(ref.global_params)), atol=1e-4)
     np.testing.assert_array_equal(port.stats.avail, ref.stats.avail)
+    return port, ref
+
+
+def test_async_paged_matches_reference():
+    _matches_reference(CHURN)
+
+
+def test_async_paged_matches_reference_under_faults():
+    """The paged ``plan``'s fault draw at dispatch, the byzantine rows in
+    ``train``, the guard in ``fire`` and quarantine in ``sched``, against
+    the reference's paged pieces: the fault and strike counts equal, a
+    client quarantined, and the divergence column within the row's
+    tolerance (a guarded candidate refreshes nothing)."""
+    port, ref = _matches_reference(FAULTS)
+    for col in ("faults", "strikes", "age"):
+        np.testing.assert_array_equal(getattr(port.stats, col),
+                                      np.asarray(getattr(ref.stats, col)),
+                                      err_msg=col)
+    for col in ("divergence", "drift", "t_done"):
+        np.testing.assert_allclose(getattr(port.stats, col),
+                                   np.asarray(getattr(ref.stats, col)),
+                                   rtol=2e-3, atol=1e-4, err_msg=col)
+    assert port.stats.faults.sum() > 0
+    assert port.stats.strikes.max() >= FAULTS["quarantine_after"]
+
+
+def test_async_paged_guard_matches_reference():
+    """Byzantine rows past fp32's range reach the store non-finite; the
+    ``fire`` piece's guard weights them out and strikes their senders
+    (more strikes than corrupt dispatches), as the reference's does; the
+    refreshed divergence column (NaN on a non-finite row) matches."""
+    port, ref = _matches_reference(GUARD)
+    for col in ("faults", "strikes"):
+        np.testing.assert_array_equal(getattr(port.stats, col),
+                                      np.asarray(getattr(ref.stats, col)),
+                                      err_msg=col)
+    for col in ("divergence", "drift"):
+        np.testing.assert_allclose(getattr(port.stats, col),
+                                   np.asarray(getattr(ref.stats, col)),
+                                   rtol=2e-3, atol=1e-4, err_msg=col)
+    assert port.stats.strikes.sum() > port.stats.faults.sum()
 
 
 # ---------------------------------------------------------------------------

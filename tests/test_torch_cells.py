@@ -26,8 +26,7 @@ from repro.api import build_experiment as ref_build_experiment
 from repro.api import scenario as ref_sc
 from repro.utils.trees import tree_flatten_vector
 
-from repro_torch.api import (ExperimentSpec, StrategyError, build_cohort,
-                             build_experiment)
+from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
 from repro_torch.api import scenario as sc
 from repro_torch.core.cohort import CohortHistory
 
@@ -243,17 +242,42 @@ def test_unequal_cells_refuse_a_cohort():
 @pytest.mark.parametrize("value", ["trimmed:0.2", "clipnorm:1.0",
                                    "trimmed"])
 def test_unported_aggregators_name_the_port(value):
-    with pytest.raises(StrategyError, match="port"):
-        ExperimentSpec(aggregator=value)
+    """Once refused (naming the port), the robust folds are ported: the
+    spec stores the reference's canonical form, and the fold of the same
+    rows (one NaN lane at weight 0) agrees with the reference's."""
+    from repro.api.registry import AGGREGATORS as REF_AGGREGATORS
+    from repro_torch.api.registry import AGGREGATORS
+    spec = ExperimentSpec(aggregator=value)
+    assert spec.aggregator == RefSpec(aggregator=value).aggregator
+    rng = np.random.default_rng(0)
+    g = rng.normal(scale=0.1, size=16).astype(np.float32)
+    rows = (g + rng.normal(scale=0.1, size=(5, 16))).astype(np.float32)
+    w = np.asarray([1.0, 2.0, 0.0, 1.5, 3.0], np.float32)
+    rows[2] = np.nan
+    got, _ = AGGREGATORS.resolve(spec.aggregator).aggregate_flat(
+        torch.tensor(g), torch.tensor(rows), torch.tensor(w), None)
+    want, _ = REF_AGGREGATORS.resolve(spec.aggregator).aggregate_flat(
+        g, rows, w, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
 @pytest.mark.parametrize("field,value", [
     ("p_shards", 2), ("faults", "outage:0.1"), ("quarantine_after", 2)])
 def test_unported_fields_name_the_port(field, value):
-    with pytest.raises(TypeError, match=f"{field}.*port"):
-        ExperimentSpec(**{field: value})
-    with pytest.raises(ValueError, match="unknown ExperimentSpec fields"):
-        ExperimentSpec.from_dict({field: value})
+    """``p_shards`` is still no field of the port's spec (a ``TypeError``
+    naming the port); ``faults`` and ``quarantine_after``, once refused
+    alike, are ported: their JSON form is the reference's and round
+    trips."""
+    if field == "p_shards":
+        with pytest.raises(TypeError, match=f"{field}.*port"):
+            ExperimentSpec(**{field: value})
+        with pytest.raises(ValueError, match="unknown ExperimentSpec fields"):
+            ExperimentSpec.from_dict({field: value})
+        return
+    spec = ExperimentSpec(**{field: value})
+    assert spec.to_dict()[field] == RefSpec(**{field: value}).to_dict()[field]
+    assert ExperimentSpec.from_dict({field: value}) == spec
+    assert ExperimentSpec.from_json(spec.to_json()) == spec
 
 
 def test_churn_on_the_dense_store_is_refused():

@@ -744,3 +744,125 @@ def test_async_candidate_fold_matches_plain(cuda):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, flat_aggregate_plain(
         flat, w / w.sum()), **AGG_TOL)
+
+
+def _robust_rows(cuda, n=10, p=113_744, dead=(3, 7)):
+    g = torch.tensor(_normal(50, p) * 0.1, device=cuda)
+    rows = g + torch.tensor(_normal(51, n, p) * 0.1, device=cuda)
+    w = torch.tensor(np.abs(_normal(52, n)) + 0.1, device=cuda)
+    for i in dead:                      # lost or guarded uploads
+        rows[i] = float("nan")
+        w[i] = 0.0
+    return g, rows, w
+
+
+def test_clipnorm_fold_through_the_kernel_matches_plain(cuda):
+    """``clipnorm:c`` at a faulty round's shape: its clipped rows fold
+    through the hand kernel (one launch), the NaN rows at weight 0
+    skipped, against the same fold of the plain path on the CPU."""
+    from repro_torch.api.registry import AGGREGATORS
+    cn = AGGREGATORS.resolve("clipnorm:1.0")
+    g, rows, w = _robust_rows(cuda)
+    before = flat_aggregate.launches
+    got, _ = cn.aggregate_flat(g, rows, w)
+    torch.cuda.synchronize()
+    assert flat_aggregate.launches == before + 1
+    assert torch.isfinite(got).all()
+    want, _ = cn.aggregate_flat(g.cpu(), rows.cpu(), w.cpu())
+    torch.testing.assert_close(got.cpu(), want, **AGG_TOL)
+
+
+def test_trimmed_on_the_card_matches_the_cpu(cuda):
+    """``trimmed:f`` (a sort, as the reference's ``jnp.sort``) on the card
+    against the CPU, zero-weight NaN lanes included."""
+    from repro_torch.api.registry import AGGREGATORS
+    g, rows, w = _robust_rows(cuda)
+    for f in (0.0, 0.2, 0.4):
+        tm = AGGREGATORS.resolve(f"trimmed:{f}")
+        got, _ = tm.aggregate_flat(g, rows, w)
+        want, _ = tm.aggregate_flat(g.cpu(), rows.cpu(), w.cpu())
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_faulty_replays_equal_eager_rounds(cuda):
+    """Three replays of the captured round under faults and quarantine
+    against three eager rounds of the same body from the same carry,
+    batch indices and fault draws: the global row, the plane, the counts
+    and every output bit for bit; a guarded run makes no host sync."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.core import engine
+    from repro_torch.core.faults import draw_fault_masks
+    from repro_torch.core.graphs import eager_solves
+    spec = ExperimentSpec(**TINY, aggregator="trimmed:0.2",
+                          faults="outage:0.3,corrupt:0.3,byzantine:0.3",
+                          quarantine_after=1)
+    exp = build_experiment(spec, device=cuda)
+    exp.run(rounds=1)                    # the initial round + one replay
+    res = exp.traced_run(exp.selector, 2, include_initial_round=False,
+                         draws=exp.draws)
+    prog = engine.run_rounds(
+        exp.engine_cfg, selector=exp.selector, allocator=exp.allocator,
+        aggregator=exp.aggregator, tctx=exp.traced_context(),
+        feature_layer=exp.fl.feature_layer, device=exp.device,
+        shapes=exp.traced_inputs().shapes(), compressor=exp.compressor,
+        channel=exp.channel, churn=exp.churn, **exp._fault_args())
+    assert prog.graph is not None and prog.ph.faults_on
+    assert res.rounds.kept is not None
+    prog(exp.traced_state(), *exp.traced_inputs(), draws=exp.draws,
+         rounds=2, with_init=False, transfer_guard=True)
+    inputs = exp.traced_inputs()
+    draws = []
+    for _ in range(3):
+        b = exp.draws.batch_indices(prog.pad, 2, 8, 16)
+        draws.append((b, draw_fault_masks(exp.faults, (prog.pad,),
+                                          exp.draws)))
+    prog.load(exp.traced_state(), inputs)
+    got = [[None if t is None else t.clone()
+            for t in prog.replay(b, fault=f)] for b, f in draws]
+    got_state = [t.clone() for t in (prog.state.params,
+                                     prog.state.client_params,
+                                     prog.state.sched.faults,
+                                     prog.state.sched.strikes)]
+    state = exp.traced_state()
+    want = []
+    with eager_solves():
+        for b, f in draws:
+            state, out = prog.round_body(state, inputs, b, fault=f)
+            want.append(out)
+    torch.cuda.synchronize()
+    for g_out, w_out in zip(got, want):
+        for name, g, w in zip(engine.RoundOutputs._fields, g_out, w_out):
+            assert (g is None) == (w is None), name
+            assert g is None or torch.equal(g, w), name
+    for g, w in zip(got_state, (state.params, state.client_params,
+                                state.sched.faults, state.sched.strikes)):
+        assert torch.equal(g, w)
+    assert float(state.sched.faults.sum()) > 0
+
+
+def test_selection_ranks_nan_last_on_the_card(cuda):
+    """A non-finite row's divergence is a NaN whose sign bit the card sets
+    (positive) and x86 does not (negative): the selectors' top-k ranks
+    every NaN last, so a cohort of divergences with NaN, ±inf and signed
+    zeros selects on the card what it selects on the CPU."""
+    from repro_torch.strategies.traced import (_stable_top,
+                                               select_divergence_traced)
+    rng = np.random.default_rng(0)
+    x = rng.gamma(2.0, 1.0, (3, 40)).astype(np.float32)
+    x[:, [1, 7, 30]] = np.uint32(0xFFC00000).view(np.float32)   # x86 NaN
+    x[:, [4, 9]] = np.inf
+    x[:, [11, 12]] = (0.0, -0.0)
+    on_card = torch.tensor(x, device=cuda)
+    on_card[:, 30] = torch.sqrt(torch.tensor(-1.0, device=cuda))  # card NaN
+    v_c, i_c = _stable_top(on_card, 25)
+    v_h, i_h = _stable_top(torch.tensor(x), 25)
+    assert torch.equal(i_c.cpu(), i_h)
+    assert torch.equal(v_c.cpu().isnan(), v_h.isnan())
+    labels = torch.tensor(rng.integers(0, 4, 40))
+    got = select_divergence_traced(on_card[0], labels.to(cuda),
+                                   num_clusters=4, s=2, num_devices=40)
+    want = select_divergence_traced(torch.tensor(x[0]), labels,
+                                    num_clusters=4, s=2, num_devices=40)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

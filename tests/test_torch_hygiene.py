@@ -71,11 +71,19 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
 def test_spec_rejects_what_the_port_lacks(field, value):
     """A strategy the port lacks raises ``ValueError`` naming the port and
     what it supports, as does a model that is no registered workload; a
-    reference field the port has no counterpart for (``p_shards``,
-    faults) is not a field of the port's spec at all, and passing it
-    raises a ``TypeError`` that names the port."""
+    reference field the port has no counterpart for (``p_shards``) is not
+    a field of the port's spec at all, and passing it raises a
+    ``TypeError`` that names the port. The robust aggregators and
+    ``faults``, once refused here, are ported: the spec takes them in the
+    reference's JSON form."""
+    from repro.api import ExperimentSpec as RefSpec
     from repro_torch.api import ExperimentSpec
-    if field in ("aggregator", "compressor"):
+    if field in ("aggregator", "faults"):
+        spec = ExperimentSpec(**{field: value})
+        assert spec.to_dict()[field] == RefSpec(**{field: value}).to_dict()[
+            field]
+        assert ExperimentSpec.from_json(spec.to_json()) == spec
+    elif field == "compressor":
         with pytest.raises(ValueError, match="port"):
             ExperimentSpec(**{field: value})
     elif field == "model":

@@ -23,7 +23,6 @@ from repro.utils.trees import tree_flatten_vector
 
 import repro_torch.api.build as build
 from repro_torch.api import ExperimentSpec, build_experiment, build_cohort
-from repro_torch.api.registry import StrategyError
 from repro_torch.api.scenario import FleetSpec
 from repro_torch.api.spec import NOT_PORTED_FIELDS
 from repro_torch.core.fedavg import FLExperiment
@@ -224,8 +223,11 @@ def test_paged_refusals(paged_run):
                             fleet=FleetSpec(channel="gauss-markov:0.9"))
     with pytest.raises(ValueError, match="store='paged'"):
         build_experiment(fading, device="cpu").run()
-    with pytest.raises(StrategyError, match="port"):
-        ExperimentSpec(**SPEC, **EXACT, aggregator="trimmed:0.2")
+    # a robust fold, once refused, builds on the paged store
+    robust = build_experiment(ExperimentSpec(**SPEC, **EXACT,
+                                             aggregator="trimmed:0.2"),
+                              device="cpu")
+    assert robust.aggregator.registry_name == "trimmed"
     with pytest.raises(ValueError, match="paged"):
         build_cohort(ExperimentSpec(**SPEC, **EXACT), device="cpu")
 
@@ -246,7 +248,7 @@ def test_spec_round_trips_the_store_fields():
                           churn_leave=0.1, churn_join=0.3)
     assert ExperimentSpec.from_json(spec.to_json()) == spec
     assert spec.to_dict()["store"] == "paged"
-    assert NOT_PORTED_FIELDS == ("p_shards", "faults", "quarantine_after")
+    assert NOT_PORTED_FIELDS == ("p_shards",)
     exp = build_experiment(spec, device="cpu")
     assert (exp.k_max, exp.chunk_size, exp._div_refresh_every,
             exp.cluster_mode, exp.churn) == (6, 3, 2, "minibatch",

@@ -19,6 +19,9 @@ import torch
 from repro.api import ExperimentSpec as RefSpec
 from repro.api import build_experiment as ref_build_experiment
 from repro.configs.paper_cnn import CNNConfig as RefCNNConfig
+from repro.core.faults import FaultSpec as RefFaultSpec
+from repro.core.faults import byzantine_clients as ref_byzantine_clients
+from repro.core.faults import draw_fault_masks as ref_draw_fault_masks
 from repro.models.cnn import init_cnn as ref_init_cnn
 from repro.utils.trees import tree_flatten_vector
 
@@ -85,6 +88,22 @@ class JaxReplayDraws:
         return torch.tensor(int(jax.random.choice(
             self.km_keys[i], self.km_n, p=jnp.asarray(p.numpy()))))
 
+
+
+class FaultReplayDraws(JaxReplayDraws):
+    """The reference's key stream, its fault draws included: one split
+    per round's (or tick's) masks (``draw_fault_masks``), and the
+    byzantine subset from ``PRNGKey(spec.seed)``."""
+
+    def fault_masks(self, spec, shape):
+        drop, corrupt = ref_draw_fault_masks(
+            self._next(), RefFaultSpec(**spec.to_dict()), shape)
+        return torch.tensor(np.stack([np.asarray(drop),
+                                      np.asarray(corrupt)]))
+
+    def byzantine(self, spec, n):
+        return torch.tensor(ref_byzantine_clients(
+            RefFaultSpec(**spec.to_dict()), n))
 
 @pytest.fixture(scope="module")
 def runs():

@@ -97,7 +97,8 @@ def test_kmeans_predict_matches_reference(seed, c):
 def test_builtin_strategies_registered():
     assert set(SELECTORS.names()) == set(REF_SELECTORS.names())
     assert set(ALLOCATORS.names()) == set(REF_ALLOCATORS.names())
-    assert AGGREGATORS.names() == ["fedavg", "fedavgm", "fedbuff"]
+    from repro.api import AGGREGATORS as REF_AGGREGATORS
+    assert AGGREGATORS.names() == REF_AGGREGATORS.names()
     from repro.api import CHANNELS as REF_CHANNELS
     from repro.api import COMPRESSORS as REF_COMPRESSORS
     from repro_torch.api.registry import CHANNELS, COMPRESSORS
@@ -129,13 +130,24 @@ def test_unknown_name_raises_and_lists_known():
     ("aggregator", "trimmed"), ("aggregator", "trimmed:0.2"),
     ("aggregator", "clipnorm:1.0"), ("aggregator", "clipnorm")])
 def test_reference_strategies_the_port_lacks_name_the_port(kind, name):
-    """A strategy the reference registers and the port does not yet have
-    raises an error that names the port and lists what it has."""
-    reg = {"aggregator": AGGREGATORS}[kind]
-    with pytest.raises(StrategyError, match=r"port.*fedavg"):
-        reg.resolve(name)
-    with pytest.raises(ValueError, match="port"):
-        ExperimentSpec(**{kind: name})
+    """The reference's strategies the port lacked (they raised naming the
+    port) are ported: each resolves to the reference's parameters and
+    folds the same rows as the reference does."""
+    from repro.api import AGGREGATORS as REF_AGGREGATORS
+    reg, ref_reg = {"aggregator": (AGGREGATORS, REF_AGGREGATORS)}[kind]
+    got, want = reg.resolve(name), ref_reg.resolve(name)
+    assert got.params() == want.params()
+    assert ExperimentSpec(**{kind: name}).aggregator == {
+        "name": name.partition(":")[0], "params": want.params()}
+    rng = np.random.default_rng(1)
+    g = rng.normal(scale=0.1, size=12).astype(np.float32)
+    rows = (g + rng.normal(scale=0.1, size=(6, 12))).astype(np.float32)
+    w = rng.uniform(1.0, 2.0, size=6).astype(np.float32)
+    out, _ = got.aggregate_flat(torch.tensor(g), torch.tensor(rows),
+                                torch.tensor(w), None)
+    ref, _ = want.aggregate_flat(jnp.asarray(g), jnp.asarray(rows),
+                                 jnp.asarray(w), None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
 
 
 def test_colon_shorthand_parses_params():

@@ -121,6 +121,48 @@ def test_traced_selector_matches_reference(name, seed):
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
 
 
+# x86 arithmetic's NaN (inf·0, NaN propagated): the sign bit set
+X86_NAN = np.uint32(0xFFC00000).view(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["divergence", "icas", "icas:0.3"])
+def test_traced_selector_ranks_nan_as_the_reference(name, seed):
+    """A non-finite client row's divergence is x86's NaN: ``lax.top_k``
+    ranks it below −inf, so the next member wins its cluster (and a NaN
+    winner of a one-member cluster is masked); the port ranks every NaN
+    there too (a ``torch.sort`` puts NaN first and would mask the
+    cluster). Signed zeros and ±inf rank as the reference's total order.
+    Under ICAS a NaN divergence makes every score NaN (the max over the
+    fleet normalises them), on both sides alike."""
+    port, ref = _selector_inputs(seed)
+    div = port["div"].numpy().copy()
+    div[[0, 6, 9]] = X86_NAN              # 6 is the one-member cluster
+    div[1], div[3], div[10] = np.inf, -0.0, 0.0
+    port["div"], ref["div"] = torch.tensor(div), jnp.asarray(div)
+    got_sel, want_sel = SELECTORS.resolve(name), REF_SELECTORS.resolve(name)
+    want_idx, want_mask = want_sel.select_traced(
+        None, ref["div"], ref["labels"], ref["arr"], ref["ctx"])
+    got_idx, got_mask = got_sel.select_traced(
+        None, port["div"], port["labels"], port["arr"], port["ctx"])
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    if name == "divergence":
+        assert 0 not in got_idx[got_mask].tolist()
+
+
+def test_stable_top_is_lax_top_k_total_order():
+    from repro_torch.strategies.traced import _stable_top
+    rng = np.random.default_rng(0)
+    x = rng.choice(np.asarray([X86_NAN, np.inf, -np.inf, 0.0, -0.0, 1.0,
+                               -1.0, 2.5], np.float32), size=(3, 40))
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), 17)
+    got_v, got_i = _stable_top(torch.tensor(x), 17)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy().view(np.uint32),
+                                  np.asarray(want_v).view(np.uint32))
+
+
 # the asynchronous engine's churn mask: most devices gone, so a cluster
 # (and ICAS's top S) runs out of available devices
 AVAIL_MASKS = {"few": [0, 3, 4, 9], "none": [], "all": list(range(N))}
