@@ -117,7 +117,24 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     loop, 6 rounds against 3 + a snapshot + 3, bit for bit; (f)
     ``flat_aggregate`` with NaN rows at weight 0 at [10, 113744], the live
     rows' fold bit for bit, its ms against its bound;
-14. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+14. the entry points (``repro_torch.launch``): (a) ``fl_sim.main``
+    in-process with the README's Quickstart flags and ``--rounds 3``,
+    which must print what ``run_spec(ExperimentSpec(dataset="fashion",
+    rounds=3))`` gives bit for bit; ``--dump-spec`` through ``--spec``;
+    4 rounds with ``--checkpoint-every 1``, the snapshots after round 2
+    removed, then ``--resume``: the uninterrupted run bit for bit;
+    ``--cohort 2 --rounds 2``; (b) LoRA-LM lanes at the published widths
+    of tinyllama-1.1b and mamba2-130m: ``build_cohort`` of 2 seeds, the
+    initial round and one replay of ONE captured round, under
+    ``transfer_guard``, each lane its seed's single traced run bit for
+    bit, the cohort's replay beside one seed's, one replay profiled (the
+    four kernels inside it); (c) ``launch.serve`` at the published
+    widths (batch 4, 8-token prompt, 32 tokens, greedy; tok/s), the
+    prompt's decode logits against ``forward`` within 1e-4; (d)
+    ``launch.train`` at the published widths (5 AdamW steps of 8 × 128
+    tokens; s/step, peak memory), and one smoke-config step on the card
+    against the CPU within 1e-4;
+15. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -140,6 +157,8 @@ AGG_TOL = dict(rtol=2e-5, atol=2e-5)
 L2_TOL = dict(rtol=1e-4, atol=1e-3)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, another summation order
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's ssd_ref bound
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)    # gradients (test_torch_*: 1e-4)
+SSD_GRAD_NORMWISE = 1e-5   # the SSD gradient at S = 128, of max |w| (fp32)
 P_MNIST = 113_744
 P_TINYLLAMA, P_MAMBA2 = 563_200, 616_704      # the LM paths' adapter rows
 F_TINYLLAMA = 22_528             # its K-means features (the last LoRA leaf)
@@ -364,15 +383,25 @@ def kernel_phase(torch, timer):
     # candidates, one launch for both lanes
     rows["flat_aggregate"].append(lane_kernel_rows(
         torch, timer, gen, 2, n=4, divergence=False)["flat_aggregate"])
-    rows["flash_attention"] = attention_rows(torch, timer, gen)
+    # phase 14(b)'s LoRA-LM cohorts of 2: the initial round's fold of the
+    # 10 clients and the divergence of 10 rows of a [2, 14, P] plane
+    for p in (P_TINYLLAMA, P_MAMBA2):
+        for name, r in lane_kernel_rows(torch, timer, gen, 2, p=p,
+                                        div_rows=(10, 14)).items():
+            rows[name].append(r)
+    rows["flash_attention"] = (attention_rows(torch, timer, gen)
+                               + [attention_grad_row(torch, timer, gen)])
     rows["ssd_scan"] = ssd_rows(torch, timer, gen)
     return rows
 
 
-def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True):
+def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True,
+                     p=P_MNIST, div_rows=(40, 50)):
     """(d) The lane forms on the cohort paths (phase 9's 8 lanes, phase
     10's 6: 2 seeds × 3 cells; phase 12(d)'s 2, its fold of ``n`` = 4
-    candidates a lane, without ``divergence``), here for 8:
+    candidates a lane, without ``divergence``; phase 14(b)'s 2 LoRA-LM
+    lanes at ``p`` = the adapter row, the divergence of ``div_rows`` = 10
+    clients of a 14-row plane), here for 8:
     ``flat_aggregate`` at [8, 10, 113744] (a round's fold, every lane in
     one launch) and ``pairwise_l2`` at [8, 40, 113744] × [8, 1, 113744]
     (the divergence: the first 40 rows of each lane of an [8, 50, 113744]
@@ -385,7 +414,6 @@ def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True):
     from repro_torch.kernels.pairwise_l2 import divergence_sq, plan_divergence
 
     out = {}
-    p = P_MNIST
     flat = torch.randn((lanes, n, p), generator=gen, device=DEVICE)
     w = torch.rand((lanes, n), generator=gen, device=DEVICE) + 0.1
     flat[:, n // 2] = float("nan")              # a NaN row at weight 0
@@ -425,7 +453,7 @@ def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True):
     if not divergence:
         return out
 
-    n, m, rows_n = 40, 1, 50
+    (n, rows_n), m = div_rows, 1
     plane = torch.randn((lanes, rows_n, p), generator=gen, device=DEVICE)
     x = plane[:, :n]                    # a view: each lane at its stride
     c = torch.randn((lanes, m, p), generator=gen, device=DEVICE)
@@ -457,6 +485,7 @@ def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True):
     check(ok, f"pairwise_l2 lanes disagree with the plain version: "
               f"max_abs_err={err}")
     out["pairwise_l2"] = r
+    del plane, x, c
     return out
 
 
@@ -473,6 +502,7 @@ def attention_rows(torch, timer, gen):
     out = []
     for b, sq, sk, h, kv, d, window in (
             (8, 32, 32, 32, 4, 64, None),      # the FL path (tinyllama)
+            (8, 128, 128, 32, 4, 64, None),    # launch.train's batch
             (1, 2048, 2048, 32, 4, 64, None),
             (1, 2048, 2048, 32, 4, 64, 512),
             (1, 1, 2048, 32, 4, 64, None),
@@ -527,6 +557,65 @@ def attention_rows(torch, timer, gen):
     return out
 
 
+def attention_grad_row(torch, timer, gen):
+    """Forward plus backward of ``flash_attention`` at ``launch.train``'s
+    tinyllama shape (batch 8, 128 tokens, GQA 32/4): the kernel's forward,
+    the gradient through the plain version's autograd (as the wrapper
+    does), against autograd through the plain version alone. Library
+    yardstick: ``scaled_dot_product_attention`` forward and backward on
+    the heads-first, KV-repeated inputs. The bound counts the forward's
+    bytes plus the backward's (q, k, v and the cotangent read, three
+    gradients written) and 3.5 times the forward's flops (the backward
+    recomputes the scores and makes four products)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, s, h, kv, d = 8, 128, 32, 4, 64
+    leaves = [torch.randn(shape, generator=gen, device=DEVICE)
+              .requires_grad_(True)
+              for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    wo = torch.randn((b, s, h, d), generator=gen, device=DEVICE)
+
+    def step(fn):
+        return torch.autograd.grad(fn(*leaves), leaves, wo)
+
+    got = step(lambda q, k, v: flash_attention(q, k, v))
+    want = step(lambda q, k, v: flash_attention_plain(q, k, v))
+    torch.cuda.synchronize()
+    err = max(float((g1 - g2).abs().max()) for g1, g2 in zip(got, want))
+    ok = all(bool(torch.allclose(g1, g2, **GRAD_TOL))
+             for g1, g2 in zip(got, want))
+    lib = [t.detach().repeat_interleave(h // t.shape[2], dim=2)
+           .transpose(1, 2).contiguous().requires_grad_(True)
+           for t in leaves]
+    wo_t = wo.transpose(1, 2).contiguous()
+    pairs = s * (s + 1) // 2
+    nbytes = 4 * (2 * b * s * h * d + 2 * b * s * kv * d) * 2
+    b_ms, b_by = bound(nbytes, 3.5 * 4 * d * b * h * pairs,
+                       TF32X3_FLOP_PER_S)
+    shape = f"forward+backward q[{b},{s},{h},{d}] kv[{b},{s},{kv},{d}] causal"
+    r = dict(shape=shape, max_abs_err=err, ok=ok,
+             device_launches_per_call=device_launches(
+                 torch, lambda: step(lambda q, k, v: flash_attention(q, k, v))),
+             ms=timer(lambda: step(lambda q, k, v: flash_attention(q, k, v)),
+                      reps=10),
+             plain_ms=timer(lambda: step(
+                 lambda q, k, v: flash_attention_plain(q, k, v)), reps=10),
+             library_ms=timer(lambda: torch.autograd.grad(
+                 sdpa(*lib, is_causal=True), lib, wo_t), reps=10),
+             bound_ms=b_ms, bound_by=b_by,
+             bound_rate=rate_name(TF32X3_FLOP_PER_S))
+    print(f"  flash_attention {shape}: max grad err={err:.3e} (tol rtol/atol "
+          f"1e-4: {'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} plain_ms="
+          f"{r['plain_ms']:.4f} library_ms(sdpa fwd+bwd)="
+          f"{r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+          f"{r['bound_rate']}) device_launches/call="
+          f"{r['device_launches_per_call']}")
+    check(ok, f"flash_attention gradients disagree with the plain "
+              f"version's: max_abs_err={err}")
+    return r
+
+
 def ssd_inputs(torch, gen, b, s, h, p, n):
     x = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
     a = -(torch.rand((b, s, h), generator=gen, device=DEVICE) + 1e-3)
@@ -558,6 +647,7 @@ def ssd_rows(torch, timer, gen):
     from repro_torch.kernels.ssd_scan import plan_ssd, ssd_scan, ssd_scan_plain
     out = []
     for b, s, h, p, n, chunk in ((8, 32, 24, 64, 128, 256),
+                                 (8, 128, 24, 64, 128, 256),  # launch.train
                                  (1, 2048, 24, 64, 128, 256),
                                  (1, 300, 24, 64, 128, 256)):
         x, a, bm, cm = ssd_inputs(torch, gen, b, s, h, p, n)
@@ -593,19 +683,25 @@ def ssd_rows(torch, timer, gen):
         out.append(r)
         del x, a, bm, cm, y, st, y_p, st_p
     out.append(ssd_grad_row(torch, timer, gen))
+    out.append(ssd_grad_row(torch, timer, gen, s=128))    # launch.train
     return out
 
 
-def ssd_grad_row(torch, timer, gen):
-    """Forward plus backward of ``ssd_scan`` at the FL shape (the kernel,
-    then autograd through the chunked form) against autograd through the
-    plain recurrence, cotangents on y and on the state. The bound counts
-    the forward's bytes plus the backward's (x, a, b, c and both
-    cotangents read, four gradients written) and three times the
-    forward's flops (each product's gradient is two products) at the
-    3xTF32 rate."""
+def ssd_grad_row(torch, timer, gen, s=32):
+    """Forward plus backward of ``ssd_scan`` at the FL shape (S = 32), or at
+    ``launch.train``'s (S = 128) (the kernel, then autograd through the
+    chunked form) against autograd through the plain recurrence,
+    cotangents on y and on the state. At the FL shape every element is
+    held to rtol/atol 1e-4; at S = 128 each gradient is held normwise,
+    max |g − w| ≤ ``SSD_GRAD_NORMWISE`` · max |w|: a chunk of 128 steps
+    sums 4× the terms, and the chunked form's own fp32 error (dB 2.4e-4
+    on entries up to 120 against a float64 recurrence on the CPU, 2e-6
+    of the largest) passes the per-element atol. The bound counts the
+    forward's bytes plus the backward's (x, a, b, c and both cotangents
+    read, four gradients written) and three times the forward's flops
+    (each product's gradient is two products) at the 3xTF32 rate."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
-    b, s, h, p, n, chunk = 8, 32, 24, 64, 128, 256
+    b, h, p, n, chunk = 8, 24, 64, 128, 256
     leaves = [t.requires_grad_(True)
               for t in ssd_inputs(torch, gen, b, s, h, p, n)]
     wy = torch.randn((b, s, h, p), generator=gen, device=DEVICE)
@@ -619,8 +715,13 @@ def ssd_grad_row(torch, timer, gen):
     want = step(ssd_scan_plain)
     torch.cuda.synchronize()
     err = max(float((g1 - g2).abs().max()) for g1, g2 in zip(got, want))
-    ok = all(bool(torch.allclose(g1, g2, **SSD_TOL))
-             for g1, g2 in zip(got, want))
+    if s <= 32:
+        ok = all(bool(torch.allclose(g1, g2, **SSD_TOL))
+                 for g1, g2 in zip(got, want))
+    else:
+        ok = all(float((g1 - g2).abs().max())
+                 <= SSD_GRAD_NORMWISE * float(g2.abs().max())
+                 for g1, g2 in zip(got, want))
     # how near each gradient sits to allclose's limit: max |g − w| /
     # (atol + rtol |w|), which allclose holds at ≤ 1
     ratio = {name: float(((g1 - g2).abs() / (SSD_TOL["atol"] + SSD_TOL["rtol"]
@@ -644,7 +745,13 @@ def ssd_grad_row(torch, timer, gen):
              plain_ms=timer(lambda: step(ssd_scan_plain), reps=5, warm=1),
              library_ms=None, bound_ms=b_ms, bound_by=b_by,
              bound_rate=rate_name(TF32X3_FLOP_PER_S))
-    print(f"  ssd_scan {shape}: max grad err={err:.3e} (tol rtol/atol 1e-4: "
+    tol = ("rtol/atol 1e-4" if s <= 32 else
+           f"normwise {SSD_GRAD_NORMWISE:g} of max |w|: "
+           + " ".join(f"d{k} {float((g1 - g2).abs().max()):.2e} of "
+                      f"{float(g2.abs().max()):.3g}" for k, g1, g2 in
+                      zip("xabc", got, want)))
+    r["tol"] = tol
+    print(f"  ssd_scan {shape}: max grad err={err:.3e} (tol {tol}: "
           f"{'ok' if ok else 'FAIL'}) allclose ratio "
           + " ".join(f"d{k}={v:.3f}" for k, v in ratio.items())
           + f" (largest: d{worst}) ms={r['ms']:.4f} plain_ms="
@@ -3473,6 +3580,375 @@ def faults_phase(torch, rows):
     return by_path, dict(traced=prof, snapshots=snaps)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the entry points
+# ---------------------------------------------------------------------------
+
+QUICKSTART = ["--dataset", "fashion", "--selection", "divergence",
+              "--allocator", "sao"]            # README.md's Quickstart
+LM_ARCHS = {"tinyllama-1.1b": "flash_attention", "mamba2-130m": "ssd_scan"}
+LM_LANES = dict(clients=10, devices_per_round=4, num_clusters=4,
+                local_iters=2, batch_size=8, train_samples=160,
+                test_samples=64, samples_per_client=16, rounds=1, cohort=2)
+DECODE_TOL = 1e-4       # decode logits against forward's, and card vs CPU
+SERVE = dict(batch=4, prompt=8, gen=32)
+TRAIN = dict(steps=5, batch=8, seq=128)
+
+
+def stdout_of(fn, argv):
+    """``fn(argv)``'s return value and what it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    return out, buf.getvalue()
+
+
+def counted(torch, fn):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after (what the wrappers launched: eagerly, or into a graph being
+    captured; a graph's replays count nothing)."""
+    fns = kernel_fns()
+    for k in fns.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in fns.items()}
+
+
+def fl_sim_phase(torch, tmp):
+    """(a) ``repro_torch.launch.fl_sim.main`` in-process: the Quickstart's
+    flags with ``--rounds 3`` print what ``run_spec(ExperimentSpec(
+    dataset="fashion", rounds=3))`` gives, bit for bit; ``--dump-spec``
+    round-trips; 4 rounds with a snapshot a round, the snapshots after
+    round 2 removed (the run killed there), then ``--resume``: the
+    uninterrupted run bit for bit; ``--cohort 2 --rounds 2`` runs. The FL
+    kernels' launches come from the Quickstart run alone."""
+    import shutil
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.launch import fl_sim
+
+    spec = ExperimentSpec(dataset="fashion", rounds=3)
+    argv = QUICKSTART + ["--rounds", "3"]
+    check(fl_sim.spec_from_args(fl_sim.build_parser().parse_args(argv))
+          == spec, "the Quickstart's flags resolve to another spec")
+    t0 = time.perf_counter()
+    (_, text), launches = counted(torch, lambda: stdout_of(fl_sim.main,
+                                                           argv))
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp, hist, ari = fl_sim.run_spec(spec)
+    want = fl_sim.format_result(fl_sim.run_result(spec, hist, ari))
+    check(hist.seconds == [], "run_spec did not take the device-resident run")
+    check(text.strip() == want, f"fl_sim printed\n{text}\nrun_spec gives\n"
+                                f"{want}")
+    print(f"  fl_sim {' '.join(argv)}: {cli_s:.1f} s, printed the same JSON "
+          f"as run_spec(ExperimentSpec(dataset='fashion', rounds=3)) "
+          f"({time.perf_counter() - t0:.1f} s) bit for bit:")
+    for line in text.strip().splitlines():
+        print(f"    {line}")
+    print(f"  launches in the fl_sim run (the initial round's and the "
+          f"captured round's): {launches}")
+    for name in ("flat_aggregate", "pairwise_l2"):
+        check(launches[name] > 0, f"fl_sim: {name} was not launched")
+    del exp
+
+    _, dumped = stdout_of(fl_sim.main, argv + ["--dump-spec"])
+    check(ExperimentSpec.from_json(dumped) == spec, "--dump-spec: another "
+                                                    "spec")
+    path = tmp / "spec.json"
+    path.write_text(dumped)
+    _, again = stdout_of(fl_sim.main, ["--spec", str(path), "--dump-spec"])
+    check(again == dumped, "--dump-spec does not round-trip through --spec")
+    print("  --dump-spec round-trips through --spec")
+
+    ck, full, res = tmp / "ck", tmp / "full.jsonl", tmp / "res.jsonl"
+    t0 = time.perf_counter()
+    stdout_of(fl_sim.main, QUICKSTART + [
+        "--rounds", "4", "--checkpoint-every", "1", "--checkpoint-dir",
+        str(ck), "--out", str(full)])
+    for name in ("round_000003", "round_000004"):
+        shutil.rmtree(ck / name)
+    _, text = stdout_of(fl_sim.main, ["--resume", str(ck), "--out",
+                                      str(res)])
+    a, b = json.loads(full.read_text()), json.loads(res.read_text())
+    for key in ("accuracy", "total_T_s", "total_E_J", "clustering_ari",
+                "spec"):
+        check(a[key] == b[key], f"resumed {key} {b[key]}, uninterrupted "
+                                f"{a[key]}")
+    print(f"  4 rounds with --checkpoint-every 1, killed after round 2, "
+          f"--resume: the uninterrupted run bit for bit (accuracy "
+          f"{b['accuracy']}; {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    _, text = stdout_of(fl_sim.main, QUICKSTART + ["--rounds", "2",
+                                                   "--cohort", "2"])
+    got = json.loads(text)
+    check(got["seeds"] == [0, 1] and all(
+        0.0 <= x <= 1.0 for x in got["final_accuracy_per_seed"]),
+          f"--cohort 2: {got}")
+    print(f"  --cohort 2 --rounds 2: final accuracy by seed "
+          f"{got['final_accuracy_per_seed']}, ARI "
+          f"{got['clustering_ari_per_seed']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def lm_lanes_phase(torch, arch):
+    """(b) LoRA-LM lanes at the published width: ``build_cohort`` of 2
+    seeds over ``arch`` (N = 10, S = 4, c = 4, L = 2, batch 8), the initial
+    round and one replay of ONE captured round for both lanes, with the
+    frozen base shared beside them. A first run captures; a second runs
+    under ``transfer_guard`` (0 host syncs) with the wrappers' counts (its
+    eager initial round) and must repeat it. Each lane is its seed's
+    single traced run bit for bit. The cohort's replay against one
+    seed's (medians, in turns), one cohort replay profiled: the four
+    kernels inside it."""
+    import numpy as np
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.registry import register_workload
+
+    name = f"{arch}-published"
+    register_workload(name, lambda: lm.LMConfig(model=get_config(arch)))
+    spec = ExperimentSpec(model=name, **LM_LANES)
+    what = f"{arch} LoRA cohort of 2"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = build_cohort(spec)
+    first = runner.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prog = runner.program
+    check(prog.graph is not None and prog.lanes == 2,
+          f"{what}: the round was not captured as one graph for both lanes")
+    t0 = time.perf_counter()
+    ch, wrapped = counted(torch, lambda: runner.run(transfer_guard=True))
+    guarded_s = time.perf_counter() - t0
+    check(runner.program is prog, f"{what}: the second run captured again")
+    check(same_history(first, ch), f"{what}: two runs from the same seeds "
+                                   "differ")
+    p = runner.experiments[0].global_vec.numel()
+    print(f"  {what}: P_adapter={p}; build + first run (capture included) "
+          f"{first_s:.1f} s, capture {prog.capture_ms:.1f} ms; a second run "
+          f"under transfer_guard (0 host syncs) {guarded_s:.1f} s, equal to "
+          f"the first; its initial round launched {wrapped}")
+    for i, seed in enumerate(ch.seeds):
+        single = build_experiment(spec.replace(seed=seed, cohort=1))
+        h = single.run()
+        hi, lane = ch.history(i), runner.experiments[i]
+        check(h.seconds == [], f"{what}: a single run took the host loop")
+        same = (all(np.array_equal(a, b)
+                    for a, b in zip(hi.selected, h.selected))
+                and list(hi.accuracy) == list(h.accuracy)
+                and list(hi.T_k) == list(h.T_k)
+                and list(hi.E_k) == list(h.E_k)
+                and torch.equal(lane.global_vec, single.global_vec)
+                and torch.equal(lane.client_plane, single.client_plane)
+                and np.array_equal(lane.cluster_labels,
+                                   single.cluster_labels))
+        d_row = float((lane.global_vec - single.global_vec).abs().max())
+        check(same, f"{what}: lane {i} (seed {seed}) is not its seed's "
+                    f"single run bit for bit (global row differs by "
+                    f"{d_row})")
+    print(f"  every lane is its seed's single traced run bit for bit "
+          f"(selections, accuracy, T_k, E_k, global row, client plane, "
+          f"labels); accuracy by lane {ch.final_accuracy.tolist()}")
+
+    single_prog = single_program(single)
+    batch, _ = lane_draws(torch, prog, runner.experiments)
+    batch1, _ = lane_draws(torch, single_prog, [single])
+    walls = {"single": [], "cohort": []}
+    for _ in range(2):
+        for key, fn in (("single", lambda: single_prog.replay(batch1)),
+                        ("cohort", lambda: prog.replay(batch)),
+                        ("cohort", lambda: prog.replay(batch)),
+                        ("single", lambda: single_prog.replay(batch1))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[key].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in walls.items()}
+    n_dev, busy, _, by_name, kept, window = profile_replay(torch, prog,
+                                                           batch)
+    inside = {k: sum(n for fn_name, (n, _) in by_name.items()
+                     if DEVICE_KERNEL[k] in fn_name) for k in KERNELS}
+    launches = {k: wrapped[k] + inside[k] for k in KERNELS}
+    print(f"  replay wall (synchronised, median of {len(walls['cohort'])}, "
+          f"in turns): cohort of 2 {ms['cohort']:.1f} ms, one seed "
+          f"{ms['single']:.1f} ms ({ms['cohort'] / ms['single']:.2f}x)")
+    print(f"  one profiled cohort replay: {n_dev} device launches, "
+          f"{busy:.2f} ms busy of a {window:.2f} ms device window (idle "
+          f"share {idle_share(busy, window):.4f}; marks kept {kept}); the "
+          f"kernels inside it {inside}; the path (initial round + 1 "
+          f"replay): {launches}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k in ("flat_aggregate", "pairwise_l2", LM_ARCHS[arch]):
+        check(inside[k] > 0, f"{what}: {k} did not run inside the replay")
+        check(wrapped[k] > 0, f"{what}: {k} was not launched in the initial "
+                              "round")
+    del runner, single, single_prog
+    lm.base_params.cache_clear()
+    torch.cuda.empty_cache()
+    return launches, dict(replay_ms=ms["cohort"], single_ms=ms["single"],
+                          device_launches=n_dev)
+
+
+def lm_params(torch, arch, seed=0):
+    """``arch``'s published config and random weights on the card, drawn as
+    ``launch.serve`` / ``launch.train`` draw them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return cfg, init_model(cfg, gen, DEVICE)
+
+
+def serve_phase(torch, arch):
+    """(c) ``repro_torch.launch.serve.main`` at the published width: batch
+    4, an 8-token prompt, 32 tokens, greedy (its tok/s line). On the same
+    weights and prompts: the decode logits of the prompt (``decode_step``
+    token by token) against the full-sequence ``forward`` (which runs
+    ``flash_attention`` / ``ssd_scan``) within 1e-4; the engine's tokens
+    equal the CLI's; the first token is ``forward``'s argmax wherever the
+    top two logits are more than twice the tolerance apart."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve import ServeEngine
+
+    b, sp, gen_n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    (out, text), cli_counts = counted(torch, lambda: stdout_of(serve.main, [
+        "--arch", arch, "--batch", str(b), "--prompt-len", str(sp),
+        "--gen", str(gen_n)]))
+    print(f"  {text.splitlines()[0]} (launch.serve; kernel launches "
+          f"{cli_counts}: decode reaches none)")
+    cfg, params = lm_params(torch, arch)
+    prompts = torch.randint(0, cfg.vocab_size, (b, sp), device=DEVICE,
+                            generator=torch.Generator(device=DEVICE)
+                            .manual_seed(1))
+    eng = ServeEngine(cfg, params, max_len=sp + gen_n + 1)
+    cache = eng.new_cache(b)
+    dec = torch.cat([eng.step(cache, prompts[:, t:t + 1])
+                     for t in range(sp)], dim=1)
+    with torch.no_grad():
+        full, counts = counted(torch, lambda: forward(
+            cfg, params, {"tokens": prompts}))
+    err = float((dec - full).abs().max())
+    own = LM_ARCHS[arch]
+    check(counts[own] > 0, f"serve: forward did not launch {own}")
+    check(err <= DECODE_TOL, f"{arch}: decode logits differ from forward's "
+                             f"by {err} (tol {DECODE_TOL})")
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, gen_n)
+    dt = time.perf_counter() - t0
+    check((toks == out).all(), f"{arch}: the engine's tokens differ from "
+                               "the CLI's")
+    top2 = torch.topk(full[:, -1], 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1] > 2 * DECODE_TOL).cpu().numpy()
+    first = torch.argmax(full[:, -1], dim=-1).cpu().numpy()
+    check((first[clear] == out[clear, 0]).all(),
+          f"{arch}: greedy's first token is not forward's argmax")
+    print(f"  decode logits of the {sp}-token prompt against forward "
+          f"(launches {counts}): max_abs_err={err:.3e} (tol {DECODE_TOL}); "
+          f"the engine's tokens are the CLI's; first token = forward's "
+          f"argmax on {int(clear.sum())} of {b} rows with a clear top; "
+          f"generate again {dt * 1e3:.1f} ms = {b * gen_n / dt:.1f} tok/s")
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return dict(counts, **{"tok_per_s": b * gen_n / dt, "decode_err": err})
+
+
+def train_phase(torch, arch, tmp):
+    """(d) ``repro_torch.launch.train.main`` at the published width: 5
+    AdamW steps of batch 8 × 128 tokens, fp32; the loss finite, s/step
+    (the logged wall clock from step 1 to 4) and the peak device memory.
+    Then, at the smoke config, one step on the card from the same
+    parameters and batch as one on the CPU: loss and parameters within
+    1e-4."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (logger, text), launches = counted(torch, lambda: stdout_of(
+        train.main, ["--arch", arch, "--steps", str(TRAIN["steps"]),
+                     "--batch", str(TRAIN["batch"]), "--seq",
+                     str(TRAIN["seq"]), "--log-csv",
+                     str(tmp / f"{arch}.csv")]))
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, wall = logger.history["loss"], logger.history["wall_s"]
+    check(len(loss) == TRAIN["steps"] and all(map(math.isfinite, loss)),
+          f"train {arch}: losses {loss}")
+    s_step = (wall[-1] - wall[1]) / (len(wall) - 2)
+    own = LM_ARCHS[arch]
+    check(launches[own] > 0, f"train {arch}: {own} was not launched")
+    print(f"  launch.train --arch {arch} (published width): {TRAIN['steps']} "
+          f"steps of {TRAIN['batch']}x{TRAIN['seq']} in {total:.1f} s; "
+          f"losses {[round(x, 4) for x in loss]}; {s_step:.3f} s/step "
+          f"(steps 2-{TRAIN['steps']}); peak allocated {peak:.2f} GiB; "
+          f"launches {launches}")
+
+    cfg = get_smoke_config(arch)
+    params = init_model(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 32)))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        init, step = make_train_step(cfg, TrainConfig())
+        p = {k: v.to(dev) for k, v in params.items()}
+        new, _, m = step(p, init(p), {"tokens": tokens.to(dev)})
+        out[dev] = ({k: v.cpu() for k, v in new.items()}, float(m["loss"]))
+    d_loss = abs(out["cpu"][1] - out[DEVICE][1])
+    d_par = max(float((out["cpu"][0][k] - out[DEVICE][0][k]).abs().max())
+                for k in params)
+    check(d_loss <= DECODE_TOL and d_par <= DECODE_TOL,
+          f"train {arch} smoke: card vs CPU loss {d_loss}, params {d_par}")
+    print(f"  one smoke step card vs CPU: loss differs by {d_loss:.3e}, "
+          f"parameters by {d_par:.3e} (tol {DECODE_TOL})")
+    return dict(launches, s_per_step=s_step, peak_gib=peak)
+
+
+def entry_points_phase(torch, tmp):
+    """14. (a)–(d); returns each path's launches and the numbers kept."""
+    by_path, kept = {}, {}
+    t0 = time.perf_counter()
+    print("  (a) fl_sim: the Quickstart, --dump-spec, resume, a cohort")
+    by_path["fl_sim Quickstart (phase 14a)"] = fl_sim_phase(torch, tmp)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    for arch in LM_ARCHS:
+        t1 = time.perf_counter()
+        print(f"  (b) {arch}: LoRA lanes at the published width")
+        by_path[f"{arch} LoRA cohort (phase 14b)"], kept[arch] = (
+            lm_lanes_phase(torch, arch))
+        print(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    for arch in LM_ARCHS:
+        t1 = time.perf_counter()
+        print(f"  (c) {arch}: serve")
+        got = serve_phase(torch, arch)
+        by_path[f"{arch} serve forward (phase 14c)"] = {
+            k: got[k] for k in KERNELS}
+        kept[arch].update(tok_per_s=got["tok_per_s"])
+        print(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    for arch in LM_ARCHS:
+        t1 = time.perf_counter()
+        print(f"  (d) {arch}: train")
+        got = train_phase(torch, arch, tmp)
+        by_path[f"{arch} train (phase 14d)"] = {k: got[k] for k in KERNELS}
+        kept[arch].update(s_per_step=got["s_per_step"],
+                          peak_gib=got["peak_gib"])
+        print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    return by_path, kept
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3645,7 +4121,16 @@ def main():
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     print(f"  phase 13 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 14. the kernels")
+    print("== 14. the entry points: fl_sim, LoRA-LM lanes, serve, train")
+    import tempfile
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        entry_paths, _ = entry_points_phase(torch, Path(tmp))
+    by_path.update(entry_paths)
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    print(f"  phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 15. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -1,5 +1,6 @@
-"""Run and model configs (copies of ``repro.configs.base``: ``FLConfig``
-and the transformer's ``MoEConfig`` / ``SSMConfig`` / ``ModelConfig``)."""
+"""Run and model configs (copies of ``repro.configs.base``: ``FLConfig``,
+``TrainConfig`` and the transformer's ``MoEConfig`` / ``SSMConfig`` /
+``ModelConfig``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +22,25 @@ class FLConfig:
     max_rounds: int = 100
     selection: str = "divergence"   # divergence | kmeans_random | random | icas
     feature_layer: str = "auto"     # K-means feature; "auto" = last FC (w_fc2)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """LM training run parameters (``repro_torch.train``)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"        # adamw | sgd | momentum
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    moment_dtype: str = "float32"      # bf16 halves optimizer-state memory
+    remat: bool = False
+    label_smoothing: float = 0.0
 
 
 @dataclass(frozen=True)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.utils.trees import StackFlattenSpec
+from repro_torch.utils.trees import StackFlattenSpec, tree_order
 
 
 def _resolve_flat_layer(spec: StackFlattenSpec, layer: str):
@@ -41,6 +41,31 @@ def resolve_feature_columns(spec: StackFlattenSpec, layer: str):
             raise KeyError(layer)
         layer = resolved
     return spec.columns(layer)
+
+
+def extract_features(stacked_params, layer: str = "auto") -> torch.Tensor:
+    """Feature matrix ``[N, F]`` from client-stacked leaves ``{name: [N,
+    ...]}``: ``"all"`` flattens every leaf (the slow baseline of Fig. 8),
+    ``"auto"`` takes ``w_fc2``, else ``lm_head``, else the last leaf, and
+    a leaf name (bare or ``/``-joined) takes that leaf. Leaves go in the
+    reference's flatten order (:func:`tree_order`)."""
+    names = tree_order(stacked_params)
+
+    def rows(name):
+        leaf = stacked_params[name]
+        return leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+
+    if layer == "all":
+        return torch.cat([rows(n) for n in names], dim=1)
+    if layer == "auto":
+        hit = [n for n in ("w_fc2", "lm_head") if n in stacked_params]
+        return rows(hit[0] if hit else names[-1])
+    if layer in stacked_params:
+        return rows(layer)
+    hits = [n for n in names if n.endswith("/" + layer)]
+    if not hits:
+        raise KeyError(layer)
+    return rows(hits[0])
 
 
 def extract_features_flat(client_flat: torch.Tensor, layer: str,

@@ -1,7 +1,10 @@
-"""The layers the federated LM's forward pass runs (a subset of
+"""The layers the LM's forward pass and its decode step run (a subset of
 ``repro.models.layers``): norms, RoPE, GQA projections, the SwiGLU MLP,
-the Mamba-2 block, and (re-exported under the reference's name) the
-chunked SSD form ``kernels.ssd_chunked.ssd_chunked``.
+the Mamba-2 block, (re-exported under the reference's name) the chunked
+SSD form ``kernels.ssd_chunked.ssd_chunked``, and the one-token decode
+pieces (``full_attention_1q``, ``ssd_decode_step``,
+``causal_conv1d_step``, ``mamba2_decode``), plain tensor code as in the
+reference, which reaches no kernel on decode.
 
 Parameters are flat ``{name: tensor}`` dicts of one layer's subtree
 (``{"wq", "wk", "wv", "wo"}`` for attention), with the reference's layouts:
@@ -21,6 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunked import ssd_chunked  # noqa: F401
+
+NEG_INF = -1e30
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -94,6 +99,30 @@ def init_attention(generator, cfg: ModelConfig, device, layers: int):
                             ("bv", cfg.num_kv_heads)):
             p[name] = torch.zeros((L, width * hd), device=device)
     return p
+
+
+def full_attention_1q(q, k, v, k_positions, q_position, *, window=None,
+                      kv_valid=None):
+    """Single-query decode attention over a (possibly ring-buffer) cache.
+
+    q: [B, 1, H, D]; k/v: [B, C, K, D]; k_positions: [B, C] absolute
+    positions; q_position: [B] absolute position of the new token;
+    kv_valid: [B, C] (optional) marks the filled slots."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, D).to(torch.float32) / math.sqrt(D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.to(torch.float32))
+    kp, qp = k_positions[:, None, None, :], q_position[:, None, None, None]
+    mask = kp <= qp
+    if window is not None:
+        mask = mask & ((qp - kp) < window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, None, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def attention_qkv(p, x, cfg: ModelConfig):
@@ -183,6 +212,29 @@ def causal_conv1d(x, w, b):
     return out + b
 
 
+def causal_conv1d_step(x_t, conv_state, w, b):
+    """One decode step of the depthwise conv. x_t: [B, C]; conv_state:
+    [B, W-1, C] (the previous inputs). Returns (y_t [B, C], new state)."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # [B,W,C]
+    y = (torch.einsum("bwc,wc->bc", window.to(torch.float32),
+                      w.to(torch.float32)) + b.to(torch.float32))
+    return y.to(x_t.dtype), window[:, 1:]
+
+
+def ssd_decode_step(x, dt, A_raw, Bm, Cm, D, state):
+    """Single-token SSD recurrence. x: [B, H, P]; dt: [B, H]; A_raw: [H]
+    (negative); Bm, Cm: [B, G, N]; state: [B, H, P, N]. Returns (y [B, H,
+    P], new_state)."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bh = torch.repeat_interleave(Bm, rep, dim=1)                 # [B,H,N]
+    Ch = torch.repeat_interleave(Cm, rep, dim=1)
+    dA = torch.exp(dt * A_raw[None, :])                          # [B,H]
+    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, x)
+    new_state = state * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y + D[None, :, None] * x, new_state
+
+
 def mamba2_apply(p, x, cfg: ModelConfig):
     """Mamba2 block over a full sequence. x: [B, S, D] -> [B, S, D]. The
     SSD recurrence is ``ops.ssd`` (the ``ssd_scan`` kernel on the card)."""
@@ -207,3 +259,27 @@ def mamba2_apply(p, x, cfg: ModelConfig):
     Y = Y.reshape(B, S, d_inner).to(x.dtype)
     Y = rmsnorm(Y * silu(z), p["norm"], cfg.norm_eps)
     return Y @ p["out_proj"]
+
+
+def mamba2_decode(p, x_t, cfg: ModelConfig, ssm_state, conv_state):
+    """One decode step of the Mamba2 block. x_t: [B, D]. Returns (y_t [B,
+    D], ssm_state, conv_state)."""
+    s = cfg.ssm
+    d_inner, n_heads, conv_ch = mamba2_split_dims(cfg)
+    B = x_t.shape[0]
+    zxbcdt = x_t @ p["in_proj"]
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, n_heads], dim=-1)
+    xBC, conv_state = causal_conv1d_step(xBC, conv_state, p["conv_w"],
+                                         p["conv_b"])
+    xBC = silu(xBC)
+    gn = s.n_groups * s.d_state
+    xs, Bm, Cm = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    xs = xs.reshape(B, n_heads, s.head_dim).to(torch.float32)
+    Bm = Bm.reshape(B, s.n_groups, s.d_state).to(torch.float32)
+    Cm = Cm.reshape(B, s.n_groups, s.d_state).to(torch.float32)
+    dt = torch.nn.functional.softplus(dt.to(torch.float32) + p["dt_bias"])
+    A_raw = -torch.exp(p["A_log"])
+    y, ssm_state = ssd_decode_step(xs, dt, A_raw, Bm, Cm, p["D"], ssm_state)
+    y = y.reshape(B, d_inner).to(x_t.dtype)
+    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"], ssm_state, conv_state

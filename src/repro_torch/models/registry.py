@@ -75,6 +75,12 @@ _WORKLOADS = {
 }
 
 
+def register_workload(name: str, builder: Callable[[], Any]) -> None:
+    """Bind an ``ExperimentSpec.model`` name to a config builder (an
+    ``LMConfig`` over a published width, say)."""
+    _WORKLOADS[name] = builder
+
+
 def model_def_for(model_cfg) -> ModelDef:
     """The :class:`ModelDef` for a config object."""
     mdef = _DEFS.get(type(model_cfg))

@@ -147,3 +147,21 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(k, {})
         node[leaf] = v.detach().cpu().numpy()
     return out
+
+
+def tree_global_norm(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """√(Σ over every leaf of Σ x²) in fp32, leaves in :func:`tree_order`
+    (a 0-d tensor on the leaves' device)."""
+    names = tree_order(params)
+    if not names:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(params[n].to(torch.float32)))
+                          for n in names))
+
+
+def tree_num_params(params: Mapping[str, torch.Tensor]) -> int:
+    return sum(int(v.numel()) for v in params.values())
+
+
+def tree_bytes(params: Mapping[str, torch.Tensor]) -> int:
+    return sum(int(v.numel()) * v.element_size() for v in params.values())

@@ -113,3 +113,66 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+def test_importing_the_entry_points_loads_no_jax():
+    code = ("import sys, repro_torch.core, repro_torch.launch.fl_sim, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.serve, repro_torch.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _reference_core_names():
+    """The names ``src/repro/core/__init__.py`` imports (its public API)."""
+    path = ROOT / "src" / "repro" / "core" / "__init__.py"
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+    return names
+
+
+def test_public_names_are_the_references():
+    """``from repro_torch.api import *`` gives the reference's ``__all__``;
+    ``repro_torch.core`` exports the reference's names but those its
+    docstring lists as left out."""
+    import repro.api
+    import repro_torch.api
+    import repro_torch.core
+    assert sorted(repro_torch.api.__all__) == sorted(repro.api.__all__)
+    scope = {}
+    exec("from repro_torch.api import *", scope)
+    assert set(repro.api.__all__) <= set(scope)
+    want = _reference_core_names()
+    left_out = want - set(repro_torch.core.__all__)
+    assert left_out == {"RoundEngine"}
+    assert "RoundEngine" in repro_torch.core.__doc__
+    assert set(repro_torch.core.__all__) <= want
+    for name in repro_torch.core.__all__:
+        assert getattr(repro_torch.core, name) is not None
+
+
+def test_the_strategies_keep_their_protocols():
+    """Every registered strategy satisfies its stage's protocol (a
+    stateful channel the whole channel contract)."""
+    from repro_torch.api import (AGGREGATORS, ALLOCATORS, CHANNELS,
+                                 COMPRESSORS, SELECTORS, Aggregator,
+                                 Allocator, ChannelModel, Compressor,
+                                 Selector)
+    for registry, proto in ((SELECTORS, Selector), (ALLOCATORS, Allocator),
+                            (AGGREGATORS, Aggregator),
+                            (COMPRESSORS, Compressor)):
+        for name in registry.names():
+            assert isinstance(registry.resolve(name), proto), name
+    for name in CHANNELS.names():
+        channel = CHANNELS.resolve(name)
+        assert callable(channel.sample_gains), name
+        assert callable(channel.apply_traced), name
+        if channel.stateful:
+            assert isinstance(channel, ChannelModel), name

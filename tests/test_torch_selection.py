@@ -126,3 +126,48 @@ def test_adjusted_rand_index_matches_reference():
     assert adjusted_rand_index(a, b) == ref_clustering.adjusted_rand_index(
         a, b)
     assert adjusted_rand_index(a, a) == 1.0
+
+
+def _stacked_tree(seed, n=5):
+    """A client-stacked tree, nested (the reference's) and flat (the
+    port's ``/``-joined names)."""
+    rng = np.random.default_rng(seed)
+    tree = {"w_c1": rng.normal(size=(n, 3, 3, 2)),
+            "blocks": {"attn": {"wq_b": rng.normal(size=(n, 2, 4))}},
+            "w_fc2": rng.normal(size=(n, 6, 3)),
+            "b_fc2": rng.normal(size=(n, 3))}
+    tree = jax.tree_util.tree_map(lambda x: x.astype(np.float32), tree)
+    flat = {"w_c1": tree["w_c1"], "blocks/attn/wq_b":
+            tree["blocks"]["attn"]["wq_b"], "w_fc2": tree["w_fc2"],
+            "b_fc2": tree["b_fc2"]}
+    return tree, {k: torch.as_tensor(v) for k, v in flat.items()}
+
+
+@pytest.mark.parametrize("layer", ["auto", "all", "wq_b", "b_fc2"])
+def test_extract_features_matches_the_reference(layer):
+    tree, flat = _stacked_tree(0)
+    want = ref_clustering.extract_features(
+        jax.tree_util.tree_map(jnp.asarray, tree), layer)
+    from repro_torch.core.clustering import extract_features
+    np.testing.assert_array_equal(extract_features(flat, layer).numpy(),
+                                  np.asarray(want))
+
+
+def test_stacked_divergence_and_distance_matrix_match_the_reference():
+    from repro.core.divergence import (pairwise_divergence_matrix as ref_pdm,
+                                       weight_divergence as ref_wd)
+    from repro_torch.core.divergence import (pairwise_divergence_matrix,
+                                             weight_divergence)
+    tree, flat = _stacked_tree(1)
+    glob = {k: v[0] * 0.5 for k, v in flat.items()}
+    want = ref_wd(jax.tree_util.tree_map(jnp.asarray, tree),
+                  jax.tree_util.tree_map(lambda v: jnp.asarray(v[0] * 0.5),
+                                         tree))
+    np.testing.assert_allclose(weight_divergence(flat, glob).numpy(),
+                               np.asarray(want), rtol=1e-6)
+    # squared, at the pairwise kernel's tolerance: the diagonal is the
+    # square root of each side's cancellation residual (≈ 6e-5 -> 0.008)
+    x, _ = _blobs(2, n=12, f=16)
+    np.testing.assert_allclose(
+        pairwise_divergence_matrix(torch.as_tensor(x)).numpy() ** 2,
+        np.asarray(ref_pdm(jnp.asarray(x))) ** 2, rtol=1e-4, atol=1e-3)
