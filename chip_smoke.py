@@ -18,7 +18,9 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    a divergence (one centroid) runs on its plan of P alone, at the dense
    plane's, the paged store's chunk, base-row and 1000-row shapes; and the
    asynchronous tick's: the fold of its M = 4 candidates ([4, 113744],
-   and [2, 4, 113744] in a cohort of 2) and their divergence;
+   and [2, 4, 113744] in a cohort of 2) and their divergence; and the
+   remaining families' attention and SSD shapes (granite's H/K = 3,
+   seamless's non-causal encoder, jamba's P = 32, N = 16);
 3. tiny experiments (the fashion CNN, and the tinyllama and mamba2 smoke
    LMs) run on the CPU and on the card from the same draws, which must
    agree (selections, T_k, E_k, the global row); ``run()`` takes the
@@ -134,7 +136,25 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     ``launch.train`` at the published widths (5 AdamW steps of 8 × 128
     tokens; s/step, peak memory), and one smoke-config step on the card
     against the CPU within 1e-4;
-15. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+15. the remaining model families (MoE, hybrid, encoder-decoder, VLM):
+    (a) ``launch.serve`` over granite-moe-3b-a800m at its published config
+    (3.37 B parameters; batch 4, an 8-token prompt, 32 tokens, greedy),
+    decode logits against ``forward`` within 1e-4, tok/s and the peak
+    memory; (b) one granite MoE layer at published width on 8 × 128
+    tokens: ``dense_fused`` ≡ ``dense`` within 1e-5, ``dispatch`` at
+    capacity E/k within 1e-4, the default capacity, each second call bit
+    for bit; (c) ``make_train_step`` over granite at published width cut
+    to 8 of 32 layers, 5 AdamW steps of 8 × 128 tokens under ``dense``
+    and ``dispatch`` (aux > 0; s/step, peak memory); (d)
+    seamless-m4t-medium at its published config: ``launch.serve`` with
+    32 frames of ``src_embeds`` (decode ≡ ``forward`` within 1e-4; the
+    encoder's non-causal ``flash_attention`` launches counted) and
+    ``launch.train``; (e) jamba at its smoke config: ``forward`` (its
+    ``flash_attention`` and ``ssd_scan`` launches counted), decode ≡
+    ``forward``, a train step; (f) the eight new smoke configs on the card
+    against the CPU within 1e-5, and phi-3-vision's head dim 96 at
+    published width raising the kernel's ``ValueError``;
+16. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -492,27 +512,33 @@ def lane_kernel_rows(torch, timer, gen, lanes=8, n=10, divergence=True,
 def attention_rows(torch, timer, gen):
     """``flash_attention`` against its plain version: the tinyllama FL path
     (S = 32), long causal and windowed sequences, one query against a long
-    cache, Sq > Sk (rows with no key must be 0) and the smoke width D = 16.
-    Library yardstick: ``scaled_dot_product_attention`` on the same inputs
-    (heads first, KV heads repeated and the boolean mask built outside the
-    timed call)."""
+    cache, Sq > Sk (rows with no key must be 0) and the smoke width D = 16;
+    then the shapes of the remaining model families (phase 15): granite's
+    train batch (GQA 24/8, H/K = 3), seamless's non-causal encoder at its
+    train and serve batches. Library yardstick:
+    ``scaled_dot_product_attention`` on the same inputs (heads first, KV
+    heads repeated and the boolean mask built outside the timed call)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
-    for b, sq, sk, h, kv, d, window in (
-            (8, 32, 32, 32, 4, 64, None),      # the FL path (tinyllama)
-            (8, 128, 128, 32, 4, 64, None),    # launch.train's batch
-            (1, 2048, 2048, 32, 4, 64, None),
-            (1, 2048, 2048, 32, 4, 64, 512),
-            (1, 1, 2048, 32, 4, 64, None),
-            (2, 96, 40, 32, 4, 64, None),      # Sq > Sk
-            (8, 32, 32, 8, 2, 16, None)):      # the smoke width
+    for b, sq, sk, h, kv, d, causal, window in (
+            (8, 32, 32, 32, 4, 64, True, None),   # the FL path (tinyllama)
+            (8, 128, 128, 32, 4, 64, True, None),  # launch.train's batch
+            (1, 2048, 2048, 32, 4, 64, True, None),
+            (1, 2048, 2048, 32, 4, 64, True, 512),
+            (1, 1, 2048, 32, 4, 64, True, None),
+            (2, 96, 40, 32, 4, 64, True, None),    # Sq > Sk
+            (8, 32, 32, 8, 2, 16, True, None),     # the smoke width
+            (8, 128, 128, 24, 8, 64, True, None),  # granite train (15c)
+            (8, 128, 128, 16, 16, 64, False, None),  # seamless encoder
+            (4, 32, 32, 16, 16, 64, False, None)):   # train (15d), serve
         q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE)
         k = torch.randn((b, sk, kv, d), generator=gen, device=DEVICE)
         v = torch.randn((b, sk, kv, d), generator=gen, device=DEVICE)
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, **ATTN_TOL))
@@ -520,7 +546,9 @@ def attention_rows(torch, timer, gen):
             ok = ok and int(torch.count_nonzero(got[:, :sq - sk])) == 0
         qpos = torch.arange(sq, device=DEVICE)[:, None] + (sk - sq)
         kpos = torch.arange(sk, device=DEVICE)[None, :]
-        mask = kpos <= qpos
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
+        if causal:
+            mask &= kpos <= qpos
         if window is not None:
             mask &= (qpos - kpos) < window
         pairs = int(mask.sum())               # the unmasked (q, k) pairs
@@ -529,18 +557,18 @@ def attention_rows(torch, timer, gen):
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
-        causal_only = sq == sk and window is None
+        plain_mask = sq == sk and window is None    # no mask or is_causal
         shape = f"q[{b},{sq},{h},{d}] kv[{b},{sk},{kv},{d}] " + (
-            f"window={window}" if window else "causal")
+            f"window={window}" if window else
+            "causal" if causal else "non-causal")
         r = dict(shape=shape, max_abs_err=err, ok=ok,
                  device_launches_per_call=device_launches(
-                     torch, lambda: flash_attention(q, k, v, window=window)),
-                 ms=timer(lambda: flash_attention(q, k, v, window=window)),
-                 plain_ms=timer(lambda: flash_attention_plain(
-                     q, k, v, window=window)),
+                     torch, lambda: flash_attention(q, k, v, **kw)),
+                 ms=timer(lambda: flash_attention(q, k, v, **kw)),
+                 plain_ms=timer(lambda: flash_attention_plain(q, k, v, **kw)),
                  library_ms=timer(lambda: sdpa(
-                     qt, kt, vt, is_causal=causal_only,
-                     attn_mask=None if causal_only else mask)),
+                     qt, kt, vt, is_causal=causal and plain_mask,
+                     attn_mask=None if plain_mask else mask)),
                  bound_ms=b_ms, bound_by=b_by,
                  bound_rate=rate_name(TF32X3_FLOP_PER_S))
         print(f"  flash_attention {shape} max_abs_err={err:.3e} (tol "
@@ -641,7 +669,8 @@ def ssd_cost(b, s, h, p, n, q):
 def ssd_rows(torch, timer, gen):
     """``ssd_scan`` against its plain version (the token-by-token
     recurrence): the mamba2-130m FL path (S = 32, so Q = 32), one sequence
-    at the published chunk (Q = 256) and a ragged S; then the forward plus
+    at the published chunk (Q = 256), a ragged S and jamba's smoke shape
+    (phase 15(e): P = 32, N = 16, two chunks of 32); then the forward plus
     backward at the FL shape against autograd through the plain version.
     No one PyTorch call computes this function: ``library_ms`` is null."""
     from repro_torch.kernels.ssd_scan import plan_ssd, ssd_scan, ssd_scan_plain
@@ -649,7 +678,8 @@ def ssd_rows(torch, timer, gen):
     for b, s, h, p, n, chunk in ((8, 32, 24, 64, 128, 256),
                                  (8, 128, 24, 64, 128, 256),  # launch.train
                                  (1, 2048, 24, 64, 128, 256),
-                                 (1, 300, 24, 64, 128, 256)):
+                                 (1, 300, 24, 64, 128, 256),
+                                 (4, 64, 8, 32, 16, 32)):     # jamba (15e)
         x, a, bm, cm = ssd_inputs(torch, gen, b, s, h, p, n)
         y, st = ssd_scan(x, a, bm, cm, chunk=chunk)
         y_p, st_p = ssd_scan_plain(x, a, bm, cm)
@@ -3807,42 +3837,56 @@ def lm_params(torch, arch, seed=0):
     return cfg, init_model(cfg, gen, DEVICE)
 
 
-def serve_phase(torch, arch):
+def serve_phase(torch, arch, own=None):
     """(c) ``repro_torch.launch.serve.main`` at the published width: batch
     4, an 8-token prompt, 32 tokens, greedy (its tok/s line). On the same
-    weights and prompts: the decode logits of the prompt (``decode_step``
-    token by token) against the full-sequence ``forward`` (which runs
-    ``flash_attention`` / ``ssd_scan``) within 1e-4; the engine's tokens
-    equal the CLI's; the first token is ``forward``'s argmax wherever the
-    top two logits are more than twice the tolerance apart."""
+    weights and prompts (and, for an encoder-decoder, the CLI's 32 frames
+    of ``src_embeds``, through ``encode_memory`` into the cache): the
+    decode logits of the prompt (``decode_step`` token by token) against
+    the full-sequence ``forward`` (which runs ``own``: ``flash_attention``
+    / ``ssd_scan``) within 1e-4; the engine's tokens equal the CLI's; the
+    first token is ``forward``'s argmax wherever the top two logits are
+    more than twice the tolerance apart. An encoder-decoder's encoder
+    launches are counted apart (``enc_counts``)."""
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import forward
+    from repro_torch.models.transformer import encode_memory, forward
     from repro_torch.serve import ServeEngine
 
+    own = own or LM_ARCHS[arch]
     b, sp, gen_n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     (out, text), cli_counts = counted(torch, lambda: stdout_of(serve.main, [
         "--arch", arch, "--batch", str(b), "--prompt-len", str(sp),
         "--gen", str(gen_n)]))
     print(f"  {text.splitlines()[0]} (launch.serve; kernel launches "
-          f"{cli_counts}: decode reaches none)")
+          f"{cli_counts}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     cfg, params = lm_params(torch, arch)
     prompts = torch.randint(0, cfg.vocab_size, (b, sp), device=DEVICE,
                             generator=torch.Generator(device=DEVICE)
                             .manual_seed(1))
     eng = ServeEngine(cfg, params, max_len=sp + gen_n + 1)
     cache = eng.new_cache(b)
+    batch, kw, enc_counts = {"tokens": prompts}, {}, None
+    if cfg.is_encoder_decoder:
+        src = torch.randn((b, 32, cfg.d_model), device=DEVICE,
+                          generator=torch.Generator(device=DEVICE)
+                          .manual_seed(2)) * 0.1
+        batch["src_embeds"] = kw["src_embeds"] = src
+        with torch.no_grad():
+            (cache["cross_k"], cache["cross_v"]), enc_counts = counted(
+                torch, lambda: encode_memory(cfg, params, batch))
     dec = torch.cat([eng.step(cache, prompts[:, t:t + 1])
                      for t in range(sp)], dim=1)
     with torch.no_grad():
-        full, counts = counted(torch, lambda: forward(
-            cfg, params, {"tokens": prompts}))
+        full, counts = counted(torch, lambda: forward(cfg, params, batch)[0])
     err = float((dec - full).abs().max())
-    own = LM_ARCHS[arch]
     check(counts[own] > 0, f"serve: forward did not launch {own}")
     check(err <= DECODE_TOL, f"{arch}: decode logits differ from forward's "
                              f"by {err} (tol {DECODE_TOL})")
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, gen_n)
+    toks = eng.generate(prompts, gen_n, **kw)
     dt = time.perf_counter() - t0
     check((toks == out).all(), f"{arch}: the engine's tokens differ from "
                                "the CLI's")
@@ -3858,16 +3902,17 @@ def serve_phase(torch, arch):
           f"generate again {dt * 1e3:.1f} ms = {b * gen_n / dt:.1f} tok/s")
     del params, eng, cache
     torch.cuda.empty_cache()
-    return dict(counts, **{"tok_per_s": b * gen_n / dt, "decode_err": err})
+    return dict(counts, **{"tok_per_s": b * gen_n / dt, "decode_err": err,
+                           "enc_counts": enc_counts})
 
 
-def train_phase(torch, arch, tmp):
+def train_phase(torch, arch, tmp, own=None):
     """(d) ``repro_torch.launch.train.main`` at the published width: 5
-    AdamW steps of batch 8 × 128 tokens, fp32; the loss finite, s/step
-    (the logged wall clock from step 1 to 4) and the peak device memory.
-    Then, at the smoke config, one step on the card from the same
-    parameters and batch as one on the CPU: loss and parameters within
-    1e-4."""
+    AdamW steps of batch 8 × 128 tokens, fp32 (an encoder-decoder's zero
+    frames beside them); the loss finite, s/step (the logged wall clock
+    from step 1 to 4) and the peak device memory. Then, at the smoke
+    config, one step on the card from the same parameters and batch as one
+    on the CPU: loss and parameters within 1e-4."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import TrainConfig
@@ -3875,6 +3920,7 @@ def train_phase(torch, arch, tmp):
     from repro_torch.models.transformer import init_model
     from repro_torch.train.train_step import make_train_step
 
+    own = own or LM_ARCHS[arch]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3889,7 +3935,6 @@ def train_phase(torch, arch, tmp):
     check(len(loss) == TRAIN["steps"] and all(map(math.isfinite, loss)),
           f"train {arch}: losses {loss}")
     s_step = (wall[-1] - wall[1]) / (len(wall) - 2)
-    own = LM_ARCHS[arch]
     check(launches[own] > 0, f"train {arch}: {own} was not launched")
     print(f"  launch.train --arch {arch} (published width): {TRAIN['steps']} "
           f"steps of {TRAIN['batch']}x{TRAIN['seq']} in {total:.1f} s; "
@@ -3905,7 +3950,9 @@ def train_phase(torch, arch, tmp):
     for dev in ("cpu", DEVICE):
         init, step = make_train_step(cfg, TrainConfig())
         p = {k: v.to(dev) for k, v in params.items()}
-        new, _, m = step(p, init(p), {"tokens": tokens.to(dev)})
+        batch = {"tokens": tokens.to(dev),
+                 **train.make_vlm_audio_extras(cfg, 4, 32, dev)}
+        new, _, m = step(p, init(p), batch)
         out[dev] = ({k: v.cpu() for k, v in new.items()}, float(m["loss"]))
     d_loss = abs(out["cpu"][1] - out[DEVICE][1])
     d_par = max(float((out["cpu"][0][k] - out[DEVICE][0][k]).abs().max())
@@ -3946,6 +3993,321 @@ def entry_points_phase(torch, tmp):
         kept[arch].update(s_per_step=got["s_per_step"],
                           peak_gib=got["peak_gib"])
         print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    return by_path, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the remaining model families
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-3b-a800m"
+SEAMLESS = "seamless-m4t-medium"
+JAMBA = "jamba-1.5-large-398b"
+NEW_ARCHS = (GRANITE, JAMBA, "minitron-8b", "mixtral-8x22b",
+             "phi-3-vision-4.2b", "qwen2-1.5b", "qwen2-72b", SEAMLESS)
+# granite's train step at published width, cut to 8 of its 32 layers: the
+# functional AdamW peaks near 38 B a parameter (tinyllama, phase 14(d)),
+# about 119 GiB for all 3.37 B of granite's
+GRANITE_TRAIN_LAYERS = 8
+MOE_TOL = dict(dense_fused=1e-5, dispatch=1e-4)   # against dense
+FAMILY_TOL = dict(rtol=1e-5, atol=1e-5)   # card against CPU, smoke configs
+
+
+def moe_layer_phase(torch):
+    """(b) One granite MoE layer at published width (E = 40, top 8, d =
+    1536, F = 512) on 8 × 128 tokens: ``dense_fused`` equals ``dense``
+    within 1e-5; ``dispatch`` at ``capacity_factor = E / k`` (nothing
+    dropped) equals it within 1e-4; the default capacity (1.25) runs and
+    drops what its capacity leaves out; a second call of each equals the
+    first bit for bit. Each call's time (CUDA events, L2 flushed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config(GRANITE)
+    moe = cfg.moe
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    p = {k: v[0] for k, v in L.init_moe(gen, cfg.d_model, moe, DEVICE,
+                                         1).items()}
+    x = torch.randn((8, 128, cfg.d_model), generator=gen, device=DEVICE)
+    full = moe.num_experts / moe.top_k
+    runs = {"dense": lambda: L.moe_apply_dense(p, x, moe),
+            "dense_fused": lambda: L.moe_apply_dense_fused(p, x, moe),
+            "dispatch": lambda: L.moe_apply_dispatch(p, x, moe,
+                                                     capacity_factor=full),
+            "dispatch 1.25": lambda: L.moe_apply_dispatch(p, x, moe)}
+    timer = Timer(torch)
+    outs, ms = {}, {}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            a, aux_a = fn()
+            b, aux_b = fn()
+            torch.cuda.synchronize()
+            check(torch.equal(a, b) and torch.equal(aux_a, aux_b),
+                  f"MoE {name}: a second call differs from the first")
+            outs[name] = (a, float(aux_a))
+            ms[name] = timer(fn, reps=10, warm=2)
+        t = x.reshape(-1, cfg.d_model)
+        _, _, topi, _ = L._route(p, t, moe)
+        cap = L.moe_capacity(t.shape[0], moe)
+        keep = L.dispatch_slots(topi, moe.num_experts, cap)[3]
+    del timer
+    dense, aux = outs["dense"]
+    errs = {}
+    for name, tol in MOE_TOL.items():
+        errs[name] = float((outs[name][0] - dense).abs().max())
+        check(errs[name] <= tol, f"MoE {name} differs from dense by "
+                                 f"{errs[name]} (tol {tol})")
+        check(outs[name][1] == aux, f"MoE {name}: another aux")
+    check(math.isfinite(aux) and aux > 0, f"MoE aux {aux}")
+    dropped = 1.0 - float(keep.float().mean())
+    print(f"  granite MoE layer (E={moe.num_experts}, top {moe.top_k}, "
+          f"d={cfg.d_model}, F={moe.d_ff}) on 8x128 tokens: dense_fused - "
+          f"dense {errs['dense_fused']:.3e} (tol 1e-5), dispatch at "
+          f"capacity E/k - dense {errs['dispatch']:.3e} (tol 1e-4); the "
+          f"default capacity {cap} slots an expert drops "
+          f"{dropped:.4f} of the (token, slot) pairs; each second call "
+          f"equal bit for bit; aux {aux:.6f}; ms "
+          f"{ {k: round(v, 4) for k, v in ms.items()} }")
+    return dict(ms, dropped=dropped)
+
+
+def granite_train_phase(torch):
+    """(c) ``make_train_step`` over granite at published width, cut to
+    ``GRANITE_TRAIN_LAYERS`` layers: 5 AdamW steps of 8 × 128 tokens
+    under ``dense`` and ``dispatch``; loss, ce and aux finite with aux > 0;
+    s/step (median of steps 2-5, synchronised) and the peak memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(GRANITE).replace(num_layers=GRANITE_TRAIN_LAYERS)
+    stream = make_token_stream(cfg.vocab_size, 200_000, seed=0)
+    by_impl, kept = {}, {}
+    for impl in ("dense", "dispatch"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE)
+        tc = TrainConfig(total_steps=TRAIN["steps"], warmup_steps=1)
+        init, step = make_train_step(cfg, tc, moe_impl=impl, q_chunk=64,
+                                     kv_chunk=64)
+        state = init(params)
+        batches = train.batches_from_stream(stream, TRAIN["batch"],
+                                            TRAIN["seq"], 0, DEVICE)
+        walls, metrics = [], []
+
+        def run():
+            nonlocal params, state
+            for _ in range(TRAIN["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, next(batches))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                metrics.append({k: float(m[k]) for k in ("loss", "ce",
+                                                         "aux")})
+
+        _, launches = counted(torch, run)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(v) for m in metrics for v in m.values())
+              and all(m["aux"] > 0 for m in metrics),
+              f"granite train ({impl}): {metrics}")
+        check(launches["flash_attention"] > 0,
+              f"granite train ({impl}): flash_attention was not launched")
+        s_step = float(np.median(walls[1:]))
+        print(f"  granite {GRANITE_TRAIN_LAYERS} of 32 layers at published "
+              f"width, moe_impl={impl}: {TRAIN['steps']} AdamW steps of "
+              f"{TRAIN['batch']}x{TRAIN['seq']}; loss "
+              f"{[round(m['loss'], 4) for m in metrics]}, aux "
+              f"{[round(m['aux'], 5) for m in metrics]}; {s_step:.3f} "
+              f"s/step (median of steps 2-{TRAIN['steps']}); peak "
+              f"allocated {peak:.2f} GiB; launches {launches}")
+        by_impl[impl], kept[impl] = launches, dict(s_per_step=s_step,
+                                                  peak_gib=peak)
+        del params, state, init, step
+    torch.cuda.empty_cache()
+    return by_impl, kept
+
+
+def jamba_phase(torch):
+    """(e) jamba at its smoke config on the card (published width does not
+    fit: one MoE layer alone is about 36 GiB in fp32): ``forward`` of 4 ×
+    64 tokens, its ``flash_attention`` and ``ssd_scan`` launches counted
+    (one a layer of each kind); decode token by token equal to ``forward``
+    within 1e-4; one train step (``dispatch``) with loss and aux finite,
+    aux > 0."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.transformer import (_layer_plan, decode_step,
+                                                forward, init_cache,
+                                                init_model)
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_smoke_config(JAMBA)
+    params = init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)), device=DEVICE)
+    with torch.no_grad():
+        full, launches = counted(torch, lambda: forward(
+            cfg, params, {"tokens": tokens})[0])
+        cache = init_cache(cfg, 4, 64, device=DEVICE)
+        dec = torch.cat([decode_step(cfg, params,
+                                     {"tokens": tokens[:, t:t + 1]},
+                                     cache)[0] for t in range(64)], dim=1)
+    mixers = [m for m, _ in _layer_plan(cfg)]
+    want = {"flash_attention": mixers.count("attn"),
+            "ssd_scan": mixers.count("mamba")}
+    for name, n in want.items():
+        check(launches[name] == n, f"jamba forward: {name} launched "
+                                   f"{launches[name]} times, {n} layers")
+    err = float((dec - full).abs().max())
+    check(err <= DECODE_TOL, f"jamba: decode differs from forward by {err}")
+    init, step = make_train_step(cfg, TrainConfig(), moe_impl="dispatch")
+    _, _, m = step(params, init(params), {"tokens": tokens})
+    m = {k: float(m[k]) for k in ("loss", "ce", "aux")}
+    check(all(map(math.isfinite, m.values())) and m["aux"] > 0,
+          f"jamba train step: {m}")
+    print(f"  jamba smoke ({cfg.num_layers} layers, attention 1 in "
+          f"{cfg.attn_period}, MoE 1 in {cfg.moe_period}): forward of 4x64 "
+          f"launched {launches}; 64 decode steps against forward "
+          f"max_abs_err={err:.3e} (tol {DECODE_TOL}); one train step "
+          f"(dispatch) {m}")
+    del params, cache
+    return launches
+
+
+def families_agreement(torch):
+    """(f) Each new architecture's smoke config on the card against the
+    CPU, from the same parameters and inputs (a VLM's image embeddings, an
+    encoder-decoder's frames): ``forward``'s logits within rtol/atol 1e-5,
+    and one train step's loss within rtol 1e-5."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.transformer import forward, init_model
+    from repro_torch.train.train_step import make_train_step
+
+    errs = {}
+    for arch in NEW_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = init_model(cfg, torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, 32)))}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.as_tensor(rng.normal(
+                size=(2, cfg.num_image_tokens, cfg.d_model)).astype(
+                    np.float32))
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.as_tensor(rng.normal(
+                size=(2, 24, cfg.d_model)).astype(np.float32))
+        got = {}
+        for dev in ("cpu", DEVICE):
+            p = {k: v.to(dev) for k, v in params.items()}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                logits, aux = forward(cfg, p, b)
+            init, step = make_train_step(cfg, TrainConfig())
+            _, _, m = step(p, init(p), b)
+            got[dev] = (logits.cpu(), float(aux), float(m["loss"]))
+        (l_c, a_c, s_c), (l_g, a_g, s_g) = got["cpu"], got[DEVICE]
+        err = float((l_c - l_g).abs().max())
+        ok = (torch.allclose(l_g, l_c, **FAMILY_TOL)
+              and math.isclose(a_g, a_c, rel_tol=1e-5, abs_tol=1e-5)
+              and math.isclose(s_g, s_c, rel_tol=1e-5))
+        check(ok, f"{arch} smoke: card vs CPU logits {err}, aux {a_g} / "
+                  f"{a_c}, loss {s_g} / {s_c}")
+        errs[arch] = (err, abs(s_g - s_c))
+    print(f"  card vs CPU on the smoke configs (logits max_abs_err, one "
+          f"train step's |d loss|), tol 1e-5: "
+          f"{ {k: tuple(f'{x:.2e}' for x in v) for k, v in errs.items()} }")
+
+
+def phi3_refuses(torch):
+    """phi-3-vision's head dim 96 is no template instance of
+    ``flash_attention``: at its published width (one layer of 32) the
+    card's forward raises the kernel's ``ValueError`` and launches
+    nothing; it does not fall back."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import forward, init_model
+
+    cfg = get_config("phi-3-vision-4.2b").replace(num_layers=1)
+    params = init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+    tokens = torch.zeros((1, 8), dtype=torch.int64, device=DEVICE)
+    fns = kernel_fns()
+    before = fns["flash_attention"].launches
+    try:
+        with torch.no_grad():
+            forward(cfg, params, {"tokens": tokens})
+    except ValueError as e:
+        check("head dims" in str(e), f"phi-3-vision: another error: {e}")
+        print(f"  phi-3-vision at published width (head dim "
+              f"{cfg.resolved_head_dim}) raises: {e}")
+    else:
+        fail("phi-3-vision at head dim 96 ran on the card")
+    check(fns["flash_attention"].launches == before,
+          "phi-3-vision: flash_attention launched")
+    del params
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch, tmp):
+    """15. (a)-(f); returns each path's launches and the numbers kept."""
+    from repro_torch.configs import get_config
+    by_path, kept = {}, {}
+    t0 = time.perf_counter()
+    print(f"  (a) {GRANITE}: serve at published width")
+    got = serve_phase(torch, GRANITE, own="flash_attention")
+    by_path["granite serve forward (phase 15a)"] = {k: got[k]
+                                                    for k in KERNELS}
+    kept[GRANITE] = dict(tok_per_s=got["tok_per_s"])
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print("  (b) one granite MoE layer: dense, dense_fused, dispatch")
+    kept["granite MoE layer"] = moe_layer_phase(torch)
+    print(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print(f"  (c) granite train, {GRANITE_TRAIN_LAYERS} of 32 layers")
+    launches, kept["granite train"] = granite_train_phase(torch)
+    for impl, n in launches.items():
+        by_path[f"granite train {impl} (phase 15c)"] = n
+    print(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print(f"  (d) {SEAMLESS}: serve and train at published width")
+    got = serve_phase(torch, SEAMLESS, own="flash_attention")
+    enc = got["enc_counts"]
+    n_enc = get_config(SEAMLESS).num_layers
+    check(enc["flash_attention"] == n_enc,
+          f"seamless encoder: {enc['flash_attention']} non-causal "
+          f"flash_attention launches, {n_enc} layers")
+    print(f"  the encoder (encode_memory) launched {enc}: one non-causal "
+          f"flash_attention a layer")
+    by_path["seamless encoder, non-causal (phase 15d)"] = enc
+    by_path["seamless serve forward (phase 15d)"] = {k: got[k]
+                                                     for k in KERNELS}
+    kept[SEAMLESS] = dict(tok_per_s=got["tok_per_s"])
+    got = train_phase(torch, SEAMLESS, tmp, own="flash_attention")
+    by_path["seamless train (phase 15d)"] = {k: got[k] for k in KERNELS}
+    kept[SEAMLESS].update(s_per_step=got["s_per_step"],
+                          peak_gib=got["peak_gib"])
+    print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print(f"  (e) {JAMBA} at its smoke config")
+    by_path["jamba smoke forward (phase 15e)"] = jamba_phase(torch)
+    print(f"  (e) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (f) card against CPU on the eight new smoke configs; "
+          "phi-3-vision's head dim 96")
+    families_agreement(torch)
+    phi3_refuses(torch)
+    print(f"  (f) took {time.perf_counter() - t1:.1f} s")
     return by_path, kept
 
 
@@ -4130,7 +4492,16 @@ def main():
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
     print(f"  phase 14 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 15. the kernels")
+    print("== 15. the remaining model families: MoE, hybrid, "
+          "encoder-decoder, VLM")
+    t15 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        family_paths, _ = families_phase(torch, Path(tmp))
+    by_path.update(family_paths)
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    print(f"  phase 15 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 16. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -1,6 +1,7 @@
 """Run and model configs (copies of ``repro.configs.base``: ``FLConfig``,
-``TrainConfig`` and the transformer's ``MoEConfig`` / ``SSMConfig`` /
-``ModelConfig``)."""
+``TrainConfig``, the transformer's ``MoEConfig`` / ``SSMConfig`` /
+``ModelConfig``, and the workload shapes ``InputShape`` /
+``INPUT_SHAPES`` / ``LONG_CONTEXT_WINDOW``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -172,3 +173,28 @@ class ModelConfig:
             for i in range(self.num_layers):
                 total += block_params(i, decoder=False)
         return total
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned (seq_len, global_batch) workload shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding-window used by the SWA decode variant that makes `long_500k`
+# sub-quadratic for dense/moe/vlm families (mixtral uses SWA natively).
+LONG_CONTEXT_WINDOW = 4_096

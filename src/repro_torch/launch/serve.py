@@ -54,10 +54,15 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=_generator(device, args.seed + 1),
                             device=device)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["src_embeds"] = torch.randn(
+            (args.batch, 32, cfg.d_model), generator=_generator(device, 2),
+            device=device) * 0.1
     t0 = time.time()
     out = eng.generate(prompts, num_tokens=args.gen, sampler=args.sampler,
                        generator=_generator(device, args.seed + 2),
-                       temp=args.temp)
+                       temp=args.temp, **kw)
     dt = time.time() - t0
     print(f"{args.arch}: {args.batch}×{args.gen} tokens in {dt:.2f}s "
           f"({args.batch*args.gen/dt:.1f} tok/s)")

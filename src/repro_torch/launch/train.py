@@ -38,6 +38,20 @@ def batches_from_stream(tokens: np.ndarray, batch: int, seq: int, seed: int,
             np.stack([tokens[i:i + seq] for i in idx])).to(device)}
 
 
+def make_vlm_audio_extras(cfg, batch: int, seq: int, device="cpu"):
+    """The stubbed frontends' inputs, as the reference gives them: zero
+    image-patch embeddings ``[batch, num_image_tokens, d]`` for a VLM,
+    zero frame embeddings ``[batch, seq, d]`` for an encoder-decoder."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.zeros(
+            (batch, cfg.num_image_tokens, cfg.d_model), device=device)
+    if cfg.is_encoder_decoder:
+        extras["src_embeds"] = torch.zeros((batch, seq, cfg.d_model),
+                                           device=device)
+    return extras
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
@@ -48,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--moe-impl", default="dense",
-                    help="MoE dispatch of an MoE family (none is ported "
-                         "yet, so nothing reads it)")
+                    help="the MoE layers' implementation (an MoE or hybrid "
+                         "family): dense, dispatch or dense_fused")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-csv", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -69,18 +83,20 @@ def main(argv=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_model(cfg, gen, device)
-    opt_init, step_fn = make_train_step(cfg, tc)
+    opt_init, step_fn = make_train_step(cfg, tc, moe_impl=args.moe_impl,
+                                        q_chunk=64, kv_chunk=64)
     opt_state = opt_init(params)
 
     stream = make_token_stream(cfg.vocab_size, 200_000, seed=args.seed)
     batches = batches_from_stream(stream, args.batch, args.seq, args.seed,
                                   device)
+    extras = make_vlm_audio_extras(cfg, args.batch, args.seq, device)
 
     logger = MetricsLogger(args.log_csv)
     t0 = time.time()
     for step in range(args.steps):
         params, opt_state, metrics = step_fn(params, opt_state,
-                                             next(batches))
+                                             {**next(batches), **extras})
         if step % max(args.steps // 20, 1) == 0 or step == args.steps - 1:
             logger.log(step, metrics)
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} "

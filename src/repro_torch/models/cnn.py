@@ -109,3 +109,8 @@ def cnn_loss(params, images, labels, cfg: CNNConfig):
     """Single-model mean cross-entropy (scalar)."""
     return cnn_loss_stacked(_one(params), images[None], labels[None], cfg)[0]
 
+
+def cnn_accuracy(params, images, labels, cfg: CNNConfig):
+    """Single-model accuracy (a 0-d tensor)."""
+    pred = torch.argmax(cnn_forward(params, images, cfg), dim=-1)
+    return (pred == labels).to(torch.float32).mean()

@@ -1,10 +1,13 @@
-"""The layers the LM's forward pass and its decode step run (a subset of
-``repro.models.layers``): norms, RoPE, GQA projections, the SwiGLU MLP,
-the Mamba-2 block, (re-exported under the reference's name) the chunked
-SSD form ``kernels.ssd_chunked.ssd_chunked``, and the one-token decode
-pieces (``full_attention_1q``, ``ssd_decode_step``,
-``causal_conv1d_step``, ``mamba2_decode``), plain tensor code as in the
-reference, which reaches no kernel on decode.
+"""The layers of the LM stacks (the port of ``repro.models.layers``):
+norms, RoPE, GQA projections (with cross-attention's ``kv_x``), the
+reference's off-TPU ``blockwise_attention`` (the encoder-decoder's
+cross-attention), the SwiGLU MLP, the three MoE implementations
+(``MOE_IMPLS``), the Mamba-2 block, (re-exported under the reference's
+name) the chunked SSD form ``kernels.ssd_chunked.ssd_chunked``, and the
+one-token decode pieces (``full_attention_1q``, ``ssd_decode_step``,
+``causal_conv1d_step``, ``mamba2_decode``). Blockwise attention, the MoE
+layers and the decode pieces are plain tensor code on every device, as
+in the reference, which reaches no Pallas kernel there.
 
 Parameters are flat ``{name: tensor}`` dicts of one layer's subtree
 (``{"wq", "wk", "wv", "wo"}`` for attention), with the reference's layouts:
@@ -21,7 +24,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunked import ssd_chunked  # noqa: F401
 
@@ -125,21 +128,109 @@ def full_attention_1q(q, k, v, k_positions, q_position, *, window=None,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def attention_qkv(p, x, cfg: ModelConfig):
+def attention_qkv(p, x, cfg: ModelConfig, kv_x=None):
     """Project hidden states ``[B, S, d]`` to q ``[B, S, H, D]`` and k, v
-    ``[B, S, K, D]``."""
+    ``[B, Skv, K, D]``; k and v from ``kv_x`` ``[B, Skv, d]`` where given
+    (cross-attention), else from ``x``."""
     hd = cfg.resolved_head_dim
+    kv_src = x if kv_x is None else kv_x
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     B, S = x.shape[:2]
+    skv = kv_src.shape[1]
     return (q.reshape(B, S, cfg.num_heads, hd),
-            k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+            k.reshape(B, skv, cfg.num_kv_heads, hd),
+            v.reshape(B, skv, cfg.num_kv_heads, hd))
+
+
+def _attn_block(q_blk, k_blk, q_pos, k_pos, causal, window, kv_valid):
+    """The masked logits ``[B, K, G, Tq, Tk]`` of one (q chunk × kv chunk)
+    tile. q_blk: [B, Tq, K, G, D] (scaled); k_blk: [B, Tk, K, D]."""
+    logits = torch.einsum("btkgd,bskd->bkgts", q_blk.to(torch.float32),
+                          k_blk.to(torch.float32))
+    mask = torch.ones(logits.shape[-2:], dtype=torch.bool,
+                      device=logits.device)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[None, :]
+    return torch.where(mask, logits, NEG_INF)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window=None,
+                        q_positions=None, k_positions=None, kv_valid=None,
+                        q_chunk: int = 512, kv_chunk: int = 1024):
+    """Memory-efficient attention, the reference's off-TPU form: online
+    softmax over kv chunks for each q chunk, so the ``[Sq, Sk]`` score
+    matrix never exists whole. Plain tensor code on every device (the
+    reference computes it outside any Pallas kernel); the encoder-decoder's
+    cross-attention runs it.
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, K, D] with H % K == 0 (GQA).
+    Positions default to aligned ranges; ``kv_valid`` [Sk] marks the keys
+    that count. Sq and Sk are padded up to whole chunks (padded queries at
+    position -1, padded keys invalid). Output: [B, Sq, H, D]."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if k_positions is None:
+        k_positions = torch.arange(Sk, device=dev)
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    nq = -(-Sq // q_chunk)
+    nk = -(-Sk // kv_chunk)
+    pad_q = nq * q_chunk - Sq
+    pad_k = nk * kv_chunk - Sk
+    qg = q.reshape(B, Sq, K, G, D) * (1.0 / math.sqrt(D))
+    pad = torch.nn.functional.pad
+    if pad_q:
+        qg = pad(qg, (0, 0, 0, 0, 0, 0, 0, pad_q))
+        q_positions = pad(q_positions, (0, pad_q), value=-1)
+    if pad_k:
+        k = pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_positions = pad(k_positions, (0, pad_k), value=2 ** 30)
+        if kv_valid is None:
+            kv_valid = torch.arange(nk * kv_chunk, device=dev) < Sk
+        else:
+            kv_valid = pad(kv_valid, (0, pad_k), value=False)
+
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        q_blk, q_pos = qg[:, qs], q_positions[qs]
+        m = torch.full((B, K, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, K, G, q_chunk), device=dev)
+        acc = torch.zeros((B, q_chunk, K, G, D), device=dev)
+        for j in range(nk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            logits = _attn_block(q_blk, k[:, ks], q_pos, k_positions[ks],
+                                 causal, window,
+                                 None if kv_valid is None else kv_valid[ks])
+            new_m = torch.maximum(m, logits.amax(dim=-1))
+            correction = torch.exp(m - new_m)
+            # fully masked tiles: keep probs exactly 0 (no exp(-inf - -inf))
+            probs = torch.where(logits > NEG_INF * 0.5,
+                                torch.exp(logits - new_m[..., None]), 0.0)
+            l = l * correction + probs.sum(dim=-1)
+            pv = torch.einsum("bkgts,bskd->btkgd", probs,
+                              v[:, ks].to(torch.float32))
+            acc = acc * correction.permute(0, 3, 1, 2)[..., None] + pv
+            m = new_m
+        denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append(acc / denom)
+    out = torch.cat(outs, dim=1).reshape(B, nq * q_chunk, H, D)
+    return out[:, :Sq].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +250,148 @@ def init_mlp(generator, d_model: int, d_ff: int, device, layers: int):
 
 def mlp_apply(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (plain tensor code on every device: the reference has
+# no MoE kernel)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(generator, d_model: int, moe: MoEConfig, device, layers: int):
+    """``layers`` stacked MoE MLPs: the router ``[L, d, E]`` (scale 0.02)
+    and the experts' SwiGLU ``w_gate``/``w_up`` ``[L, E, d, F]``,
+    ``w_down`` ``[L, E, F, d]``."""
+    L, E, F = layers, moe.num_experts, moe.d_ff
+    return {
+        "router": init_dense(generator, (L, d_model, E), device, scale=0.02),
+        "w_gate": init_dense(generator, (L, E, d_model, F), device),
+        "w_up": init_dense(generator, (L, E, d_model, F), device),
+        "w_down": init_dense(generator, (L, E, F, d_model), device,
+                             scale=1.0 / math.sqrt(F)),
+    }
+
+
+def _route(p, t, moe: MoEConfig):
+    """Router logits ``[T, E]`` (fp32) of tokens ``t`` ``[T, d]``, their
+    top-k ``(softmaxed weights, experts)`` ``[T, k]`` — descending, the
+    lower expert first on ties, as ``lax.top_k`` ranks — and the
+    load-balance loss."""
+    from repro_torch.strategies.traced import _stable_top
+    logits = (t @ p["router"]).to(torch.float32)
+    topw, topi = _stable_top(logits, moe.top_k)
+    return (logits, torch.softmax(topw, dim=-1), topi,
+            _load_balance_loss(logits, topi, moe))
+
+
+def _gates(logits, topw, topi):
+    """The dense ``[T, E]`` gate matrix: ``topw`` at the chosen experts."""
+    return torch.zeros_like(logits).scatter(1, topi, topw)
+
+
+def moe_apply_dense(p, x, moe: MoEConfig):
+    """Every expert on every token, combined with the sparse top-k router
+    weights (E/k times the useful flops). Returns ``(out [B, S, d],
+    aux)``."""
+    B, S, D = x.shape
+    t = x.reshape(B * S, D)
+    logits, topw, topi, aux = _route(p, t, moe)
+    gates = _gates(logits, topw, topi)
+    h = torch.einsum("td,edf->tef", t, p["w_gate"])
+    u = torch.einsum("td,edf->tef", t, p["w_up"])
+    y = torch.einsum("tef,efd->ted", silu(h) * u, p["w_down"])
+    out = torch.einsum("te,ted->td", gates.to(y.dtype), y)
+    return out.reshape(B, S, D), aux
+
+
+def moe_apply_dense_fused(p, x, moe: MoEConfig):
+    """:func:`moe_apply_dense` with the gate applied to the hidden
+    activations before the down projection, so (e, f) contract in one
+    product. Returns ``(out [B, S, d], aux)``."""
+    B, S, D = x.shape
+    t = x.reshape(B * S, D)
+    logits, topw, topi, aux = _route(p, t, moe)
+    gates = _gates(logits, topw, topi)
+    h = torch.einsum("td,edf->tef", t, p["w_gate"])
+    u = torch.einsum("td,edf->tef", t, p["w_up"])
+    hu = (silu(h) * u) * gates.to(h.dtype)[:, :, None]
+    out = torch.einsum("tef,efd->td", hu, p["w_down"])
+    return out.reshape(B, S, D), aux
+
+
+def moe_capacity(tokens: int, moe: MoEConfig,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots an expert takes in :func:`moe_apply_dispatch`."""
+    return max(int(capacity_factor * tokens * moe.top_k / moe.num_experts), 1)
+
+
+def dispatch_slots(topi, num_experts: int, cap: int):
+    """Where each (token, slot) pair of ``topi`` ``[T, k]`` goes: the pairs
+    sorted by expert, stably (so the same pairs are dropped as by the
+    reference's ``jnp.argsort``), and each pair's ``rank`` within its
+    expert. Returns ``(order, expert, rank, keep)`` in sorted order;
+    ``keep`` is ``rank < cap``."""
+    n = topi.numel()
+    expert_flat = topi.reshape(n)
+    order = torch.argsort(expert_flat, stable=True)
+    e_sorted = expert_flat[order]
+    seg_start = torch.searchsorted(e_sorted, e_sorted, side="left")
+    rank = torch.arange(n, device=topi.device) - seg_start
+    return order, e_sorted, rank, rank < cap
+
+
+def moe_apply_dispatch(p, x, moe: MoEConfig, capacity_factor: float = 1.25):
+    """Sort-based capacity dispatch: the (token, slot) pairs sorted by
+    expert fill ``[E, C, d]`` buffers (``C`` = :func:`moe_capacity`), each
+    expert runs on its buffer, and each token sums its k results. Pairs
+    past an expert's capacity are dropped (the residual passes). Every
+    buffer slot takes at most one pair and the k results of a token are
+    summed in slot order (the sort inverted, then a sum over k), not by an
+    atomic scatter-add, so two calls give the same bits on every device.
+    Returns ``(out [B, S, d], aux)``."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = moe.num_experts, moe.top_k
+    cap = moe_capacity(T, moe, capacity_factor)
+    t = x.reshape(T, D)
+    _, topw, topi, aux = _route(p, t, moe)
+    order, e_sorted, rank, keep = dispatch_slots(topi, E, cap)
+    tok_sorted = order // K
+    gate_sorted = topw.reshape(T * K)[order]
+
+    # one slot a kept pair; the dropped pairs write zeros to a spare slot
+    slot = torch.where(keep, e_sorted * cap + rank, E * cap)
+    vals = torch.where(keep[:, None], t[tok_sorted].to(torch.float32), 0.0)
+    buf = torch.zeros((E * cap + 1, D), dtype=torch.float32, device=x.device)
+    buf = buf.index_put((slot,), vals)[:E * cap].reshape(E, cap, D)
+
+    h = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(torch.float32))
+    u = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(torch.float32))
+    ye = torch.einsum("ecf,efd->ecd", silu(h) * u,
+                      p["w_down"].to(torch.float32)).reshape(E * cap, D)
+
+    # back to (token, slot) order, then each token's k results in turn
+    contrib = torch.where(keep[:, None],
+                          ye[torch.clamp(slot, max=E * cap - 1)]
+                          * gate_sorted[:, None], 0.0)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(T * K, device=x.device)
+    out = contrib[inverse].reshape(T, K, D).sum(dim=1)
+    return out.to(x.dtype).reshape(B, S, D), aux
+
+
+def _load_balance_loss(router_logits, topi, moe: MoEConfig):
+    """Switch-transformer load-balance auxiliary loss."""
+    probs = torch.softmax(router_logits, dim=-1)                 # [T, E]
+    E = moe.num_experts
+    frac_tokens = torch.nn.functional.one_hot(
+        topi[:, 0], E).to(torch.float32).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return moe.load_balance_coef * E * torch.sum(frac_tokens * frac_probs)
+
+
+MOE_IMPLS = {"dense": moe_apply_dense, "dispatch": moe_apply_dispatch,
+             "dense_fused": moe_apply_dense_fused}
 
 
 # ---------------------------------------------------------------------------

@@ -129,8 +129,9 @@ def merge_lora(cfg: LMConfig, adapter, base):
 
 
 def _logits(cfg: LMConfig, adapter, base, tokens):
-    return forward(cfg.model, merge_lora(cfg, adapter, base),
-                   {"tokens": tokens[:, :-1]})
+    logits, _ = forward(cfg.model, merge_lora(cfg, adapter, base),
+                        {"tokens": tokens[:, :-1]})
+    return logits
 
 
 def lm_loss(adapter, tokens, cfg: LMConfig, base):

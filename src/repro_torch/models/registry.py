@@ -75,6 +75,11 @@ _WORKLOADS = {
 }
 
 
+def register_model_def(cfg_type: type, mdef: ModelDef) -> None:
+    """Bind a frozen-config type to its engine hooks."""
+    _DEFS[cfg_type] = mdef
+
+
 def register_workload(name: str, builder: Callable[[], Any]) -> None:
     """Bind an ``ExperimentSpec.model`` name to a config builder (an
     ``LMConfig`` over a published width, say)."""

@@ -26,14 +26,18 @@ def cross_entropy(logits, targets, mask=None, label_smoothing: float = 0.0):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                 moe_impl: str = "dense", q_chunk: int = 512,
+                 kv_chunk: int = 1024):
     """``loss_fn(params, batch) -> (loss, {"ce", "aux"})``: next-token
     cross entropy over ``batch["tokens"]`` (or against ``batch["labels"]``
-    where given), with ``batch["loss_mask"]`` if present. A dense or ssm
-    stack has no auxiliary loss (``aux`` is 0)."""
+    where given), with ``batch["loss_mask"]`` if present, plus the MoE
+    layers' load-balance loss ``aux`` (0 without them). ``moe_impl``,
+    ``q_chunk`` and ``kv_chunk`` go to ``forward``."""
     def loss_fn(params, batch: Dict[str, Any]):
-        logits = forward(model_cfg, params, batch, remat=train_cfg.remat)
-        aux = torch.zeros((), device=logits.device)
+        logits, aux = forward(model_cfg, params, batch, moe_impl=moe_impl,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk,
+                              remat=train_cfg.remat)
         targets = batch.get("labels")
         mask = batch.get("loss_mask")
         if targets is None:
@@ -45,13 +49,16 @@ def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
     return loss_fn
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
+                    moe_impl: str = "dense", q_chunk: int = 512,
+                    kv_chunk: int = 1024):
     """Returns (init_state_fn(params) -> opt_state, train_step fn).
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics);
     the metrics are 0-d tensors on the parameters' device (no host read).
     """
-    loss_fn = make_loss_fn(model_cfg, train_cfg)
+    loss_fn = make_loss_fn(model_cfg, train_cfg, moe_impl=moe_impl,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk)
     opt_init, opt_update = make_optimizer(train_cfg)
 
     def train_step(params, opt_state, batch):

@@ -165,3 +165,59 @@ def tree_num_params(params: Mapping[str, torch.Tensor]) -> int:
 
 def tree_bytes(params: Mapping[str, torch.Tensor]) -> int:
     return sum(int(v.numel()) * v.element_size() for v in params.values())
+
+
+def tree_flatten_vector(params: Mapping[str, torch.Tensor],
+                        dtype=torch.float32) -> torch.Tensor:
+    """Every leaf, in :func:`tree_order`, as one 1-D vector: a model as one
+    Euclidean point (divergence, K-means features)."""
+    names = tree_order(params)
+    if not names:
+        return torch.zeros((0,), dtype=dtype)
+    return torch.cat([params[n].reshape(-1).to(dtype) for n in names])
+
+
+def tree_unflatten_vector(template: Mapping[str, torch.Tensor],
+                          vector: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`tree_flatten_vector` given a template dict (its
+    shapes and dtypes)."""
+    out, idx = {}, 0
+    for n in tree_order(template):
+        leaf = template[n]
+        size = leaf.numel()
+        out[n] = vector[idx:idx + size].reshape(leaf.shape).to(leaf.dtype)
+        idx += size
+    return out
+
+
+def tree_add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def tree_sub(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def tree_scale(a, s):
+    return {k: v * s for k, v in a.items()}
+
+
+def tree_zeros_like(tree):
+    return {k: torch.zeros_like(v) for k, v in tree.items()}
+
+
+def tree_weighted_mean(trees, weights):
+    """Weighted average of a list of dicts — FedAvg aggregation, eq. (4):
+    ``Σ_n D_n w_n / Σ_n D_n``, in fp32, each leaf back in its dtype."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    norm = w / torch.sum(w)
+    return {k: torch.tensordot(norm.to(trees[0][k].device),
+                               torch.stack([t[k].to(torch.float32)
+                                            for t in trees]), dims=1)
+            .to(trees[0][k].dtype) for k in trees[0]}
+
+
+def tree_cast(tree, dtype):
+    """Floating leaves cast to ``dtype``; the others as they are."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}

@@ -4,6 +4,8 @@ is no card; the file imports no JAX, so it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -186,6 +188,71 @@ def test_flash_attention_plan_shapes(cuda, b, sq, sk, h, kv, d, window):
         assert plan_attention(b, sq, sk, h, kv, True, window).chunks > 1
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (8, 128, 128, 16, 16, 64),                 # seamless's encoder (train)
+    (4, 32, 32, 16, 16, 64),                   # its serve batch
+    (2, 20, 45, 8, 2, 16),                     # Sq < Sk
+    (2, 45, 20, 6, 2, 32),                     # Sq > Sk: every row has keys
+])
+def test_flash_attention_non_causal_matches_plain(cuda, b, sq, sk, h, kv,
+                                                  d):
+    """The encoder's self-attention: no causal mask, at Sq = Sk and Sq !=
+    Sk; a second call is equal bit for bit."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.tensor(_normal(21, b, sq, h, d), device=cuda)
+    k = torch.tensor(_normal(22, b, sk, kv, d), device=cuda)
+    v = torch.tensor(_normal(23, b, sk, kv, d), device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v,
+                                                          causal=False),
+                               **ATTN_TOL)
+    assert torch.count_nonzero(got.abs().sum(-1)) == b * sq * h
+    assert torch.equal(flash_attention(q, k, v, causal=False), got)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (8, 128, 24, 8, 64, None),                 # granite: H / K = 3
+    (2, 64, 12, 2, 128, None),                 # qwen2: H / K = 6, D = 128
+    (1, 300, 48, 8, 128, 128),                 # mixtral: H / K = 6, window
+])
+def test_flash_attention_new_gqa_ratios(cuda, b, s, h, kv, d, window):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.tensor(_normal(24, b, s, h, d), device=cuda)
+    k = torch.tensor(_normal(25, b, s, kv, d), device=cuda)
+    v = torch.tensor(_normal(26, b, s, kv, d), device=cuda)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_attention_plain(
+        q, k, v, causal=True, window=window), **ATTN_TOL)
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+
+
+def test_flash_attention_refuses_phi3_head_dim(cuda):
+    """phi-3-vision's head dim 96 is no template instance: its published
+    width raises the kernel's ``ValueError`` on the card, through the
+    model too, and launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import forward, init_model
+    q = torch.zeros((1, 8, 32, 96), device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    cfg = get_config("phi-3-vision-4.2b").replace(num_layers=1)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    with pytest.raises(ValueError, match="head dims"), torch.no_grad():
+        forward(cfg, params, {"tokens": torch.zeros(
+            (1, 8), dtype=torch.int64, device=cuda)})
+    assert flash_attention.launches == before
+
+
 def test_flash_attention_unaligned_kv(cuda):
     """K/V views whose rows are not 16-byte aligned take the 4-byte
     copies."""
@@ -234,6 +301,58 @@ def test_ssd_scan_matches_plain(cuda, b, s, h, g, p, n, chunk):
     assert torch.equal(y2, y) and torch.equal(state2, state)
 
 
+@pytest.mark.parametrize("s", [16, 64])
+def test_ssd_scan_at_jamba_smoke_dims(cuda, s):
+    """jamba's smoke mamba layers: H = 8, P = 32, N = 16, chunk 32 (one
+    chunk, and two)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    rng = np.random.default_rng(s)
+    b, h, p, n = 4, 8, 32, 16
+    x = torch.tensor(rng.normal(size=(b, s, h, p)).astype(np.float32),
+                     device=cuda)
+    a = torch.tensor(-rng.uniform(0.01, 0.3, (b, s, h)).astype(np.float32),
+                     device=cuda)
+    bm, cm = (torch.tensor((rng.normal(size=(b, s, 1, n)) / np.sqrt(n))
+                           .astype(np.float32), device=cuda)
+              for _ in range(2))
+    y, state = ssd_scan(x, a, bm, cm, chunk=32)
+    torch.cuda.synchronize()
+    y_ref, state_ref = ssd_scan_plain(x, a, bm, cm)
+    torch.testing.assert_close(y, y_ref, **SSD_TOL)
+    torch.testing.assert_close(state, state_ref, **SSD_TOL)
+
+
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_moe_dispatch_repeats_bit_for_bit(cuda, width):
+    """The MoE dispatch on the card: a second call gives the same bits
+    (one slot a pair, each token's k results summed in slot order; no
+    atomic scatter-add), and at capacity E / k it is the dense MoE within
+    1e-4. At the smoke width it is the CPU's within 1e-4 too (at the
+    published width's 40 experts a router logit's last bits may reorder a
+    near tie between the two devices)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import layers as L
+    cfg = (get_smoke_config if width == "smoke" else get_config)(
+        "granite-moe-3b-a800m")
+    moe = cfg.moe
+    p = {k: v[0] for k, v in L.init_moe(torch.Generator().manual_seed(0),
+                                         cfg.d_model, moe, "cpu", 1).items()}
+    x = torch.tensor(_normal(27, 8, 128, cfg.d_model))
+    on = {k: v.to(cuda) for k, v in p.items()}
+    with torch.no_grad():
+        a, aux_a = L.moe_apply_dispatch(on, x.to(cuda), moe)
+        b, aux_b = L.moe_apply_dispatch(on, x.to(cuda), moe)
+        want, _ = L.moe_apply_dispatch(p, x, moe)       # on the CPU
+        full = moe.num_experts / moe.top_k
+        nodrop, _ = L.moe_apply_dispatch(on, x.to(cuda), moe,
+                                         capacity_factor=full)
+        dense, _ = L.moe_apply_dense(on, x.to(cuda), moe)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    torch.testing.assert_close(nodrop, dense, rtol=1e-4, atol=1e-4)
+    if width == "smoke":
+        torch.testing.assert_close(a.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 def test_ssd_scan_strided_and_misaligned_views(cuda):
     """b and c as views of one projection (as ``mamba2_apply`` passes
     them), then views off the 16-byte grid, which take 4-byte copies."""
@@ -263,7 +382,7 @@ def test_ssd_scan_refuses_a_plan_that_is_not_its_grid(cuda, monkeypatch,
     """The kernel takes its grid and shared memory from ``plan_ssd`` and
     checks them against its block decode and layout: a plan off by one
     block, tile, chunk or 16 bytes is refused, and nothing is counted."""
-    from repro_torch.kernels import ssd_scan as ss
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     x = torch.zeros((1, 300, 2, 64), device=cuda)        # two chunks
     a = torch.zeros((1, 300, 2), device=cuda)
     bc = torch.zeros((1, 300, 1, 128), device=cuda)
@@ -284,7 +403,8 @@ def test_kernel_gradients_are_the_plain_versions(cuda):
     """The autograd Functions: values from the kernels; gradients, from
     differentiating the plain version (attention) or the chunked form
     (SSD), equal to those of the plain versions on the same inputs."""
-    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     rng = np.random.default_rng(0)
 
     def leaf(*shape, scale=1.0):

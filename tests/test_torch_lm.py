@@ -135,9 +135,10 @@ def test_causal_conv_matches():
 def test_forward_logits_match(arch):
     cfg, ref_cfg, base, ref_base = _cfgs(arch)
     toks = _tokens(8, cfg, 2, cfg.seq_len)
-    got = forward(cfg.model, base, {"tokens": torch.tensor(toks)})
-    want, _ = ref_forward(ref_cfg.model, ref_base, {"tokens": toks})
+    got, aux = forward(cfg.model, base, {"tokens": torch.tensor(toks)})
+    want, want_aux = ref_forward(ref_cfg.model, ref_base, {"tokens": toks})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    assert float(aux) == float(want_aux) == 0.0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -167,9 +168,9 @@ def test_fresh_adapter_is_a_noop_on_the_base():
     cfg, _, base, _ = _cfgs("tinyllama")
     adapter = lm.init_adapter(cfg, torch.Generator().manual_seed(0))
     toks = torch.tensor(_tokens(10, cfg, 2, cfg.seq_len))
-    a = forward(cfg.model, base, {"tokens": toks})
-    b = forward(cfg.model, lm.merge_lora(cfg, adapter, base),
-                {"tokens": toks})
+    a, _ = forward(cfg.model, base, {"tokens": toks})
+    b, _ = forward(cfg.model, lm.merge_lora(cfg, adapter, base),
+                   {"tokens": toks})
     assert torch.equal(a, b)
 
 

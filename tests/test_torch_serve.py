@@ -179,6 +179,6 @@ def test_greedy_generation_matches_forward_argmax(arch):
         0, cfg.vocab_size, (3, 10)))
     gen = ServeEngine(cfg, port, max_len=64).generate(prompts, num_tokens=1)
     with torch.no_grad():
-        want = torch.argmax(T.forward(cfg, port, {"tokens": prompts})[:, -1],
-                            dim=-1)
+        want = torch.argmax(
+            T.forward(cfg, port, {"tokens": prompts})[0][:, -1], dim=-1)
     np.testing.assert_array_equal(gen[:, 0], want.numpy())
