@@ -9,7 +9,8 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
    built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    together);
 2. each kernel against its plain PyTorch version at the shapes the FL and
-   LM paths give it, with the max error against the tolerance, the
+   LM paths give it (fp32; phase 16 adds the bf16 instances' rows), with
+   the max error against the tolerance, the
    kernel's, the plain version's, one library call's and the bound's times
    (CUDA-event medians after warm-up, L2 flushed before every call) and
    the device launches one call makes; then ``ssd_scan``'s forward plus
@@ -152,9 +153,28 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     ``launch.train``; (e) jamba at its smoke config: ``forward`` (its
     ``flash_attention`` and ``ssd_scan`` launches counted), decode ≡
     ``forward``, a train step; (f) the eight new smoke configs on the card
-    against the CPU within 1e-5, and phi-3-vision's head dim 96 at
-    published width raising the kernel's ``ValueError``;
-16. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+    against the CPU within 1e-5, and phi-3-vision at published width (one
+    layer, head dim 96) through the kernel against the plain attention
+    within 1e-4;
+16. bfloat16 on the card: (a) each kernel's bf16 instance against its
+    fp32 instance on the widened inputs bit for bit (attention and the
+    SSD's y after one rounding to bf16, the SSD state exactly), against
+    its plain bf16 version within the reference's bf16 tolerances, at the
+    FL and LM shapes of phase 2, the round's lm_head leaf and
+    phi-3-vision's [4, 128, 32, 96]; D = 96 in fp32 against its plain
+    version within 2e-5; (b) ``ServeEngine`` in bf16 at published width
+    over phi-3-vision-4.2b, minitron-8b, qwen2-1.5b and tinyllama-1.1b
+    (and tinyllama in fp32): batch 4, an 8-token prompt, 32 greedy
+    tokens, decode against ``forward`` within twice the model's own bf16
+    error, tok/s and the peak; (c) ``make_train_step`` over tinyllama at
+    published width, 5 AdamW steps of 8 × 128 tokens in bf16 beside fp32
+    (s/step, the peak, both loss curves); (d) the ten smoke configs in
+    bf16, card against CPU within twice the CPU's own bf16 error, on the
+    CPU's expert choices; (e) ``fl_round_step`` over 16 tinyllama-1.1b
+    clients in bf16 at published width, c = 4, ``feature_slice`` 0 and
+    4096: the selection the top divergence of each cluster, the fold one
+    leaf's weighted mean on the host, ms and the peak;
+17. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -4229,31 +4249,40 @@ def families_agreement(torch):
           f"{ {k: tuple(f'{x:.2e}' for x in v) for k, v in errs.items()} }")
 
 
-def phi3_refuses(torch):
-    """phi-3-vision's head dim 96 is no template instance of
-    ``flash_attention``: at its published width (one layer of 32) the
-    card's forward raises the kernel's ``ValueError`` and launches
-    nothing; it does not fall back."""
+def phi3_runs(torch):
+    """phi-3-vision at its published width (one layer of 32): head dim 96
+    is a template instance of ``flash_attention``, so the card's forward
+    launches the kernel once and equals the same forward through the
+    plain attention within 1e-4."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.transformer import forward, init_model
 
     cfg = get_config("phi-3-vision-4.2b").replace(num_layers=1)
     params = init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0),
                         DEVICE)
-    tokens = torch.zeros((1, 8), dtype=torch.int64, device=DEVICE)
-    fns = kernel_fns()
-    before = fns["flash_attention"].launches
-    try:
-        with torch.no_grad():
-            forward(cfg, params, {"tokens": tokens})
-    except ValueError as e:
-        check("head dims" in str(e), f"phi-3-vision: another error: {e}")
-        print(f"  phi-3-vision at published width (head dim "
-              f"{cfg.resolved_head_dim}) raises: {e}")
-    else:
-        fail("phi-3-vision at head dim 96 ran on the card")
-    check(fns["flash_attention"].launches == before,
-          "phi-3-vision: flash_attention launched")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(1))
+    kernel = ops._flash
+    with torch.no_grad():
+        got, launches = counted(torch, lambda: forward(
+            cfg, params, {"tokens": tokens})[0])
+        ops._flash = flash_attention_plain
+        try:
+            want = forward(cfg, params, {"tokens": tokens})[0]
+        finally:
+            ops._flash = kernel
+    err = float((got - want).abs().max())
+    check(launches["flash_attention"] == 1,
+          f"phi-3-vision: forward launched {launches}")
+    check(err <= DECODE_TOL, f"phi-3-vision at head dim 96: the kernel's "
+                             f"forward differs from the plain one by {err}")
+    print(f"  phi-3-vision at published width (head dim "
+          f"{cfg.resolved_head_dim}, one layer): forward of 2x64 through "
+          f"the kernel against the plain attention max_abs_err={err:.3e} "
+          f"(tol {DECODE_TOL}); launches {launches}")
     del params
     torch.cuda.empty_cache()
 
@@ -4306,8 +4335,587 @@ def families_phase(torch, tmp):
     print("  (f) card against CPU on the eight new smoke configs; "
           "phi-3-vision's head dim 96")
     families_agreement(torch)
-    phi3_refuses(torch)
+    phi3_runs(torch)
     print(f"  (f) took {time.perf_counter() - t1:.1f} s")
+    return by_path, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 16: bfloat16 on the card
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)     # the reference's bf16 kernel
+L2_BF16_TOL = dict(rtol=3e-2, atol=3e-1)  # tests (test_kernels.py:21, 40-41;
+AGG_BF16_TOL = dict(rtol=3e-2, atol=3e-1)  # test_flat_plane.py:216)
+BF16_SERVE = ("phi-3-vision-4.2b", "minitron-8b", "qwen2-1.5b",
+              "tinyllama-1.1b")
+P_LM_HEAD = 2048 * 32_000        # tinyllama's lm_head (the round's K-means)
+FL_ROUND = dict(clients=16, clusters=4, noise=1e-3)
+
+
+def bf16_rate_name(flop_rate):
+    return "bf16 989 TFLOP/s" if flop_rate == BF16_FLOP_PER_S else rate_name(
+        flop_rate)
+
+
+def bf16_row(torch, timer, name, shape, got, wide, plain, tol, run,
+             run_wide, run_plain, library, nbytes, flops, flop_rate):
+    """One row of (a): the bf16 instance's output ``got`` against the fp32
+    instance's ``wide`` on the widened inputs (rounded once to bf16 where
+    the output is bf16), bit for bit; against its plain bf16 version
+    within the reference's bf16 ``tol``; a second call bit for bit; the
+    times of the bf16 call, the fp32 call on the widened inputs, the plain
+    version and the library call."""
+    same = all(torch.equal(g, w) for g, w in zip(got, wide))
+    again = run()
+    torch.cuda.synchronize()
+    again = again if isinstance(again, tuple) else (again,)
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    err = max(float((g.float() - p.float()).abs().max())
+              for g, p in zip(got, plain))
+    ok = all(torch.allclose(g.float(), p.float(), **tol)
+             for g, p in zip(got, plain))
+    b_ms, b_by = bound(nbytes, flops, flop_rate)
+    r = dict(shape=shape, dtype="bfloat16", max_abs_err=err, ok=bool(ok),
+             bit_for_bit_fp32=bool(same), second_call_equal=bool(repeat),
+             device_launches_per_call=device_launches(torch, run),
+             ms=timer(run), fp32_ms=timer(run_wide), plain_ms=timer(run_plain),
+             library_ms=None if library is None else timer(library),
+             bound_ms=b_ms, bound_by=b_by,
+             bound_rate=bf16_rate_name(flop_rate))
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    print(f"  {name} bf16 {shape}: bf16 = widened fp32 bit for bit "
+          f"{same}, second call equal {repeat}; plain bf16 max_abs_err="
+          f"{err:.3e} ({'ok' if ok else 'FAIL'}) ms={r['ms']:.4f} "
+          f"fp32_ms={r['fp32_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={lib} bound_ms={b_ms:.5f} ({b_by}, "
+          f"{r['bound_rate']}) device_launches/call="
+          f"{r['device_launches_per_call']}")
+    check(same, f"{name} bf16 {shape}: not the fp32 instance's bits on the "
+                "widened inputs")
+    check(repeat, f"{name} bf16 {shape}: a second call differs")
+    check(ok, f"{name} bf16 {shape}: disagrees with its plain bf16 version: "
+              f"max_abs_err={err}")
+    return r
+
+
+def bf16_kernel_rows(torch, timer):
+    """(a) Each kernel's bf16 instance at the FL and LM shapes of phase 2
+    (and the round's lm_head leaf, and phi-3-vision's D = 96) against its
+    fp32 instance on the widened inputs bit for bit, against its plain
+    bf16 version within the reference's bf16 tolerances, and D = 96 in
+    fp32 against its plain version within 2e-5. Returns the rows, by
+    kernel. The bytes of a bound count bf16 operands at 2 bytes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flat_aggregate import (flat_aggregate,
+                                                    flat_aggregate_plain)
+    from repro_torch.kernels.pairwise_l2 import divergence_sq, pairwise_l2
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    bf = torch.bfloat16
+    rows = {k: [] for k in KERNELS}
+    for n, p in ((10, P_MNIST), (4, P_TINYLLAMA), (16, P_LM_HEAD)):
+        flat = torch.randn((n, p), generator=gen, device=DEVICE).to(bf)
+        w = torch.rand((n,), generator=gen, device=DEVICE) + 0.1
+        w = w / w.sum()
+        wide = flat.float()
+        rows["flat_aggregate"].append(bf16_row(
+            torch, timer, "flat_aggregate", [n, p],
+            (flat_aggregate(flat, w),), (flat_aggregate(wide, w),),
+            (flat_aggregate_plain(flat, w),), AGG_BF16_TOL,
+            lambda: flat_aggregate(flat, w), lambda: flat_aggregate(wide, w),
+            lambda: flat_aggregate_plain(flat, w),
+            lambda: torch.mv(wide.t(), w), n * p * 2 + n * 4 + p * 4,
+            2 * n * p, FP32_FLOP_PER_S))
+        del flat, wide
+    for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
+                    (16, 1, P_LM_HEAD), (16, 4, 4096)):
+        x = torch.randn((n, f), generator=gen, device=DEVICE).to(bf)
+        c = torch.randn((m, f), generator=gen, device=DEVICE)
+        fn = divergence_sq if m == 1 else pairwise_l2
+        wide = x.float()
+        rows["pairwise_l2"].append(bf16_row(
+            torch, timer, "pairwise_l2", [n, m, f], (fn(x, c),),
+            (fn(wide, c),), (ref.pairwise_l2_ref(x, c),), L2_BF16_TOL,
+            lambda: fn(x, c), lambda: fn(wide, c),
+            lambda: ref.pairwise_l2_ref(x, c),
+            lambda: torch.cdist(wide, c).square(),
+            n * f * 2 + m * f * 4 + n * m * 4, 3 * n * m * f,
+            FP32_FLOP_PER_S))
+        del x, c, wide
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, h, kv, d in ((8, 32, 32, 4, 64), (8, 128, 32, 4, 64),
+                           (4, 128, 32, 32, 96)):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(bf)
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        heads = [t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
+                 .contiguous() for t in (q, k, v)]
+        pairs = s * (s + 1) // 2
+        shape = f"q[{b},{s},{h},{d}] kv[{b},{s},{kv},{d}] causal"
+        rows["flash_attention"].append(bf16_row(
+            torch, timer, "flash_attention", shape,
+            (flash_attention(q, k, v),),
+            (flash_attention(q32, k32, v32).to(bf),),
+            (flash_attention_plain(q, k, v),), BF16_TOL,
+            lambda: flash_attention(q, k, v),
+            lambda: flash_attention(q32, k32, v32),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: sdpa(*heads, is_causal=True),
+            2 * (2 * b * s * h * d + 2 * b * s * kv * d),
+            4 * d * b * h * pairs, BF16_FLOP_PER_S))
+        if d == 96:
+            # D = 96 in fp32 against its plain version
+            got = flash_attention(q32, k32, v32)
+            want = flash_attention_plain(q32, k32, v32)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, **ATTN_TOL))
+            b_ms, b_by = bound(4 * (2 * b * s * h * d + 2 * b * s * kv * d),
+                               4 * d * b * h * pairs, TF32X3_FLOP_PER_S)
+            h32 = [t.float() for t in heads]
+            r = dict(shape=shape, dtype="float32", max_abs_err=err, ok=ok,
+                     device_launches_per_call=device_launches(
+                         torch, lambda: flash_attention(q32, k32, v32)),
+                     ms=timer(lambda: flash_attention(q32, k32, v32)),
+                     plain_ms=timer(lambda: flash_attention_plain(
+                         q32, k32, v32)),
+                     library_ms=timer(lambda: sdpa(*h32, is_causal=True)),
+                     bound_ms=b_ms, bound_by=b_by,
+                     bound_rate=rate_name(TF32X3_FLOP_PER_S))
+            print(f"  flash_attention fp32 {shape} (D = 96) max_abs_err="
+                  f"{err:.3e} (tol rtol/atol 2e-5: {'ok' if ok else 'FAIL'}) "
+                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms(sdpa)={r['library_ms']:.4f} bound_ms="
+                  f"{b_ms:.5f} ({b_by})")
+            check(ok, f"flash_attention D = 96 disagrees with its plain "
+                      f"version: {err}")
+            rows["flash_attention"].append(r)
+        del q, k, v, q32, k32, v32, heads
+    for b, s, h, p, n, chunk in ((8, 32, 24, 64, 128, 256),
+                                 (1, 2048, 24, 64, 128, 256)):
+        x, a, bm, cm = ssd_inputs(torch, gen, b, s, h, p, n)
+        x, bm, cm = x.to(bf), bm.to(bf), cm.to(bf)
+        wide = (x.float(), a, bm.float(), cm.float())
+        y32, st32 = ssd_scan(*wide, chunk=chunk)
+        plan_q = min(chunk, s)
+        nbytes, flops = ssd_cost(b, s, h, p, n, plan_q)
+        nbytes -= 2 * (2 * b * s * h * p + 2 * b * s * n)  # x, y, b, c at 2 B
+        rows["ssd_scan"].append(bf16_row(
+            torch, timer, "ssd_scan", f"x[{b},{s},{h},{p}] bc[{b},{s},1,{n}] "
+            f"Q={plan_q}", ssd_scan(x, a, bm, cm, chunk=chunk),
+            (y32.to(bf), st32), ssd_scan_plain(x, a, bm, cm), BF16_TOL,
+            lambda: ssd_scan(x, a, bm, cm, chunk=chunk),
+            lambda: ssd_scan(*wide, chunk=chunk),
+            lambda: ssd_scan_plain(x, a, bm, cm), None, nbytes, flops,
+            BF16_FLOP_PER_S))
+        del x, a, bm, cm, wide, y32, st32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_bound(torch, cfg, params, batch, full):
+    """Twice the bf16 model's own error: 2 · max |``full`` (its bf16
+    logits) − forward(the same weights widened to fp32)| on ``batch``.
+    Widens ``params`` in place, leaf by leaf, so that a leaf's bf16 copy
+    goes as its fp32 copy comes (minitron's 18.4 + 36.8 GiB would not fit
+    beside what earlier phases hold)."""
+    for k in list(params):
+        params[k] = params[k].float()
+    with torch.no_grad():
+        ref32, _ = forward_counted(torch, cfg, params, batch)
+    torch.cuda.empty_cache()
+    return 2 * float((full.float() - ref32).abs().max())
+
+
+def forward_counted(torch, cfg, params, batch):
+    from repro_torch.models.transformer import forward
+    return counted(torch, lambda: forward(cfg, params, batch)[0])
+
+
+def bf16_serve_phase(torch, arch, dtype):
+    """(b) ``ServeEngine`` over ``arch`` at its published width with
+    ``dtype`` parameters (its default fp32 cache: each step writes its k,
+    v in the cache's dtype): batch 4, an 8-token prompt, 32 greedy tokens
+    (tok/s, the peak memory). The prompt's decode logits against
+    ``forward``'s within, in bf16, twice the model's own bf16 error (its
+    forward against the same weights widened to fp32), in fp32 within
+    1e-4; ``forward`` launches the flash_attention kernel once a layer.
+    The peak is the serving run's (before the bound's fp32 copy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ServeEngine
+
+    b, sp, gen_n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    params = init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE, dtype=dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (b, sp), device=DEVICE,
+                            generator=torch.Generator(device=DEVICE)
+                            .manual_seed(1))
+    batch = {"tokens": prompts}
+    eng = ServeEngine(cfg, params, max_len=sp + gen_n + 1)
+    cache = eng.new_cache(b)
+    dec = torch.cat([eng.step(cache, prompts[:, t:t + 1])
+                     for t in range(sp)], dim=1)
+    with torch.no_grad():
+        full, counts = forward_counted(torch, cfg, params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, gen_n)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(toks.shape == (b, gen_n) and (toks >= 0).all()
+          and (toks < cfg.vocab_size).all(), f"{arch}: tokens {toks}")
+    err = float((dec.float() - full.float()).abs().max())
+    check(dec.dtype == full.dtype == dtype, f"{arch}: logits in {dec.dtype}")
+    gib = sum(v.numel() * v.element_size() for v in params.values()) / 2**30
+    del eng, cache
+    tol = (bf16_bound(torch, cfg, params, batch, full)
+           if dtype == torch.bfloat16 else DECODE_TOL)
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"{arch}: forward launched {counts}")
+    check(err <= tol, f"{arch} ({dtype}): decode differs from forward by "
+                      f"{err} (bound {tol})")
+    print(f"  {arch} {str(dtype)[6:]} ({gib:.2f} GiB of weights, head dim "
+          f"{cfg.resolved_head_dim}): decode of the {sp}-token prompt "
+          f"against forward max_abs_err={err:.3e} (bound {tol:.3e}); "
+          f"forward launched {counts}; generate {b}x{gen_n} in "
+          f"{dt * 1e3:.1f} ms = {b * gen_n / dt:.1f} tok/s; peak allocated "
+          f"{peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return counts, dict(tok_per_s=b * gen_n / dt, peak_gib=peak,
+                        decode_err=err, bound=tol)
+
+
+def bf16_train_phase(torch):
+    """(c) ``make_train_step`` over tinyllama-1.1b at published width, 5
+    AdamW steps of 8 × 128 tokens on bf16 parameters beside fp32 ones, the
+    same batches: both loss curves finite, the parameters kept in their
+    dtype and the moments fp32; s/step (median of steps 2-5) and the
+    peak memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.train_step import make_train_step
+
+    arch = "tinyllama-1.1b"
+    cfg = get_config(arch)
+    stream = make_token_stream(cfg.vocab_size, 200_000, seed=0)
+    by_dtype, kept = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE, dtype=dtype)
+        init, step = make_train_step(cfg, TrainConfig(
+            total_steps=TRAIN["steps"], warmup_steps=1))
+        state = init(params)
+        batches = train.batches_from_stream(stream, TRAIN["batch"],
+                                            TRAIN["seq"], 0, DEVICE)
+        walls, losses = [], []
+
+        def run():
+            nonlocal params, state
+            for _ in range(TRAIN["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, next(batches))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+
+        _, launches = counted(torch, run)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        name = str(dtype)[6:]
+        check(all(map(math.isfinite, losses)), f"train {name}: {losses}")
+        check(all(v.dtype == dtype for v in params.values())
+              and all(v.dtype == torch.float32 for v in state.m.values()),
+              f"train {name}: parameter or moment dtypes")
+        check(launches["flash_attention"] == TRAIN["steps"] * cfg.num_layers,
+              f"train {name}: launches {launches}")
+        s_step = float(np.median(walls[1:]))
+        print(f"  {arch} train, {name} parameters: {TRAIN['steps']} AdamW "
+              f"steps of {TRAIN['batch']}x{TRAIN['seq']}; loss "
+              f"{[round(x, 4) for x in losses]}; {s_step:.3f} s/step "
+              f"(median of steps 2-{TRAIN['steps']}); peak allocated "
+              f"{peak:.2f} GiB; launches {launches}")
+        by_dtype[name] = launches
+        kept[name] = dict(s_per_step=s_step, peak_gib=peak, loss=losses)
+        del params, state, init, step
+    torch.cuda.empty_cache()
+    return by_dtype, kept
+
+
+class ForcedRouting:
+    """Each MoE layer's expert choices from one run (``record``), handed
+    to the next (``force``): two valid bf16 roundings of a layer may order
+    a near-tie of router logits either way, so the card is compared with
+    the CPU on the CPU's choices, and every choice it makes on its own
+    that differs must be a near-tie (the swapped logits closer than twice
+    the two runs' largest router-logit difference)."""
+
+    def __init__(self, L):
+        self.L, self.route, self.ref, self.own = L, L._route, [], []
+
+    def record(self):
+        def route(p, t, moe):
+            out = self.route(p, t, moe)
+            self.ref.append((out[0].float().cpu(), out[2].cpu()))
+            return out
+        self.L._route = route
+
+    def force(self, torch):
+        def route(p, t, moe):
+            logits, _, topi, _ = self.route(p, t, moe)
+            ref_logits, ref_topi = self.ref[len(self.own)]
+            self.own.append((logits.float().cpu(), topi.cpu()))
+            ti = ref_topi.to(logits.device)
+            tw = torch.softmax(torch.gather(logits, 1, ti), dim=-1)
+            return logits, tw, ti, self.L._load_balance_loss(logits, ti, moe)
+        self.L._route = route
+
+    def restore(self):
+        self.L._route = self.route
+
+    def flips(self, torch):
+        """The tokens whose own choice differs, each checked a near-tie."""
+        flips = 0
+        for (lo, to), (lr, tr) in zip(self.own, self.ref):
+            diff = (torch.sort(to, 1).values != torch.sort(tr, 1).values)
+            for i in torch.nonzero(diff.any(1)).flatten().tolist():
+                k = tr.shape[1]
+                ranked = torch.sort(lr[i], descending=True).values
+                gap = float(ranked[k - 1] - ranked[k])
+                check(gap <= 2 * float((lo[i] - lr[i]).abs().max()),
+                      f"an expert choice differs away from a near-tie "
+                      f"(gap {gap})")
+                flips += 1
+        return flips
+
+
+def bf16_agreement(torch):
+    """(d) The ten smoke configs in bf16 on the card against the CPU, the
+    same parameters and inputs: the logits within twice the CPU's own bf16
+    error (its bf16 forward against the same weights widened to fp32), on
+    the CPU's expert choices; the reference's dtypes (bf16 logits, fp32
+    aux) on both."""
+    import numpy as np
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import forward, init_model
+
+    errs = {}
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        params = init_model(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, 32)))}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.as_tensor(rng.normal(
+                size=(2, cfg.num_image_tokens, cfg.d_model)).astype(
+                    np.float32))
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.as_tensor(rng.normal(
+                size=(2, 24, cfg.d_model)).astype(np.float32))
+        routing = ForcedRouting(L)
+        try:
+            with torch.no_grad():
+                routing.record()
+                cpu, aux_c = forward(cfg, params, batch)
+                routing.restore()
+                cpu32, _ = forward(cfg, {k: v.float() for k, v in
+                                         params.items()}, batch)
+                routing.force(torch)
+                card, aux_g = forward(
+                    cfg, {k: v.to(DEVICE) for k, v in params.items()},
+                    {k: v.to(DEVICE) for k, v in batch.items()})
+        finally:
+            routing.restore()
+        bound_ = 2 * float((cpu.float() - cpu32).abs().max())
+        err = float((card.cpu().float() - cpu.float()).abs().max())
+        check(card.dtype == cpu.dtype == torch.bfloat16
+              and aux_g.dtype == aux_c.dtype == torch.float32,
+              f"{arch}: dtypes {card.dtype}, {aux_g.dtype}")
+        check(err <= bound_, f"{arch} bf16: card vs CPU {err} (bound "
+                             f"{bound_})")
+        errs[arch] = (err, bound_, routing.flips(torch))
+    shown = {k: (f"{e:.2e}", f"{b:.2e}", f) for k, (e, b, f) in errs.items()}
+    print(f"  bf16 card vs CPU on the ten smoke configs (logits max_abs_err, "
+          f"the bound, expert choices that differ at near-ties): {shown}")
+    return errs
+
+
+def fl_round_phase(torch):
+    """(e) ``fl_round_step`` over 16 tinyllama-1.1b clients in bf16 at
+    published width (the global model plus per-client noise from a seed,
+    a larger scale for later clients), 4 clusters whose centroids are
+    clients 0, 4, 8, 12's features, at ``feature_slice`` 0 and 4096: the
+    selection equals the top divergence of each cluster recomputed from
+    the returned divergences and labels; the fold of one leaf equals the
+    sizes-weighted mean of the winners computed in float64 on the host,
+    within one bf16 rounding; the last client's divergence and the fold
+    of the largest leaf (16 × 254 M elements: past 2^31, rows addressed
+    in 64 bits) against float64 on the card; ms (synchronised) and the
+    peak memory of the round (the clients held, not their making)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fl_round import fl_round_step
+    from repro_torch.models.transformer import init_model
+
+    n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
+    cfg = get_config("tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    g = init_model(cfg, gen, DEVICE, dtype=torch.bfloat16)
+    clients = {}
+    for k, v in g.items():       # a client's leaf at a time: 1 GiB of fp32
+        clients[k] = torch.empty((n,) + tuple(v.shape), dtype=torch.bfloat16,
+                                 device=DEVICE)
+        for i in range(n):
+            noise = torch.randn(v.shape, generator=gen, device=DEVICE)
+            noise.mul_(FL_ROUND["noise"] * (1.0 + i / n)).add_(v.float())
+            clients[k][i] = noise
+        del noise
+    sizes = torch.arange(1.0, n + 1.0, device=DEVICE)
+    feats = clients["lm_head"].reshape(n, -1)
+    cent = feats[::n // c].float()
+    gib = sum(v.numel() * v.element_size() for v in clients.values()) / 2**30
+    out, peak = {}, 0.0
+    for fs in (0, 4096):
+        cen = cent[:, :fs].contiguous() if fs else cent
+        fl_round_step(clients, g, cen, sizes, num_clusters=c,
+                      feature_slice=fs)             # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (new_g, div, labels), launches = counted(
+            torch, lambda: fl_round_step(clients, g, cen, sizes,
+                                         num_clusters=c, feature_slice=fs))
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        d, lab = div.cpu().numpy(), labels.cpu().numpy()
+        winners = sorted(int(np.flatnonzero(lab == k)[np.argmax(
+            d[lab == k])]) for k in np.unique(lab))
+        w = np.zeros(n)
+        w[winners] = np.arange(1.0, n + 1.0)[winners]
+        w /= w.sum()
+        leaf = "blocks/attn/wk"
+        want = np.tensordot(w, clients[leaf].float().cpu().numpy().astype(
+            np.float64), axes=1)
+        got = new_g[leaf].float().cpu().numpy()
+        fold_err = float(np.abs(got - want).max())
+        ok = bool((np.abs(got - want) <= 2.0 ** -8 * np.abs(want)
+                   + 1e-6).all())
+        check(len(set(lab.tolist())) > 1 and (d > 0).all(),
+              f"fl_round: labels {lab}, divergences {d}")
+        check(ok, f"fl_round (feature_slice {fs}): the fold of {leaf} is "
+                  f"not the winners' weighted mean: {fold_err}")
+        check(all(v.dtype == g[k].dtype for k, v in new_g.items()),
+              "fl_round: new_global dtypes")
+        check(launches["pairwise_l2"] == len(g) + 1
+              and launches["flat_aggregate"] == len(g),
+              f"fl_round: launches {launches}")
+        big = max(g, key=lambda k: g[k].numel())
+        big_err, big_ok = 0.0, True
+        for layer in range(g[big].shape[0]):        # a layer at a time
+            want_big = sum(float(w[i]) * clients[big][i, layer].double()
+                           for i in winners)
+            gap = (new_g[big][layer].double() - want_big).abs()
+            big_err = max(big_err, float(gap.max()))
+            big_ok &= bool((gap <= 2.0 ** -8 * want_big.abs() + 1e-6).all())
+        check(big_ok, f"fl_round: the fold of {big} is not the winners' "
+                      f"mean: {big_err}")
+        last = math.sqrt(sum(      # a stacked leaf a layer at a time
+            float(torch.sum(torch.square(c.double() - gl.double())))
+            for k, v in g.items()
+            for c, gl in (zip(clients[k][n - 1], v) if v.dim() >= 3
+                          else ((clients[k][n - 1], v),))))
+        # fp32 sums over 1.1e9 terms (slab partials, then leaves)
+        check(math.isclose(float(d[n - 1]), last, rel_tol=1e-4),
+              f"fl_round: client {n - 1}'s divergence {d[n - 1]}, float64 "
+              f"{last}")
+        del want_big, gap
+        out[fs] = dict(ms=ms, launches=launches, winners=winners)
+        print(f"  fl_round_step, {n} tinyllama-1.1b clients in bf16 "
+              f"({gib:.2f} GiB), c = {c}, feature_slice {fs}: {ms:.1f} ms; "
+              f"labels {lab.tolist()}; winners {winners} (the top divergence "
+              f"of each cluster); the fold of {leaf} against the host's "
+              f"float64 mean max_abs_err={fold_err:.3e}, of {big} "
+              f"{tuple(clients[big].shape)} against float64 on the card "
+              f"{big_err:.3e} (each within one bf16 rounding); client "
+              f"{n - 1}'s divergence {float(d[n - 1]):.6f} against float64 "
+              f"{last:.6f}; launches {launches}")
+        del new_g, div, labels
+    print(f"  fl_round peak allocated {peak:.2f} GiB (the clients, the "
+          f"global model and the centroids held, and the round)")
+    del clients, g, feats, cent
+    torch.cuda.empty_cache()
+    return out[0]["launches"], dict(ms={k: v["ms"] for k, v in out.items()},
+                                    peak_gib=peak)
+
+
+def bf16_phase(torch, rows):
+    """16. (a)-(e); ``rows``: phase 2's table, which gains (a)'s rows.
+    Returns each path's launches and the numbers kept."""
+    import gc
+    from repro_torch.core import baselines, sao
+    from repro_torch.models.lm import base_params
+    # the memory earlier phases still hold: the LoRA bases and the solvers'
+    # captured graphs (16(b) and (e) need 55-60 GiB of the card)
+    base_params.cache_clear()
+    sao._GRAPHS.clear()
+    baselines._GRAPHS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  earlier phases hold {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB at the start")
+    by_path, kept = {}, {}
+    t0 = time.perf_counter()
+    print("  (a) the bf16 instances against the fp32 ones, D = 96")
+    timer = Timer(torch)
+    for name, extra in bf16_kernel_rows(torch, timer).items():
+        rows[name].extend(extra)
+    del timer
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print("  (b) serve in bf16 at published width")
+    for arch in BF16_SERVE:
+        dtypes = [torch.bfloat16] + ([torch.float32]
+                                     if arch == "tinyllama-1.1b" else [])
+        for dtype in dtypes:
+            n, kept[f"{arch} serve {str(dtype)[6:]}"] = bf16_serve_phase(
+                torch, arch, dtype)
+            by_path[f"{arch} {str(dtype)[6:]} forward (phase 16b)"] = n
+    print(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (c) tinyllama-1.1b train in bf16 beside fp32")
+    launches, kept["train"] = bf16_train_phase(torch)
+    for name, n in launches.items():
+        by_path[f"tinyllama-1.1b train {name} (phase 16c)"] = n
+    print(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (d) card against CPU in bf16 on the ten smoke configs")
+    kept["agreement"] = bf16_agreement(torch)
+    print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (e) fl_round_step over 16 tinyllama-1.1b clients in bf16")
+    by_path["fl_round 16 tinyllama clients bf16 (phase 16e)"], kept[
+        "fl_round"] = fl_round_phase(torch)
+    print(f"  (e) took {time.perf_counter() - t1:.1f} s")
     return by_path, kept
 
 
@@ -4501,7 +5109,14 @@ def main():
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
     print(f"  phase 15 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 16. the kernels")
+    print("== 16. bfloat16 on the card")
+    t16 = time.perf_counter()
+    bf16_paths, _ = bf16_phase(torch, rows)
+    by_path.update(bf16_paths)
+    print(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    print(f"  phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 17. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -211,9 +211,12 @@ class _Checkpointer:
 def fp32_matmuls() -> None:
     """Keep float32 products in full float32: PyTorch's cuDNN default runs
     fp32 convolutions in TF32 (about three decimal digits), which the
-    reference never does."""
+    reference never does. bf16 products keep their fp32 accumulation
+    whole too (no reduced-precision split-K sums), as the reference's bf16
+    dots accumulate in fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class FLExperiment:

@@ -1,6 +1,7 @@
-// Mamba-2 SSD scan, fp32: for each (b, h), with a the log-decay, the
-// recurrence h_t = exp(a_t) h_{t-1} + x_t (outer) b_t, y_t = h_t c_t,
-// computed in chunks of Q steps. Returns y and the final state.
+// Mamba-2 SSD scan, fp32 or bf16 x, b, c (fp32 inside): for each (b, h),
+// with a the log-decay, the recurrence h_t = exp(a_t) h_{t-1} + x_t (outer)
+// b_t, y_t = h_t c_t, computed in chunks of Q steps. Returns y and the
+// final state.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py
 // (ssd_scan / _ssd_kernel) and computes what it computes. Per chunk, with
@@ -41,7 +42,14 @@
 //   theirs.
 // - B and X tiles are double-buffered with cp.async (16-byte copies where
 //   the pointers and strides allow; zeros past S, N and P).
-// No atomics: the same bits on every run. The grid is the wrapper's plan
+// No atomics: the same bits on every run.
+// - bf16 (ssd_scan_bf16): x, b and c are read as bf16 (4 a load, or 1) and
+//   widened exactly into the same fp32 tiles, synchronously in place of
+//   cp.async; a stays fp32 (the wrapper widens it: [B, S, H] is small).
+//   Everything after the load is the fp32 instance's: y is its fp32 result
+//   rounded once to bf16 (round to nearest even) and the state is fp32,
+//   both equal to the fp32 instance's on the widened inputs, bit for bit.
+// The grid is the wrapper's plan
 // (kernels/ssd_scan.py: plan_ssd, smem_bytes): its block counts and shared
 // memory sizes come in as arguments, and ssd_scan_f32 refuses a plan that
 // does not match the decode and the layout below.
@@ -64,12 +72,13 @@ constexpr int PP = BP + 4;            // row stride of a y block's X tile
 constexpr int SP = 72;                // row stride of a state block's tiles
 constexpr int kPassThreads = 256;
 
+template <typename In>
 struct Args {
-    const float* x;
+    const In* x;
     const float* a;
-    const float* b;
-    const float* c;
-    float* y;
+    const In* b;
+    const In* c;
+    In* y;
     float* st;                        // [B H, chunks, P, N]: S_c, then h_in
     float* dec;                       // [B H, chunks]: acum_last
     int S, H, G, P, N, Q;
@@ -78,7 +87,7 @@ struct Args {
     int chunks, row_tiles, last_row_tiles, p_tiles, n_tiles, BH;
     int y_blocks;                     // blocks below this index are y blocks
     int carry;                        // y blocks add C h_in^T (chunks > 1)
-    int x_vec, bc_vec, st_vec;        // 16-byte copies allowed
+    int x_vec, bc_vec, st_vec;        // 4-element copies allowed
 };
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
@@ -104,8 +113,9 @@ inline int state_smem_floats(int Q) { return round_up(Q, 64) + n_stages(Q) * 2 *
 // Rows [row0, row0 + nrows) and columns [col0, col0 + width) of a matrix
 // whose row r starts at base + r * rs, into dst (row stride dp), zero where
 // row >= lim_rows or col >= lim_cols. With vec, width, col0 and lim_cols
-// are multiples of 4 and the rows 16-byte aligned.
-__device__ __forceinline__ void load_tile(float* dst, int dp, const float* base,
+// are multiples of 4 and the rows start on whole 4-element vectors.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int dp, const T* base,
                                           long long rs, int row0, int nrows,
                                           int lim_rows, int col0, int width,
                                           int lim_cols, bool vec) {
@@ -114,11 +124,11 @@ __device__ __forceinline__ void load_tile(float* dst, int dp, const float* base,
         const int r = e / per, cc = (e % per) * step;
         const int row = row0 + r, col = col0 + cc;
         const bool in = row < lim_rows && col < lim_cols;
-        const float* src = in ? base + row * rs + col : base;
+        const T* src = in ? base + row * rs + col : base;
         if (vec)
-            cp_async16(dst + r * dp + cc, src, in);
+            copy4(dst + r * dp + cc, src, in);
         else
-            cp_async4(dst + r * dp + cc, src, in);
+            copy1(dst + r * dp + cc, src, in);
     }
 }
 
@@ -149,7 +159,8 @@ __device__ __forceinline__ void chunk_cumsum(const float* ab, long long a_ss, in
 }
 
 // y rows [r0, r0 + 64) of chunk c, columns [p0, p0 + 64) of P.
-__device__ void y_block(const Args& A, float* smem, int bh, int c, int rt, int pt) {
+template <typename In>
+__device__ void y_block(const Args<In>& A, float* smem, int bh, int c, int rt, int pt) {
     __shared__ float wsum[kWarps];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -157,10 +168,10 @@ __device__ void y_block(const Args& A, float* smem, int bh, int c, int rt, int p
     const int t0 = c * A.Q, Ql = min(A.Q, A.S - t0);
     const int r0 = rt * BM, p0 = pt * BP;
     const int h = bh % A.H, bb = bh / A.H, gi = h / (A.H / A.G);
-    const float* xb = A.x + bb * A.x_sb + h * A.x_sh + t0 * A.x_ss;
+    const In* xb = A.x + bb * A.x_sb + h * A.x_sh + t0 * A.x_ss;
     const float* ab = A.a + bb * A.a_sb + h * A.a_sh + t0 * A.a_ss;
-    const float* bp = A.b + bb * A.b_sb + gi * A.b_sg + t0 * A.b_ss;
-    const float* cp = A.c + bb * A.c_sb + gi * A.c_sg + t0 * A.c_ss;
+    const In* bp = A.b + bb * A.b_sb + gi * A.b_sg + t0 * A.b_ss;
+    const In* cp = A.c + bb * A.c_sb + gi * A.c_sg + t0 * A.c_ss;
 
     float* acum = smem;                          // [round_up(Q, 64)]
     float* Cs = acum + round_up(A.Q, 64);        // [c_rows][NP]
@@ -299,7 +310,7 @@ __device__ void y_block(const Args& A, float* smem, int bh, int c, int rt, int p
 
     if (!active) return;
     const long long y_ss = (long long)A.H * A.P;
-    float* yb = A.y + ((long long)bb * A.S + t0) * y_ss + (long long)h * A.P + p0 + 2 * t;
+    In* yb = A.y + ((long long)bb * A.S + t0) * y_ss + (long long)h * A.P + p0 + 2 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int i = half ? rowB : rowA;
@@ -307,23 +318,24 @@ __device__ void y_block(const Args& A, float* smem, int bh, int c, int rt, int p
 #pragma unroll
         for (int n = 0; n < BP / 8; ++n)
             if (n < nt_live)
-                *reinterpret_cast<float2*>(yb + i * y_ss + n * 8) =
-                    make_float2(yacc[n][2 * half], yacc[n][2 * half + 1]);
+                store2(yb + i * y_ss + n * 8, yacc[n][2 * half], yacc[n][2 * half + 1]);
     }
 }
 
 // S_c[p, n] for p in [p0, p0 + 64), n in [n0, n0 + 64) of chunk c: warp w
 // owns the 16 rows p0 + 16 w .. and all 64 columns.
-__device__ void state_block(const Args& A, float* smem, int bh, int c, int pt, int ntile) {
+template <typename In>
+__device__ void state_block(const Args<In>& A, float* smem, int bh, int c, int pt,
+                            int ntile) {
     __shared__ float wsum[kWarps];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int t0 = c * A.Q, Ql = min(A.Q, A.S - t0);
     const int p0 = pt * BP, n0 = ntile * BNS;
     const int h = bh % A.H, bb = bh / A.H, gi = h / (A.H / A.G);
-    const float* xb = A.x + bb * A.x_sb + h * A.x_sh + t0 * A.x_ss;
+    const In* xb = A.x + bb * A.x_sb + h * A.x_sh + t0 * A.x_ss;
     const float* ab = A.a + bb * A.a_sb + h * A.a_sh + t0 * A.a_ss;
-    const float* bp = A.b + bb * A.b_sb + gi * A.b_sg + t0 * A.b_ss;
+    const In* bp = A.b + bb * A.b_sb + gi * A.b_sg + t0 * A.b_ss;
 
     float* w = smem;                             // [round_up(Q, 64)]: acum, then weights
     float* stages = w + round_up(A.Q, 64);       // 1 or 2 x (X [BK][SP], B [BK][SP])
@@ -420,7 +432,8 @@ __device__ void state_block(const Args& A, float* smem, int bh, int c, int pt, i
 // Blocks [0, y_blocks) are y blocks, the rest state blocks. y blocks go
 // row tile by row tile from the last (the most key tiles) to the first;
 // within one, chunk-major, then b h, then the P tile.
-__global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const Args A) {
+template <typename In>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const Args<In> A) {
     extern __shared__ __align__(16) float smem[];
     int x = blockIdx.x;
     if (x < A.y_blocks) {
@@ -472,47 +485,34 @@ __global__ void __launch_bounds__(kPassThreads) pass_kernel(
     h_out[(long long)bh * PN + e] = hv;
 }
 
-int launch_chunks(const Args& a, int blocks, int bytes, cudaStream_t s) {
+template <typename In>
+int launch_chunks(const Args<In>& a, int blocks, int bytes, cudaStream_t s) {
     static int allowed = 0;           // the largest size allowed so far
     if (bytes > allowed) {
         const cudaError_t attr = cudaFuncSetAttribute(
-            ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+            ssd_chunk_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (attr != cudaSuccess) return static_cast<int>(attr);
         allowed = bytes;
     }
-    ssd_chunk_kernel<<<blocks, kThreads, bytes, s>>>(a);
+    ssd_chunk_kernel<In><<<blocks, kThreads, bytes, s>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p, long long s0, long long s1, long long s2) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 4 == 0 && s1 % 4 == 0 &&
-           s2 % 4 == 0;
+// rows of 4 elements start on whole 4-element vectors
+template <typename T>
+bool aligned4(const T* p, long long s0, long long s1, long long s2) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0 && s0 % 4 == 0 &&
+           s1 % 4 == 0 && s2 % 4 == 0;
 }
 
-}  // namespace
-
-// x: [B, S, H, P], a: [B, S, H], b and c: [B, S, G, N] fp32 with unit
-// stride over the last axis (a: over none) and the given element strides;
-// y: [B, S, H, P] and h_out: [B, H, P, N] contiguous. Q is the chunk
-// (min(chunk, S)), P a multiple of 8, H a multiple of G. With more than one
-// chunk, st and dec are scratch of B H chunks P N and B H chunks floats.
-// chunks .. state_smem are the wrapper's plan (plan_ssd): the chunks, the
-// row tiles of a full and of the last chunk, the P and N tiles, the y and
-// state blocks and their shared memory in bytes. Launches on `stream`:
-// one kernel for one chunk, three otherwise. Returns cudaGetLastError()
-// (0 on success); cudaErrorInvalidValue for a shape it does not take or a
-// plan that does not match it.
-extern "C" int ssd_scan_f32(const float* x, const float* a, const float* b,
-                            const float* c, float* y, float* h_out, float* st,
-                            float* dec, int B, int S, int H, int G, int P, int N,
-                            int Q, int chunks, int row_tiles, int last_row_tiles,
-                            int p_tiles, int n_tiles, int y_blocks, int state_blocks,
-                            int y_smem, int state_smem,
-                            long long x_sb, long long x_ss, long long x_sh,
-                            long long a_sb, long long a_ss, long long a_sh,
-                            long long b_sb, long long b_ss, long long b_sg,
-                            long long c_sb, long long c_ss, long long c_sg,
-                            void* stream) {
+template <typename In>
+int run(const In* x, const float* a, const In* b, const In* c, In* y, float* h_out,
+        float* st, float* dec, int B, int S, int H, int G, int P, int N, int Q,
+        int chunks, int row_tiles, int last_row_tiles, int p_tiles, int n_tiles,
+        int y_blocks, int state_blocks, int y_smem, int state_smem, long long x_sb,
+        long long x_ss, long long x_sh, long long a_sb, long long a_ss, long long a_sh,
+        long long b_sb, long long b_ss, long long b_sg, long long c_sb, long long c_ss,
+        long long c_sg, void* stream) {
     if (B <= 0 || H <= 0 || S <= 0) return 0;
     const int invalid = static_cast<int>(cudaErrorInvalidValue);
     if (G <= 0 || H % G || P <= 0 || P % 8 || N <= 0 || Q <= 0 || Q > S) return invalid;
@@ -526,13 +526,13 @@ extern "C" int ssd_scan_f32(const float* x, const float* a, const float* b,
         y_smem != 4 * y_smem_floats(Q, N, chunks) || state_smem != 4 * state_smem_floats(Q))
         return invalid;
     if (chunks > 1 && (st == nullptr || dec == nullptr)) return invalid;
-    Args A{x, a, b, c, y, chunks > 1 ? st : h_out, chunks > 1 ? dec : nullptr,
-           S, H, G, P, N, Q, x_sb, x_ss, x_sh, a_sb, a_ss, a_sh,
-           b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
-           chunks, row_tiles, last_row_tiles, p_tiles, n_tiles, BH, 0, 0,
-           aligned16(x, x_sb, x_ss, x_sh),
-           N % 4 == 0 && aligned16(b, b_sb, b_ss, b_sg) && aligned16(c, c_sb, c_ss, c_sg),
-           N % 4 == 0};
+    Args<In> A{x, a, b, c, y, chunks > 1 ? st : h_out, chunks > 1 ? dec : nullptr,
+               S, H, G, P, N, Q, x_sb, x_ss, x_sh, a_sb, a_ss, a_sh,
+               b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
+               chunks, row_tiles, last_row_tiles, p_tiles, n_tiles, BH, 0, 0,
+               aligned4(x, x_sb, x_ss, x_sh),
+               N % 4 == 0 && aligned4(b, b_sb, b_ss, b_sg) && aligned4(c, c_sb, c_ss, c_sg),
+               N % 4 == 0};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (chunks == 1) {
         A.y_blocks = y_blocks;
@@ -549,6 +549,54 @@ extern "C" int ssd_scan_f32(const float* x, const float* a, const float* b,
     A.y_blocks = y_blocks;                        // (3) y with the carried state
     A.carry = 1;
     return launch_chunks(A, y_blocks, y_smem, s);
+}
+
+}  // namespace
+
+// x: [B, S, H, P], b and c: [B, S, G, N] fp32 (ssd_scan_f32) or bf16
+// (ssd_scan_bf16), a: [B, S, H] fp32, with unit stride over the last axis
+// (a: over none) and the given element strides; y: [B, S, H, P] of x's type
+// and h_out: [B, H, P, N] fp32, contiguous. Q is the chunk (min(chunk,
+// S)), P a multiple of 8, H a multiple of G. With more than one chunk, st
+// and dec are fp32 scratch of B H chunks P N and B H chunks floats. chunks
+// .. state_smem are the wrapper's plan (plan_ssd): the chunks, the row tiles
+// of a full and of the last chunk, the P and N tiles, the y and state
+// blocks and their shared memory in bytes. Launches on `stream`: one kernel
+// for one chunk, three otherwise. Returns cudaGetLastError() (0 on
+// success); cudaErrorInvalidValue for a shape it does not take or a plan
+// that does not match it.
+extern "C" int ssd_scan_f32(const float* x, const float* a, const float* b,
+                            const float* c, float* y, float* h_out, float* st,
+                            float* dec, int B, int S, int H, int G, int P, int N,
+                            int Q, int chunks, int row_tiles, int last_row_tiles,
+                            int p_tiles, int n_tiles, int y_blocks, int state_blocks,
+                            int y_smem, int state_smem,
+                            long long x_sb, long long x_ss, long long x_sh,
+                            long long a_sb, long long a_ss, long long a_sh,
+                            long long b_sb, long long b_ss, long long b_sg,
+                            long long c_sb, long long c_ss, long long c_sg,
+                            void* stream) {
+    return run(x, a, b, c, y, h_out, st, dec, B, S, H, G, P, N, Q, chunks, row_tiles,
+               last_row_tiles, p_tiles, n_tiles, y_blocks, state_blocks, y_smem,
+               state_smem, x_sb, x_ss, x_sh, a_sb, a_ss, a_sh, b_sb, b_ss, b_sg, c_sb,
+               c_ss, c_sg, stream);
+}
+
+extern "C" int ssd_scan_bf16(const uint16_t* x, const float* a, const uint16_t* b,
+                             const uint16_t* c, uint16_t* y, float* h_out, float* st,
+                             float* dec, int B, int S, int H, int G, int P, int N,
+                             int Q, int chunks, int row_tiles, int last_row_tiles,
+                             int p_tiles, int n_tiles, int y_blocks, int state_blocks,
+                             int y_smem, int state_smem,
+                             long long x_sb, long long x_ss, long long x_sh,
+                             long long a_sb, long long a_ss, long long a_sh,
+                             long long b_sb, long long b_ss, long long b_sg,
+                             long long c_sb, long long c_ss, long long c_sg,
+                             void* stream) {
+    return run(x, a, b, c, y, h_out, st, dec, B, S, H, G, P, N, Q, chunks, row_tiles,
+               last_row_tiles, p_tiles, n_tiles, y_blocks, state_blocks, y_smem,
+               state_smem, x_sb, x_ss, x_sh, a_sb, a_ss, a_sh, b_sb, b_ss, b_sg, c_sb,
+               c_ss, c_sg, stream);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

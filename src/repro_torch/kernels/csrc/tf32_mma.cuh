@@ -1,5 +1,6 @@
 // Shared device helpers of the tensor-core kernels (flash_attention.cu,
-// ssd_scan.cu): 3xTF32 products on mma.sync m16n8k8 and cp.async copies.
+// ssd_scan.cu): 3xTF32 products on mma.sync m16n8k8, cp.async copies, and
+// the tile copies of an fp32 or a bf16 operand into fp32 shared memory.
 //
 // 3xTF32: each fp32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), and a product is lo*hi + hi*lo + hi*hi with fp32
@@ -17,6 +18,8 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace tf32 {
 
@@ -92,6 +95,26 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four (copy4: 16-byte aligned dst, 4-element aligned src) or one element
+// of an operand into fp32 shared memory, zeros where `in` is false (src is
+// then not read): fp32 by cp.async, bf16 by a plain load widened exactly
+// (synchronous: the commit and wait that follow cover the fp32 copies, the
+// barrier after them both)
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
+    cp_async16(dst, src, in);
+}
+__device__ __forceinline__ void copy4(float* dst, const uint16_t* src, bool in) {
+    *reinterpret_cast<float4*>(dst) =
+        in ? bf16x4_to_float4(*reinterpret_cast<const uint2*>(src))
+           : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool in) {
+    cp_async4(dst, src, in);
+}
+__device__ __forceinline__ void copy1(float* dst, const uint16_t* src, bool in) {
+    *dst = in ? bf16x1_to_float(*src) : 0.f;
 }
 
 }  // namespace tf32

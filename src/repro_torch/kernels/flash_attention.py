@@ -1,5 +1,6 @@
-"""Causal / sliding-window GQA attention, forward, in fp32 — the attention
-of every dense block of the federated LM (``models.transformer``).
+"""Causal / sliding-window GQA attention, forward, fp32 or bf16 in and out
+(fp32 inside) — the self-attention of every block of the LM stacks
+(``models.transformer``).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``) with the hand-written CUDA kernel
@@ -19,11 +20,17 @@ the key tiles over several blocks when rows are few and keys many (one
 query against a long cache), adding the chunks in a fixed order in a
 second small kernel. :func:`plan_attention` is that grid plan, in Python so
 that the CPU tests can check it; no atomics, so the result is the same bit
-for bit on every run.
+for bit on every run. bf16 q, k, v (a bf16 model) launch the bf16
+instance: it widens them exactly into the fp32 tiles and rounds the fp32
+result once, so it gives the fp32 instance's output on the widened inputs,
+rounded to bf16, bit for bit. The output is in ``q.dtype``, as the
+reference's kernel and oracle give it. Head dims: 16, 32, 64, 96
+(phi-3-vision) and 128.
 
 The JAX package gives the kernel no gradient of its own, so none is owed
 here: :class:`_FlashAttention`'s forward launches the kernel, its backward
-differentiates :func:`flash_attention_plain` on the saved inputs.
+differentiates :func:`flash_attention_plain` on the saved inputs (the
+gradients in the inputs' dtypes).
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import torch
 from repro_torch.kernels.build import error_string, load_function
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)      # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 BLOCK_ROWS = 64                    # packed (query, q-head) rows a block
 BLOCK_KEYS = 32                    # keys a tile
 SPLIT_BLOCKS = 132                 # split key tiles under this many blocks,
@@ -45,6 +52,8 @@ _ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
              + (ctypes.c_longlong,) * 9 + (ctypes.c_int,) * 3
              + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _INT_MAX = 2 ** 31 - 1
+_SYMBOLS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
 
 
 class AttentionPlan(NamedTuple):
@@ -107,9 +116,10 @@ def block_key_tiles(plan: AttentionPlan, Sq: int, Sk: int, g: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
-    """The plain PyTorch version: dense masked scores, the TPU kernel's
-    masking and clamp in one tile. q ``[B, Sq, H, D]``; k, v ``[B, Sk, K,
-    D]`` -> ``[B, Sq, H, D]`` fp32."""
+    """The plain PyTorch version: dense masked scores in fp32, the TPU
+    kernel's masking and clamp in one tile. q ``[B, Sq, H, D]``; k, v ``[B,
+    Sk, K, D]`` -> ``[B, Sq, H, D]`` in ``q.dtype`` (the fp32 result rounded
+    once for bf16)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if K != H:
@@ -130,7 +140,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), 0.0)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bhqk,bkhd->bhqd", p, v.to(torch.float32)) / denom
-    return out.permute(0, 2, 1, 3)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def _check(q, k, v):
@@ -146,9 +156,10 @@ def _check(q, k, v):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel is built for head "
                          f"dims {HEAD_DIMS}; got {D}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("flash_attention: the kernel takes float32; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: the kernel takes q, k, v all "
+                        f"float32 or all bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v lie on different devices")
     if any(t.stride(3) != 1 for t in (q, k, v)):
@@ -164,7 +175,7 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     plan = plan_attention(B, Sq, Sk, H, K, causal, window)
-    out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     part_acc = part_ml = None
     if plan.chunks > 1:
         part_acc = torch.empty((plan.chunks, B, Sq, H, D), dtype=torch.float32,
@@ -172,7 +183,7 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
         part_ml = torch.empty((plan.chunks, B, Sq, H, 2), dtype=torch.float32,
                               device=q.device)
     win = 0 if window is None else max(min(int(window), _INT_MAX), -_INT_MAX)
-    fn = load_function("flash_attention", "flash_attention_f32", _ARGTYPES)
+    fn = load_function("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -192,7 +203,7 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel. Backward: the gradient of the plain version,
     recomputed from the saved inputs (the reference has no backward
-    kernel)."""
+    kernel); autograd gives each gradient in its input's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -215,9 +226,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Attention of q ``[B, Sq, H, D]`` over k, v ``[B, Sk, K, D]`` (GQA:
-    H a multiple of K) -> ``[B, Sq, H, D]`` fp32. A CUDA tensor launches the
-    kernel (D in 16/32/64/128, fp32, unit stride over D); a CPU tensor
-    takes :func:`flash_attention_plain`."""
+    H a multiple of K) -> ``[B, Sq, H, D]`` in ``q.dtype``. A CUDA tensor
+    launches the kernel (D in ``HEAD_DIMS``, all fp32 or all bf16, unit
+    stride over D); a CPU tensor takes :func:`flash_attention_plain`."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     return _FlashAttention.apply(q, k, v, causal, window)

@@ -5,7 +5,9 @@ Dispatch goes by the tensor's device only: a CUDA tensor launches the
 hand kernel (or raises), a CPU tensor takes the plain PyTorch path, which
 spells each op as the reference does off-TPU. The FL ops take an optional
 leading lane axis (a cohort's seeds, where the reference ``vmap``s): one
-launch serves every lane.
+launch serves every lane. On the card a bf16 plane or model goes to the
+kernels' bf16 instances as it is (no widened copy of the plane); the CPU
+paths widen, as the reference's off-TPU paths do.
 """
 from __future__ import annotations
 
@@ -22,13 +24,14 @@ def pairwise_sq_dists(x, c):
     """[N, F] × [M, F] -> [N, M] squared L2 (K-means assignment); [B, N, F]
     × [B, M, F] -> [B, N, M] lane by lane.
 
-    CUDA: the direct-form kernel. CPU: the ‖x‖²+‖c‖²−2x·c expansion,
-    clamped at zero so no caller sees a negative squared distance.
+    CUDA: the direct-form kernel, which reads a bf16 x as it is. CPU: the
+    ‖x‖²+‖c‖²−2x·c expansion in fp32, clamped at zero so no caller sees a
+    negative squared distance.
     """
+    if x.is_cuda:
+        return _pairwise(_kernel_float(x), _kernel_float(c))
     x = x.to(torch.float32)
     c = c.to(torch.float32)
-    if x.is_cuda:
-        return _pairwise(x, c)
     xn = torch.sum(torch.square(x), dim=-1, keepdim=True)
     cn = torch.sum(torch.square(c), dim=-1)[..., None, :]
     return torch.clamp(xn + cn - 2.0 * x @ c.transpose(-1, -2), min=0.0)
@@ -52,17 +55,24 @@ def flat_aggregate(flat, weights, *, mask=None, normalize: bool = True):
     return _flat_agg(flat, w)
 
 
-def client_divergence(flat, gvec):
-    """[N] weight divergences ‖flat_n − g‖₂ against the flat global row —
-    §IV-C's selection signal; ``[B, N]`` for a plane ``[B, N, P]`` against
-    one global row a lane ``[B, P]``. CUDA: the pairwise kernel with each
-    lane's global row as its one centroid, on a slab plan of P alone, so
-    a row's bits do not depend on the rows beside it in the call (the
-    paged store reduces the plane in chunks). CPU: the direct
-    subtract-square-reduce."""
+def _kernel_float(t):
+    """``t`` as a kernel reads it: fp32 and bf16 as they are, any other
+    float type widened to fp32."""
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.to(
+        torch.float32)
+
+
+def client_divergence_sq(flat, gvec):
+    """[N] squared weight divergences ‖flat_n − g‖₂² against the flat
+    global row (``[B, N]`` lane by lane for a plane ``[B, N, P]`` and
+    ``[B, P]``), in fp32. CUDA: the pairwise kernel with each lane's global
+    row as its one centroid, on a slab plan of P alone, so a row's bits do
+    not depend on the rows beside it in the call (the paged store reduces
+    the plane in chunks); a bf16 plane is read as it is. CPU: the direct
+    subtract-square-reduce in fp32."""
     if flat.is_cuda:
         g = gvec.to(torch.float32)[..., None, :]
-        return torch.sqrt(_divergence_sq(flat.to(torch.float32), g)[..., 0])
+        return _divergence_sq(_kernel_float(flat), g)[..., 0]
     sq = torch.square(flat.to(torch.float32)
                       - gvec.to(torch.float32)[..., None, :])
     if sq[..., 0].numel() == 1:
@@ -70,8 +80,16 @@ def client_divergence(flat, gvec):
         # parts in another order; as one of two rows it keeps the order of
         # a row among many, so a row's bits do not depend on its call
         two = sq.expand(*sq.shape[:-2], 2, sq.shape[-1])
-        return torch.sqrt(torch.sum(two, dim=-1))[..., :1]
-    return torch.sqrt(torch.sum(sq, dim=-1))
+        return torch.sum(two, dim=-1)[..., :1]
+    return torch.sum(sq, dim=-1)
+
+
+def client_divergence(flat, gvec):
+    """[N] weight divergences ‖flat_n − g‖₂ against the flat global row —
+    §IV-C's selection signal; ``[B, N]`` for a plane ``[B, N, P]`` against
+    one global row a lane ``[B, P]``: the root of
+    :func:`client_divergence_sq`."""
+    return torch.sqrt(client_divergence_sq(flat, gvec))
 
 
 def chunked_client_divergence(rows, gvec, *, chunk_size=None):

@@ -21,7 +21,10 @@ partials in a fixed order: no atomics, deterministic. The divergence
 (M = 1, :func:`divergence_sq`) cuts F into slabs of a fixed width
 (:func:`plan_divergence`, a function of F alone), so a row's bits do not
 depend on how many rows share its call: a plane reduced in chunks gives
-the bits of one call over all its rows.
+the bits of one call over all its rows. A bf16 x (a bf16 model's plane)
+launches the bf16 instance, which reads x at half the bytes and widens
+each element exactly before the subtraction; c, only M rows, is widened
+here. Its result is the fp32 instance's on the widened x, bit for bit.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ TARGET_BLOCKS = 528                # about four blocks an SM of an H100
 MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
 DIVERGENCE_SLAB = 8128             # the divergence's slab: plan_slabs(40, 1,
                                    # 113744)'s width, the main path's plan
+_SYMBOLS = {torch.float32: "pairwise_l2_f32",
+            torch.bfloat16: "pairwise_l2_bf16"}
 
 
 def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
@@ -79,12 +84,12 @@ def _rows_contiguous(t: torch.Tensor) -> bool:
 def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared distances ``[N, M]`` between the rows of x ``[N, F]`` and
     c ``[M, F]``, or ``[B, N, M]`` lane by lane for x ``[B, N, F]`` and c
-    ``[B, M, F]``; fp32 on one device, each lane's rows row-major (the
-    lanes at any stride). A CUDA tensor launches the kernel; a CPU tensor
-    takes ``ref.pairwise_l2_ref``."""
+    ``[B, M, F]``; fp32 or bf16 on one device, each lane's rows row-major
+    (the lanes at any stride); an fp32 result. A CUDA tensor launches the
+    kernel; a CPU tensor takes ``ref.pairwise_l2_ref``."""
     if not x.is_cuda:
         return ref.pairwise_l2_ref(x, c)
-    _check(x, c)
+    c = _check(x, c)
     *_, n, f = x.shape
     return _launch(x, c, *plan_slabs(n, c.shape[-2], f))
 
@@ -95,23 +100,24 @@ def divergence_sq(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     row's ``[.., 1]`` result is the same bits at any number of rows."""
     if not x.is_cuda:
         return ref.pairwise_l2_ref(x, g)
-    _check(x, g)
+    g = _check(x, g)
     if g.shape[-2] != 1:
         raise ValueError(f"divergence_sq: want one centroid; got "
                          f"{tuple(g.shape)}")
     return _launch(x, g, *plan_divergence(x.shape[-1]))
 
 
-def _check(x, c) -> None:
-    """The kernel's contract: shapes, dtype, device, layout, sizes."""
+def _check(x, c) -> torch.Tensor:
+    """The kernel's contract: shapes, dtype, device, layout, sizes. Returns
+    c in fp32 (its M rows widened here; the kernel reads x as it is)."""
     if (x.dim() not in (2, 3) or c.dim() != x.dim()
             or x.shape[-1] != c.shape[-1] or x.shape[:-2] != c.shape[:-2]):
         raise ValueError(f"pairwise_l2: want x [N, F] and c [M, F], or "
                          f"[B, N, F] and [B, M, F]; got {tuple(x.shape)} "
                          f"and {tuple(c.shape)}")
-    if x.dtype != torch.float32 or c.dtype != torch.float32:
-        raise TypeError(f"pairwise_l2: the kernel takes float32; got "
-                        f"{x.dtype} and {c.dtype}")
+    if x.dtype not in _SYMBOLS or c.dtype not in _SYMBOLS:
+        raise TypeError(f"pairwise_l2: the kernel takes float32 or bfloat16; "
+                        f"got {x.dtype} and {c.dtype}")
     if c.device != x.device:
         raise ValueError("pairwise_l2: x and c lie on different devices "
                          f"({x.device}, {c.device})")
@@ -119,21 +125,28 @@ def _check(x, c) -> None:
         raise ValueError("pairwise_l2: the kernel takes row-major rows")
     *lanes, n, f = x.shape
     b, m = (lanes[0] if lanes else 1), c.shape[-2]
-    if max(n * f, m * f, b * n * m) >= 2 ** 31:
+    # rows are addressed in 64 bits (x may pass 2^31 elements); a row's
+    # columns, the pairs and (in _launch) the (pair, slab) blocks in 32
+    if max(f, b * n * m) >= 2 ** 31:
         raise ValueError(f"pairwise_l2: {tuple(x.shape)}x{tuple(c.shape)} "
                          "exceeds the kernel's 32-bit sizes")
+    return c.to(torch.float32)
 
 
 def _launch(x, c, slabs: int, width: int):
-    """The kernel over ``slabs`` slabs of ``width`` columns of F."""
+    """The kernel over ``slabs`` slabs of ``width`` columns of F (c in
+    fp32)."""
     *lanes, n, f = x.shape
     b, m = (lanes[0] if lanes else 1), c.shape[-2]
+    if b * n * m * slabs >= 2 ** 31:
+        raise ValueError(f"pairwise_l2: {b * n * m} pairs of {slabs} slabs "
+                         "exceed the kernel's 32-bit grid")
     out = torch.empty((*lanes, n, m), dtype=torch.float32, device=x.device)
     part = None
     if slabs > 1:
         part = torch.empty((b * n * m, slabs), dtype=torch.float32,
                            device=x.device)
-    fn = load_function("pairwise_l2", "pairwise_l2_f32", _ARGTYPES)
+    fn = load_function("pairwise_l2", _SYMBOLS[x.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     strides = (x.stride(0), c.stride(0)) if lanes else (0, 0)
     with torch.cuda.device(x.device):

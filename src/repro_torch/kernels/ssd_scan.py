@@ -1,5 +1,6 @@
-"""Mamba-2's SSD scan in fp32 — the sequence mixer of every Mamba-2 block
-of the federated LM (``models.layers.mamba2_apply``).
+"""Mamba-2's SSD scan, fp32 or bf16 x, b, c (fp32 inside) — the sequence
+mixer of every Mamba-2 block of the LM stacks (``models.layers.
+mamba2_apply``, which widens to fp32 first, as the reference does).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
 (``ssd_scan`` / ``_ssd_kernel``) with the hand-written CUDA kernel
@@ -21,7 +22,11 @@ Python so that the CPU tests can check it; the kernel takes the plan's
 counts and sizes as arguments and refuses a plan that does not match its
 decode. No atomics, so two calls give the same bits. Group
 ``h // (H / G)`` of b and c is read in place of the reference wrapper's
-repeat.
+repeat. bf16 x, b, c launch the bf16 instance (a, ``[B, S, H]``, is
+widened here): it widens them exactly into the fp32 tiles and rounds y
+once, so y is the fp32 instance's on the widened inputs rounded to bf16
+and the state is that instance's fp32 state, bit for bit. y comes back in
+``x.dtype`` and the state in fp32, as the reference's kernel gives them.
 
 The JAX package gives the kernel no gradient of its own: :class:`_SsdScan`'s
 forward launches the kernel, its backward differentiates the chunked form
@@ -46,6 +51,7 @@ BLOCK_N = 64                       # columns of N a state block
 _ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 16
              + (ctypes.c_longlong,) * 12 + (ctypes.c_void_p,))
 _SMEM_LIMIT = 232_448              # bytes of shared memory a block may use
+_SYMBOLS = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 
 
 class SsdPlan(NamedTuple):
@@ -118,14 +124,15 @@ def smem_bytes(q: int, n: int, chunks: int):
 
 def ssd_scan_plain(x, a, b, c):
     """The plain PyTorch version: the token-by-token recurrence of
-    ``ref.ssd_ref`` after the group expansion of ``ops.ssd``.
+    ``ref.ssd_ref`` (in fp32) after the group expansion of ``ops.ssd``.
     x ``[B, S, H, P]``, a ``[B, S, H]``, b, c ``[B, S, G, N]`` ->
-    ``(y [B, S, H, P], state [B, H, P, N])``."""
+    ``(y [B, S, H, P] in x.dtype, state [B, H, P, N] fp32)``."""
     rep = x.shape[2] // b.shape[2]
     if rep > 1:
         b = b.repeat_interleave(rep, dim=2)
         c = c.repeat_interleave(rep, dim=2)
-    return ref.ssd_ref(x, a, b, c)
+    y, state = ref.ssd_ref(x, a, b, c)
+    return y.to(x.dtype), state
 
 
 def _check(x, a, b, c, chunk):
@@ -141,8 +148,11 @@ def _check(x, a, b, c, chunk):
     if P % 8:
         raise ValueError(f"ssd_scan: the kernel takes P a multiple of 8; "
                          f"got {P}")
-    if any(t.dtype != torch.float32 for t in (x, a, b, c)):
-        raise TypeError("ssd_scan: the kernel takes float32")
+    if (x.dtype not in _SYMBOLS or b.dtype != x.dtype or c.dtype != x.dtype
+            or a.dtype not in _SYMBOLS):
+        raise TypeError(f"ssd_scan: the kernel takes x, b, c all float32 or "
+                        f"all bfloat16 and a float a; got {x.dtype}, "
+                        f"{a.dtype}, {b.dtype}, {c.dtype}")
     if any(t.device != x.device for t in (a, b, c)):
         raise ValueError("ssd_scan: x, a, b, c lie on different devices")
     if any(t.stride(3) != 1 for t in (x, b, c)):
@@ -158,9 +168,10 @@ def _check(x, a, b, c, chunk):
 
 def _launch(x, a, b, c, chunk: int):
     _check(x, a, b, c, chunk)
+    a = a.to(torch.float32)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     if S == 0:
         return y, torch.zeros((B, H, P, N), dtype=torch.float32,
                               device=x.device)
@@ -176,7 +187,7 @@ def _launch(x, a, b, c, chunk: int):
                          device=x.device)
         dec = torch.empty((B * H, plan.chunks), dtype=torch.float32,
                           device=x.device)
-    fn = load_function("ssd_scan", "ssd_scan_f32", _ARGTYPES)
+    fn = load_function("ssd_scan", _SYMBOLS[x.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -201,19 +212,22 @@ def ssd_scan_grads(x, a, b, c, chunk: int, grad_y, grad_state, need):
     ``need`` marks; None elsewhere) for the cotangents ``grad_y`` and
     ``grad_state`` (either may be None): autograd through
     ``kernels.ssd_chunked.ssd_chunked`` at the kernel's chunk
-    ``min(chunk, S)``, recomputed from the inputs. On the card its einsums
-    run in full fp32 (``core.fedavg.fp32_matmuls`` keeps TF32 off)."""
+    ``min(chunk, S)``, recomputed from the inputs widened to fp32, each
+    gradient given back in its input's dtype. On the card its einsums run
+    in full fp32 (``core.fedavg.fp32_matmuls`` keeps TF32 off)."""
     q = max(1, min(chunk, x.shape[1]))
+    f32 = torch.float32
     with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(n) for t, n in zip((x, a, b, c),
-                                                               need)]
-        outs = [(o, g) for o, g in zip(ssd_chunked(*inputs, q),
-                                       (grad_y, grad_state))
+        inputs = [t.detach().to(f32).requires_grad_(n)
+                  for t, n in zip((x, a, b, c), need)]
+        outs = [(o, g.to(f32)) for o, g in zip(ssd_chunked(*inputs, q),
+                                               (grad_y, grad_state))
                 if g is not None]
         grads = iter(torch.autograd.grad(
             [o for o, _ in outs], [t for t, n in zip(inputs, need) if n],
             [g for _, g in outs]))
-    return tuple(next(grads) if n else None for n in need)
+    return tuple(next(grads).to(t.dtype) if n else None
+                 for t, n in zip((x, a, b, c), need))
 
 
 class _SsdScan(torch.autograd.Function):
@@ -237,8 +251,9 @@ class _SsdScan(torch.autograd.Function):
 def ssd_scan(x, a, b, c, *, chunk: int = 256):
     """SSD of x ``[B, S, H, P]`` (pre-scaled by dt), log-decay a ``[B, S,
     H]`` and b, c ``[B, S, G, N]`` (H a multiple of G) ->
-    ``(y [B, S, H, P], final state [B, H, P, N])`` fp32. A CUDA tensor
-    launches the kernel; a CPU tensor takes :func:`ssd_scan_plain`."""
+    ``(y [B, S, H, P] in x.dtype, final state [B, H, P, N] fp32)``. A
+    CUDA tensor launches the kernel (x, b, c all fp32 or all bf16); a CPU
+    tensor takes :func:`ssd_scan_plain`."""
     if not x.is_cuda:
         return ssd_scan_plain(x, a, b, c)
     return _SsdScan.apply(x, a, b, c, chunk)

@@ -13,12 +13,21 @@ Parameters are flat ``{name: tensor}`` dicts of one layer's subtree
 (``{"wq", "wk", "wv", "wo"}`` for attention), with the reference's layouts:
 ``[d_in, d_out]`` projections, ``[B, S, H, D]`` heads. ``init_*`` draw from a
 ``torch.Generator`` with the reference's shapes and scales (the numbers
-differ from ``jax.random``'s). The sequence mixers go through
+differ from ``jax.random``'s), in fp32 and then cast to ``dtype`` (the
+reference's ``init_*(..., dtype)``; Mamba-2's ``A_log``, ``D`` and
+``dt_bias`` stay fp32, as there). The sequence mixers go through
 ``repro_torch.kernels.ops``: the CUDA kernels for a tensor on the card,
 their plain versions on the CPU.
+
+Mixed float types promote as ``jnp`` promotes them: elementwise torch
+does the same, and the products (``mm``, ``einsum``) cast both operands
+to the promoted type first, since torch's products take one type (bf16
+weights on fp32 activations give fp32, as an encoder-decoder's fp32 frames
+do in the reference).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -43,12 +52,35 @@ def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def init_dense(generator, shape, device, scale=None) -> torch.Tensor:
+def _promoted(*ts):
+    """``ts`` cast to their promoted float type (``jnp.promote_types``)."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t.to(dt) for t in ts]
+
+
+def mm(a, b):
+    """``a @ b``, mixed float types promoted first (a bf16 weight on fp32
+    activations gives fp32, as ``jnp``'s ``@`` does)."""
+    if a.dtype != b.dtype:
+        a, b = _promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum`` with mixed float types promoted first."""
+    if len({t.dtype for t in ops}) > 1:
+        ops = _promoted(*ops)
+    return torch.einsum(eq, *ops)
+
+
+def init_dense(generator, shape, device, scale=None,
+               dtype=torch.float32) -> torch.Tensor:
     """Normal weights of ``shape`` (``[..., d_in, d_out]``) scaled by
-    ``scale`` (default 1/sqrt(d_in))."""
+    ``scale`` (default 1/sqrt(d_in)): drawn in fp32, scaled in place (no
+    second copy of the leaf), then cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
     return torch.randn(shape, generator=generator, device=device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 def rmsnorm(x, weight, eps: float = 1e-5):
@@ -86,21 +118,27 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def init_attention(generator, cfg: ModelConfig, device, layers: int):
+def init_attention(generator, cfg: ModelConfig, device, layers: int,
+                   dtype=torch.float32):
     """``layers`` stacked attention blocks: ``{name: [layers, ...]}``."""
     hd = cfg.resolved_head_dim
     L, d = layers, cfg.d_model
     p = {
-        "wq": init_dense(generator, (L, d, cfg.num_heads * hd), device),
-        "wk": init_dense(generator, (L, d, cfg.num_kv_heads * hd), device),
-        "wv": init_dense(generator, (L, d, cfg.num_kv_heads * hd), device),
+        "wq": init_dense(generator, (L, d, cfg.num_heads * hd), device,
+                         dtype=dtype),
+        "wk": init_dense(generator, (L, d, cfg.num_kv_heads * hd), device,
+                         dtype=dtype),
+        "wv": init_dense(generator, (L, d, cfg.num_kv_heads * hd), device,
+                         dtype=dtype),
         "wo": init_dense(generator, (L, cfg.num_heads * hd, d), device,
-                         scale=1.0 / math.sqrt(cfg.num_heads * hd)),
+                         scale=1.0 / math.sqrt(cfg.num_heads * hd),
+                         dtype=dtype),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
                             ("bv", cfg.num_kv_heads)):
-            p[name] = torch.zeros((L, width * hd), device=device)
+            p[name] = torch.zeros((L, width * hd), dtype=dtype,
+                                  device=device)
     return p
 
 
@@ -134,9 +172,9 @@ def attention_qkv(p, x, cfg: ModelConfig, kv_x=None):
     (cross-attention), else from ``x``."""
     hd = cfg.resolved_head_dim
     kv_src = x if kv_x is None else kv_x
-    q = x @ p["wq"]
-    k = kv_src @ p["wk"]
-    v = kv_src @ p["wv"]
+    q = mm(x, p["wq"])
+    k = mm(kv_src, p["wk"])
+    v = mm(kv_src, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -238,18 +276,21 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window=None,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(generator, d_model: int, d_ff: int, device, layers: int):
+def init_mlp(generator, d_model: int, d_ff: int, device, layers: int,
+             dtype=torch.float32):
     L = layers
     return {
-        "w_gate": init_dense(generator, (L, d_model, d_ff), device),
-        "w_up": init_dense(generator, (L, d_model, d_ff), device),
+        "w_gate": init_dense(generator, (L, d_model, d_ff), device,
+                             dtype=dtype),
+        "w_up": init_dense(generator, (L, d_model, d_ff), device,
+                           dtype=dtype),
         "w_down": init_dense(generator, (L, d_ff, d_model), device,
-                             scale=1.0 / math.sqrt(d_ff)),
+                             scale=1.0 / math.sqrt(d_ff), dtype=dtype),
     }
 
 
 def mlp_apply(p, x):
-    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return mm(silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -258,17 +299,21 @@ def mlp_apply(p, x):
 # ---------------------------------------------------------------------------
 
 
-def init_moe(generator, d_model: int, moe: MoEConfig, device, layers: int):
+def init_moe(generator, d_model: int, moe: MoEConfig, device, layers: int,
+             dtype=torch.float32):
     """``layers`` stacked MoE MLPs: the router ``[L, d, E]`` (scale 0.02)
     and the experts' SwiGLU ``w_gate``/``w_up`` ``[L, E, d, F]``,
     ``w_down`` ``[L, E, F, d]``."""
     L, E, F = layers, moe.num_experts, moe.d_ff
     return {
-        "router": init_dense(generator, (L, d_model, E), device, scale=0.02),
-        "w_gate": init_dense(generator, (L, E, d_model, F), device),
-        "w_up": init_dense(generator, (L, E, d_model, F), device),
+        "router": init_dense(generator, (L, d_model, E), device, scale=0.02,
+                             dtype=dtype),
+        "w_gate": init_dense(generator, (L, E, d_model, F), device,
+                             dtype=dtype),
+        "w_up": init_dense(generator, (L, E, d_model, F), device,
+                           dtype=dtype),
         "w_down": init_dense(generator, (L, E, F, d_model), device,
-                             scale=1.0 / math.sqrt(F)),
+                             scale=1.0 / math.sqrt(F), dtype=dtype),
     }
 
 
@@ -278,7 +323,7 @@ def _route(p, t, moe: MoEConfig):
     lower expert first on ties, as ``lax.top_k`` ranks — and the
     load-balance loss."""
     from repro_torch.strategies.traced import _stable_top
-    logits = (t @ p["router"]).to(torch.float32)
+    logits = mm(t, p["router"]).to(torch.float32)
     topw, topi = _stable_top(logits, moe.top_k)
     return (logits, torch.softmax(topw, dim=-1), topi,
             _load_balance_loss(logits, topi, moe))
@@ -297,9 +342,9 @@ def moe_apply_dense(p, x, moe: MoEConfig):
     t = x.reshape(B * S, D)
     logits, topw, topi, aux = _route(p, t, moe)
     gates = _gates(logits, topw, topi)
-    h = torch.einsum("td,edf->tef", t, p["w_gate"])
-    u = torch.einsum("td,edf->tef", t, p["w_up"])
-    y = torch.einsum("tef,efd->ted", silu(h) * u, p["w_down"])
+    h = einsum("td,edf->tef", t, p["w_gate"])
+    u = einsum("td,edf->tef", t, p["w_up"])
+    y = einsum("tef,efd->ted", silu(h) * u, p["w_down"])
     out = torch.einsum("te,ted->td", gates.to(y.dtype), y)
     return out.reshape(B, S, D), aux
 
@@ -312,10 +357,10 @@ def moe_apply_dense_fused(p, x, moe: MoEConfig):
     t = x.reshape(B * S, D)
     logits, topw, topi, aux = _route(p, t, moe)
     gates = _gates(logits, topw, topi)
-    h = torch.einsum("td,edf->tef", t, p["w_gate"])
-    u = torch.einsum("td,edf->tef", t, p["w_up"])
+    h = einsum("td,edf->tef", t, p["w_gate"])
+    u = einsum("td,edf->tef", t, p["w_up"])
     hu = (silu(h) * u) * gates.to(h.dtype)[:, :, None]
-    out = torch.einsum("tef,efd->td", hu, p["w_down"])
+    out = einsum("tef,efd->td", hu, p["w_down"])
     return out.reshape(B, S, D), aux
 
 
@@ -407,7 +452,10 @@ def mamba2_split_dims(cfg: ModelConfig):
     return d_inner, n_heads, conv_ch
 
 
-def init_mamba2(generator, cfg: ModelConfig, device, layers: int):
+def init_mamba2(generator, cfg: ModelConfig, device, layers: int,
+                dtype=torch.float32):
+    """``layers`` stacked Mamba-2 blocks; ``A_log``, ``D`` and ``dt_bias``
+    in fp32 whatever ``dtype`` is, as in the reference."""
     s = cfg.ssm
     L = layers
     d_inner, n_heads, conv_ch = mamba2_split_dims(cfg)
@@ -421,28 +469,33 @@ def init_mamba2(generator, cfg: ModelConfig, device, layers: int):
     return {
         "in_proj": init_dense(generator, (L, cfg.d_model, 2 * d_inner
                                           + 2 * s.n_groups * s.d_state
-                                          + n_heads), device),
+                                          + n_heads), device, dtype=dtype),
         "conv_w": init_dense(generator, (L, s.conv_width, conv_ch), device,
-                             scale=1.0 / math.sqrt(s.conv_width)),
-        "conv_b": torch.zeros((L, conv_ch), device=device),
+                             scale=1.0 / math.sqrt(s.conv_width),
+                             dtype=dtype),
+        "conv_b": torch.zeros((L, conv_ch), dtype=dtype, device=device),
         "A_log": a_log.expand(L, n_heads).clone(),
         "D": torch.ones((L, n_heads), device=device),
         "dt_bias": inv_softplus_dt,
-        "norm": torch.ones((L, d_inner), device=device),
+        "norm": torch.ones((L, d_inner), dtype=dtype, device=device),
         "out_proj": init_dense(generator, (L, d_inner, cfg.d_model), device,
-                               scale=1.0 / math.sqrt(d_inner)),
+                               scale=1.0 / math.sqrt(d_inner), dtype=dtype),
     }
 
 
 def causal_conv1d(x, w, b):
     """Depthwise causal conv. x: [B, S, C]; w: [W, C]; b: [C]:
-    ``out[t] = Σ_i w[i]·x[t − W + 1 + i]`` with zeros before the start."""
+    ``out[t] = Σ_i w[i]·x[t − W + 1 + i]`` with zeros before the start, in
+    fp32 and rounded once to ``x.dtype`` (the reference's conv runs in
+    ``x.dtype``, w cast to it), then ``+ b``."""
     W, S = w.shape[0], x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    f32 = torch.float32
+    xp = torch.nn.functional.pad(x.to(f32), (0, 0, W - 1, 0))
+    w = w.to(x.dtype).to(f32)
     out = xp[:, 0:S] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[i]
-    return out + b
+    return out.to(x.dtype) + b
 
 
 def causal_conv1d_step(x_t, conv_state, w, b):
@@ -474,7 +527,7 @@ def mamba2_apply(p, x, cfg: ModelConfig):
     s = cfg.ssm
     d_inner, n_heads, conv_ch = mamba2_split_dims(cfg)
     B, S, _ = x.shape
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = mm(x, p["in_proj"])
     z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, n_heads], dim=-1)
     xBC = silu(causal_conv1d(xBC, p["conv_w"], p["conv_b"]))
     gn = s.n_groups * s.d_state
@@ -491,7 +544,7 @@ def mamba2_apply(p, x, cfg: ModelConfig):
     Y = Y + p["D"][None, None, :, None] * xs.to(torch.float32)
     Y = Y.reshape(B, S, d_inner).to(x.dtype)
     Y = rmsnorm(Y * silu(z), p["norm"], cfg.norm_eps)
-    return Y @ p["out_proj"]
+    return mm(Y, p["out_proj"])
 
 
 def mamba2_decode(p, x_t, cfg: ModelConfig, ssm_state, conv_state):
@@ -500,7 +553,7 @@ def mamba2_decode(p, x_t, cfg: ModelConfig, ssm_state, conv_state):
     s = cfg.ssm
     d_inner, n_heads, conv_ch = mamba2_split_dims(cfg)
     B = x_t.shape[0]
-    zxbcdt = x_t @ p["in_proj"]
+    zxbcdt = mm(x_t, p["in_proj"])
     z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_ch, n_heads], dim=-1)
     xBC, conv_state = causal_conv1d_step(xBC, conv_state, p["conv_w"],
                                          p["conv_b"])
@@ -515,4 +568,4 @@ def mamba2_decode(p, x_t, cfg: ModelConfig, ssm_state, conv_state):
     y, ssm_state = ssd_decode_step(xs, dt, A_raw, Bm, Cm, p["D"], ssm_state)
     y = y.reshape(B, d_inner).to(x_t.dtype)
     y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], ssm_state, conv_state
+    return mm(y, p["out_proj"]), ssm_state, conv_state

@@ -88,16 +88,18 @@ def adapter_num_params(cfg: LMConfig) -> int:
 
 
 def init_adapter(cfg: LMConfig, generator: torch.Generator,
-                 device="cpu") -> Dict[str, torch.Tensor]:
-    """One client's adapter: A factors normal scaled by 1/sqrt(d_in), B
-    factors zero (a fresh adapter is an exact no-op on the base)."""
+                 device="cpu", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """One client's adapter: A factors normal scaled by 1/sqrt(d_in) (drawn
+    in fp32, then cast to ``dtype``), B factors zero (a fresh adapter is an
+    exact no-op on the base)."""
     out = {}
     for name, shape in adapter_shapes(cfg).items():
         if name.endswith("_a"):
-            out[name] = torch.randn(shape, generator=generator, device=device,
-                                    dtype=torch.float32) / math.sqrt(shape[1])
+            out[name] = (torch.randn(shape, generator=generator,
+                                     device=device, dtype=torch.float32)
+                         / math.sqrt(shape[1])).to(dtype)
         else:
-            out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
     return out
 
 

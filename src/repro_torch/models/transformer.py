@@ -26,6 +26,15 @@ dict into this form. The layers run in a Python loop where the reference
 ``flash_attention`` kernel on the card), as the reference's TPU path does;
 cross-attention runs ``layers.blockwise_attention`` on every device, as in
 the reference.
+
+``init_model(..., dtype=torch.bfloat16)`` builds a bf16 model, as the
+reference's ``init_model(cfg, key, dtype=jnp.bfloat16)`` does: the stacks
+then return the reference's dtypes (bf16 logits, fp32 aux), the kernels run
+their bf16 instances, and mixed types promote as in ``jnp``
+(``layers.mm``): an encoder-decoder's fp32 ``src_embeds`` make its encoder
+and cross-attention K/V fp32. A cache of either float type serves a model
+of either: a decode step writes its k, v (and conv state) in the cache's
+dtype.
 """
 from __future__ import annotations
 
@@ -78,29 +87,36 @@ def _homogeneous(cfg: ModelConfig) -> bool:
 
 
 def _init_block(generator, cfg: ModelConfig, device, n: int, *, mixer: str,
-                mlp: str, cross: bool = False) -> Dict[str, torch.Tensor]:
+                mlp: str, cross: bool = False,
+                dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """``n`` stacked blocks ``{ln1, attn|mamba, ln_cross?, cross?, ln2?,
     mlp|moe?}``, names relative to the block."""
     d = cfg.d_model
-    p = {"ln1": torch.ones((n, d), device=device)}
+
+    def ones():
+        return torch.ones((n, d), dtype=dtype, device=device)
+
+    p = {"ln1": ones()}
     if mixer == "attn":
         p.update({f"attn/{k}": v for k, v in
-                  L.init_attention(generator, cfg, device, n).items()})
+                  L.init_attention(generator, cfg, device, n, dtype).items()})
     else:
         p.update({f"mamba/{k}": v for k, v in
-                  L.init_mamba2(generator, cfg, device, n).items()})
+                  L.init_mamba2(generator, cfg, device, n, dtype).items()})
     if cross:
-        p["ln_cross"] = torch.ones((n, d), device=device)
+        p["ln_cross"] = ones()
         p.update({f"cross/{k}": v for k, v in
-                  L.init_attention(generator, cfg, device, n).items()})
+                  L.init_attention(generator, cfg, device, n, dtype).items()})
     if mlp == "dense":
-        p["ln2"] = torch.ones((n, d), device=device)
+        p["ln2"] = ones()
         p.update({f"mlp/{k}": v for k, v in
-                  L.init_mlp(generator, d, cfg.d_ff, device, n).items()})
+                  L.init_mlp(generator, d, cfg.d_ff, device, n,
+                             dtype).items()})
     elif mlp == "moe":
-        p["ln2"] = torch.ones((n, d), device=device)
+        p["ln2"] = ones()
         p.update({f"moe/{k}": v for k, v in
-                  L.init_moe(generator, d, cfg.moe, device, n).items()})
+                  L.init_moe(generator, d, cfg.moe, device, n,
+                             dtype).items()})
     return p
 
 
@@ -109,32 +125,38 @@ def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]):
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device="cpu") -> Dict[str, torch.Tensor]:
-    """The reference's shapes and scales, drawn from ``generator``."""
+               device="cpu", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The reference's shapes and scales, drawn from ``generator`` in fp32
+    and cast to ``dtype`` leaf by leaf (Mamba-2's ``A_log``, ``D`` and
+    ``dt_bias`` stay fp32, as in the reference)."""
     d = cfg.d_model
     params = {
         "embed": torch.randn((cfg.vocab_size, d), generator=generator,
-                             device=device) * 0.02,
-        "final_norm": torch.ones((d,), device=device),
+                             device=device).mul_(0.02).to(dtype),
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense(generator, (d, cfg.vocab_size),
-                                         device)
+                                         device, dtype=dtype)
     plan = _layer_plan(cfg)
     if cfg.is_encoder_decoder:
         mlp = "moe" if cfg.moe else "dense"
         n = cfg.num_layers
         params.update(_prefixed("encoder", _init_block(
-            generator, cfg, device, n, mixer="attn", mlp=mlp)))
-        params["enc_final_norm"] = torch.ones((d,), device=device)
+            generator, cfg, device, n, mixer="attn", mlp=mlp, dtype=dtype)))
+        params["enc_final_norm"] = torch.ones((d,), dtype=dtype,
+                                              device=device)
         params.update(_prefixed("decoder", _init_block(
-            generator, cfg, device, n, mixer="attn", mlp=mlp, cross=True)))
+            generator, cfg, device, n, mixer="attn", mlp=mlp, cross=True,
+            dtype=dtype)))
         if cfg.continuous_encoder_input:
-            params["enc_in_proj"] = L.init_dense(generator, (d, d), device)
+            params["enc_in_proj"] = L.init_dense(generator, (d, d), device,
+                                                 dtype=dtype)
     elif _homogeneous(cfg):
         mixer, mlp = plan[0]
         params.update(_prefixed("blocks", _init_block(
-            generator, cfg, device, cfg.num_layers, mixer=mixer, mlp=mlp)))
+            generator, cfg, device, cfg.num_layers, mixer=mixer, mlp=mlp,
+            dtype=dtype)))
     else:
         # hybrid: one stack per position in the period
         period = cfg.attn_period
@@ -142,7 +164,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         for j in range(period):
             mixer, mlp = plan[j]
             params.update(_prefixed(f"groups/pos{j}", _init_block(
-                generator, cfg, device, n_groups, mixer=mixer, mlp=mlp)))
+                generator, cfg, device, n_groups, mixer=mixer, mlp=mlp,
+                dtype=dtype)))
     return params
 
 
@@ -165,7 +188,7 @@ def _block_apply(p, x, cfg: ModelConfig, *, mixer: str, mlp: str,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         out = ops.attention(q, k, v, causal=causal, window=window)
-        x = x + out.reshape(B, S, -1) @ p["attn/wo"]
+        x = x + L.mm(out.reshape(B, S, -1), p["attn/wo"])
     else:
         x = x + L.mamba2_apply(L.sub(p, "mamba"), h, cfg)
     if memory is not None and "cross/wq" in p:
@@ -173,7 +196,7 @@ def _block_apply(p, x, cfg: ModelConfig, *, mixer: str, mlp: str,
         q, k, v = L.attention_qkv(L.sub(p, "cross"), h, cfg, kv_x=memory)
         out = L.blockwise_attention(q, k, v, causal=False, q_chunk=q_chunk,
                                     kv_chunk=kv_chunk)
-        x = x + out.reshape(B, S, -1) @ p["cross/wo"]
+        x = x + L.mm(out.reshape(B, S, -1), p["cross/wo"])
     if mlp == "dense":
         h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(L.sub(p, "mlp"), h)
@@ -192,7 +215,7 @@ def _block_apply(p, x, cfg: ModelConfig, *, mixer: str, mlp: str,
 
 def _unembed(cfg: ModelConfig, params, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return L.mm(x, head)
 
 
 def _layers(stacked: Dict[str, torch.Tensor]):
@@ -273,7 +296,7 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 def _encoder_input(cfg: ModelConfig, params, batch):
     if cfg.continuous_encoder_input:
-        return batch["src_embeds"] @ params["enc_in_proj"]
+        return L.mm(batch["src_embeds"], params["enc_in_proj"])
     return params["embed"][batch["src_tokens"].long()]
 
 
@@ -394,8 +417,8 @@ def encode_memory(cfg: ModelConfig, params, batch, *, moe_impl: str = "dense",
     ks, vs = [], []
     for lp in _layers(L.sub(params, "decoder")):
         h = L.rmsnorm(memory, lp["ln_cross"], cfg.norm_eps)
-        k = h @ lp["cross/wk"]
-        v = h @ lp["cross/wv"]
+        k = L.mm(h, lp["cross/wk"])
+        v = L.mm(h, lp["cross/wv"])
         if "cross/bk" in lp:
             k = k + lp["cross/bk"]
             v = v + lp["cross/bv"]
@@ -413,34 +436,35 @@ def _attn_decode(p, h, cfg: ModelConfig, k_cache, v_cache, k_pos, pos,
                  window):
     """One-token attention with the ring-buffer write: the new k, v go to
     slot ``pos mod C`` of this layer's ``k_cache``/``v_cache`` ``[B, C, K,
-    D]`` and ``k_pos`` ``[C]`` (in place). h: [B, 1, d]."""
+    D]`` (in the cache's dtype) and ``k_pos`` ``[C]`` (in place). h: [B, 1,
+    d]."""
     B, C = h.shape[0], k_cache.shape[1]
     q, k, v = L.attention_qkv(p, h, cfg)
     pos_b = pos.expand(B)
     q = L.apply_rope(q, pos_b[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos_b[:, None], cfg.rope_theta)
     slot = torch.remainder(pos, C).reshape(1)
-    k_cache.index_copy_(1, slot, k)
-    v_cache.index_copy_(1, slot, v)
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     k_pos.index_copy_(0, slot, pos.reshape(1))
     out = L.full_attention_1q(q, k_cache, v_cache, k_pos.expand(B, C),
                               pos_b, window=window,
                               kv_valid=(k_pos >= 0).expand(B, C))
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return L.mm(out.reshape(B, 1, -1), p["wo"])
 
 
 def _cross_decode(p, h, cfg: ModelConfig, ck, cv):
     """One token's cross-attention against the fixed encoder K/V ``ck``,
     ``cv`` ``[B, S_enc, K, D]``. h: [B, 1, d]."""
     B, Sm = h.shape[0], ck.shape[1]
-    q = h @ p["wq"]
+    q = L.mm(h, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(B, 1, cfg.num_heads, cfg.resolved_head_dim)
     mem_pos = torch.arange(Sm, device=h.device).expand(B, Sm)
     big = torch.full((B,), 2 ** 30, dtype=torch.int64, device=h.device)
     out = L.full_attention_1q(q, ck, cv, mem_pos, big)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return L.mm(out.reshape(B, 1, -1), p["wo"])
 
 
 def _mlp_decode(lp, x, cfg: ModelConfig, moe_impl: str):

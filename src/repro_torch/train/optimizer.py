@@ -42,10 +42,12 @@ def cosine_schedule(cfg: TrainConfig) -> Callable[[torch.Tensor],
 
 def clip_by_global_norm(grads: Params, max_norm: float):
     """``(grads scaled to a global norm of at most max_norm, the norm
-    before)``."""
+    before)``. The fp32 scale promotes a bf16 gradient to fp32, as ``jnp``
+    promotes it (torch would keep a 0-d scalar's product in bf16)."""
     norm = tree_global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
+    return {k: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+            for k, g in grads.items()}, norm
 
 
 def make_optimizer(cfg: TrainConfig) -> Tuple[Callable, Callable]:

@@ -117,11 +117,41 @@ def flatten_vector(spec: StackFlattenSpec,
                       for n in spec.names])
 
 
+def _is_bfloat16(a: np.ndarray) -> bool:
+    """A numpy array of ``ml_dtypes.bfloat16`` (what jax hands out for a
+    bf16 array), told apart by name so that nothing here imports
+    ``ml_dtypes``."""
+    return a.dtype.name == "bfloat16"
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A host array as a tensor on ``device`` (a copy), bf16 included: a
+    bf16 array goes across as its 16 bits (an ``int16`` view) and is viewed
+    back as ``torch.bfloat16``, bit for bit (torch takes no ``ml_dtypes``
+    array)."""
+    a = np.asarray(a)
+    if _is_bfloat16(a):
+        bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`tensor_from_numpy`: a bf16 tensor comes back as an
+    ``ml_dtypes.bfloat16`` array (imported here only, where a caller asks
+    for one), bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(np_params: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
     """Reference parameters (a dict of arrays, nested or flat) as a flat
     port dict named by ``/``-joined key paths. Layouts are shared (HWIO
     conv weights, ``[d_in, d_out]`` projections), so values carry over
-    as-is."""
+    as-is, bf16 bit for bit (:func:`tensor_from_numpy`)."""
     out = {}
 
     def walk(prefix, node):
@@ -130,7 +160,7 @@ def params_from_jax(np_params: Mapping, device="cpu") -> Dict[str, torch.Tensor]
             if isinstance(v, Mapping):
                 walk(name, v)
             else:
-                out[name] = torch.tensor(np.asarray(v), device=device)
+                out[name] = tensor_from_numpy(v, device)
 
     walk("", np_params)
     return out
@@ -138,14 +168,15 @@ def params_from_jax(np_params: Mapping, device="cpu") -> Dict[str, torch.Tensor]
 
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of :func:`params_from_jax`: the nested dict of numpy arrays
-    that the reference's functions take."""
+    that the reference's functions take (bf16 leaves as
+    ``ml_dtypes.bfloat16`` arrays, :func:`tensor_to_numpy`)."""
     out: Dict = {}
     for name, v in params.items():
         *path, leaf = name.split("/")
         node = out
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = v.detach().cpu().numpy()
+        node[leaf] = tensor_to_numpy(v)
     return out
 
 

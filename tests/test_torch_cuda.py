@@ -234,23 +234,34 @@ def test_flash_attention_new_gqa_ratios(cuda, b, s, h, kv, d, window):
 
 
 def test_flash_attention_refuses_phi3_head_dim(cuda):
-    """phi-3-vision's head dim 96 is no template instance: its published
-    width raises the kernel's ``ValueError`` on the card, through the
-    model too, and launches nothing."""
+    """phi-3-vision's head dim 96 is a template instance now: the kernel
+    at D = 96 is its plain version's within 2e-5 in fp32 (split key tiles
+    too), and the model at its published width (one layer of 32) runs its
+    forward on the card in bf16, through the kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.models.transformer import forward, init_model
-    q = torch.zeros((1, 8, 32, 96), device=cuda)
-    before = flash_attention.launches
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q, q, q)
+    for b, sq, sk in ((2, 128, 128), (1, 1, 2048), (4, 37, 37)):
+        q = torch.tensor(_normal(31, b, sq, 32, 96), device=cuda)
+        k = torch.tensor(_normal(32, b, sk, 32, 96), device=cuda)
+        v = torch.tensor(_normal(33, b, sk, 32, 96), device=cuda)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                                   **ATTN_TOL)
+        assert torch.equal(flash_attention(q, k, v), got)
     cfg = get_config("phi-3-vision-4.2b").replace(num_layers=1)
+    assert cfg.resolved_head_dim == 96
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
-                        cuda)
-    with pytest.raises(ValueError, match="head dims"), torch.no_grad():
-        forward(cfg, params, {"tokens": torch.zeros(
+                        cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with torch.no_grad():
+        logits, _ = forward(cfg, params, {"tokens": torch.zeros(
             (1, 8), dtype=torch.int64, device=cuda)})
-    assert flash_attention.launches == before
+    assert flash_attention.launches == before + 1
+    assert logits.dtype == torch.bfloat16
+    assert torch.isfinite(logits.float()).all()
 
 
 def test_flash_attention_unaligned_kv(cuda):
@@ -448,6 +459,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         flash_attention(q[..., :16].double(), q[..., :16].double(),
                         q[..., :16].double())
+    with pytest.raises(TypeError):                         # mixed types
+        flash_attention(q[..., :16].bfloat16(), q[..., :16], q[..., :16])
     x = torch.zeros((1, 4, 2, 12), device=cuda)          # P = 12: no slice
     with pytest.raises(ValueError):
         ssd_scan(x, torch.zeros((1, 4, 2), device=cuda),
@@ -986,3 +999,140 @@ def test_selection_ranks_nan_last_on_the_card(cuda):
                                     num_clusters=4, s=2, num_devices=40)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances: the fp32 instance's bits on the widened inputs
+# ---------------------------------------------------------------------------
+
+
+def _bf16(seed, *shape, device):
+    return torch.tensor(_normal(seed, *shape), device=device).bfloat16()
+
+
+@pytest.mark.parametrize("n,p", [(10, 113_744), (4, 563_200), (16, 4096),
+                                 (7, 1001), (300, 2056)])
+def test_flat_aggregate_bf16_is_the_widened_fp32(cuda, n, p):
+    """bf16 rows (8 a load where P % 8 == 0, else 1) give the fp32
+    instance's result on the widened rows bit for bit, NaN rows at weight
+    0 included; a second call is equal."""
+    flat = _bf16(n, n, p, device=cuda)
+    w = torch.tensor(np.abs(_normal(n + 1, n)) + 0.1, device=cuda)
+    flat[n // 2] = float("nan")
+    w[n // 2] = 0.0
+    before = flat_aggregate.launches
+    got = flat_aggregate(flat, w)
+    want = flat_aggregate(flat.float(), w)
+    torch.cuda.synchronize()
+    assert flat_aggregate.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(flat_aggregate(flat, w), got)
+    lanes = _bf16(n + 2, 3, n, p, device=cuda)
+    lw = w.expand(3, n).contiguous()
+    assert torch.equal(flat_aggregate(lanes, lw),
+                       flat_aggregate(lanes.float(), lw))
+
+
+@pytest.mark.parametrize("n,m,f", [(40, 10, 2240), (10, 1, 563_200),
+                                   (16, 4, 4096), (7, 3, 33),
+                                   (3, 1, 50_001)])
+def test_pairwise_l2_bf16_is_the_widened_fp32(cuda, n, m, f):
+    """A bf16 x (four a load, or one) against fp32 or bf16 centroids: the
+    fp32 instance's bits on the widened operands, K-means and the
+    divergence's plan alike."""
+    from repro_torch.kernels.pairwise_l2 import divergence_sq
+    x = _bf16(n, n, f, device=cuda)
+    for c in (torch.tensor(_normal(m + 7, m, f), device=cuda),
+              _bf16(m + 8, m, f, device=cuda)):
+        got = pairwise_l2(x, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pairwise_l2(x.float(), c.float()))
+        assert torch.equal(pairwise_l2(x, c), got)
+        assert torch.equal(divergence_sq(x, c[:1]),
+                           divergence_sq(x.float(), c[:1].float()))
+    g = torch.tensor(_normal(9, f), device=cuda)
+    assert torch.equal(ops.client_divergence(x, g),
+                       ops.client_divergence(x.float(), g))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
+    (8, 32, 32, 32, 4, 64, True, None),        # the FL path (tinyllama)
+    (8, 128, 128, 32, 4, 64, True, None),      # launch.train's batch
+    (4, 128, 128, 32, 32, 96, True, None),     # phi-3-vision (D = 96)
+    (1, 1, 2048, 32, 4, 64, True, None),       # split key tiles
+    (1, 1, 2048, 32, 32, 96, True, None),      # split at D = 96
+    (2, 96, 40, 4, 4, 32, True, None),         # Sq > Sk
+    (2, 70, 130, 4, 1, 128, False, 50),
+    (2, 29, 29, 8, 2, 16, True, None),
+])
+def test_flash_attention_bf16_is_the_widened_fp32(cuda, b, sq, sk, h, kv, d,
+                                                  causal, window):
+    """bf16 q, k, v: the fp32 instance's output on the widened inputs,
+    rounded once to bf16 (round to nearest even), bit for bit; and the
+    plain version's bf16 output within the reference's bf16 tolerance
+    (test_kernels.py:21)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = _bf16(41, b, sq, h, d, device=cuda)
+    k = _bf16(42, b, sk, kv, d, device=cuda)
+    v = _bf16(43, b, sk, kv, d, device=cuda)
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+    assert torch.equal(flash_attention(q, k, v, **kw), got)
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, **kw).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (8, 32, 24, 1, 64, 128, 256),              # one chunk
+    (1, 300, 24, 1, 64, 128, 256),             # two chunks, ragged
+    (2, 77, 4, 2, 8, 24, 16),                  # groups, odd N
+    (1, 200, 2, 1, 16, 18, 16),                # 13 chunks, N % 4 != 0
+])
+def test_ssd_scan_bf16_is_the_widened_fp32(cuda, b, s, h, g, p, n, chunk):
+    """bf16 x, b, c (fp32 a): y is the fp32 instance's on the widened
+    inputs rounded once to bf16 and the state is that instance's fp32
+    state, bit for bit; the gradients come back in the inputs' dtypes."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rng = np.random.default_rng(s + n)
+    x = torch.tensor(rng.normal(size=(b, s, h, p)).astype(np.float32),
+                     device=cuda).bfloat16()
+    a = torch.tensor(-rng.uniform(0.01, 0.3, (b, s, h)).astype(np.float32),
+                     device=cuda)
+    bm, cm = (torch.tensor((rng.normal(size=(b, s, g, n)) / np.sqrt(n))
+                           .astype(np.float32), device=cuda).bfloat16()
+              for _ in range(2))
+    y, state = ssd_scan(x, a, bm, cm, chunk=chunk)
+    y32, state32 = ssd_scan(x.float(), a, bm.float(), cm.float(),
+                            chunk=chunk)
+    torch.cuda.synchronize()
+    assert (y.dtype, state.dtype) == (torch.bfloat16, torch.float32)
+    assert torch.equal(y, y32.to(torch.bfloat16))
+    assert torch.equal(state, state32)
+    xs, bs = x.clone().requires_grad_(True), bm.clone().requires_grad_(True)
+    y, _ = ssd_scan(xs, a, bs, cm, chunk=chunk)
+    gx, gb = torch.autograd.grad(y.float().sum(), [xs, bs])
+    assert gx.dtype == gb.dtype == torch.bfloat16
+
+
+def test_fl_kernels_address_rows_past_2_31(cuda):
+    """A bf16 plane past 2^31 elements (16 tinyllama clients' MLP leaves
+    are 4.1e9): rows are addressed in 64 bits, so the fold and the
+    divergence of the last rows are right. Held to float64 on the card."""
+    from repro_torch.kernels.pairwise_l2 import divergence_sq
+    n, p = 9, 2 ** 28                      # 2.4e9 elements, 4.5 GiB
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    flat = torch.randn((n, p), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.zeros(n, device=cuda)
+    w[-2:] = torch.tensor([0.25, 0.75], device=cuda)
+    got = flat_aggregate(flat, w)
+    want = 0.25 * flat[-2].double() + 0.75 * flat[-1].double()
+    assert ((got.double() - want).abs() <= 1e-6 * (1 + want.abs())).all()
+    g = torch.zeros((1, p), device=cuda)
+    d = divergence_sq(flat, g)
+    last = float(torch.sum(torch.square(flat[-1].double())))
+    assert abs(float(d[-1, 0]) - last) <= 1e-4 * last
