@@ -174,7 +174,22 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     clients in bf16 at published width, c = 4, ``feature_slice`` 0 and
     4096: the selection the top divergence of each cluster, the fold one
     leaf's weighted mean on the host, ms and the peak;
-17. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+17. the mesh tools on the card: (a) the dry run over every (arch × shape)
+    on both production meshes (10 × 4 × 2 records, ``meta`` structs, in
+    worker processes), no device memory allocated, a line each (counted
+    FLOPs over ``model_flops``, the bottleneck, the per-card state); (b)
+    the host mesh's steps at published width on the card, batch cut only
+    as far as one card forces: tinyllama-1.1b's ``lower_train`` (bf16),
+    ``lower_prefill`` and ``lower_decode`` (``decode_32k``, and
+    ``long_500k`` on its 4096-slot window), mamba2-130m's
+    ``lower_prefill``, each compiled on the card: its ms (CUDA events)
+    beside the H100 roofline of its own count and its model-FLOPs share,
+    and its kernel launches; (c) ``lower_fl_round`` over the 16 bf16
+    tinyllama clients of 16(e), compiled on the card, ≡ 16(e)'s
+    ``fl_round_step`` bit for bit, its roofline beside its ms; (d)
+    ``ExperimentSpec(p_shards=1)`` ≡ ``ExperimentSpec()`` bit for bit,
+    2 rounds (selections, T_k, E_k, accuracy, the global row);
+18. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
@@ -190,9 +205,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
-TF32X3_FLOP_PER_S = 495e12 / 3   # TF32 tensor cores, three products each
+# the H100 SXM's rates (repro_torch.launch.mesh.H100_SXM, read in main)
+HBM_BYTES_PER_S = None           # HBM
+FP32_FLOP_PER_S = None           # fp32 outside the tensor cores
+TF32X3_FLOP_PER_S = None         # TF32 tensor cores, three products each
+BF16_FLOP_PER_S = None           # bf16 tensor cores, dense
 AGG_TOL = dict(rtol=2e-5, atol=2e-5)
 L2_TOL = dict(rtol=1e-4, atol=1e-3)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, another summation order
@@ -272,10 +289,23 @@ def is_device_work(e, DeviceType):
                 or kind not in (None, *DEVICE_WORK))
 
 
-def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+def load_card_rates():
+    """The rates the bounds divide by, from the port's one set of H100
+    constants."""
+    global HBM_BYTES_PER_S, FP32_FLOP_PER_S, TF32X3_FLOP_PER_S
+    global BF16_FLOP_PER_S
+    from repro_torch.launch.mesh import H100_SXM
+    HBM_BYTES_PER_S = H100_SXM["hbm_bandwidth"]
+    FP32_FLOP_PER_S = H100_SXM["peak_fp32_flops"]
+    TF32X3_FLOP_PER_S = H100_SXM["peak_tf32_flops"] / 3
+    BF16_FLOP_PER_S = H100_SXM["peak_bf16_flops"]
+
+
+def bound(nbytes, flops, flop_rate=None):
     """The least time [ms]: bytes over HBM's rate against operations over
     ``flop_rate`` (fp32 outside the tensor cores unless a kernel says
     otherwise), and which of the two it is."""
+    flop_rate = flop_rate or FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -4344,7 +4374,6 @@ def families_phase(torch, tmp):
 # phase 16: bfloat16 on the card
 # ---------------------------------------------------------------------------
 
-BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)     # the reference's bf16 kernel
 L2_BF16_TOL = dict(rtol=3e-2, atol=3e-1)  # tests (test_kernels.py:21, 40-41;
 AGG_BF16_TOL = dict(rtol=3e-2, atol=3e-1)  # test_flat_plane.py:216)
@@ -4758,27 +4787,16 @@ def bf16_agreement(torch):
     return errs
 
 
-def fl_round_phase(torch):
-    """(e) ``fl_round_step`` over 16 tinyllama-1.1b clients in bf16 at
-    published width (the global model plus per-client noise from a seed,
-    a larger scale for later clients), 4 clusters whose centroids are
-    clients 0, 4, 8, 12's features, at ``feature_slice`` 0 and 4096: the
-    selection equals the top divergence of each cluster recomputed from
-    the returned divergences and labels; the fold of one leaf equals the
-    sizes-weighted mean of the winners computed in float64 on the host,
-    within one bf16 rounding; the last client's divergence and the fold
-    of the largest leaf (16 × 254 M elements: past 2^31, rows addressed
-    in 64 bits) against float64 on the card; ms (synchronised) and the
-    peak memory of the round (the clients held, not their making)."""
-    import numpy as np
+def fl_round_inputs(torch):
+    """16(e)'s round inputs from a seed: the bf16 tinyllama-1.1b global
+    model, 16 clients (it plus per-client noise, a larger scale for later
+    clients; a client's leaf at a time), sizes 1..16 and the centroids
+    (clients 0, 4, 8, 12's ``lm_head`` features in fp32)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.fl_round import fl_round_step
     from repro_torch.models.transformer import init_model
 
     n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
     cfg = get_config("tinyllama-1.1b")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     g = init_model(cfg, gen, DEVICE, dtype=torch.bfloat16)
     clients = {}
@@ -4791,8 +4809,30 @@ def fl_round_phase(torch):
             clients[k][i] = noise
         del noise
     sizes = torch.arange(1.0, n + 1.0, device=DEVICE)
-    feats = clients["lm_head"].reshape(n, -1)
-    cent = feats[::n // c].float()
+    cent = clients["lm_head"].reshape(n, -1)[::n // c].float()
+    return cfg, g, clients, sizes, cent
+
+
+def fl_round_phase(torch):
+    """(e) ``fl_round_step`` over 16 tinyllama-1.1b clients in bf16 at
+    published width (the global model plus per-client noise from a seed,
+    a larger scale for later clients), 4 clusters whose centroids are
+    clients 0, 4, 8, 12's features, at ``feature_slice`` 0 and 4096: the
+    selection equals the top divergence of each cluster recomputed from
+    the returned divergences and labels; the fold of one leaf equals the
+    sizes-weighted mean of the winners computed in float64 on the host,
+    within one bf16 rounding; the last client's divergence and the fold
+    of the largest leaf (16 × 254 M elements: past 2^31, rows addressed
+    in 64 bits) against float64 on the card; ms (synchronised) and the
+    peak memory of the round (the clients held, not their making). The
+    round's results at ``feature_slice`` 0 are kept for 17(c)."""
+    import numpy as np
+    from repro_torch.launch.fl_round import fl_round_step
+
+    n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, g, clients, sizes, cent = fl_round_inputs(torch)
     gib = sum(v.numel() * v.element_size() for v in clients.values()) / 2**30
     out, peak = {}, 0.0
     for fs in (0, 4096):
@@ -4849,7 +4889,8 @@ def fl_round_phase(torch):
               f"fl_round: client {n - 1}'s divergence {d[n - 1]}, float64 "
               f"{last}")
         del want_big, gap
-        out[fs] = dict(ms=ms, launches=launches, winners=winners)
+        out[fs] = dict(ms=ms, launches=launches, winners=winners,
+                       result=(new_g, div, labels) if fs == 0 else None)
         print(f"  fl_round_step, {n} tinyllama-1.1b clients in bf16 "
               f"({gib:.2f} GiB), c = {c}, feature_slice {fs}: {ms:.1f} ms; "
               f"labels {lab.tolist()}; winners {winners} (the top divergence "
@@ -4862,25 +4903,32 @@ def fl_round_phase(torch):
         del new_g, div, labels
     print(f"  fl_round peak allocated {peak:.2f} GiB (the clients, the "
           f"global model and the centroids held, and the round)")
-    del clients, g, feats, cent
+    del clients, g, cent
     torch.cuda.empty_cache()
     return out[0]["launches"], dict(ms={k: v["ms"] for k, v in out.items()},
-                                    peak_gib=peak)
+                                    peak_gib=peak, result=out[0]["result"])
+
+
+def release_caches(torch):
+    """Free what earlier phases' caches still hold on the card: the LoRA
+    bases, the solvers' captured graphs and the cached round programs'
+    (their graphs' private pools), then the allocator's free blocks."""
+    import gc
+    from repro_torch.core import baselines, engine, sao
+    from repro_torch.models.lm import base_params
+    base_params.cache_clear()
+    sao._GRAPHS.clear()
+    baselines._GRAPHS.clear()
+    engine._RUN_FN_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bf16_phase(torch, rows):
     """16. (a)-(e); ``rows``: phase 2's table, which gains (a)'s rows.
     Returns each path's launches and the numbers kept."""
-    import gc
-    from repro_torch.core import baselines, sao
-    from repro_torch.models.lm import base_params
-    # the memory earlier phases still hold: the LoRA bases and the solvers'
-    # captured graphs (16(b) and (e) need 55-60 GiB of the card)
-    base_params.cache_clear()
-    sao._GRAPHS.clear()
-    baselines._GRAPHS.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 16(b) and (e) need 55-60 GiB of the card
+    release_caches(torch)
     print(f"  earlier phases hold {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB at the start")
     by_path, kept = {}, {}
@@ -4919,6 +4967,335 @@ def bf16_phase(torch, rows):
     return by_path, kept
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh tools on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_WORKERS = 8      # processes for 17(a), one torch thread each
+# 17(b)'s steps at published width: (arch, step, shape, batch, the cut).
+# The shapes' sequences stay whole; a batch is cut to what the card's 80 GB
+# holds (bf16 weights; AdamW's fp32 moments, old and new), and the 32k
+# prefill further to what the phase's 90 s allow
+HOST_STEPS = (
+    ("tinyllama-1.1b", "train", "train_4k", 4,
+     "batch 256 -> 4: the plain attention backward holds 2.1 GB of fp32 "
+     "scores a sequence and layer, several at once (42.3 GiB at 2)"),
+    ("tinyllama-1.1b", "prefill", "prefill_32k", 1,
+     "batch 32 -> 1: a sequence takes 2.6 s through the 3xTF32 attention; "
+     "the card would hold 4 (13.9 GiB at 1)"),
+    ("tinyllama-1.1b", "decode", "decode_32k", 64, "batch 128 -> 64: the "
+     "bf16 cache is 94.5 GB at 128"),
+    ("tinyllama-1.1b", "decode", "long_500k", 1, "none: the 4096-slot SWA "
+     "window"),
+    ("mamba2-130m", "prefill", "prefill_32k", 2,
+     "batch 32 -> 2: the loss widens the logits, 13.2 GB of fp32 a "
+     "sequence, twice (33.0 GiB at 2)"),
+)
+NULL_KEYS = ("collective_bytes_per_device", "collective_s", "collectives",
+             "compile_s", "twin_compile_s", "twin_layers")
+
+
+def dryrun_pair(arch, shape):
+    """Both production meshes' dry-run records of one (arch × shape), in a
+    worker process (one torch thread: the workers share the cores)."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import run_one
+    return [run_one(arch, shape, mesh, verbose=False)
+            for mesh in ("single", "multi")]
+
+
+def dryrun_phase(torch):
+    """(a) ``python -m repro_torch.launch.dryrun --all --mesh both``'s 80
+    records, the (arch × shape) pairs spread over worker processes (the
+    count of a pair serves both meshes): every one present, the count
+    split over the chips, ``null`` where the port has no counterpart, and
+    the card's allocations the same before and after."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+
+    before = torch.cuda.memory_allocated()
+    tasks = sorted(((a, s) for a in ARCH_IDS for s in INPUT_SHAPES),
+                   key=lambda t: INPUT_SHAPES[t[1]].kind != "train")
+    t0 = time.perf_counter()
+    # a worker that dies fails the phase (BrokenProcessPool), not hangs it
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing.
+                             get_context("spawn")) as pool:
+        pairs = list(pool.map(dryrun_pair, *zip(*tasks)))
+    took = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"the dry run allocated on the card: {before} "
+                           f"B before, {after} after")
+    table = {}
+    for (arch, shape), (single, multi) in zip(tasks, pairs):
+        flops = single["flops_per_device"] * single["chips"]
+        check((single["chips"], multi["chips"]) == (256, 512)
+              and multi["flops_per_device"] * 512 == flops
+              and all(r[k] is None for r in (single, multi)
+                      for k in NULL_KEYS),
+              f"dry run {arch} × {shape}: {single}, {multi}")
+        ratio = flops / single["model_flops_global"]
+        table[(arch, shape)] = dict(
+            ratio=ratio, bottleneck=single["bottleneck"],
+            gb_single=single["peak_memory_per_device"] / 1e9,
+            gb_multi=multi["peak_memory_per_device"] / 1e9,
+            step_ms=single["compute_s"] * 1e3 if single["bottleneck"]
+            == "compute" else single["memory_s"] * 1e3)
+        print(f"  {arch} × {shape}: counted/model_flops {ratio:.4f}, "
+              f"{single['bottleneck']}-bound, "
+              f"{table[(arch, shape)]['gb_single']:.3f} GB a card on 16x16 "
+              f"({table[(arch, shape)]['gb_multi']:.3f} on 2x16x16), "
+              f"counted in {single['lower_s']} s")
+    print(f"  (a) {2 * len(tasks)} records in {took:.1f} s over "
+          f"{DRYRUN_WORKERS} processes; the card's allocations {before} B "
+          f"before and after")
+    return table
+
+
+def same_layout(real, struct, what):
+    """``real`` (tensors on the card) has ``struct``'s (``meta``) tree,
+    shapes and dtypes."""
+    if isinstance(struct, dict):
+        check(set(real) == set(struct), f"{what}: names differ")
+        for k in struct:
+            same_layout(real[k], struct[k], f"{what}/{k}")
+    elif isinstance(struct, tuple):
+        for i, (r, s) in enumerate(zip(real, struct)):
+            same_layout(r, s, f"{what}[{i}]")
+    elif struct is not None:
+        check(real.device.type == DEVICE.split(":")[0]
+              and real.shape == struct.shape and real.dtype == struct.dtype,
+              f"{what}: {tuple(real.shape)} {real.dtype} on {real.device}, "
+              f"lowered {tuple(struct.shape)} {struct.dtype}")
+
+
+def event_ms(torch, fn, reps=3):
+    """The median of ``reps`` calls' CUDA-event times [ms] (the upper of
+    two; after the caller's warm call)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def host_args(torch, cfg, shape, step, gen):
+    """Real arguments of a lowered step on the card: ``init_model``'s bf16
+    weights from ``gen``, AdamW's state, tokens drawn from ``gen``, the
+    decode cache (``init_cache`` on the shape's window)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.shapes import decode_window
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.train.optimizer import make_optimizer
+    params = init_model(cfg, gen, DEVICE, dtype=torch.bfloat16)
+    B = shape.global_batch
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1 if shape.is_decode
+                                               else shape.seq_len),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    if step == "train":
+        state = make_optimizer(TrainConfig(param_dtype="bfloat16"))[0](params)
+        return params, state, {"tokens": tokens}
+    if step == "prefill":
+        return params, {"tokens": tokens}
+    return params, {"tokens": tokens}, init_cache(
+        cfg, B, shape.seq_len, dtype=torch.bfloat16,
+        window=decode_window(cfg, shape), device=DEVICE)
+
+
+def host_steps_phase(torch):
+    """(b) Each of ``HOST_STEPS`` lowered on the one-card host mesh,
+    counted on its ``meta`` structs, compiled on the card and run on real
+    arguments of the lowered layout: the kernels' launches of one call,
+    the median ms of 3 more (2 for a step of seconds), its roofline and
+    model-FLOPs share, finite results of the lowered shapes."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_input_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import H100_SXM, make_host_mesh
+    from repro_torch.roofline.analysis import RooflineReport, model_flops
+
+    mesh = make_host_mesh(device=DEVICE)
+    check(mesh.size == 1, f"host mesh {mesh}")
+    by_path, kept = {}, {}
+    for i, (arch, step, shape_name, batch, cut) in enumerate(HOST_STEPS):
+        cfg = get_config(arch)
+        shape = dataclasses.replace(get_input_shape(shape_name),
+                                    global_batch=batch)
+        t0 = time.perf_counter()
+        lowered, backward = dryrun._lower(
+            cfg, shape, mesh, moe_impl="dense", q_chunk=512, kv_chunk=1024,
+            remat=step == "train", unroll=1)
+        cost = lowered.cost_analysis()
+        t_count = time.perf_counter() - t0
+        fn = lowered.compile(DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(17 + i)
+        args = host_args(torch, cfg, shape, step, gen)
+        same_layout(args, lowered.args, f"{arch} {step}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted(torch, lambda: fn(*args))
+        # a step of seconds is timed twice, the rest three times
+        ms = event_ms(torch, lambda: fn(*args),
+                      reps=2 if time.perf_counter() - t0 > 1.0 else 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if step == "train":
+            value = out[2]["loss"]
+        elif step == "prefill":
+            value = out
+        else:
+            value = out[0]
+            check(tuple(value.shape) == (batch, 1, cfg.vocab_size),
+                  f"{arch} decode logits {tuple(value.shape)}")
+        check(bool(torch.isfinite(value).all()),
+              f"{arch} {step} {shape_name}: non-finite result")
+        report = RooflineReport(
+            arch=arch, shape=shape_name, mesh="host", chips=1,
+            flops_per_device=cost["flops"],
+            bytes_per_device=cost["bytes accessed"],
+            collective_bytes_per_device=None,
+            model_flops_global=model_flops(cfg, shape,
+                                           include_backward=backward))
+        share = report.model_flops_global / (ms * 1e-3
+                                             * H100_SXM["peak_bf16_flops"])
+        want = {"train": ("flash_attention",),
+                "prefill": ("ssd_scan",) if cfg.family == "ssm"
+                else ("flash_attention",), "decode": ()}[step]
+        for name in want:
+            check(launches[name] > 0, f"{arch} {step}: {name} not launched")
+        print(f"  {arch} {step} {shape_name} [{batch}, {shape.seq_len}] "
+              f"(cut: {cut}): {ms:.3f} ms; roofline "
+              f"{report.step_time_s * 1e3:.3f} ms ({report.bottleneck}: "
+              f"compute {report.compute_s * 1e3:.3f}, memory "
+              f"{report.memory_s * 1e3:.3f}), counted {cost['flops']:.4e} "
+              f"FLOP and {cost['bytes accessed']:.4e} B in {t_count:.1f} s; "
+              f"model_flops share {share:.4f}; peak {peak:.2f} GiB; "
+              f"launches {launches}")
+        by_path[f"{arch} {step} {shape_name} host mesh (phase 17b)"] = \
+            launches
+        kept[(arch, step, shape_name)] = dict(
+            ms=ms, roofline_ms=report.step_time_s * 1e3, share=share,
+            peak_gib=peak)
+        del out, args, value, fn, lowered
+        torch.cuda.empty_cache()
+    return by_path, kept
+
+
+def lower_fl_round_phase(torch, round16):
+    """(c) ``lower_fl_round`` over 16(e)'s 16 bf16 clients on the one-card
+    host mesh: the clients made again from 16(e)'s seed, in the lowered
+    layout, through ``compile("cuda")``: 16(e)'s ``fl_round_step`` results
+    bit for bit (every leaf of the new global model, the divergences, the
+    labels), ms beside the roofline of its count."""
+    from repro_torch.launch.fl_round import lower_fl_round
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.analysis import RooflineReport
+
+    n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
+    cfg, g, clients, sizes, cent = fl_round_inputs(torch)
+    lowered = lower_fl_round(cfg, make_host_mesh(device=DEVICE),
+                             num_clients=n, num_clusters=c)
+    cost = lowered.cost_analysis()
+    step = lowered.compile(DEVICE)
+    same_layout((clients, g, cent, sizes), lowered.args, "lower_fl_round")
+    (new_g, div, labels), launches = counted(
+        torch, lambda: step(clients, g, cent, sizes))
+    want_g, want_div, want_labels = round16
+    check(set(new_g) == set(want_g)
+          and all(torch.equal(new_g[k], want_g[k]) for k in want_g)
+          and torch.equal(div, want_div) and torch.equal(labels, want_labels),
+          "lower_fl_round(...).compile('cuda') differs from 16(e)'s "
+          "fl_round_step")
+    check(launches["pairwise_l2"] == len(g) + 1
+          and launches["flat_aggregate"] == len(g),
+          f"lower_fl_round: launches {launches}")
+    ms = event_ms(torch, lambda: step(clients, g, cent, sizes))
+    report = RooflineReport(
+        arch="tinyllama-1.1b", shape="fl_round", mesh="host", chips=1,
+        flops_per_device=cost["flops"],
+        bytes_per_device=cost["bytes accessed"],
+        collective_bytes_per_device=None, model_flops_global=0.0)
+    print(f"  lower_fl_round over {n} bf16 tinyllama-1.1b clients, c = {c}: "
+          f"≡ 16(e)'s fl_round_step bit for bit ({len(want_g)} leaves, the "
+          f"divergences, the labels {labels.tolist()}); {ms:.3f} ms; "
+          f"roofline {report.step_time_s * 1e3:.3f} ms ({report.bottleneck}:"
+          f" compute {report.compute_s * 1e3:.4f}, memory "
+          f"{report.memory_s * 1e3:.3f}; counted {cost['flops']:.4e} FLOP, "
+          f"{cost['bytes accessed']:.4e} B); launches {launches}")
+    del clients, g, cent, new_g
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, roofline_ms=report.step_time_s * 1e3)
+
+
+def p_shards_phase(torch, rounds=2):
+    """(d) ``ExperimentSpec(p_shards=1)`` (a one-card ``model`` mesh) and
+    ``ExperimentSpec()`` on the card, the initial round and ``rounds``
+    rounds of ``run()`` (the device-resident run): selections, T_k, E_k,
+    accuracy and the global row bit for bit; the kernels' launches of the
+    ``p_shards=1`` run."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+
+    runs = {}
+    for k in (0, 1):
+        exp = build_experiment(ExperimentSpec(p_shards=k), device=DEVICE)
+        t0 = time.perf_counter()
+        hist, launches = counted(torch, lambda: exp.run(rounds=rounds))
+        runs[k] = (exp, hist, launches, time.perf_counter() - t0)
+    (e0, h0, _, s0), (e1, h1, launches, s1) = runs[0], runs[1]
+    check(e1.plane_mesh.shape == {"model": 1} and e0.plane_mesh is None,
+          "p_shards: the plane's mesh")
+    check(h1.accuracy == h0.accuracy and h1.T_k == h0.T_k
+          and h1.E_k == h0.E_k
+          and all(list(map(int, a)) == list(map(int, b))
+                  for a, b in zip(h1.selected, h0.selected))
+          and torch.equal(e1.global_vec, e0.global_vec),
+          "ExperimentSpec(p_shards=1) differs from ExperimentSpec()")
+    for name in ("flat_aggregate", "pairwise_l2"):
+        check(launches[name] > 0, f"p_shards=1: {name} not launched")
+    print(f"  ExperimentSpec(p_shards=1) ≡ ExperimentSpec() bit for bit over "
+          f"the initial round and {rounds} rounds (T_k {h1.T_k}, accuracy "
+          f"{h1.accuracy}); {s1:.1f} s against {s0:.1f} s; launches "
+          f"{launches}")
+    del e0, e1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_phase(torch, round16):
+    """17. (a)-(d); ``round16``: 16(e)'s round results at feature_slice 0.
+    Returns each path's launches and the numbers kept."""
+    by_path, kept = {}, {}
+    release_caches(torch)        # 17(b)'s train step needs 50 GiB
+    print(f"  earlier phases hold {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB at the start (16(e)'s round results among them), "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    print("  (a) the dry run: --all --mesh both on meta")
+    kept["dryrun"] = dryrun_phase(torch)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print("  (b) the host mesh's steps on the card at published width")
+    paths, kept["host"] = host_steps_phase(torch)
+    by_path.update(paths)
+    print(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (c) lower_fl_round(...).compile('cuda') against 16(e)")
+    by_path["lower_fl_round 16 tinyllama clients bf16 (phase 17c)"], kept[
+        "fl_round"] = lower_fl_round_phase(torch, round16)
+    print(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (d) ExperimentSpec(p_shards=1) against ExperimentSpec()")
+    by_path["ExperimentSpec(p_shards=1) (phase 17d)"] = p_shards_phase(torch)
+    print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    return by_path, kept
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4930,6 +5307,7 @@ def main():
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    load_card_rates()
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -5111,12 +5489,19 @@ def main():
     print(f"  phase 15 done at {time.perf_counter() - t_start:.1f} s")
     print("== 16. bfloat16 on the card")
     t16 = time.perf_counter()
-    bf16_paths, _ = bf16_phase(torch, rows)
+    bf16_paths, kept16 = bf16_phase(torch, rows)
     by_path.update(bf16_paths)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
     print(f"  phase 16 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 17. the kernels")
+    print("== 17. the mesh tools on the card")
+    t17 = time.perf_counter()
+    mesh_paths, _ = mesh_phase(torch, kept16["fl_round"].pop("result"))
+    by_path.update(mesh_paths)
+    print(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    print(f"  phase 17 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 18. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -147,7 +147,8 @@ def build_experiment(spec: ExperimentSpec, device=None, *, cell: int = 0,
         churn=(spec.churn_leave, spec.churn_join), store=spec.store,
         k_max=spec.k_max, chunk_size=spec.chunk_size,
         div_refresh_every=spec.div_refresh_every, cluster=spec.cluster,
-        faults=spec.faults, quarantine_after=spec.quarantine_after)
+        faults=spec.faults, quarantine_after=spec.quarantine_after,
+        p_shards=spec.p_shards)
     exp.spec = spec
     exp.cell = cell
     return exp

@@ -25,9 +25,11 @@ inside each tick of the buffered-asynchronous engine,
 ``aggregator="fedbuff:M[:alpha]"``). ``faults`` (a ``FaultSpec``, its
 dict or the compact ``"outage:0.1,corrupt:0.01"``,
 ``repro_torch.core.faults``) and ``quarantine_after`` arm the
-fault-tolerant runtime. The one reference field the port has no
-counterpart for yet (``p_shards``) is left out: passing it raises a
-``TypeError`` that names the port.
+fault-tolerant runtime. ``p_shards`` lays the plane's parameter axis
+out over a ``model`` mesh of that many devices
+(``repro_torch.sharding.specs.plane_mesh``): on one device that is
+replication, the ``p_shards=0`` run bit for bit; more than one card
+raises.
 """
 from __future__ import annotations
 
@@ -98,6 +100,12 @@ class ExperimentSpec:
                                            # [N, F] matrix) or "minibatch"
                                            # (streamed, O(chunk) memory)
 
+    # ---- flat-plane sharding (model axis) ----------------------------
+    p_shards: int = 0                      # >0: lay the [N, P] plane's P
+                                           # axis over min(p_shards, devices)
+                                           # (repro_torch.sharding.specs);
+                                           # 0 = off
+
     # ---- client churn (the paged store's round loop, or the tick of
     # the buffered-asynchronous engine: an async-capable aggregator,
     # aggregator="fedbuff:M[:alpha]", on either store) ------------------
@@ -145,6 +153,8 @@ class ExperimentSpec:
         if self.cluster not in ("full", "minibatch"):
             raise ValueError(f"cluster={self.cluster!r}: expected 'full' "
                              "or 'minibatch'")
+        if self.p_shards < 0:
+            raise ValueError(f"p_shards must be >= 0; got {self.p_shards}")
         for name in ("churn_leave", "churn_join"):
             v = getattr(self, name)
             if not 0.0 <= v <= 1.0:
@@ -225,21 +235,3 @@ class ExperimentSpec:
     def from_json(cls, s: str) -> "ExperimentSpec":
         return cls.from_dict(json.loads(s))
 
-
-# the reference's fields the port has no counterpart for yet
-NOT_PORTED_FIELDS = ("p_shards",)
-
-
-def _refuse_not_ported(init):
-    def __init__(self, *args, **kw):
-        missing = sorted(set(kw) & set(NOT_PORTED_FIELDS))
-        if missing:
-            raise TypeError(
-                f"ExperimentSpec field(s) {missing}: not in the PyTorch "
-                "port (repro_torch) yet")
-        init(self, *args, **kw)
-    __init__.__doc__ = init.__doc__
-    return __init__
-
-
-ExperimentSpec.__init__ = _refuse_not_ported(ExperimentSpec.__init__)

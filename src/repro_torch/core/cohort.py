@@ -40,8 +40,11 @@ lane at once: each lane's churn, completion ranks and fire act on its own
 its seed's single asynchronous run. The history then carries the ticks'
 ``participation``, ``staleness`` and ``active`` traces.
 
-Not ported (one card): the reference's device mesh over the cohort axis
-(``cohort_mesh``, ``_mesh_pad``).
+The reference splits the cohort axis over the host's devices
+(``cohort_mesh``, padded by ``_mesh_pad``, placed by ``_shard_cohort``).
+Here those are the one-device forms: no mesh, no pad lanes, the lanes as
+they are; a cohort of more than one lane on a host of more than one card
+raises, as the lanes' split across cards is not ported.
 """
 from __future__ import annotations
 
@@ -111,6 +114,35 @@ class CohortHistory:
     @property
     def final_accuracy(self) -> np.ndarray:
         return self.accuracy[:, -1]
+
+
+def cohort_mesh(cohort_size: int, device="cuda"):
+    """The mesh the cohort axis would split over: ``None`` where
+    ``min(devices, cohort_size)`` is one (the lanes run on one device). A
+    cohort over more than one card raises."""
+    dev = torch.device(device)
+    n = min(torch.cuda.device_count() if dev.type == "cuda" else 1,
+            cohort_size)
+    if n <= 1:
+        return None
+    raise NotImplementedError(
+        f"a cohort of {cohort_size} lanes over {n} cards: the split of the "
+        "cohort axis across cards is not ported (the lanes run on one card)")
+
+
+def _mesh_pad(lanes: int, mesh) -> int:
+    """How many pad lanes make ``lanes`` divide the mesh's device count."""
+    if mesh is None:
+        return 0
+    return (-lanes) % mesh.devices.size
+
+
+def _shard_cohort(tree, mesh):
+    """Every leaf's leading (cohort) axis on the mesh's devices: on no
+    mesh, the tree itself."""
+    if mesh is None:
+        return tree
+    raise NotImplementedError("the cohort axis across cards is not ported")
 
 
 def _stack(tensors):
@@ -214,9 +246,10 @@ class CohortRunner:
         prog_cells = (cells if getattr(e0.channel, "dynamic", False)
                       else 1)
 
-        state = type(e0.traced_state())(*(
+        mesh = cohort_mesh(len(exps) // prog_cells, self.device)
+        state = _shard_cohort(type(e0.traced_state())(*(
             _stack_lanes(parts)
-            for parts in zip(*(e.traced_state() for e in exps))))
+            for parts in zip(*(e.traced_state() for e in exps)))), mesh)
         lanes = [e.traced_inputs() for e in exps]
         # one evaluation set for the whole cohort iff every seed resolves
         # the same test data (the sweeps' protocol), else one a lane

@@ -90,6 +90,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import (default_chunk_size,
                                          streaming_weighted_mean)
 from repro_torch.models.registry import model_def_for
+from repro_torch.sharding import specs as sh
 from repro_torch.utils.trees import (flatten_stacked, flatten_vector,
                                      unflatten_rows_np)
 
@@ -278,7 +279,7 @@ class FLExperiment:
                  store: str = "dense", k_max: Optional[int] = None,
                  chunk_size: Optional[int] = None,
                  div_refresh_every: int = 0, cluster: str = "full",
-                 faults=None, quarantine_after: int = 0):
+                 faults=None, quarantine_after: int = 0, p_shards: int = 0):
         fp32_matmuls()
         self.device = torch.device(device)
         self.model_cfg = model_cfg
@@ -324,6 +325,8 @@ class FLExperiment:
         if self.quarantine_after < 0:
             raise ValueError("quarantine_after must be >= 0; got "
                              f"{quarantine_after}")
+        self.p_shards = int(p_shards)
+        self.plane_mesh = sh.plane_mesh(self.p_shards, self.device)
         if (self.faults is not None and self.faults.chan_outage > 0.0
                 and not getattr(self.channel, "stateful", False)):
             raise ValueError(
@@ -1414,7 +1417,13 @@ class FLExperiment:
             shapes=inputs.shapes(), base=self.base,
             compressor=self.compressor, channel=self.channel,
             churn=self.churn, **self._fault_args())
-        return prog(self.traced_state(selector), *inputs,
+        state = self.traced_state(selector)
+        if self.plane_mesh is not None:
+            # the carry's P-sized dims over the `model` mesh: on its one
+            # device, replication (the carry as it is)
+            state = sh.device_put(state, sh.plane_shardings(
+                state, self.plane_mesh, int(state.params.shape[0])))
+        return prog(state, *inputs,
                     draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)
 

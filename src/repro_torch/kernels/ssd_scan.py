@@ -253,7 +253,12 @@ def ssd_scan(x, a, b, c, *, chunk: int = 256):
     H]`` and b, c ``[B, S, G, N]`` (H a multiple of G) ->
     ``(y [B, S, H, P] in x.dtype, final state [B, H, P, N] fp32)``. A
     CUDA tensor launches the kernel (x, b, c all fp32 or all bf16); a CPU
-    tensor takes :func:`ssd_scan_plain`."""
+    tensor takes :func:`ssd_scan_plain`. A ``meta`` tensor (shapes only:
+    the dry run's counts) takes the plain chunked form, ``ssd_chunked``,
+    whose work is the kernel's and not a loop of S token steps."""
+    if x.is_meta:
+        y, state = ssd_chunked(x, a, b, c, chunk)
+        return y.to(x.dtype), state
     if not x.is_cuda:
         return ssd_scan_plain(x, a, b, c)
     return _SsdScan.apply(x, a, b, c, chunk)

@@ -14,17 +14,27 @@ card the divergence is ``pairwise_l2``'s one-centroid kernel and the fold
 ``flat_aggregate``'s, leaf by leaf, each reading a bf16 model's rows as
 they are (no widened copy of the ``[N, P]`` clients); the K-means
 distances are ``pairwise_l2`` against the centroids. On the CPU the same
-ops take their plain versions. The reference's ``lower_fl_round`` (the
-round lowered on a mesh) needs the mesh and sharding tools, which the
-port does not have yet.
+ops take their plain versions.
+
+``lower_fl_round`` lays the round out on a mesh as the reference does:
+``N`` stacked copies of an architecture's parameters as ``meta`` structs,
+the client axis over the mesh's batch axes and each leaf's own spec
+behind it; the result counts the round (``cost_analysis``) and, on a
+one-device host mesh, compiles to :func:`fl_round_step` itself.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import shapes as shp
+from repro_torch.launch.mesh import Mesh
+from repro_torch.roofline.analysis import Lowered
+from repro_torch.sharding import specs as sh
 from repro_torch.utils.trees import tree_order
 
 Params = Dict[str, torch.Tensor]
@@ -81,3 +91,45 @@ def fl_round_step(client_params: Params, global_params: Params,
         .reshape(global_params[k].shape).to(global_params[k].dtype)
         for k in names}
     return new_global, div, labels
+
+
+def lower_fl_round(cfg: ModelConfig, mesh: Mesh, *, num_clients: int = 128,
+                   num_clusters: int = 10, feature_slice: int = 0) -> Lowered:
+    """The round for ``num_clients`` bf16 copies of the client
+    architecture, laid out on ``mesh``: its arguments ``(clients,
+    global, centroids, sizes)`` as ``meta`` structs with their shardings
+    (the client axis over ``batch_axes``, then the leaf's own spec;
+    centroids and sizes replicated), the results' shardings ``(global,
+    divergence, labels)``."""
+    p_struct = shp.param_structs(cfg, torch.bfloat16)
+    p_shard = sh.params_shardings(p_struct, mesh)
+    ba = sh.batch_axes(mesh, num_clients)
+    c_struct = {k: shp.struct((num_clients,) + tuple(v.shape), v.dtype)
+                for k, v in p_struct.items()}
+    c_shard = {k: sh.NamedSharding(mesh, sh.P(ba if ba else None, *s.spec))
+               for k, s in p_shard.items()}
+    feat_dim = feature_slice or cfg.d_model * cfg.vocab_size
+    cent = shp.struct((num_clusters, feat_dim), torch.float32)
+    sizes = shp.struct((num_clients,), torch.float32)
+    rep = sh.NamedSharding(mesh, sh.P())
+    step = functools.partial(fl_round_step, num_clusters=num_clusters,
+                             feature_slice=feature_slice)
+    return Lowered(step, (c_struct, p_struct, cent, sizes),
+                   (c_shard, p_shard, rep, rep), (p_shard, rep, rep),
+                   mesh=mesh)
+
+
+def lower_fl_round_from_spec(spec, mesh: Mesh, *,
+                             feature_slice: int = 0) -> Lowered:
+    """Spec-API entry point: the round for an ``ExperimentSpec`` whose
+    ``model`` names an architecture (``spec.clients`` LM clients,
+    ``spec.num_clusters`` K-means clusters)."""
+    from repro_torch.configs import get_config
+
+    if spec.model == "auto":
+        raise ValueError("spec.model must name an arch id (e.g. "
+                         "'tinyllama-1.1b') for the sharded fl_round path")
+    return lower_fl_round(get_config(spec.model), mesh,
+                          num_clients=spec.clients,
+                          num_clusters=spec.num_clusters,
+                          feature_slice=feature_slice)

@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.ctx import constrain
 
 # Fixed encoder-memory length used by decode shapes of encoder-decoder archs.
 ENC_MEMORY_LEN = 1024
@@ -260,7 +261,7 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                                remat=remat)
     tokens = batch["tokens"].long()
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = constrain(params["embed"][tokens], "act")
     if cfg.family == "vlm" and "image_embeds" in batch:
         img = batch["image_embeds"].to(x.dtype)
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
@@ -268,10 +269,11 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
     def make_body(mixer, mlp):
         def body(lp, x):
-            return _block_apply(lp, x, cfg, mixer=mixer, mlp=mlp,
-                                causal=True, window=cfg.sliding_window,
-                                positions=positions, moe_impl=moe_impl,
-                                q_chunk=q_chunk, kv_chunk=kv_chunk)
+            x, aux = _block_apply(lp, x, cfg, mixer=mixer, mlp=mlp,
+                                  causal=True, window=cfg.sliding_window,
+                                  positions=positions, moe_impl=moe_impl,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+            return constrain(x, "act"), aux
         return body
 
     plan = _layer_plan(cfg)
@@ -291,7 +293,7 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                 group_aux = group_aux + a
             aux = aux + group_aux
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, x), aux
+    return constrain(_unembed(cfg, params, x), "logits"), aux
 
 
 def _encoder_input(cfg: ModelConfig, params, batch):
@@ -309,9 +311,11 @@ def _encode(cfg: ModelConfig, params, batch, *, moe_impl, q_chunk, kv_chunk,
     enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
 
     def enc_body(lp, x):
-        return _block_apply(lp, x, cfg, mixer="attn", mlp=mlp, causal=False,
-                            positions=enc_pos, moe_impl=moe_impl,
-                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        x, aux = _block_apply(lp, x, cfg, mixer="attn", mlp=mlp,
+                              causal=False, positions=enc_pos,
+                              moe_impl=moe_impl, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
+        return constrain(x, "act"), aux
 
     memory, aux = _run_stack(L.sub(params, "encoder"), enc_x, enc_body,
                              remat)
@@ -328,14 +332,15 @@ def _forward_encdec(cfg: ModelConfig, params, batch, *, moe_impl, q_chunk,
     dec_pos = torch.arange(tokens.shape[1], device=dec_x.device)
 
     def dec_body(lp, x):
-        return _block_apply(lp, x, cfg, mixer="attn", mlp=mlp, causal=True,
-                            positions=dec_pos, memory=memory,
-                            moe_impl=moe_impl, q_chunk=q_chunk,
-                            kv_chunk=kv_chunk)
+        x, aux = _block_apply(lp, x, cfg, mixer="attn", mlp=mlp,
+                              causal=True, positions=dec_pos, memory=memory,
+                              moe_impl=moe_impl, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
+        return constrain(x, "act"), aux
 
     x, aux_d = _run_stack(L.sub(params, "decoder"), dec_x, dec_body, remat)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, x), aux_e + aux_d
+    return constrain(_unembed(cfg, params, x), "logits"), aux_e + aux_d
 
 
 # ---------------------------------------------------------------------------

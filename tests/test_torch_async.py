@@ -20,6 +20,7 @@ captured tick, replayed).
 (d) a 2-lane cohort's traces, each lane its seed's single run;
 (e) the refusals.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,17 +51,6 @@ TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
 CHURN = dict(churn_leave=0.3, churn_join=0.3)
 FAULTS = dict(faults="outage:0.2,corrupt:0.3,byzantine:0.2",
               quarantine_after=2, churn_leave=0.05, churn_join=0.1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Thousands of tiny ops: one intra-op thread keeps them from spinning
-    against the other test workers (both sides of a comparison run
-    alike)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------------------

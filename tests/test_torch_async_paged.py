@@ -19,6 +19,7 @@ flight every tick).
     ``run()`` calls, ``target_accuracy`` stops early, nothing of the
     device carries an ``[N, P]`` plane.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -44,14 +45,6 @@ FAULTS = dict(faults="outage:0.2,corrupt:0.3,byzantine:0.2",
               quarantine_after=1, churn_leave=0.05, churn_join=0.1)
 GUARD = dict(faults="outage:0.1,corrupt:0.1,byzantine:0.6,byz_scale:1e39",
              churn_leave=0.05, churn_join=0.1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _preset_clusters(exp, clusters=clusters_from_labels):

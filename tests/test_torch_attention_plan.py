@@ -5,6 +5,7 @@ kernel mirrors. For every packed (query, q-head) row, each key tile that
 holds an unmasked key of its query must be visited by exactly one
 (row tile, chunk) block, and no (row, key tile) pair twice.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

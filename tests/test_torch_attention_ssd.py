@@ -9,6 +9,7 @@ Tolerances: 2e-5 for attention and 1e-4 for SSD, the reference's own
 kernel-test bounds in fp32; 1e-4 for gradients. Inputs are numpy draws
 from a seed. The CUDA kernels' cases are in ``test_torch_cuda.py``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import warnings
 
 import jax

@@ -11,6 +11,7 @@ within each allocator's band (SAO's outer bisection 2e-3, equal bandwidth
 1e-4, the FEDL grid solve 1e-2); the global row within atol 1e-4;
 accuracy within one test sample.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ Tolerances: equal bandwidth has no iteration (rtol 1e-5); the FEDL pieces
 are 40- to 60-step fp32 bisections that can end one step apart (rtol
 1e-3, the λ bisection 1e-2); SAO and Algorithm 6 keep SAO's outer band
 (rtol 2e-3)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

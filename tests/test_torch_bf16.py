@@ -22,6 +22,7 @@ every choice the port makes on its own that differs from the reference's
 must be a near-tie: the two logits it swaps lie closer than twice the
 router logits' largest difference between the two packages.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -4,6 +4,7 @@ against the reference's, on the CPU at the smoke configs (the check of
 decode cache under a bf16 model, and one bf16 train step against the
 reference's jitted step.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ comes back in the reference kernel's dtype. ``params_from_jax`` and
 bf16 instances are held to their fp32 instances bit for bit in
 ``test_torch_cuda.py`` (on the card).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ uninterrupted 4-round run bit for bit — the global row, the history, the
 client store and every stats column, fault and strike counts included —
 on the dense host loop, the paged loop and the paged asynchronous loop.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 

@@ -7,6 +7,7 @@ slab plan on the card is a function of P alone.
 Tolerances: divergence rtol 1e-6, pairwise rtol 1e-4 / atol 1e-3 (the
 kernel's), streaming mean 1e-6 (two libraries' fp32 sums); K-means on the
 reference's k-means++ draws: labels equal, centroids rtol 1e-5."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

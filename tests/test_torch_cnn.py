@@ -3,6 +3,7 @@ across with ``params_from_jax``) and images give the same logits, loss and
 gradient, and the L-step local update fed the reference's batch indices
 gives the same client models. Both sides run fp32 on the CPU; the
 tolerances cover summation-order differences only."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ one: ``tests/test_torch_lanes.py``.
 (f) ``CohortHistory.history(i)``'s layout, the refusals, and ``cohort`` in
     the spec's JSON form.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -33,17 +34,6 @@ TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             rounds=3, devices_per_round=4, num_clusters=4,
             learning_rate=0.05)
 COHORT = dict(TINY, cohort=2, data_seed=7, test_seed=90_000)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Thousands of tiny ops: one intra-op thread keeps them from spinning
-    against the other test workers (both sides of a comparison run
-    alike)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ the row within atol 1e-6. The port against itself: host-loop momentum
 continued by a traced run, and ``topk`` under the host loop against the
 traced run — selections equal, T_k/E_k rtol 1e-6, rows atol 1e-6.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -32,14 +33,6 @@ from repro_torch.utils.trees import flatten_vector
 TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             train_samples=160, test_samples=80, local_iters=2, batch_size=8,
             rounds=3, devices_per_round=4, num_clusters=4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _padded_rows(seed, s_real=4, s_pad=6, scale=0.01):

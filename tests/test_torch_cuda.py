@@ -4,6 +4,7 @@ is no card; the file imports no JAX, so it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 
 import numpy as np
@@ -1136,3 +1137,54 @@ def test_fl_kernels_address_rows_past_2_31(cuda):
     d = divergence_sq(flat, g)
     last = float(torch.sum(torch.square(flat[-1].double())))
     assert abs(float(d[-1, 0]) - last) <= 1e-4 * last
+
+
+def test_lower_fl_round_compiles_to_the_round_on_the_card(cuda):
+    """``lower_fl_round`` on the card's one-device host mesh:
+    ``compile("cuda")`` over 6 bf16 smoke-config clients is
+    ``fl_round_step`` bit for bit, and runs the FL kernels."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.fl_round import fl_round_step, lower_fl_round
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("tinyllama-1.1b")
+    n, c = 6, 2
+    lo = lower_fl_round(cfg, make_host_mesh(), num_clients=n, num_clusters=c)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = init_model(cfg, gen, cuda, dtype=torch.bfloat16)
+    clients = {k: torch.stack([v + 0.01 * i * torch.randn(
+        v.shape, generator=gen, device=cuda).to(v.dtype) for i in range(n)])
+        for k, v in g.items()}
+    cent = clients["lm_head"].reshape(n, -1)[::n // c].float()
+    sizes = torch.arange(1.0, n + 1.0, device=cuda)
+    assert all(clients[k].shape == s.shape and clients[k].dtype == s.dtype
+               for k, s in lo.args[0].items())
+    before = flat_aggregate.launches
+    got = lo.compile("cuda")(clients, g, cent, sizes)
+    torch.cuda.synchronize()
+    assert flat_aggregate.launches == before + len(g)
+    want = fl_round_step(clients, g, cent, sizes, num_clusters=c)
+    assert all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_p_shards_on_the_card_is_the_unsharded_run(cuda):
+    """``ExperimentSpec(p_shards=1)`` on the card (a one-card ``model``
+    mesh) ≡ ``p_shards=0``: the captured run's selections, T_k, E_k,
+    accuracy and global row bit for bit."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    tiny = dict(dataset="fashion", clients=8, samples_per_client=16,
+                train_samples=160, test_samples=80, local_iters=2,
+                batch_size=8, rounds=2, devices_per_round=4, num_clusters=4)
+    runs = []
+    for k in (0, 1):
+        exp = build_experiment(ExperimentSpec(**tiny, p_shards=k),
+                               device="cuda")
+        runs.append((exp, exp.run()))
+    (e0, h0), (e1, h1) = runs
+    assert e1.plane_mesh.shape == {"model": 1}
+    assert h1.accuracy == h0.accuracy
+    assert h1.T_k == h0.T_k and h1.E_k == h0.E_k
+    assert all(np.array_equal(a, b) for a, b in zip(h1.selected,
+                                                    h0.selected))
+    assert torch.equal(e1.global_vec, e0.global_vec)

@@ -1,6 +1,7 @@
 """The port's data, fleet and SAO against the reference: numpy copies are
 byte-identical, the fp32 solver agrees within the outer bisection's band
 (eps0 = 1e-3), and the Theorem-1 conditions hold on the port."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib.util
 from pathlib import Path
 

@@ -10,6 +10,7 @@ seed. ``forward``'s logits and aux, ``encode_memory`` and a few
 field for field, ``init_model`` draws the reference's tree, and the
 packages export the reference's names.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import functools
 from pathlib import Path

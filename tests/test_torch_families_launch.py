@@ -8,6 +8,7 @@ over qwen2-1.5b (QKV bias) and phi-3-vision match the reference's (loss
 2e-5, gradients 1e-4, as ``test_torch_lm.py``); over an MoE, hybrid or
 encoder-decoder stack both packages refuse with the same words.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import contextlib
 import io
 

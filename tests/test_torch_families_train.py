@@ -17,6 +17,7 @@ recurrence on the CPU where the reference runs its chunked form: jamba's
 largest; every other leaf by under 1e-5). The entry points and the LoRA
 workload over the new families are in ``test_torch_families_launch.py``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ are port against port, bit for bit: the device-resident run ≡ the host
 loop under faults and quarantine, the dense ≡ the paged asynchronous tick
 under faults and churn.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -2,7 +2,12 @@
 reference's three tests of ``test_fl_round.py`` mirrored on the port, and
 the port against ``repro.launch.fl_round.fl_round_step`` on the same
 clients, in fp32 and in bf16 (divergence rtol 1e-5, labels equal,
-``new_global`` within the reference's tolerance for the dtype)."""
+``new_global`` within the reference's tolerance for the dtype).
+``lower_fl_round``: its structs and stacked specs against the reference's
+``stack_shard`` rule on the production meshes, its count, and on a CPU
+host mesh ``compile("cpu")`` ≡ ``fl_round_step`` bit for bit, held to the
+reference's round at the same bands."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,9 +17,14 @@ import torch
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.launch.fl_round import fl_round_step as ref_fl_round_step
 from repro.models import init_model as ref_init_model
+from repro.sharding import specs as ref_sh
 
-from repro_torch.configs import get_smoke_config
-from repro_torch.launch.fl_round import fl_round_step
+from repro_torch.api import ExperimentSpec
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.fl_round import (fl_round_step, lower_fl_round,
+                                         lower_fl_round_from_spec)
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.roofline.analysis import analyze_step
 from repro_torch.models.transformer import init_model
 from repro_torch.utils.trees import params_from_jax
 
@@ -94,14 +104,8 @@ def test_empty_cluster_and_ties():
         torch.testing.assert_close(v, g[k], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fl_round_matches_the_reference(dtype):
-    """The reference's ``_setup`` (its clients, centroids and sizes) through
-    both packages: divergence within rtol 1e-5, labels equal, the new
-    global model in the leaves' dtype within the reference's tolerance for
-    it (1e-5 in fp32; ``test_kernels.py``'s bf16 2e-2)."""
-    n, c = 8, 3
-    jdt = getattr(jnp, dtype)
+def _reference_setup(n, c, jdt):
+    """The reference's ``_setup`` in ``jdt``."""
     cfg = ref_smoke_config(ARCH)
     g = ref_init_model(cfg, jax.random.PRNGKey(0), dtype=jdt)
     keys = jax.random.split(jax.random.PRNGKey(1), n)
@@ -109,7 +113,17 @@ def test_fl_round_matches_the_reference(dtype):
     feat = clients.get("lm_head", clients["embed"])
     cent = jax.random.normal(jax.random.PRNGKey(2),
                              (c, feat.reshape(n, -1).shape[1]))
-    sizes = jnp.arange(1.0, n + 1.0)
+    return g, clients, cent, jnp.arange(1.0, n + 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fl_round_matches_the_reference(dtype):
+    """The reference's ``_setup`` (its clients, centroids and sizes) through
+    both packages: divergence within rtol 1e-5, labels equal, the new
+    global model in the leaves' dtype within the reference's tolerance for
+    it (1e-5 in fp32; ``test_kernels.py``'s bf16 2e-2)."""
+    n, c = 8, 3
+    g, clients, cent, sizes = _reference_setup(n, c, getattr(jnp, dtype))
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(
         rtol=2e-2, atol=2e-2)
     for fs in (0, 64):
@@ -132,3 +146,94 @@ def test_fl_round_matches_the_reference(dtype):
             assert v.dtype == want[k].dtype == port_g[k].dtype, k
             np.testing.assert_allclose(v.float().numpy(),
                                        want[k].float().numpy(), **tol)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("num_clients", [1, 33, 128, 512])
+def test_lower_fl_round_specs_are_the_reference_stack_shard(multi,
+                                                           num_clients):
+    """Published-width tinyllama clients on a production mesh: each
+    client leaf is the global leaf's ``meta`` struct with the client axis
+    in front, its spec the reference's ``stack_shard`` of the leaf's
+    ``param_spec`` (``batch_axes`` of the client count, then the leaf's
+    own); centroids ``[c, d·V]`` and sizes replicated."""
+    mesh = make_production_mesh(multi_pod=multi)
+    ref_mesh = type("FakeMesh", (), dict(shape=dict(mesh.shape),
+                                         axis_names=mesh.axis_names))()
+    lo = lower_fl_round(get_config(ARCH), mesh, num_clients=num_clients,
+                        num_clusters=4)
+    clients, glob, cent, sizes = lo.args
+    c_shard, p_shard, rep, _ = lo.in_shardings
+    ba = ref_sh.batch_axes(ref_mesh, num_clients)
+    for k, leaf in glob.items():
+        assert clients[k].device.type == "meta"
+        assert clients[k].dtype == leaf.dtype == torch.bfloat16
+        assert tuple(clients[k].shape) == (num_clients,) + tuple(leaf.shape)
+        own = ref_sh.param_spec(k.split("/"),
+                                jax.ShapeDtypeStruct(tuple(leaf.shape),
+                                                     jnp.bfloat16), ref_mesh)
+        want = jax.sharding.PartitionSpec(ba if ba else None, *own)
+        assert c_shard[k].spec == tuple(want), k
+        assert p_shard[k].spec == tuple(own), k
+    cfg = get_config(ARCH)
+    assert tuple(cent.shape) == (4, cfg.d_model * cfg.vocab_size)
+    assert rep.spec == () and tuple(sizes.shape) == (num_clients,)
+    with pytest.raises(NotImplementedError, match="SPMD"):
+        lo.compile("cuda")
+
+
+def test_lower_fl_round_counts_the_round():
+    """The lowered round's count is the round's, run on its structs: the
+    K-means products (2·N·c·F) and more, every client byte read."""
+    cfg = get_config(ARCH)
+    lo = lower_fl_round(cfg, make_host_mesh(device="cpu"), num_clients=16,
+                        num_clusters=4, feature_slice=4096)
+    cost = lo.cost_analysis()
+    again = analyze_step(lo.fn, *lo.args)
+    assert cost == {"flops": again.flops, "bytes accessed": again.bytes}
+    assert cost["flops"] == 2 * 16 * 4 * 4096
+    client_bytes = sum(v.numel() * v.element_size()
+                       for v in lo.args[0].values())
+    assert cost["bytes accessed"] > 2 * client_bytes
+    assert lo.memory_per_device() > client_bytes
+
+
+def test_lower_fl_round_compiles_to_the_round():
+    """On the CPU's one-device host mesh: ``compile("cpu")`` is
+    ``fl_round_step`` (bit for bit on the port's bf16 clients) and is held
+    to the reference's round on its bf16 clients at the bf16 bands."""
+    n, c = 8, 3
+    lo = lower_fl_round(get_smoke_config(ARCH), make_host_mesh(
+        device="cpu"), num_clients=n, num_clusters=c)
+    step = lo.compile("cpu")
+    with pytest.raises(ValueError, match="mesh's device"):
+        lo.compile("meta")
+    _, g, clients, cent, sizes = _setup(n, c, torch.bfloat16)
+    got = step(clients, g, cent, sizes)
+    want = fl_round_step(clients, g, cent, sizes, num_clusters=c)
+    assert all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    rg, rclients, rcent, rsizes = _reference_setup(n, c, jnp.bfloat16)
+    want_g, want_div, want_lab = ref_fl_round_step(
+        rclients, rg, rcent, rsizes, num_clusters=c)
+    got_g, div, labels = step(
+        params_from_jax(jax.tree_util.tree_map(np.asarray, rclients)),
+        params_from_jax(jax.tree_util.tree_map(np.asarray, rg)),
+        torch.tensor(np.asarray(rcent)), torch.tensor(np.asarray(rsizes)))
+    np.testing.assert_allclose(div.numpy(), np.asarray(want_div), rtol=1e-5)
+    assert labels.tolist() == np.asarray(want_lab).tolist()
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, want_g))
+    for k, v in got_g.items():
+        np.testing.assert_allclose(v.float().numpy(),
+                                   want[k].float().numpy(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_lower_fl_round_from_spec():
+    spec = ExperimentSpec(model="mamba2-130m", clients=6, num_clusters=2)
+    lo = lower_fl_round_from_spec(spec, make_production_mesh(),
+                                  feature_slice=64)
+    assert next(iter(lo.args[0].values())).shape[0] == 6
+    assert tuple(lo.args[2].shape) == (2, 64)
+    with pytest.raises(ValueError, match="arch id"):
+        lower_fl_round_from_spec(ExperimentSpec(), make_production_mesh())

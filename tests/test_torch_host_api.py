@@ -3,6 +3,7 @@
 ``aggregate`` and ``store_clients``, each against the reference on the
 CPU from the reference's key stream (models and rows within atol 1e-4,
 totals within SAO's band, rtol 2e-3)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports ``jax`` or the reference package ``repro``,
 importing the port's entry point pulls neither in, and the entry point
 never falls back to the CPU on its own."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import subprocess
@@ -70,15 +71,12 @@ def test_build_experiment_raises_without_cuda(monkeypatch):
     ("p_shards", 2), ("model", "gpt-17")])
 def test_spec_rejects_what_the_port_lacks(field, value):
     """A strategy the port lacks raises ``ValueError`` naming the port and
-    what it supports, as does a model that is no registered workload; a
-    reference field the port has no counterpart for (``p_shards``) is not
-    a field of the port's spec at all, and passing it raises a
-    ``TypeError`` that names the port. The robust aggregators and
-    ``faults``, once refused here, are ported: the spec takes them in the
-    reference's JSON form."""
+    what it supports, as does a model that is no registered workload. The
+    robust aggregators, ``faults`` and ``p_shards``, once refused here,
+    are ported: the spec takes them in the reference's JSON form."""
     from repro.api import ExperimentSpec as RefSpec
     from repro_torch.api import ExperimentSpec
-    if field in ("aggregator", "faults"):
+    if field in ("aggregator", "faults", "p_shards"):
         spec = ExperimentSpec(**{field: value})
         assert spec.to_dict()[field] == RefSpec(**{field: value}).to_dict()[
             field]
@@ -86,13 +84,10 @@ def test_spec_rejects_what_the_port_lacks(field, value):
     elif field == "compressor":
         with pytest.raises(ValueError, match="port"):
             ExperimentSpec(**{field: value})
-    elif field == "model":
+    else:
         with pytest.raises(ValueError,
                            match="unknown model 'gpt-17'.*mamba2-130m.*"
                                  "tinyllama"):
-            ExperimentSpec(**{field: value})
-    else:
-        with pytest.raises(TypeError, match=f"{field}.*port"):
             ExperimentSpec(**{field: value})
 
 

@@ -8,6 +8,7 @@ call) are held against ``repro.kernels.ops``. The hand-written CUDA
 kernels have no CPU mode: their cases against the plain versions are in
 ``test_torch_cuda.py``, which imports no JAX so that it runs on the card.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ function a seed cohort (``core/cohort.py``) gives a leading lane axis.
 
 The cohorts themselves: ``tests/test_torch_cohort.py``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,17 +29,6 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flat_aggregate import flat_aggregate_plain
 
 LANES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Thousands of tiny ops: one intra-op thread keeps them from spinning
-    against the other test workers (both sides of a comparison run
-    alike)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _normal(seed, *shape):

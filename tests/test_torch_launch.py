@@ -11,6 +11,7 @@ single-run, cohort and resume branches are the reference's. ``train``
 and ``serve`` run with ``--smoke``; the CSV and the checkpoint are
 written and load. ``--device cuda`` with no card raises.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import argparse
 import contextlib
 import io
@@ -27,7 +28,6 @@ from repro.launch import serve as ref_serve
 from repro.launch import train as ref_train
 
 from repro_torch.api import ExperimentSpec, build_experiment
-from repro_torch.api.spec import NOT_PORTED_FIELDS
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import fl_sim, serve, train
 from repro_torch.models.transformer import init_model
@@ -117,9 +117,7 @@ def test_spec_from_args_matches_the_reference(argv):
                            argparse.ArgumentParser.parse_args):
         ref_spec = ref_fl_sim.spec_from_args(ref_args.parse_args(argv))
     spec = fl_sim.spec_from_args(fl_sim.build_parser().parse_args(argv))
-    want = {k: v for k, v in ref_spec.to_dict().items()
-            if k not in NOT_PORTED_FIELDS}
-    assert spec.to_dict() == want
+    assert spec.to_dict() == ref_spec.to_dict()
 
 
 def test_spec_file_and_dump_round_trip(tmp_path):

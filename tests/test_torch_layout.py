@@ -1,5 +1,6 @@
 """The port's flat parameter plane against the reference: a port row is the
 same vector as a reference row (leaf order, offsets, sizes, layouts)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ batch indices and k-means++ choices: equal initial rows, cluster labels and
 selected sets; T_k/E_k within the SAO band (rtol 2e-3); global row and
 plane within atol 1e-4; accuracy within one test token.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -12,6 +12,7 @@ that cause and not as noise. ``blockwise_attention`` is held to the
 reference's with padding, a window, ``kv_valid`` and shifted positions
 (1e-5), and to itself under other tilings.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ and E_k within SAO's band (rtol 2e-3), the global row within atol 1e-4
 (``k_max`` < N) and the minibatch K-means. Then the waves' streaming
 mean, the drift bound, churn, the no-op round, every refusal and the
 spec's new fields."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import sys
 from pathlib import Path
 
@@ -24,7 +25,6 @@ from repro.utils.trees import tree_flatten_vector
 import repro_torch.api.build as build
 from repro_torch.api import ExperimentSpec, build_experiment, build_cohort
 from repro_torch.api.scenario import FleetSpec
-from repro_torch.api.spec import NOT_PORTED_FIELDS
 from repro_torch.core.fedavg import FLExperiment
 from repro_torch.data.partition import partition_bias_lazy
 from repro_torch.data.synthetic import make_dataset
@@ -248,7 +248,7 @@ def test_spec_round_trips_the_store_fields():
                           churn_leave=0.1, churn_join=0.3)
     assert ExperimentSpec.from_json(spec.to_json()) == spec
     assert spec.to_dict()["store"] == "paged"
-    assert NOT_PORTED_FIELDS == ("p_shards",)
+    assert spec.to_dict()["p_shards"] == 0       # every reference field
     exp = build_experiment(spec, device="cpu")
     assert (exp.k_max, exp.chunk_size, exp._div_refresh_every,
             exp.cluster_mode, exp.churn) == (6, 3, 2, "minibatch",

@@ -4,6 +4,7 @@ the reference's arrays for the same seed (both are numpy), the lazy
 indices select ``partition_bias``'s samples below the vectorized
 threshold, and ``build_experiment`` switches to the lazy form for a paged
 fleet at ``LAZY_PARTITION_MIN``."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

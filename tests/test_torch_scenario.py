@@ -20,6 +20,7 @@ reference's (``repro.api.scenario``), on the CPU.
   reference within each allocator's band (SAO rtol 2e-3, equal bandwidth
   1e-5, FEDL 1e-2).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,6 @@ from repro.core.wireless import sample_fleet as ref_sample_fleet
 from repro_torch.api import ALLOCATORS, ExperimentSpec
 from repro_torch.api import scenario as sc
 from repro_torch.api.registry import CHANNELS, StrategyError
-from repro_torch.api.spec import NOT_PORTED_FIELDS
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.wireless import (effective_arrays, fleet_arrays,
                                        sample_fleet)
@@ -88,7 +88,7 @@ def test_spec_to_dict_equals_the_reference(fleet, compressor):
     ref = RefSpec(**kw, fleet=None if fleet is None else fleet(ref_sc))
     got, want = port.to_dict(), ref.to_dict()
     assert {k: want[k] for k in got} == got
-    assert set(want) - set(got) == set(NOT_PORTED_FIELDS)
+    assert set(want) == set(got)
     assert ExperimentSpec.from_json(port.to_json()) == port
     assert port.num_cells == ref.num_cells
     assert (port.resolved_fleet_spec.to_dict()

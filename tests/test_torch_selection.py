@@ -2,6 +2,7 @@
 K-means from the reference's k-means++ centroids (and the k-means++ draw
 itself, replayed from the reference's key), Algorithm 4 on the
 reference's divergences, and the cluster bookkeeping."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ buffer of 5 slots, gives logits within atol 1e-5 of the reference's; the
 greedy tokens of ``ServeEngine.generate`` are equal; ``temperature`` with
 ``top_k`` fed the reference's Gumbel noise draws the reference's tokens.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

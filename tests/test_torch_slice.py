@@ -8,6 +8,7 @@ choices). Selected sets must be equal; T_k and E_k agree within the SAO
 outer bisection's band (rtol 2e-3); the global row within fp32
 summation-order drift (atol 1e-4); accuracy within one test sample.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

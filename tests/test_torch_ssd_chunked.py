@@ -22,6 +22,7 @@ checked on the CPU.
 The kernels themselves run only on the card (``test_torch_cuda.py``);
 inputs here are numpy draws from a seed.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ both sides must leave the same rows, blocks, overlay, touched mask and
 byte counts, bit for bit; then the store's own contract — promotion,
 ``assemble`` over mixed ranges, ``iter_chunks``, the staging LRU,
 ``nbytes`` — and the stats table."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

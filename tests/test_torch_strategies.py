@@ -2,6 +2,7 @@
 ``select(ctx)`` from two Generators seeded alike (the same indices, bit
 for bit), ``kmeans_predict``, and the registry and ``ExperimentSpec``
 cases of ``tests/test_api.py`` on the port's registries."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

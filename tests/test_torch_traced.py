@@ -20,6 +20,7 @@ CPU, where the round body runs eagerly.
 (g) FedProx's local update against the reference's at μ = 0.01, and
     traced ≡ host with ``fedprox_mu > 0``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,17 +56,6 @@ TINY = dict(dataset="fashion", clients=8, samples_per_client=16,
             rounds=3, devices_per_round=4, num_clusters=4,
             learning_rate=0.05)
 N, C, S, s = 12, 3, 5, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The runs here are thousands of tiny ops: one intra-op thread keeps
-    them from spinning against the other test workers for the cores (no
-    result depends on it: both sides of every comparison run alike)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ element whose gradient is as small as fp32's rounding in either
 package's summation order moves by up to lr either way (2 of 32,768
 elements of tinyllama's ``wo`` differ by 1.04e-5 after three steps).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
