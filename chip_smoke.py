@@ -177,18 +177,28 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
 17. the mesh tools on the card: (a) the dry run over every (arch × shape)
     on both production meshes (10 × 4 × 2 records, ``meta`` structs, in
     worker processes), no device memory allocated, a line each (counted
-    FLOPs over ``model_flops``, the bottleneck, the per-card state); (b)
+    FLOPs over ``model_flops``, the bottleneck, the per-card state);
+    tinyllama-1.1b's 8 records also partitioned by
+    DTensor over a fake process group: the collective bytes a card, the
+    tracked peak beside the old lower bound, the seconds; (b)
     the host mesh's steps at published width on the card, batch cut only
     as far as one card forces: tinyllama-1.1b's ``lower_train`` (bf16),
     ``lower_prefill`` and ``lower_decode`` (``decode_32k``, and
     ``long_500k`` on its 4096-slot window), mamba2-130m's
     ``lower_prefill``, each compiled on the card: its ms (CUDA events)
     beside the H100 roofline of its own count and its model-FLOPs share,
-    and its kernel launches; (c) ``lower_fl_round`` over the 16 bf16
+    and its kernel launches, and its peak memory tracked on ``meta``
+    beside ``torch.cuda.max_memory_allocated`` (less what earlier phases
+    hold); (c) ``lower_fl_round`` over the 16 bf16
     tinyllama clients of 16(e), compiled on the card, ≡ 16(e)'s
     ``fl_round_step`` bit for bit, its roofline beside its ms; (d)
     ``ExperimentSpec(p_shards=1)`` ≡ ``ExperimentSpec()`` bit for bit,
-    2 rounds (selections, T_k, E_k, accuracy, the global row);
+    2 rounds (selections, T_k, E_k, accuracy, the global row); (e) the
+    last public names on the card, a line each: the tree compressors on a
+    CNN tree ≡ the CPU's bit for bit, ``apply_compression``,
+    ``tree_weighted_mean_stacked``, ``model_eval``, ``arr_ith``,
+    ``PAPER_LAYER_NAMES``, the wireless defaults, ``kernel_dispatch`` and
+    ``analyze_compiled``;
 18. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
@@ -4972,6 +4982,10 @@ def bf16_phase(torch, rows):
 # ---------------------------------------------------------------------------
 
 DRYRUN_WORKERS = 8      # processes for 17(a), one torch thread each
+# 17(a) partitions these architectures' records (collective bytes, the
+# tracked peak) and counts the rest only, to keep phase 17 near its 90 s;
+# the CPU's dry run partitions all 80
+PARTITIONED = ("tinyllama-1.1b",)
 # 17(b)'s steps at published width: (arch, step, shape, batch, the cut).
 # The shapes' sequences stay whole; a batch is cut to what the card's 80 GB
 # holds (bf16 weights; AdamW's fp32 moments, old and new), and the 32k
@@ -4991,17 +5005,18 @@ HOST_STEPS = (
      "batch 32 -> 2: the loss widens the logits, 13.2 GB of fp32 a "
      "sequence, twice (33.0 GiB at 2)"),
 )
-NULL_KEYS = ("collective_bytes_per_device", "collective_s", "collectives",
-             "compile_s", "twin_compile_s", "twin_layers")
+NULL_KEYS = ("compile_s", "twin_compile_s", "twin_layers")
 
 
 def dryrun_pair(arch, shape):
     """Both production meshes' dry-run records of one (arch × shape), in a
-    worker process (one torch thread: the workers share the cores)."""
+    worker process (one torch thread: the workers share the cores),
+    partitioned for the architectures of ``PARTITIONED``."""
     import torch
     torch.set_num_threads(1)
     from repro_torch.launch.dryrun import run_one
-    return [run_one(arch, shape, mesh, verbose=False)
+    return [run_one(arch, shape, mesh, verbose=False,
+                    partition=arch in PARTITIONED)
             for mesh in ("single", "multi")]
 
 
@@ -5035,21 +5050,53 @@ def dryrun_phase(torch):
               and all(r[k] is None for r in (single, multi)
                       for k in NULL_KEYS),
               f"dry run {arch} × {shape}: {single}, {multi}")
+        for r in (single, multi):
+            # a partitioned record has its collectives and a tracked peak
+            # at least the arguments and results; the others say why not
+            part = arch in PARTITIONED
+            check((r["collectives_reason"] is None) == part
+                  and (r["collective_bytes_per_device"] is None) != part
+                  and (not part or r["collective_bytes_per_device"] > 0
+                       and r["peak_memory_per_device"]
+                       >= r["peak_memory_lower_bound"]),
+                  f"dry run {arch} × {shape} × {r['mesh']}: collectives "
+                  f"{r['collective_bytes_per_device']} "
+                  f"({r['collectives_reason']}), peak "
+                  f"{r['peak_memory_per_device']} against "
+                  f"{r['peak_memory_lower_bound']}")
         ratio = flops / single["model_flops_global"]
+        gb = (lambda v: None if v is None else v / 1e9)
         table[(arch, shape)] = dict(
             ratio=ratio, bottleneck=single["bottleneck"],
-            gb_single=single["peak_memory_per_device"] / 1e9,
-            gb_multi=multi["peak_memory_per_device"] / 1e9,
+            gb_single=single["peak_memory_lower_bound"] / 1e9,
+            gb_multi=multi["peak_memory_lower_bound"] / 1e9,
+            peak_gb=[gb(r["peak_memory_per_device"]) for r in (single,
+                                                               multi)],
+            coll_gb=[gb(r["collective_bytes_per_device"]) for r in
+                     (single, multi)],
             step_ms=single["compute_s"] * 1e3 if single["bottleneck"]
             == "compute" else single["memory_s"] * 1e3)
         print(f"  {arch} × {shape}: counted/model_flops {ratio:.4f}, "
               f"{single['bottleneck']}-bound, "
-              f"{table[(arch, shape)]['gb_single']:.3f} GB a card on 16x16 "
+              f"{table[(arch, shape)]['gb_single']:.3f} GB a card of "
+              f"arguments and results on 16x16 "
               f"({table[(arch, shape)]['gb_multi']:.3f} on 2x16x16), "
               f"counted in {single['lower_s']} s")
+        for r in (single, multi) if arch in PARTITIONED else ():
+            print(f"    {r['mesh']} ({r['partition_mesh']}): collectives "
+                  f"{gb(r['collective_bytes_per_device'])} GB a card "
+                  f"{(r['collectives'] or {}).get('counts')}"
+                  f"{'' if r['collectives_reason'] is None else ' null: ' + r['collectives_reason']}"
+                  f"; tracked peak {gb(r['peak_memory_per_device'])} GB "
+                  f"(lower bound {r['peak_memory_lower_bound'] / 1e9:.3f});"
+                  f" refusals {r['partition_refusals']}; partitioned in "
+                  f"{r['partition_s']} s")
+    filled = sum(r["collective_bytes_per_device"] is not None
+                 for pair in pairs for r in pair)
     print(f"  (a) {2 * len(tasks)} records in {took:.1f} s over "
-          f"{DRYRUN_WORKERS} processes; the card's allocations {before} B "
-          f"before and after")
+          f"{DRYRUN_WORKERS} processes ({filled} partitioned under torch "
+          f"{pairs[0][0]['partition_torch']}: {', '.join(PARTITIONED)}); "
+          f"the card's allocations {before} B before and after")
     return table
 
 
@@ -5133,7 +5180,11 @@ def host_steps_phase(torch):
             remat=step == "train", unroll=1)
         cost = lowered.cost_analysis()
         t_count = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tracked = lowered.peak_memory_per_device() / 2**30
+        t_track = time.perf_counter() - t0
         fn = lowered.compile(DEVICE)
+        held = torch.cuda.memory_allocated() / 2**30
         gen = torch.Generator(device=DEVICE).manual_seed(17 + i)
         args = host_args(torch, cfg, shape, step, gen)
         same_layout(args, lowered.args, f"{arch} {step}")
@@ -5177,11 +5228,15 @@ def host_steps_phase(torch):
               f"FLOP and {cost['bytes accessed']:.4e} B in {t_count:.1f} s; "
               f"model_flops share {share:.4f}; peak {peak:.2f} GiB; "
               f"launches {launches}")
+        print(f"    peak memory: measured {peak:.2f} GiB less the "
+              f"{held:.2f} GiB earlier phases hold = {peak - held:.2f} GiB; "
+              f"tracked on meta {tracked:.2f} GiB ({tracked / (peak - held):.3f}"
+              f"x, in {t_track:.1f} s)")
         by_path[f"{arch} {step} {shape_name} host mesh (phase 17b)"] = \
             launches
         kept[(arch, step, shape_name)] = dict(
             ms=ms, roofline_ms=report.step_time_s * 1e3, share=share,
-            peak_gib=peak)
+            peak_gib=peak, held_gib=held, tracked_gib=tracked)
         del out, args, value, fn, lowered
         torch.cuda.empty_cache()
     return by_path, kept
@@ -5267,8 +5322,105 @@ def p_shards_phase(torch, rounds=2):
     return launches
 
 
+def public_names_phase(torch):
+    """(e) Each public name the slice adds, once on the card: the tree
+    compressors on a CNN tree drawn from a seed give the CPU's bits;
+    the rest give the CPU's values."""
+    from repro_torch.configs.paper_cnn import CNN_CONFIGS
+    from repro_torch.core import wireless
+    from repro_torch.core.baselines import arr_ith
+    from repro_torch.core.compression import (apply_compression,
+                                              compress_int8, compress_topk)
+    from repro_torch.core.engine import model_eval
+    from repro_torch.kernels.ops import kernel_dispatch
+    from repro_torch.models.cnn import PAPER_LAYER_NAMES, init_cnn
+    from repro_torch.utils.trees import tree_weighted_mean_stacked
+
+    cfg = CNN_CONFIGS["mnist"]
+    cpu = init_cnn(cfg, torch.Generator().manual_seed(26))
+    card = {k: v.to(DEVICE) for k, v in cpu.items()}
+    check(tuple(card) == PAPER_LAYER_NAMES, f"CNN leaves {tuple(card)}")
+    print(f"  PAPER_LAYER_NAMES: the CNN's {len(card)} leaves on the card, "
+          "in order")
+
+    def same(a, b, what):
+        check(set(a) == set(b) and all(
+            torch.equal(a[k].cpu(), b[k]) for k in b), f"{what}: card "
+                                                        "differs from CPU")
+    same(compress_int8(card), compress_int8(cpu), "compress_int8(tree)")
+    for f in (0.01, 0.05):
+        same(compress_topk(card, f), compress_topk(cpu, f),
+             f"compress_topk(tree, {f})")
+    for scheme in ("none", "int8", "topk:0.05"):
+        same(apply_compression(card, scheme), apply_compression(cpu, scheme),
+             f"apply_compression(tree, {scheme!r})")
+    print("  compress_int8, compress_topk (0.01, 0.05) and "
+          "apply_compression (none, int8, topk:0.05) on the CNN tree: card "
+          "≡ CPU bit for bit")
+    stacked = {k: torch.stack([v, 2 * v, -v]) for k, v in cpu.items()}
+    w = [1.0, 2.0, 3.0]
+    got = tree_weighted_mean_stacked({k: v.to(DEVICE) for k, v in
+                                      stacked.items()}, w)
+    want = tree_weighted_mean_stacked(stacked, w)
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+    check(err <= 1e-6, f"tree_weighted_mean_stacked: card - CPU {err}")
+    print(f"  tree_weighted_mean_stacked over 3 stacked CNNs: card - CPU "
+          f"{err:.1e}")
+    gen = torch.Generator().manual_seed(27)
+    x = torch.randn(256, *cfg.input_hw, cfg.input_channels, generator=gen)
+    y = torch.randint(0, cfg.num_classes, (256,), generator=gen)
+    acc, per_class = model_eval(cfg)(card, x.to(DEVICE), y.to(DEVICE))
+    r_acc, r_per_class = model_eval(cfg)(cpu, x, y)
+    check(acc.device.type == torch.device(DEVICE).type
+          and float(acc) == float(r_acc)
+          and torch.allclose(per_class.cpu(), r_per_class, atol=1e-6),
+          f"model_eval: card {float(acc)}, CPU {float(r_acc)}")
+    print(f"  model_eval(mnist) on 256 images: accuracy {float(acc):.4f} on "
+          "the card, the CPU's")
+    fleet = wireless.sample_fleet(10, seed=0)
+    dev = arr_ith(wireless.fleet_arrays(fleet, device=DEVICE), 3)
+    host = arr_ith(wireless.fleet_arrays(fleet), 3)
+    check(all(torch.equal(dev[k].cpu(), host[k]) for k in host),
+          "arr_ith: card differs from CPU")
+    U = torch.tensor(wireless.DEFAULT_CYCLES_PER_SAMPLE
+                     * wireless.DEFAULT_SAMPLES, device=DEVICE)
+    print(f"  arr_ith(fleet_arrays, 3) on the card ≡ the CPU's "
+          f"({sorted(dev)}); DEFAULT_CYCLES_PER_SAMPLE × DEFAULT_SAMPLES = "
+          f"{float(U):.0f} cycles a round")
+    check(kernel_dispatch(card["w_c1"]) and not kernel_dispatch(
+        cpu["w_c1"]), "kernel_dispatch: the device rule")
+    print("  kernel_dispatch: True on the card's tensors, False on the "
+          "CPU's")
+
+
+def analyze_phase(torch):
+    """(e) ``analyze_compiled`` on a lowered host-mesh step: its report
+    carries the lowered count and no collective on one card."""
+    from repro_torch.configs import get_config, get_input_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.analysis import analyze_compiled
+
+    cfg = get_config("tinyllama-1.1b")
+    shape = get_input_shape("long_500k")
+    lowered, backward = dryrun._lower(
+        cfg, shape, make_host_mesh(device=DEVICE), moe_impl="dense",
+        q_chunk=512, kv_chunk=1024, remat=False, unroll=1)
+    report = analyze_compiled(lowered, arch=cfg.name, shape=shape,
+                              mesh_name="host", chips=1, cfg=cfg,
+                              include_backward=backward)
+    check(report.flops_per_device == lowered.cost_analysis()["flops"]
+          and report.collective_bytes_per_device == 0
+          and report.peak_memory_per_device >= lowered.memory_per_device(),
+          f"analyze_compiled: {report.to_dict()}")
+    print(f"  analyze_compiled(tinyllama long_500k on the host mesh): "
+          f"{report.flops_per_device:.4e} FLOP, {report.bottleneck}-bound, "
+          f"0 collective bytes, tracked peak "
+          f"{report.peak_memory_per_device / 2**30:.2f} GiB")
+
+
 def mesh_phase(torch, round16):
-    """17. (a)-(d); ``round16``: 16(e)'s round results at feature_slice 0.
+    """17. (a)-(e); ``round16``: 16(e)'s round results at feature_slice 0.
     Returns each path's launches and the numbers kept."""
     by_path, kept = {}, {}
     release_caches(torch)        # 17(b)'s train step needs 50 GiB
@@ -5293,6 +5445,11 @@ def mesh_phase(torch, round16):
     print("  (d) ExperimentSpec(p_shards=1) against ExperimentSpec()")
     by_path["ExperimentSpec(p_shards=1) (phase 17d)"] = p_shards_phase(torch)
     print(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (e) the last public names on the card")
+    public_names_phase(torch)
+    analyze_phase(torch)
+    print(f"  (e) took {time.perf_counter() - t1:.1f} s")
     return by_path, kept
 
 

@@ -178,6 +178,12 @@ def _waterfill_b(T, arr, B, n_iters: int = 40, mask=None):
     return torch.maximum(b, b_req)
 
 
+def arr_ith(arr, i):
+    """Device ``i``'s entries of the fleet arrays (the reference keeps
+    this helper for its API)."""
+    return {k: v[i] for k, v in arr.items()}
+
+
 def _linspace(start, stop, num: int):
     """``jnp.linspace`` in its own arithmetic: start·(1 − s) + stop·s for
     s = i/(num − 1), i < num − 1, then ``stop`` itself; along a new last

@@ -167,6 +167,13 @@ def model_evaluate(model_cfg, base=None):
                              cfg=model_cfg, **frozen)
 
 
+@functools.lru_cache(maxsize=64)
+def model_eval(model_cfg):
+    """The reference's name and signature: :func:`model_evaluate` with
+    no frozen base, cached per config."""
+    return model_evaluate(model_cfg)
+
+
 # ---------------------------------------------------------------------------
 # the device-resident run: one round body, replayed
 # ---------------------------------------------------------------------------

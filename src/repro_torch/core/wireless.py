@@ -33,6 +33,8 @@ DEFAULT_F_MIN_GHZ = 0.2
 DEFAULT_Z_MBIT = 448 * 8 * 1024 / 1e6        # 448 KB model (MNIST CNN, Table II)
 DEFAULT_ALPHA = 2e-28                         # effective capacitance 2·(α/2)
 DEFAULT_LOCAL_ITERS = 5
+DEFAULT_CYCLES_PER_SAMPLE = 2e4
+DEFAULT_SAMPLES = 500
 DEFAULT_E_CONS_RANGE = (30e-3, 60e-3)
 DEFAULT_CYCLES_RANGE = (1e4, 3e4)
 DEFAULT_SAMPLES_RANGE = (300, 700)

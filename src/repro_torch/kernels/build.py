@@ -6,9 +6,17 @@ first use by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 the shared headers of ``csrc/`` and the flags, then loaded with
 ``ctypes``. No PyTorch headers are involved,
 so a build takes seconds. Nothing is compiled when a module is imported.
+
+:func:`kernel_allocations` is the one switch a wrapper reads besides its
+tensor's device: under it a ``meta`` call of ``flash_attention`` or
+``ssd_scan`` takes the kernel's route and allocates what a launch holds
+on the card, with no kernel run and no launch counted (the dry run's peak
+memory; off, ``meta`` takes the plain version, whose work the FLOP count
+reads).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,6 +30,42 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+_META_KERNELS = [False]   # a plain flag: autograd may recompute elsewhere
+
+
+@contextlib.contextmanager
+def kernel_allocations():
+    """Within: ``meta`` calls of the kernel wrappers allocate what a
+    launch holds on the card (the module docstring)."""
+    before = _META_KERNELS[0]
+    _META_KERNELS[0] = True
+    try:
+        yield
+    finally:
+        _META_KERNELS[0] = before
+
+
+def meta_kernels(t) -> bool:
+    """Does ``t`` take the kernel's allocations on ``meta``?"""
+    return _META_KERNELS[0] and t.is_meta
+
+
+def reduce_partials(t):
+    """``t`` with any partial sums among a DTensor's placements reduced
+    (an all-reduce): a kernel's inputs are whole values on each device."""
+    if not any(p.is_partial() for p in getattr(t, "placements", ())):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+def local_shape(t) -> tuple:
+    """The shape one device holds of ``t``: a DTensor's local shard, any
+    other tensor's own shape."""
+    return tuple(t.to_local().shape if hasattr(t, "to_local") else t.shape)
 
 
 def find_nvcc() -> str:

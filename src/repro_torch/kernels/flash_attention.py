@@ -40,7 +40,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import error_string, load_function
+from repro_torch.kernels.build import (error_string, load_function,
+                                      local_shape, meta_kernels,
+                                      reduce_partials)
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
@@ -170,8 +172,30 @@ def _check(q, k, v):
                          "kernel's 32-bit positions")
 
 
+def _meta_launch(q, k, causal: bool, window) -> torch.Tensor:
+    """A launch's allocations on ``meta`` (``kernel_allocations``): the
+    output and, where the plan splits the keys, the fp32 partial sums,
+    which die on return; at each device's shard shapes under DTensor."""
+    B, Sq, H, D = local_shape(q)
+    Sk, K = local_shape(k)[1:3]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    # a shard whose q heads do not cover its KV heads has no plan of its
+    # own (a device would take the KV heads its q heads read): one chunk
+    chunks = (plan_attention(B, Sq, Sk, H, K, causal, window).chunks
+              if K and H % K == 0 and B * H * Sq else 1)
+    if chunks > 1:
+        part = [torch.empty_like(q, dtype=torch.float32)
+                for _ in range(chunks)]
+        part += [torch.empty_like(q[..., :2], dtype=torch.float32)
+                 for _ in range(chunks)]
+        del part
+    return out
+
+
 def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
     _check(q, k, v)
+    if q.is_meta:
+        return _meta_launch(q, k, causal, window)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     plan = plan_attention(B, Sq, Sk, H, K, causal, window)
@@ -214,9 +238,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
+        saved = ctx.saved_tensors
+        if hasattr(saved[0], "to_local"):
+            return _shard_backward(*saved, grad_out, need, ctx.causal,
+                                   ctx.window) + (None, None)
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
+                      for t, n in zip(saved, need)]
             out = flash_attention_plain(*inputs, causal=ctx.causal,
                                         window=ctx.window)
             grads = iter(torch.autograd.grad(
@@ -224,13 +252,54 @@ class _FlashAttention(torch.autograd.Function):
         return tuple(next(grads) if n else None for n in need) + (None, None)
 
 
+def _shard_backward(q, k, v, grad_out, need, causal, window):
+    """The backward of DTensors on ``meta`` (the dry run's partitioned
+    step): each device recomputes the plain version on its own q heads
+    and the KV heads they read, as a per-device program does; a KV
+    gradient is then a partial sum over the devices whose q heads share
+    its head."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = q.device_mesh
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    g = grad_out.redistribute(mesh, q.placements).to_local()
+    H, K, Hl, Kl = q.shape[2], k.shape[2], ql.shape[2], kl.shape[2]
+    kv = Kl if Hl % Kl == 0 and Hl // Kl == H // K else max(1, Hl * K // H)
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in
+                  zip((ql, kl[:, :, :kv], vl[:, :, :kv]), need)]
+        out = flash_attention_plain(*inputs, causal=causal, window=window)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip(inputs, need) if n], g))
+    heads = [i for i, p in enumerate(q.placements)
+             if p.is_shard() and p.dim == 2]
+    result = []
+    for t, n in zip((q, k, v), need):
+        if not n:
+            result.append(None)
+            continue
+        local = next(grads)
+        place = list(t.placements)
+        if t is not q:
+            if kv < Kl:
+                local = torch.zeros_like(kl)
+            place = [Partial() if i in heads and not p.is_shard() else p
+                     for i, p in enumerate(place)]
+        result.append(DTensor.from_local(local, mesh, place,
+                                         run_check=False, shape=t.shape,
+                                         stride=t.stride()))
+    return tuple(result)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Attention of q ``[B, Sq, H, D]`` over k, v ``[B, Sk, K, D]`` (GQA:
     H a multiple of K) -> ``[B, Sq, H, D]`` in ``q.dtype``. A CUDA tensor
     launches the kernel (D in ``HEAD_DIMS``, all fp32 or all bf16, unit
-    stride over D); a CPU tensor takes :func:`flash_attention_plain`."""
-    if not q.is_cuda:
+    stride over D); a CPU tensor takes :func:`flash_attention_plain`, and
+    so does a ``meta`` one, but under ``build.kernel_allocations()``."""
+    if not q.is_cuda and not meta_kernels(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.is_meta:
+        q, k, v = (reduce_partials(t) for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, causal, window)
 
 

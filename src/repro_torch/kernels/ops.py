@@ -20,6 +20,15 @@ from repro_torch.kernels.pairwise_l2 import pairwise_l2 as _pairwise
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
+def kernel_dispatch(t: torch.Tensor) -> bool:
+    """Would an op here on ``t`` take the kernel route? The reference
+    asks the backend and a ``use_pallas`` flag; the port's rule is the
+    tensor's device alone: a CUDA tensor launches the hand kernel (and an
+    op that cannot launch it raises: nothing falls back to the plain
+    version), any other tensor takes the plain PyTorch path."""
+    return bool(t.is_cuda)
+
+
 def pairwise_sq_dists(x, c):
     """[N, F] × [M, F] -> [N, M] squared L2 (K-means assignment); [B, N, F]
     × [B, M, F] -> [B, N, M] lane by lane.

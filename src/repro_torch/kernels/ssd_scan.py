@@ -41,7 +41,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import error_string, load_function
+from repro_torch.kernels.build import (error_string, load_function,
+                                      local_shape, meta_kernels,
+                                      reduce_partials)
 from repro_torch.kernels.ssd_chunked import ssd_chunked
 
 BLOCK_ROWS = 64                    # y rows a block
@@ -166,7 +168,42 @@ def _check(x, a, b, c, chunk):
                          "indices")
 
 
+def _meta_launch(x, b, chunk: int):
+    """A launch's allocations on ``meta`` (``kernel_allocations``): y, the
+    final state and, over several chunks, the chunk states and decays,
+    which die on return; at each device's shard shapes under DTensor."""
+    B, S, H, P = local_shape(x)
+    N = local_shape(b)[3]
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    state = torch.empty_like(x[:, 0, :, :, None].expand(-1, -1, -1, N),
+                             dtype=torch.float32,
+                             memory_format=torch.contiguous_format)
+    chunks = plan_ssd(B, S, H, P, N, chunk).chunks if S else 1
+    if chunks > 1:
+        st = [torch.empty_like(state) for _ in range(chunks)]
+        del st
+    return y, state
+
+
+def _laid_out_as(x, a, b, c):
+    """DTensors ``a``, ``b``, ``c`` split over the batch and sequence as
+    ``x`` is (and ``a`` over the heads too), the rest replicated: the
+    shards one device's kernel reads."""
+    from torch.distributed.tensor import Replicate
+
+    def like(t, dims):
+        want = [p if p.is_shard() and p.dim in dims else Replicate()
+                for p in x.placements]
+        return t.redistribute(t.device_mesh, want)
+    return like(a, (0, 1, 2)), like(b, (0, 1)), like(c, (0, 1))
+
+
 def _launch(x, a, b, c, chunk: int):
+    if x.is_meta:
+        # the kernel's limits hold for the shard one device holds
+        _check(*(t.to_local() if hasattr(t, "to_local") else t
+                 for t in (x, a, b, c)), chunk)
+        return _meta_launch(x, b, chunk)
     _check(x, a, b, c, chunk)
     a = a.to(torch.float32)
     B, S, H, P = x.shape
@@ -255,7 +292,14 @@ def ssd_scan(x, a, b, c, *, chunk: int = 256):
     CUDA tensor launches the kernel (x, b, c all fp32 or all bf16); a CPU
     tensor takes :func:`ssd_scan_plain`. A ``meta`` tensor (shapes only:
     the dry run's counts) takes the plain chunked form, ``ssd_chunked``,
-    whose work is the kernel's and not a loop of S token steps."""
+    whose work is the kernel's and not a loop of S token steps; under
+    ``build.kernel_allocations()`` it takes the kernel's route instead and
+    allocates what a launch holds."""
+    if meta_kernels(x):
+        x, a, b, c = (reduce_partials(t) for t in (x, a, b, c))
+        if hasattr(x, "placements"):
+            a, b, c = _laid_out_as(x, a, b, c)
+        return _SsdScan.apply(x, a, b, c, chunk)
     if x.is_meta:
         y, state = ssd_chunked(x, a, b, c, chunk)
         return y.to(x.dtype), state

@@ -8,14 +8,23 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --out results/dryrun_torch.jsonl
 
-Each record has the reference's keys. What the port has no counterpart for
-is ``null``: it has no SPMD partitioner, so no compiled program a mesh
-(``compile_s``) and no collectives (``collective_bytes_per_device``,
-``collectives``, ``collective_s``). FLOPs and bytes per device are the
-whole step's counts over the chips, a perfect split;
-``peak_memory_per_device`` is a lower bound, the per-device bytes of the
-step's arguments and results under the partition rules
-(``Lowered.memory_per_device``).
+Each record has the reference's keys. FLOPs and bytes per device are the
+whole step's counts over the chips, a perfect split. The collectives
+(``collective_bytes_per_device``, ``collectives``, ``collective_s``) and
+``peak_memory_per_device`` come from one more run of the step on the
+record's mesh, partitioned by DTensor over a fake process group of 256 or
+512 ranks in this process (``repro_torch.sharding.partition``): each
+collective's result bytes on one device, the reference's convention, and
+the high-water mark of live bytes a device holds, temporaries included,
+with the kernels' own allocations where a kernel replaces its plain
+version on the card (``roofline.analysis.PeakMemory``). Where DTensor
+refused an op's layout and the op ran replicated, ``partition_refusals``
+counts it; where the partitioned run failed, the collectives are ``null``
+and ``collectives_reason`` says why. ``peak_memory_lower_bound`` is the
+per-device bytes of the step's arguments and results under the partition
+rules alone (``Lowered.memory_per_device``). The port has no compiled
+program a mesh, so ``compile_s`` is ``null``; ``partition_s`` is the
+partitioned run's seconds.
 
 The reference counts its roofline on a twin of the step: every layer
 unrolled (XLA counts a scan body once) and attention unblocked
@@ -45,7 +54,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import decode_step
-from repro_torch.roofline.analysis import Lowered, RooflineReport, model_flops
+from repro_torch.roofline.analysis import Lowered, analyze_compiled
 from repro_torch.sharding import specs as sh
 from repro_torch.sharding.ctx import activation_sharding
 from repro_torch.train.train_step import make_loss_fn, make_train_step
@@ -179,11 +188,14 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
             moe_impl: str = "dense", q_chunk: int = 512, kv_chunk: int = 1024,
             remat: bool = None, verbose: bool = True, twin: bool = True,
             pad_vocab: int = 0, act_constraints: bool = False,
-            moment_dtype: str = "float32", ssd_chunk: int = 0):
+            moment_dtype: str = "float32", ssd_chunk: int = 0,
+            partition: bool = True):
     """One (arch × shape × mesh): the step on structs, counted (once a
-    process for every mesh: the count is the whole step's), and its
-    record. ``twin``: count at the reference's roofline-twin chunks
-    (the module docstring)."""
+    process for every mesh: the count is the whole step's), run
+    partitioned on the mesh (unless ``partition`` is false: collectives
+    and peak ``null``, with the reason), and its record. ``twin``: count
+    and run at the reference's roofline-twin chunks (the module
+    docstring)."""
     cfg = get_config(arch)
     if pad_vocab:
         cfg = _pad_vocab(cfg, pad_vocab)
@@ -205,16 +217,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
     lowered, include_backward = _lower(
         cfg, shape, mesh, count=_count(cfg, shape, **opts), **opts)
     t_lower = time.time() - t0
-    cost = lowered.cost_analysis()
-    report = RooflineReport(
-        arch=arch, shape=shape.name, mesh=mesh_kind, chips=chips,
-        flops_per_device=cost["flops"] / chips,
-        bytes_per_device=cost["bytes accessed"] / chips,
-        collective_bytes_per_device=None,
-        model_flops_global=model_flops(cfg, shape,
-                                       include_backward=include_backward),
-        peak_memory_per_device=lowered.memory_per_device(),
-        collectives=None)
+    report = analyze_compiled(lowered, arch=arch, shape=shape,
+                              mesh_name=mesh_kind, chips=chips, cfg=cfg,
+                              include_backward=include_backward,
+                              partition=partition)
+    run = lowered.partitioned(partition)
     d = report.to_dict()
     d["lower_s"] = round(t_lower, 1)
     d["compile_s"] = None
@@ -225,6 +232,12 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
     d["moment_dtype"] = moment_dtype
     d["twin_compile_s"] = None
     d["twin_layers"] = None
+    d["peak_memory_lower_bound"] = lowered.memory_per_device()
+    d["collectives_reason"] = run.reason
+    d["partition_refusals"] = run.refusals
+    d["partition_s"] = round(run.seconds, 1)
+    d["partition_mesh"] = run.mesh
+    d["partition_torch"] = torch.__version__
     if verbose:
         print(json.dumps({k: v for k, v in d.items() if k != "collectives"},
                          indent=1, default=str))

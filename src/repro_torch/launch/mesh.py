@@ -39,14 +39,20 @@ def _mesh(devices, sizes, axes) -> Mesh:
                 arr.reshape(tuple(sizes)))
 
 
+def make_logical_mesh(shape, axes) -> Mesh:
+    """A mesh of ``shape`` over the axes ``axes`` whose devices are
+    ``cuda:0 …`` of a logical pod: no device is touched."""
+    n = int(np.prod(shape))
+    return _mesh([torch.device("cuda", i) for i in range(n)], tuple(shape),
+                 tuple(axes))
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16×16 ``("data", "model")`` (one pod, 256 cards) or 2×16×16 with
-    ``"pod"`` in front (512). The devices are ``cuda:0 …`` of a logical
-    pod: no device is touched."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n = int(np.prod(shape))
-    return _mesh([torch.device("cuda", i) for i in range(n)], shape, axes)
+    ``"pod"`` in front (512), logical (:func:`make_logical_mesh`)."""
+    if multi_pod:
+        return make_logical_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_logical_mesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device="cuda") -> Mesh:

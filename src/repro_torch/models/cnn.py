@@ -17,6 +17,9 @@ import torch
 
 from repro_torch.configs.paper_cnn import CNNConfig
 
+PAPER_LAYER_NAMES = ("w_c1", "b_c1", "w_c2", "b_c2",
+                     "w_fc1", "b_fc1", "w_fc2", "b_fc2")
+
 
 def cnn_param_shapes(cfg: CNNConfig) -> Dict[str, Tuple[int, ...]]:
     """``{name: shape}`` of one model: HWIO conv weights, ``[din, dout]``

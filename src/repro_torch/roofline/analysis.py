@@ -11,14 +11,22 @@ The counts come from running the step once on ``meta`` structs
 (:func:`analyze_step`): FLOPs from ``torch.utils.flop_counter``, bytes
 from the tensors each aten op reads and writes. Eager execution runs every
 layer, so there is nothing for a loop to hide (the reference needs a
-layer-unrolled twin because XLA counts a scan body once). The port has no
-SPMD partitioner, so it has no collective bytes of its own: where
-``collective_bytes_per_device`` is ``None`` the collective term is left
-out. ``collective_bytes`` parses an XLA HLO text as the reference does.
+layer-unrolled twin because XLA counts a scan body once). The collective
+bytes and the peak memory a device holds come from a second run of the
+step, partitioned over the mesh with DTensor on a fake process group
+(``repro_torch.sharding.partition``) under :class:`PeakMemory`; where
+``collective_bytes_per_device`` is ``None`` (the partitioned run failed)
+the collective term is left out. :func:`analyze_compiled` reads a
+``Lowered`` step into a :class:`RooflineReport`, as the reference reads a
+compiled program. ``collective_bytes`` parses an XLA HLO text as the
+reference does.
 """
 from __future__ import annotations
 
+import functools
 import re
+import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
@@ -26,6 +34,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.kernels.build import kernel_allocations
 from repro_torch.launch.mesh import H100_SXM, Mesh
 
 _DTYPE_BYTES = {
@@ -204,6 +213,80 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+def _on_dtensors(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+class PeakMemory(TorchDispatchMode):
+    """The high-water mark of live tensor bytes over a step run under it.
+
+    A tensor's bytes are its storage's, added when an op returns a
+    storage not seen before (a view or an in-place result adds nothing)
+    and taken off when the storage dies: each storage carries a weak
+    reference whose callback subtracts it (torch keeps one Python object
+    a storage, so the reference fires when the last tensor viewing it is
+    freed, whether Python or autograd's saved tensors held it).
+    :meth:`hold` adds what the caller keeps alive beside the step (its
+    arguments). Ops on tensor subclasses (DTensor) pass through
+    (``NotImplemented``), so under a partitioned run the mode sees the
+    local shards: bytes on one device. On ``meta`` no memory is touched;
+    what the port holds on the card is what it holds here, but where a
+    kernel replaces its plain version (run ``meta`` steps under
+    ``kernel_allocations()``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._refs = {}
+
+    def _free(self, key, n, _ref):
+        if self._refs.pop(key, None) is not None:
+            self.live -= n
+
+    def _add(self, t: torch.Tensor):
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:
+            return
+        n = st.nbytes()
+        self._refs[key] = weakref.ref(
+            st, functools.partial(self._free, key, n))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def hold(self, tensors):
+        """Counts ``tensors`` (an iterable, or a tree as ``_tensors``
+        reads it) as live from now on, as long as they live."""
+        for t in _tensors(tensors if isinstance(tensors, (dict, tuple, list,
+                                                          torch.Tensor))
+                          else list(tensors)):
+            self._add(t)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _on_dtensors(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            if type(t) is torch.Tensor:   # not DTensor's fake shape probes
+                self._add(t)
+        return out
+
+
+def peak_memory(fn: Callable, *args, **kwargs) -> float:
+    """The high-water mark of live tensor bytes over ``fn(*args,
+    **kwargs)`` on one device, its arguments held throughout
+    (:class:`PeakMemory`). Run it on ``meta`` under
+    ``kernels.build.kernel_allocations()`` for what the card holds."""
+    mode = PeakMemory()
+    mode.hold((args, kwargs))
+    with mode:
+        out = fn(*args, **kwargs)
+    del out
+    return float(mode.peak)
+
+
 @dataclass
 class StepCount:
     flops: float
@@ -232,8 +315,10 @@ class Lowered:
     shardings ``in_shardings`` and the results' ``out_shardings`` (trees of
     ``NamedSharding`` mirroring them) on ``mesh``; ``donate``: the
     positions of arguments whose memory the results reuse.
-    :meth:`cost_analysis` counts one run on the structs;
-    :meth:`compile` gives the callable that runs on real tensors."""
+    :meth:`cost_analysis` counts one run on the structs,
+    :meth:`partitioned` runs them partitioned over the mesh (collectives
+    and peak memory); :meth:`compile` gives the callable that runs on
+    real tensors."""
 
     def __init__(self, fn: Callable, args: tuple, in_shardings: tuple,
                  out_shardings, *, mesh: Mesh, donate: tuple = ()):
@@ -244,6 +329,7 @@ class Lowered:
         self.mesh = mesh
         self.donate = donate
         self.step_count: Optional[StepCount] = None
+        self._partitioned = None
 
     def count(self) -> StepCount:
         """:func:`analyze_step` of the step on its structs, run once (the
@@ -258,10 +344,42 @@ class Lowered:
         c = self.count()
         return {"flops": c.flops, "bytes accessed": c.bytes}
 
+    def partitioned(self, run: bool = True):
+        """The step run once partitioned over the mesh under the
+        kernels' allocations (``sharding.partition.run_partitioned``):
+        its collectives and its tracked peak a device, or the reason it
+        failed. Run once; a one-device mesh runs the step whole under
+        :class:`PeakMemory` (no collectives: 0 bytes of each kind).
+        ``run=False`` runs nothing: ``None`` for both, and the reason."""
+        from repro_torch.sharding.partition import (PartitionedRun,
+                                                    run_partitioned)
+        if self._partitioned is None and not run:
+            return PartitionedRun(None, None, reason="not partitioned "
+                                  "(counted only)")
+        if self._partitioned is None:
+            with kernel_allocations():
+                if self.mesh.size == 1:
+                    t0 = time.perf_counter()
+                    peak = peak_memory(self.fn, *self.args)
+                    self._partitioned = PartitionedRun(
+                        _no_collectives(), peak,
+                        seconds=time.perf_counter() - t0)
+                else:
+                    self._partitioned = run_partitioned(
+                        self.fn, self.args, self.in_shardings, self.mesh)
+        return self._partitioned
+
+    def peak_memory_per_device(self) -> Optional[float]:
+        """The high-water mark of live bytes a device holds over the
+        step, temporaries and the caller's arguments included
+        (:meth:`partitioned`); ``None`` where that run failed."""
+        return self.partitioned().peak_bytes
+
     def memory_per_device(self) -> float:
         """Bytes a device holds of the arguments and results under the
         shardings, the donated arguments counted once: a lower bound on
-        the step's peak (temporaries left out)."""
+        the step's peak (temporaries left out;
+        :meth:`peak_memory_per_device` counts them)."""
         args = sum(_held(a, s) for i, (a, s) in enumerate(
             zip(self.args, self.in_shardings)) if i not in self.donate)
         return float(args + _held(self.count().outputs, self.out_shardings))
@@ -278,6 +396,35 @@ class Lowered:
         if (dev.type, dev.index or 0) != (own.type, own.index or 0):
             raise ValueError(f"compile({dev}): the mesh's device is {own}")
         return self.fn
+
+
+def _no_collectives() -> Dict:
+    return {"total": 0, "counts": {k: 0 for k in _COLLECTIVES},
+            **{k: 0 for k in _COLLECTIVES}}
+
+
+def analyze_compiled(lowered: Lowered, *, arch: str, shape, mesh_name: str,
+                     chips: int, cfg, include_backward: bool,
+                     partition: bool = True) -> RooflineReport:
+    """The counterpart of the reference's ``analyze_compiled``: a lowered
+    step read into a :class:`RooflineReport`. FLOPs and bytes a device
+    are the step's counts (:meth:`Lowered.cost_analysis`) over ``chips``,
+    a perfect split; the collective bytes, their kinds and counts, and the
+    peak memory are those of the partitioned run
+    (:meth:`Lowered.partitioned`), ``None`` where it failed or, under
+    ``partition=False``, was not run."""
+    cost = lowered.cost_analysis()
+    run = lowered.partitioned(partition)
+    coll = run.collectives
+    return RooflineReport(
+        arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
+        flops_per_device=cost["flops"] / chips,
+        bytes_per_device=cost["bytes accessed"] / chips,
+        collective_bytes_per_device=(None if coll is None
+                                     else float(coll["total"])),
+        model_flops_global=model_flops(cfg, shape,
+                                       include_backward=include_backward),
+        peak_memory_per_device=run.peak_bytes, collectives=coll)
 
 
 def _held(tree, shards) -> int:

@@ -248,6 +248,19 @@ def tree_weighted_mean(trees, weights):
             .to(trees[0][k].dtype) for k in trees[0]}
 
 
+def tree_weighted_mean_stacked(stacked, weights):
+    """FedAvg aggregation (eq. 4) over a stacked client axis: each leaf
+    of ``stacked`` is ``[N, ...]``; ``Σ_n w_n x_n / Σ_n w_n`` in fp32,
+    each leaf back in its dtype."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    norm = w / torch.sum(w)
+    out = {}
+    for k, leaf in stacked.items():
+        n = norm.to(leaf.device).reshape((-1,) + (1,) * (leaf.dim() - 1))
+        out[k] = torch.sum(leaf.to(torch.float32) * n, dim=0).to(leaf.dtype)
+    return out
+
+
 def tree_cast(tree, dtype):
     """Floating leaves cast to ``dtype``; the others as they are."""
     return {k: v.to(dtype) if v.is_floating_point() else v
