@@ -199,11 +199,38 @@ from the root of a checkout. Phases, in order; any failure exits non-zero:
     ``tree_weighted_mean_stacked``, ``model_eval``, ``arr_ith``,
     ``PAPER_LAYER_NAMES``, the wireless defaults, ``kernel_dispatch`` and
     ``analyze_compiled``;
-18. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+18. the paths over several mesh positions, every mesh naming this
+    machine's one card (cuda:0) at each position (work goes by position,
+    so this is the code a mesh over distinct cards runs; nothing about
+    NVLink or concurrency across cards is measured): (a)
+    ``build_cohort(ExperimentSpec(cohort=3))`` over 2 positions, padded to
+    4 lanes, 3 rounds: one program a position, each lane its seed's
+    single run bit for bit, 0 host syncs, the two positions' replays
+    beside the one-device cohort of 4's; (b) ``ExperimentSpec(p_shards=2)``
+    and ``p_shards=4`` ≡ ``ExperimentSpec()`` bit for bit over 2 rounds
+    (selections, T_k, E_k, accuracy, the global row, the assembled plane,
+    the labels), the plane kept as its column blocks, one a position,
+    ``pairwise_l2`` once a position for a divergence, the partials' sum
+    within 1e-5 of the whole plane's, the replay beside the unsplit one;
+    (c) ``lower_fl_round`` over 16(e)'s clients on a ``data = 2`` host
+    mesh ≡ 16(e)'s divergences and labels bit for bit, the new global
+    model within the bf16 bands;
+19. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero and prints no result when there is no CUDA card or when
 the port's sources are missing.
+
+``python3 chip_smoke.py --cards`` runs, on a host of several cards, the
+build and the three paths of phase 18 over the distinct cards this host
+sees, as the port builds its meshes with no substitution: a cohort of 2
+lanes a card (each lane its seed's single run on cuda:0 bit for bit, 0
+host syncs) beside the same lanes on one card; ``p_shards`` 2 and the
+card count ≡ ``ExperimentSpec()``; ``lower_fl_round`` over 16(e)'s
+clients on ``data`` 2 and the card count ≡ the one-card round's
+divergences and labels; each split's ms beside the one-card run's. It
+needs two cards or more, and ends with a JSON summary.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -277,16 +304,26 @@ class Timer:
         return times[len(times) // 2]
 
 
-def device_launches(torch, fn):
+def device_launches(torch, fn, attempts=3):
     """The device kernels, copies and memsets that one call of ``fn``
     enqueues (after one call outside the profiler), between marks as
     ``profiled_device_work`` takes them, fewer of them: without, the
     profiler once dropped a call's only record; a CUDA graph's replay
-    counts each of its kernels."""
+    counts each of its kernels. ``fn`` is a call that gives the same
+    device work each time (a kernel, a solve), so a profiled session
+    whose marks on one side were all dropped is profiled again, up to
+    ``attempts`` sessions in all: the profiler once dropped every record
+    after an eager SAO solve's 74,654 launches."""
     fn()
     torch.cuda.synchronize()
-    return len(profiled_device_work(torch, fn, "the call",
-                                    bursts=CALL_MARK_BURSTS)[0])
+    for attempt in range(attempts):
+        got = profiled_device_work(torch, fn, "the call",
+                                   bursts=CALL_MARK_BURSTS,
+                                   strict=attempt == attempts - 1)
+        if got is not None:
+            return len(got[0])
+        print(f"  the profiler kept no marks on one side of the call "
+              f"(session {attempt + 1} of {attempts}): profiling it again")
 
 
 def is_device_work(e, DeviceType):
@@ -409,7 +446,10 @@ def kernel_phase(torch, timer):
     for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
                     (10, 4, F_TINYLLAMA), (147, 1, P_MNIST),
                     (128, 1, P_MNIST), (1, 1, P_MNIST), (1000, 1, P_MNIST),
-                    (147, 10, 2240), (4, 1, P_MNIST)):
+                    (147, 10, 2240), (4, 1, P_MNIST),
+                    # phase 18(b): a position's partial divergence over its
+                    # columns at p_shards 2 and 4
+                    (40, 1, P_MNIST // 2), (40, 1, P_MNIST // 4)):
         x = torch.randn((n, f), generator=gen, device=DEVICE)
         c = torch.randn((m, f), generator=gen, device=DEVICE)
         fn = divergence_sq if m == 1 else pairwise_l2
@@ -1486,15 +1526,15 @@ def mark(torch, bursts=MARK_BURSTS):
         time.sleep(MARK_GAP_S)
 
 
-def profiled_device_work(torch, fn, what, bursts=MARK_BURSTS):
+def profiled_device_work(torch, fn, what, bursts=MARK_BURSTS, strict=True):
     """``fn`` under ``torch.profiler``, between two runs of ``mark``
     (``bursts`` bursts each): its device work (kernels, copies, memsets; a
     replayed graph gives each of its kernels) from the raw event list as
     ``(name, ms)`` pairs, how many marks were recorded before its first
     record and after its last, and its own device window [ms]: from its
     first record's start to its last record's end. Fails when either side
-    kept none: the profiler's window may then have cut ``fn``'s own
-    records. The device activity only: the host's op records of an eager
+    kept none (``strict=False``: returns ``None`` then): the profiler's
+    window may then have cut ``fn``'s own records. The device activity only: the host's op records of an eager
     round (several per kernel) made a profiled cohort run's stop and read
     ≈ 5× the run itself."""
     from torch.autograd import DeviceType
@@ -1525,6 +1565,8 @@ def profiled_device_work(torch, fn, what, bursts=MARK_BURSTS):
     end = max((t + ms * 1e6 for t, _, ms in work), default=-math.inf)
     before = sum(t < first for t in marks)
     after = sum(t > last for t in marks)
+    if not strict and not (before > 0 and after > 0):
+        return None
     check(before > 0 and after > 0,
           f"the profiler kept {before} marks before {what} and {after} after "
           f"it (of {bursts * MARK_SPINS} each): its window may have cut "
@@ -4457,7 +4499,9 @@ def bf16_kernel_rows(torch, timer):
     gen = torch.Generator(device=DEVICE).manual_seed(16)
     bf = torch.bfloat16
     rows = {k: [] for k in KERNELS}
-    for n, p in ((10, P_MNIST), (4, P_TINYLLAMA), (16, P_LM_HEAD)):
+    # (8, P_LM_HEAD): phase 18(c)'s partial fold of a position's 8 clients
+    for n, p in ((10, P_MNIST), (4, P_TINYLLAMA), (16, P_LM_HEAD),
+                 (8, P_LM_HEAD)):
         flat = torch.randn((n, p), generator=gen, device=DEVICE).to(bf)
         w = torch.rand((n,), generator=gen, device=DEVICE) + 0.1
         w = w / w.sum()
@@ -5453,6 +5497,445 @@ def mesh_phase(torch, round16):
     return by_path, kept
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the paths over several mesh positions
+# ---------------------------------------------------------------------------
+
+
+def repeated_mesh(torch, axes, sizes):
+    """A mesh naming this machine's one card at every position: the port
+    keys work by position, so it runs the code a mesh over distinct cards
+    runs (one card does the work of all)."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(sizes))
+    arr = np.empty(n, dtype=object)
+    arr[:] = [torch.device(DEVICE, 0)] * n
+    return Mesh(tuple(axes), dict(zip(axes, sizes)), arr.reshape(sizes))
+
+
+@contextlib.contextmanager
+def positions(torch, m):
+    """``plane_mesh`` and ``cohort_mesh`` over ``min(asked, m)`` positions
+    of the one card, as the CPU tests replace them."""
+    import repro_torch.core.cohort as cohort
+    from repro_torch.sharding import specs as sh
+    saved = sh.plane_mesh, cohort.cohort_mesh
+    sh.plane_mesh = lambda p, device=DEVICE: (
+        None if p <= 0 else repeated_mesh(torch, ("model",), (min(p, m),)))
+    cohort.cohort_mesh = lambda n, device=DEVICE: (
+        None if min(n, m) <= 1
+        else repeated_mesh(torch, ("cohort",), (min(n, m),)))
+    try:
+        yield
+    finally:
+        sh.plane_mesh, cohort.cohort_mesh = saved
+
+
+def same_run(torch, a, ha, b, hb):
+    """Two experiments' runs equal bit for bit: selections, T_k, E_k,
+    accuracy, the global row, the (assembled) plane, the labels."""
+    import numpy as np
+    return (ha.accuracy == hb.accuracy and ha.T_k == hb.T_k
+            and ha.E_k == hb.E_k and len(ha.selected) == len(hb.selected)
+            and all(np.array_equal(x, y)
+                    for x, y in zip(ha.selected, hb.selected))
+            and torch.equal(a.global_vec, b.global_vec)
+            and torch.equal(a.client_plane, b.client_plane)
+            and np.array_equal(a.cluster_labels, b.cluster_labels))
+
+
+def replay_turns(torch, fns, reps=3):
+    """Median host-clock ms of each of ``fns`` (name -> call, synchronised
+    before and after), in turns a, b, b, a."""
+    import numpy as np
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for _ in range(reps):
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def split_cohort_phase(torch, rounds=3):
+    """(a) ``build_cohort(ExperimentSpec(cohort=3))`` over 2 positions of
+    the card: 3 lanes padded to 4, one program a position (2 lanes each),
+    captured, then a second run from the same seeds under
+    ``transfer_guard`` equal to the first; each lane its seed's single
+    run bit for bit; the two positions' replays (back to back, one card
+    doing both) beside the one-device cohort of 4's replay."""
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+
+    spec = ExperimentSpec(cohort=3)
+    with positions(torch, 2):
+        runner = build_cohort(spec)
+        t0 = time.perf_counter()
+        first, launches = counted(torch, lambda: runner.run(rounds=rounds))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        again = runner.run(rounds=rounds, transfer_guard=True)
+    progs = runner.programs
+    check(len(progs) == 2 and [p.lanes for p in progs] == [2, 2]
+          and all(p.graph is not None for p in progs)
+          and len(runner._pads) == 1,
+          f"the split cohort: {len(progs)} programs of lanes "
+          f"{[p.lanes for p in progs]}, {len(runner._pads)} pad lanes")
+    check(first.accuracy.shape == (3, rounds + 1)
+          and same_history(first, again),
+          "the split cohort: a second run differs, or the pad lane stayed")
+    for i, seed in enumerate(first.seeds):
+        single = build_experiment(spec.replace(seed=seed))
+        h = single.run(rounds=rounds)
+        lane = runner.experiments[i]
+        hi = first.history(i)
+        check(hi.accuracy == h.accuracy and hi.T_k == h.T_k
+              and hi.E_k == h.E_k
+              and all(list(map(int, a)) == list(map(int, b))
+                      for a, b in zip(hi.selected, h.selected))
+              and torch.equal(lane.global_vec, single.global_vec)
+              and torch.equal(lane.client_plane, single.client_plane),
+              f"split cohort lane {i} (seed {seed}) differs from its single "
+              "run")
+        del single
+    one = build_cohort(spec.replace(cohort=4))
+    one.run(rounds=1)
+    exps = runner.experiments + runner._pads
+    batches = [lane_draws(torch, p, exps[2 * i:2 * i + 2])[0]
+               for i, p in enumerate(progs)]
+    b4, _ = lane_draws(torch, one.program, one.experiments)
+    ms = replay_turns(torch, {
+        "one device, 4 lanes": lambda: one.program.replay(b4),
+        "2 positions x 2 lanes": lambda: [p.replay(b) for p, b in
+                                          zip(progs, batches)]})
+    print(f"  3 lanes over 2 positions of one card, padded to 4 (the pad a "
+          f"copy of seed 2's lane, stripped): each lane its seed's single "
+          f"run bit for bit; first run (2 captures) {first_ms:.1f} ms, "
+          f"capture {[round(p.capture_ms, 1) for p in progs]} ms; a second "
+          f"run under transfer_guard (0 host syncs) equal; replay wall "
+          f"(host clock, median of 3 in turns): both positions "
+          f"{ms['2 positions x 2 lanes']:.1f} ms, the one-device cohort of "
+          f"4 {ms['one device, 4 lanes']:.1f} ms; launches {launches}")
+    del runner, one, exps, batches
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def p_shards_split_phase(torch, rounds=2):
+    """(b) ``ExperimentSpec(p_shards=m)``, m = 2 and 4, the plane's mesh
+    naming the card m times, against ``ExperimentSpec()``: the run bit
+    for bit, the plane kept as m column blocks of [N, P/m], one a
+    position; one eager flush of the partial divergences launches
+    ``pairwise_l2`` m times (the captured round: one graph a position),
+    their sum within rtol 1e-5 of the whole plane's divergence; the
+    replay beside the unsplit one's."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.blocks import ColumnBlocks
+
+    base = build_experiment(ExperimentSpec())
+    h0 = base.run(rounds=rounds)
+    by_m, kept = {}, {}
+    for m in (2, 4):
+        with positions(torch, m):
+            exp = build_experiment(ExperimentSpec(p_shards=m))
+        t0 = time.perf_counter()
+        h, launches = counted(torch, lambda: exp.run(rounds=rounds))
+        run_s = time.perf_counter() - t0
+        prog = exp.program
+        plane = exp.store.buffer
+        p = exp.flat_spec.total
+        check(exp.plane_split == m and isinstance(plane, ColumnBlocks)
+              and len(plane.blocks) == m
+              and all(tuple(b.shape) == (40, p // m)
+                      and b.device == torch.device(DEVICE, 0)
+                      for b in plane.blocks)
+              and prog.shards is not None and len(prog.shards) == m,
+              f"p_shards={m}: the plane's blocks "
+              f"{[tuple(b.shape) for b in getattr(plane, 'blocks', [])]}")
+        check(same_run(torch, exp, h, base, h0),
+              f"ExperimentSpec(p_shards={m}) differs from ExperimentSpec()")
+        # one more round from the kept blocks under the transfer guard:
+        # the eager flush, the lead's replay and every position's flush,
+        # with no host sync
+        prog(exp._place_carry(exp.traced_state()), *exp.traced_inputs(),
+             draws=exp.draws, rounds=1, with_init=False, transfer_guard=True)
+        state = exp._place_carry(exp.traced_state())
+        _, flush = counted(torch, lambda: prog.ph.flush(state, write=False))
+        parts = state.client_params.partials
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        got = torch.sqrt(total)
+        want = ops.client_divergence(exp.client_plane, exp.global_vec)
+        rel = float(((got - want).abs() / want.abs()).max())
+        check(flush["pairwise_l2"] == m and rel <= 1e-5,
+              f"p_shards={m}: a flush launched pairwise_l2 "
+              f"{flush['pairwise_l2']} times; divergence rel diff {rel}")
+        batch, _ = lane_draws(torch, prog, [exp])
+        batch0, _ = lane_draws(torch, base.program, [base])
+        ms = replay_turns(torch, {
+            "unsplit": lambda: base.program.replay(batch0),
+            "split": lambda: prog.replay(batch)})
+        print(f"  ExperimentSpec(p_shards={m}) over {m} positions of one card"
+              f" ≡ ExperimentSpec() bit for bit over the initial round and "
+              f"{rounds} rounds; a round more under transfer_guard (0 host "
+              f"syncs); the plane kept as {m} blocks "
+              f"{[tuple(b.shape) for b in plane.blocks]} on "
+              f"{[str(b.device) for b in plane.blocks]}; a flush: "
+              f"pairwise_l2 x {flush['pairwise_l2']} ([40, {p // m}] x "
+              f"[1, {p // m}] each), divergences from the partials within "
+              f"{rel:.2e} (rel) of the whole plane's; run {run_s:.1f} s, "
+              f"capture {prog.capture_ms:.1f} ms; replay (host clock, median"
+              f" of 3 in turns) {ms['split']:.1f} ms against "
+              f"{ms['unsplit']:.1f} unsplit; launches {launches}")
+        by_m[m], kept[m] = launches, ms
+        del exp, state, prog, plane
+    del base
+    torch.cuda.empty_cache()
+    return by_m, kept
+
+
+def split_fl_round_phase(torch, round16):
+    """(c) ``lower_fl_round`` over 16(e)'s 16 bf16 tinyllama clients on a
+    ``data = 2`` host mesh naming the card twice: ``compile`` splits the
+    clients 8 a position; the divergences and labels are 16(e)'s bit for
+    bit, the new global model within the bf16 fold's bands (rtol 3e-2,
+    atol 3e-1); ``pairwise_l2`` 2 a leaf + 1, ``flat_aggregate`` 2 a
+    leaf."""
+    from repro_torch.launch.fl_round import lower_fl_round
+
+    n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
+    cfg, g, clients, sizes, cent = fl_round_inputs(torch)
+    lowered = lower_fl_round(cfg, repeated_mesh(torch, ("data", "model"),
+                                                (2, 1)),
+                             num_clients=n, num_clusters=c)
+    step = lowered.compile(DEVICE)
+    check(lowered.positions == 2, f"lower_fl_round on data = 2: "
+          f"{lowered.positions} positions")
+    (new_g, div, labels), launches = counted(
+        torch, lambda: step(clients, g, cent, sizes))
+    want_g, want_div, want_labels = round16
+    check(torch.equal(div, want_div) and torch.equal(labels, want_labels),
+          "lower_fl_round on data = 2: divergences or labels differ from "
+          "16(e)'s")
+    worst, differ = 0.0, 0
+    for k, want in want_g.items():
+        got = new_g[k]
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.allclose(got.float(), want.float(), rtol=3e-2,
+                                 atol=3e-1),
+              f"lower_fl_round on data = 2: {k} outside the bf16 bands")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        differ += int((got != want).sum())
+    check(launches["pairwise_l2"] == 2 * len(g) + 1
+          and launches["flat_aggregate"] == 2 * len(g),
+          f"lower_fl_round on data = 2: launches {launches}")
+    ms = event_ms(torch, lambda: step(clients, g, cent, sizes))
+    print(f"  lower_fl_round over {n} bf16 tinyllama-1.1b clients on a "
+          f"data = 2 mesh of one card: divergences and labels ≡ 16(e)'s bit "
+          f"for bit; the new global model within the bf16 bands (max abs "
+          f"diff {worst:.3e}, {differ} of "
+          f"{sum(v.numel() for v in want_g.values())} elements differ: the "
+          f"fold's two partial sums); {ms:.3f} ms; launches {launches}")
+    del clients, g, cent, new_g
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, differ=differ, worst=worst)
+
+
+def positions_phase(torch, round16):
+    """18. (a)-(c); ``round16``: 16(e)'s round results at feature_slice 0.
+    Returns each path's launches and the numbers kept."""
+    by_path, kept = {}, {}
+    print(f"  every mesh below names {torch.cuda.get_device_name(0)} "
+          f"(cuda:0) at each of its positions: the positions share one card")
+    t1 = time.perf_counter()
+    print("  (a) build_cohort(ExperimentSpec(cohort=3)) over 2 positions")
+    by_path["cohort of 3 over 2 positions (phase 18a)"], kept[
+        "cohort"] = split_cohort_phase(torch)
+    print(f"  (a) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (b) ExperimentSpec(p_shards=2 and 4) against ExperimentSpec()")
+    paths, kept["p_shards"] = p_shards_split_phase(torch)
+    for m, n in paths.items():
+        by_path[f"ExperimentSpec(p_shards={m}) (phase 18b)"] = n
+    print(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print("  (c) lower_fl_round on a data = 2 host mesh against 16(e)")
+    by_path["lower_fl_round data = 2 (phase 18c)"], kept[
+        "fl_round"] = split_fl_round_phase(torch, round16)
+    print(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    return by_path, kept
+
+
+def cards_cohort(torch, n, rounds=3):
+    """``--cards`` (a): ``ExperimentSpec(cohort=2n)`` over the ``n`` cards
+    (``cohort_mesh`` as built: 2 lanes a card), a second run under
+    ``transfer_guard`` equal to the first, each lane its seed's single
+    run on cuda:0 bit for bit; the cards' replays (enqueued back to back,
+    one synchronise) beside the same 2n lanes as one program on cuda:0."""
+    import repro_torch.core.cohort as cohort
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+
+    spec = ExperimentSpec(cohort=2 * n)
+    runner = build_cohort(spec)
+    first, launches = counted(torch, lambda: runner.run(rounds=rounds))
+    again = runner.run(rounds=rounds, transfer_guard=True)
+    progs = runner.programs
+    devices = [str(p.device) for p in progs]
+    check(len(progs) == n and [p.lanes for p in progs] == [2] * n
+          and devices == [f"cuda:{i}" for i in range(n)]
+          and same_history(first, again),
+          f"--cards cohort: programs on {devices} of lanes "
+          f"{[p.lanes for p in progs]}, or a second run differs")
+    for i, seed in enumerate(first.seeds):
+        single = build_experiment(spec.replace(seed=seed))
+        h = single.run(rounds=rounds)
+        lane, hi = runner.experiments[i], first.history(i)
+        check(hi.accuracy == h.accuracy and hi.T_k == h.T_k
+              and hi.E_k == h.E_k
+              and all(list(map(int, a)) == list(map(int, b))
+                      for a, b in zip(hi.selected, h.selected))
+              and torch.equal(lane.global_vec.to(DEVICE), single.global_vec),
+              f"--cards cohort lane {i} (seed {seed}, {lane.device}) differs "
+              "from its single run on cuda:0")
+        del single
+    saved = cohort.cohort_mesh
+    cohort.cohort_mesh = lambda size, device=DEVICE: None
+    try:
+        one = build_cohort(spec)
+        one.run(rounds=1)
+    finally:
+        cohort.cohort_mesh = saved
+    batches = [lane_draws(torch, p, runner.experiments[2 * i:2 * i + 2])[0]
+               for i, p in enumerate(progs)]
+    b1, _ = lane_draws(torch, one.program, one.experiments)
+    ms = replay_turns(torch, {
+        "one card": lambda: one.program.replay(b1),
+        "cards": lambda: [p.replay(b) for p, b in zip(progs, batches)]})
+    print(f"  a cohort of {2 * n} over {n} cards ({devices}, 2 lanes each): "
+          f"each lane its seed's single run on cuda:0 bit for bit; a second "
+          f"run under transfer_guard equal; replay wall (host clock, median "
+          f"of 3 in turns): {ms['cards']:.1f} ms over the cards, "
+          f"{ms['one card']:.1f} ms for the {2 * n} lanes on cuda:0 "
+          f"({ms['one card'] / ms['cards']:.2f}x); launches {launches}")
+    del runner, one, batches
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=launches)
+
+
+def cards_p_shards(torch, n, rounds=2):
+    """``--cards`` (b): ``ExperimentSpec(p_shards=m)``, m = 2 and ``n``,
+    the plane's blocks on cuda:0 … cuda:m−1, ≡ ``ExperimentSpec()`` bit
+    for bit and a round more under ``transfer_guard``; the replay beside
+    the unsplit one's."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+
+    base = build_experiment(ExperimentSpec())
+    h0 = base.run(rounds=rounds)
+    out = {}
+    for m in sorted({2, n}):
+        exp = build_experiment(ExperimentSpec(p_shards=m))
+        h = exp.run(rounds=rounds)
+        prog, plane = exp.program, exp.store.buffer
+        devices = [str(b.device) for b in plane.blocks]
+        check(exp.plane_split == m
+              and devices == [f"cuda:{i}" for i in range(m)]
+              and same_run(torch, exp, h, base, h0),
+              f"--cards p_shards={m}: blocks on {devices}, or the run "
+              "differs from ExperimentSpec()")
+        prog(exp._place_carry(exp.traced_state()), *exp.traced_inputs(),
+             draws=exp.draws, rounds=1, with_init=False, transfer_guard=True)
+        batch, _ = lane_draws(torch, prog, [exp])
+        batch0, _ = lane_draws(torch, base.program, [base])
+        ms = replay_turns(torch, {
+            "unsplit": lambda: base.program.replay(batch0),
+            "split": lambda: prog.replay(batch)})
+        print(f"  ExperimentSpec(p_shards={m}): the plane's blocks on "
+              f"{devices}, ≡ ExperimentSpec() bit for bit over the initial "
+              f"round and {rounds} rounds, a round more under "
+              f"transfer_guard; replay {ms['split']:.1f} ms against "
+              f"{ms['unsplit']:.1f} unsplit on cuda:0")
+        out[m] = ms
+        del exp, prog, plane
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_fl_round(torch, n):
+    """``--cards`` (c): ``lower_fl_round`` over 16(e)'s 16 bf16 tinyllama
+    clients (on cuda:0) on host meshes of ``data`` 2 and ``n`` over the
+    cards: divergences and labels ≡ the one-card round's bit for bit, the
+    new global model within the bf16 bands; ms (each call copies every
+    card's clients to it) beside the one-card round's."""
+    from repro_torch.launch.fl_round import fl_round_step, lower_fl_round
+    from repro_torch.launch.mesh import make_host_mesh
+
+    c = FL_ROUND["clusters"]
+    cfg, g, clients, sizes, cent = fl_round_inputs(torch)
+    want_g, want_div, want_labels = fl_round_step(clients, g, cent, sizes,
+                                                  num_clusters=c)
+    one_ms = event_ms(torch, lambda: fl_round_step(clients, g, cent, sizes,
+                                                   num_clusters=c))
+    out = {"one card": one_ms}
+    for d in sorted({2, n}):
+        lowered = lower_fl_round(cfg, make_host_mesh(data=d),
+                                 num_clients=FL_ROUND["clients"],
+                                 num_clusters=c)
+        step = lowered.compile(DEVICE)
+        new_g, div, labels = step(clients, g, cent, sizes)
+        check(lowered.positions == d and torch.equal(div, want_div)
+              and torch.equal(labels, want_labels)
+              and all(torch.allclose(new_g[k].float(), v.float(), rtol=3e-2,
+                                     atol=3e-1) for k, v in want_g.items()),
+              f"--cards lower_fl_round on data = {d} differs from the "
+              "one-card round")
+        out[d] = event_ms(torch, lambda: step(clients, g, cent, sizes))
+        print(f"  lower_fl_round on data = {d} over "
+              f"{[str(x) for x in lowered.mesh.devices.flat]}: divergences "
+              f"and labels ≡ the one-card round's bit for bit, the new "
+              f"global model within the bf16 bands; {out[d]:.3f} ms against "
+              f"{one_ms:.3f} on cuda:0")
+        del new_g
+    del clients, g, cent, want_g
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_main(torch):
+    """``--cards``: the build, then (a)-(c) over this host's cards."""
+    from repro_torch.kernels import build
+    n = torch.cuda.device_count()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print("\n".join(cards))
+    if n < 2:
+        print("chip_smoke --cards: needs two cards or more; this host has "
+              f"{n}", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    build.build(list(KERNELS))
+    print(f"  built {list(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    from repro_torch.core.fedavg import fp32_matmuls
+    fp32_matmuls()
+    out = {}
+    for name, fn in (("cohort", cards_cohort), ("p_shards", cards_p_shards),
+                     ("fl_round", cards_fl_round)):
+        t1 = time.perf_counter()
+        print(f"== --cards: {name} over {n} cards")
+        out[name] = fn(torch, n)
+        print(f"  took {time.perf_counter() - t1:.1f} s")
+    print(f"  total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cards": cards, "count": n, "ok": True,
+                      "results": out}, default=str))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5465,6 +5948,8 @@ def main():
         return 2
     sys.path.insert(0, str(SRC))
     load_card_rates()
+    if sys.argv[1:] == ["--cards"]:
+        return cards_main(torch)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -5653,12 +6138,21 @@ def main():
     print(f"  phase 16 done at {time.perf_counter() - t_start:.1f} s")
     print("== 17. the mesh tools on the card")
     t17 = time.perf_counter()
-    mesh_paths, _ = mesh_phase(torch, kept16["fl_round"].pop("result"))
+    round16 = kept16["fl_round"].pop("result")
+    mesh_paths, _ = mesh_phase(torch, round16)
     by_path.update(mesh_paths)
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
 
     print(f"  phase 17 done at {time.perf_counter() - t_start:.1f} s")
-    print("== 18. the kernels")
+    print("== 18. the paths over several mesh positions")
+    t18 = time.perf_counter()
+    position_paths, _ = positions_phase(torch, round16)
+    by_path.update(position_paths)
+    del round16
+    print(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    print(f"  phase 18 done at {time.perf_counter() - t_start:.1f} s")
+    print("== 19. the kernels")
     replaces = {"flat_aggregate": "src/repro/kernels/flat_aggregate.py:38",
                 "pairwise_l2": "src/repro/kernels/pairwise_l2.py:45",
                 "flash_attention": "src/repro/kernels/flash_attention.py:70",

@@ -159,8 +159,10 @@ def build_cohort(spec: ExperimentSpec, device=None, *, draws=None):
     a machine with no card raises unless the caller passes
     ``device="cpu"``): seeds ``seed .. seed + cohort − 1``, each with the
     fleet's cells, run as lanes of one captured round (lane ``seed_index ·
-    cells + cell``; ``repro_torch.core.cohort``). ``draws``: ``seed ->
-    draws object`` in place of each lane's default draws.
+    cells + cell``; ``repro_torch.core.cohort``), split over the cards
+    this host sees (``cohort_mesh``: one captured round a card, each over
+    its share of the lanes). ``draws``: ``seed -> draws object`` in place
+    of each lane's default draws.
 
     Every strategy must be traceable, and a stochastic selector must name
     its draw (``draw_kind``): a selector the cohort lacks raises here,

@@ -28,8 +28,9 @@ dict or the compact ``"outage:0.1,corrupt:0.01"``,
 fault-tolerant runtime. ``p_shards`` lays the plane's parameter axis
 out over a ``model`` mesh of that many devices
 (``repro_torch.sharding.specs.plane_mesh``): on one device that is
-replication, the ``p_shards=0`` run bit for bit; more than one card
-raises.
+replication; over several, the device-resident run keeps the plane as
+one column block a device (``FLExperiment.plane_split``). Either way the
+run is the ``p_shards=0`` run bit for bit.
 """
 from __future__ import annotations
 

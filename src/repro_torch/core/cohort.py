@@ -42,9 +42,17 @@ its seed's single asynchronous run. The history then carries the ticks'
 
 The reference splits the cohort axis over the host's devices
 (``cohort_mesh``, padded by ``_mesh_pad``, placed by ``_shard_cohort``).
-Here those are the one-device forms: no mesh, no pad lanes, the lanes as
-they are; a cohort of more than one lane on a host of more than one card
-raises, as the lanes' split across cards is not ported.
+So does the port, by mesh position: over a ``("cohort",)`` mesh of
+``min(cards, lane groups)`` positions the lane groups (a lane; a seed's
+cells under a dynamic channel, which stay together) pad up to a multiple
+of the positions with copies of the last group, and position ``i`` takes
+the ``i``-th contiguous share. Each position's lanes are built on its
+device and run as a program of their own (captured on that device), the
+programs driven side by side with no host sync between
+(``engine.run_programs``); there is no collective, as the lanes are
+independent. Each position's history comes back in one transfer, the
+histories join in lane order and the pad lanes are stripped. A mesh may
+name one device more than once: the work goes by position.
 """
 from __future__ import annotations
 
@@ -55,10 +63,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (RoundInputs, TracedRunResult,
-                                     lane_view, run_rounds)
+                                     lane_view, run_programs, run_rounds)
 from repro_torch.core.fedavg import (FLExperiment, FLHistory, history_parts,
                                      rounds_by_name, to_host)
 from repro_torch.core.wireless import fleet_arrays
+from repro_torch.launch.mesh import Mesh
 
 __all__ = ["CohortHistory", "CohortRunner"]
 
@@ -116,18 +125,19 @@ class CohortHistory:
         return self.accuracy[:, -1]
 
 
-def cohort_mesh(cohort_size: int, device="cuda"):
-    """The mesh the cohort axis would split over: ``None`` where
-    ``min(devices, cohort_size)`` is one (the lanes run on one device). A
-    cohort over more than one card raises."""
+def cohort_mesh(cohort_size: int, device="cuda") -> Optional[Mesh]:
+    """A 1-axis ``("cohort",)`` mesh over ``min(cards, cohort_size)`` of
+    the cards this host sees, in order, or ``None`` where that is one (the
+    CPU's one device, one card, one lane group: the lanes run on one
+    device)."""
     dev = torch.device(device)
     n = min(torch.cuda.device_count() if dev.type == "cuda" else 1,
             cohort_size)
     if n <= 1:
         return None
-    raise NotImplementedError(
-        f"a cohort of {cohort_size} lanes over {n} cards: the split of the "
-        "cohort axis across cards is not ported (the lanes run on one card)")
+    devices = np.empty(n, dtype=object)
+    devices[:] = [torch.device("cuda", i) for i in range(n)]
+    return Mesh(("cohort",), {"cohort": n}, devices)
 
 
 def _mesh_pad(lanes: int, mesh) -> int:
@@ -137,12 +147,15 @@ def _mesh_pad(lanes: int, mesh) -> int:
     return (-lanes) % mesh.devices.size
 
 
-def _shard_cohort(tree, mesh):
-    """Every leaf's leading (cohort) axis on the mesh's devices: on no
-    mesh, the tree itself."""
+def _shard_cohort(groups, mesh):
+    """The (padded) lane groups as one contiguous share a mesh position,
+    in position order; on no mesh, ``groups`` itself (one device runs
+    them all)."""
     if mesh is None:
-        return tree
-    raise NotImplementedError("the cohort axis across cards is not ported")
+        return groups
+    m = mesh.devices.size
+    per = len(groups) // m
+    return [groups[i * per:(i + 1) * per] for i in range(m)]
 
 
 def _stack(tensors):
@@ -162,7 +175,8 @@ def _stack_lanes(parts):
 
 class CohortRunner:
     """Run one ``ExperimentSpec`` across a batch of seeds (× the fleet's
-    cells) as lanes of one device-resident program on one device.
+    cells) as lanes of one device-resident program a mesh position
+    (``cohort_mesh``; one position on a one-card host).
 
     ``device`` as for ``build_experiment`` (``cuda`` unless named);
     ``draws``: ``seed -> draws object`` in place of each lane's default
@@ -187,24 +201,38 @@ class CohortRunner:
         self.device = resolve_device(device)
         self.draws = draws
         self.experiments: List[FLExperiment] = []
+        self._pads: List[FLExperiment] = []   # the pad lanes' copies
         self.program = None             # the last run's TracedProgram
+        self.programs = []              # one a mesh position
 
     @property
     def num_cells(self) -> int:
         return self.spec.num_cells
 
-    def _build(self, seeds: Sequence[int]) -> List[FLExperiment]:
+    def _build(self, lanes: Sequence[tuple],
+               devices: Sequence[torch.device]) -> List[FLExperiment]:
+        """One experiment a ``(seed, cell)`` lane, each on its device."""
         from repro_torch.api.build import build_experiment
         exps = [build_experiment(
-                    self.spec.replace(seed=s), device=self.device, cell=c,
+                    self.spec.replace(seed=s), device=dev, cell=c,
                     draws=None if self.draws is None else self.draws(s))
-                for s in seeds for c in range(self.num_cells)]
+                for (s, c), dev in zip(lanes, devices)]
         counts = {e.fed.num_clients for e in exps}
         if len(counts) > 1:
             raise ValueError(
                 "CohortRunner stacks (seed, cell) lanes into one program; "
                 f"all cells need equal device counts, got {counts}")
         return exps
+
+    def _prog_cells(self) -> int:
+        """Lanes a group: a seed's cells under a dynamic channel (its
+        round couples them), else one."""
+        fs = self.spec.fleet
+        if fs is None:
+            return 1
+        from repro_torch.api.registry import CHANNELS
+        dynamic = getattr(CHANNELS.resolve(fs.channel), "dynamic", False)
+        return self.num_cells if dynamic else 1
 
     def run(self, seeds: Optional[Sequence[int]] = None,
             rounds: Optional[int] = None, reuse_experiments: bool = False,
@@ -218,19 +246,43 @@ class CohortRunner:
         the initial round to the last replay (the counterpart of the
         reference's ``jax.transfer_guard_device_to_host("disallow")``).
         Each lane's final carry is loaded back into its experiment
-        (``self.experiments``); ``self.program`` is the program the run
-        replayed (one captured round for all lanes)."""
+        (``self.experiments``, each on its mesh position's device);
+        ``self.program`` is the program the run replayed (one captured
+        round for all lanes; over a ``cohort_mesh`` of several positions,
+        ``self.programs`` holds one a position and ``self.program`` is
+        position 0's)."""
         if seeds is None:
             seeds = [self.spec.seed + i
                      for i in range(max(int(self.spec.cohort), 1))]
         seeds = [int(s) for s in seeds]
         cells = self.num_cells
-        lane_seeds = [s for s in seeds for _ in range(cells)]
+        lanes = [(s, c) for s in seeds for c in range(cells)]
+        lane_seeds = [s for s, _ in lanes]
         rounds = rounds or self.spec.rounds
-        if reuse_experiments and len(self.experiments) == len(lane_seeds):
-            exps = self.experiments
+        # lane groups (a dynamic channel couples each seed's cells inside
+        # the round), padded with copies of the last group up to a
+        # multiple of the mesh's positions, one contiguous share each
+        prog_cells = self._prog_cells()
+        groups = [lanes[g:g + prog_cells]
+                  for g in range(0, len(lanes), prog_cells)]
+        mesh = cohort_mesh(len(groups), self.device)
+        pad = _mesh_pad(len(groups), mesh)
+        padded_groups = groups + [groups[-1]] * pad
+        if mesh is None:
+            devices, shares = [self.device], [padded_groups]
         else:
-            exps = self.experiments = self._build(seeds)
+            devices = list(mesh.devices.flat)
+            shares = _shard_cohort(padded_groups, mesh)
+        where = [dev for dev, share in zip(devices, shares)
+                 for group in share for _ in group]
+        real, padded = where[:len(lanes)], where[len(lanes):]
+        if not (reuse_experiments and len(self.experiments) == len(lanes)
+                and [e.device for e in self.experiments] == real):
+            self.experiments = self._build(lanes, real)
+        if [e.device for e in self._pads] != padded:
+            self._pads = self._build(lanes[-prog_cells:] * pad, padded)
+        pads = self._pads
+        exps = self.experiments + pads
         e0 = exps[0]
         if not e0.traceable():
             raise ValueError(
@@ -242,43 +294,59 @@ class CohortRunner:
                 f"aggregator={e0.aggregator.registry_name!r}, "
                 f"compressor={e0.compressor.registry_name!r}, "
                 f"channel={e0.channel.registry_name!r}")
-        # a dynamic channel couples each seed's cells inside the round
-        prog_cells = (cells if getattr(e0.channel, "dynamic", False)
-                      else 1)
-
-        mesh = cohort_mesh(len(exps) // prog_cells, self.device)
-        state = _shard_cohort(type(e0.traced_state())(*(
-            _stack_lanes(parts)
-            for parts in zip(*(e.traced_state() for e in exps)))), mesh)
-        lanes = [e.traced_inputs() for e in exps]
         # one evaluation set for the whole cohort iff every seed resolves
         # the same test data (the sweeps' protocol), else one a lane
         shared = len({e.spec.resolved_test_seed for e in exps}) == 1
-        inputs = RoundInputs(
-            images=_stack(x.images for x in lanes),
-            labels=_stack(x.labels for x in lanes),
-            sizes=_stack(x.sizes for x in lanes),
-            arr=fleet_arrays([e.fleet for e in exps], self.device),
-            test_images=(lanes[0].test_images if shared
-                         else _stack(x.test_images for x in lanes)),
-            test_labels=(lanes[0].test_labels if shared
-                         else _stack(x.test_labels for x in lanes)))
-        prog = self.program = run_rounds(
-            e0.engine_cfg, selector=e0.selector, allocator=e0.allocator,
-            aggregator=e0.aggregator, tctx=e0.traced_context(),
-            feature_layer=e0.fl.feature_layer, device=self.device,
-            shapes=inputs.shapes(), base=e0.base, compressor=e0.compressor,
-            channel=e0.channel, cells=prog_cells, churn=e0.churn)
-        res = prog(state, *inputs, draws=[e.draws for e in exps],
-                   rounds=rounds, with_init=True,
-                   transfer_guard=transfer_guard)
-        # the whole history and the K-means labels in one transfer
-        *vals, lane_labels = to_host(history_parts(res) + [res.state.labels])
-        for i, e in enumerate(exps):
-            e.load_traced_state(lane_view(res.state, i),
-                                labels=lane_labels[i])
-        return self._history(lane_seeds, res, vals, e0.fed.num_clients,
-                             cells)
+        runs, programs, at = [], [], 0
+        for pos, (dev, share) in enumerate(zip(devices, shares)):
+            own = exps[at:at + len(share) * prog_cells]
+            at += len(own)
+            state = type(e0.traced_state())(*(
+                _stack_lanes(parts)
+                for parts in zip(*(e.traced_state() for e in own))))
+            ins = [e.traced_inputs() for e in own]
+            inputs = RoundInputs(
+                images=_stack(x.images for x in ins),
+                labels=_stack(x.labels for x in ins),
+                sizes=_stack(x.sizes for x in ins),
+                arr=fleet_arrays([e.fleet for e in own], dev),
+                test_images=(ins[0].test_images if shared
+                             else _stack(x.test_images for x in ins)),
+                test_labels=(ins[0].test_labels if shared
+                             else _stack(x.test_labels for x in ins)))
+            prog = run_rounds(
+                e0.engine_cfg, selector=e0.selector, allocator=e0.allocator,
+                aggregator=e0.aggregator, tctx=e0.traced_context(),
+                feature_layer=e0.fl.feature_layer, device=dev,
+                shapes=inputs.shapes(), base=own[0].base,
+                compressor=e0.compressor, channel=e0.channel,
+                cells=prog_cells, churn=e0.churn, position=pos)
+            programs.append(prog)
+            runs.append((prog, (state, *inputs),
+                         dict(draws=[e.draws for e in own], rounds=rounds,
+                              with_init=True)))
+        self.programs = programs
+        self.program = programs[0]
+        results = run_programs(runs, transfer_guard=transfer_guard)
+        # each position's history and K-means labels in one transfer,
+        # joined in lane order, the pad lanes stripped
+        n_init = len(results[0].init)
+        per = [to_host(history_parts(r) + [r.state.labels]) for r in results]
+        joined = []
+        for k, parts in enumerate(zip(*per)):
+            # the initial round's values and the labels are [B, ...], a
+            # round's [R, B, ...]
+            axis = 1 if n_init <= k < len(per[0]) - 1 else 0
+            whole = np.concatenate(parts, axis=axis)
+            joined.append(whole[:len(lanes)] if axis == 0
+                          else whole[:, :len(lanes)])
+        *vals, lane_labels = joined
+        views = [lane_view(r.state, b) for r in results
+                 for b in range(r.state.params.shape[0])]
+        for i, e in enumerate(self.experiments):
+            e.load_traced_state(views[i], labels=lane_labels[i])
+        return self._history(lane_seeds, results[0], vals,
+                             e0.fed.num_clients, cells)
 
     @staticmethod
     def _history(seeds, res: TracedRunResult, vals, num_devices: int,

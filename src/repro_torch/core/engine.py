@@ -55,6 +55,17 @@ training runs lane by lane inside it: each lane's S clients as one stack,
 the products of its single run at their shapes, so a lane computes its
 single run's bits (one ``[B·S_pad]`` stack would not: cuBLAS picks its
 kernels by the batch count).
+
+Over several mesh positions (a mesh may name one device more than once:
+work is keyed by position, never by device), the same body runs two
+ways. A seed cohort runs one program a position over its own lanes
+(:func:`run_programs` drives them side by side, round by round, with no
+host sync between). A single run with ``p_shards = m`` keeps the plane as
+``m`` column blocks (``repro_torch.sharding.blocks.ColumnBlocks``): the
+lead position runs the round, stages the rows it trained, and each
+position writes its columns and reduces its partial divergence (the
+body's ``flush``); on the card the lead's round and each position's
+flush are captured as separate graphs, ordered by stream events.
 """
 from __future__ import annotations
 
@@ -71,12 +82,15 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.api.protocols import RoundState, TracedContext
-from repro_torch.core.clustering import extract_features_flat, kmeans_fit
+from repro_torch.core.clustering import (extract_features_flat, kmeans_fit,
+                                         resolve_feature_columns)
 from repro_torch.core.divergence import weight_divergence_flat
 from repro_torch.core.faults import chan_outage_threshold, draw_fault_masks
 from repro_torch.core.graphs import eager_solves
 from repro_torch.core.wireless import completion_times, masked_sum
+from repro_torch.kernels import ops
 from repro_torch.models.registry import model_def_for
+from repro_torch.sharding.blocks import ColumnBlocks
 from repro_torch.utils.trees import (StackFlattenSpec, flatten_stacked,
                                      stack_flatten_spec, unflatten_vector)
 
@@ -303,6 +317,15 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
     ``select_phase`` reads ``state.sched.divergence`` and the caller
     persists the rows ``train_gathered`` gives through its store.
 
+    A ``"full"`` plane may be a :class:`ColumnBlocks` (``p_shards``: one
+    column block a mesh position, one run's carry): ``store_rows`` then
+    stages the rows on the lead, ``flush`` (after the round, and inside
+    ``cluster_round`` before K-means) hands each position its columns and
+    the global row's, where ``shard_step`` writes them and reduces its
+    partial divergence, and ``select_phase`` sums the partials on the
+    lead in position order; the K-means features are gathered from the
+    blocks that hold their columns.
+
     Padding lanes hold the sentinel N: data is gathered at ``min(idx,
     N − 1)`` (JAX clamps a gather), their weight is 0, and lane j's row is
     written to plane row ``N + j``, which nothing reads (JAX drops an
@@ -502,11 +525,57 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
             else:
                 pads = torch.arange(idx.shape[-1], device=idx.device)
                 store = torch.where(land, idx, N + pads)
+        if isinstance(target, ColumnBlocks):
+            # each position writes its columns at the next flush
+            target.stage(store, rows)
+            return
         if store.dim() > 1:         # cohort lane b writes its own plane b
             lanes = torch.arange(store.shape[0], device=store.device)
             store = store + target.shape[-2] * lanes[:, None]
         target.view(-1, target.shape[-1]).index_copy_(
             0, store.reshape(-1), rows.reshape(-1, rows.shape[-1]))
+
+    def shard_step(plane, i, store, rows, gslice):
+        """Position ``i``'s part of a flush, on its own device: the staged
+        ``rows`` into its block at ``store`` (none where ``store`` is
+        ``None``), then its partial ``Σ(x − g)²`` over its columns of the
+        first N rows (``pairwise_l2``'s one-centroid kernel on the card;
+        ``None`` where the selector reads no divergence)."""
+        blk = plane.blocks[i]
+        if store is not None:
+            blk.index_copy_(0, store, rows)
+        if not selector.needs_divergence:
+            return None
+        return ops.client_divergence_sq(blk[:N], gslice)
+
+    def flush(state, write=True):
+        """A column-block plane's staged writes (``write``) and partial
+        divergences against the global row: each position's hand-off
+        moved to its device, its :func:`shard_step`, its partial back to
+        the lead. A no-op for a whole plane."""
+        plane = state.client_params
+        if not isinstance(plane, ColumnBlocks):
+            return
+        lead = state.params.device
+        if plane.partials is None and selector.needs_divergence:
+            plane.partials = [torch.zeros(N, dtype=torch.float32,
+                                          device=lead) for _ in plane.blocks]
+        for i, dev in enumerate(plane.devices):
+            store, rows, gslice = plane.handoff(
+                i, state.params, plane.pending if write else None)
+            part = shard_step(
+                plane, i, None if store is None else store.to(dev),
+                None if rows is None else rows.to(dev), gslice.to(dev))
+            if part is not None:
+                plane.partials[i].copy_(part)
+
+    def divergence_of_blocks(plane):
+        """``[N]`` divergences from the positions' partials, summed on the
+        lead in position order."""
+        total = plane.partials[0]
+        for part in plane.partials[1:]:
+            total = total + part
+        return torch.sqrt(total)
 
     def fold(state, idx, mask, rows, sizes, armed=False, fault=None, d=None,
              clients=None):
@@ -560,8 +629,14 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         all_idx = torch.arange(N, device=state.params.device)
         state, _ = train_aggregate(state, all_idx, None, images, labels,
                                    sizes, batch_idx)
-        feats = extract_features_flat(state.client_params[:N], feature_layer,
-                                      spec)
+        plane = state.client_params
+        if isinstance(plane, ColumnBlocks):
+            flush(state)
+            cols = resolve_feature_columns(spec, feature_layer)
+            feats = plane.columns(slice(0, spec.total) if cols is None
+                                  else cols, N)
+        else:
+            feats = extract_features_flat(plane[:N], feature_layer, spec)
         _, k_labels, _ = kmeans_fit(feats, tctx.num_clusters, draws=draws)
         state.labels.copy_(k_labels)
         return state
@@ -657,6 +732,9 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
             arr = step_channel(state, arr, fade)
             if selector.needs_divergence and plane == "stats":
                 div = state.sched.divergence
+            elif (selector.needs_divergence
+                  and isinstance(state.client_params, ColumnBlocks)):
+                div = divergence_of_blocks(state.client_params)
             elif selector.needs_divergence:
                 div = weight_divergence_flat(
                     state.client_params[..., :N, :], state.params)
@@ -727,7 +805,8 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         evaluate_row=evaluate_row,
         evaluate_rows=evaluate_rows, clamp=clamp,
         train_gathered=train_gathered, train_rows=train_rows,
-        store_rows=store_rows, fold=fold,
+        store_rows=store_rows, shard_step=shard_step, flush=flush,
+        fold=fold,
         train_aggregate=train_aggregate, cluster_round=cluster_round,
         init_channel=init_channel, step_channel=step_channel,
         init_round=init_round, select_phase=select_phase,
@@ -827,6 +906,13 @@ class TracedProgram:
     ``capture_ms``. Kernel wrappers count their launches at the capture,
     never on a replay. On the CPU the round body runs eagerly on the
     caller's tensors.
+
+    A carry whose plane is a :class:`ColumnBlocks` (``p_shards``) is
+    captured as one graph for the lead position's round and one a
+    position for its flush (``shards``: each on its device's own stream),
+    and a replay hands the staged rows and the global row's columns to
+    each position, and its partial divergence back, by device copies
+    ordered by the streams' events.
     """
 
     def __init__(self, ph, device: torch.device, pad: int,
@@ -837,24 +923,29 @@ class TracedProgram:
         self.draw_kind = draw_kind      # a stochastic selector's draw
         self.lanes = None               # a cohort's lane count, else None
         self.graph = None
+        self.shards = None              # a column-block plane's flushes
         self.capture_ms = None
 
     def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None,
-                   fade=None, churn=None, fault=None):
+                   fade=None, churn=None, fault=None, flush: bool = True):
         """One round, eagerly: fade, select, (a dynamic cohort: the
         cross-cell interference), allocate, train, fold and evaluate — or
         one asynchronous tick, ``churn`` its leave and join uniforms
         (``[2, N]``, a lane each ``[B, 2, N]``); ``fault`` the round's
-        fault draw (``[2, S_pad]``). Returns ``(state, RoundOutputs)``."""
+        fault draw (``[2, S_pad]``); then (``flush``) a column-block
+        plane's flush. Returns ``(state, RoundOutputs)``."""
         arr = dict(inputs.arr)
         xgain = arr.pop("xgain", None)
         extra = {} if churn is None else {"churn": churn}
         if fault is not None:
             extra["fault"] = fault
-        return self.ph.round_body(state, arr, xgain, inputs.images,
-                                  inputs.labels, inputs.sizes, batch_idx,
-                                  inputs.test_images, inputs.test_labels,
-                                  draw, fade, **extra)
+        state, out = self.ph.round_body(
+            state, arr, xgain, inputs.images, inputs.labels, inputs.sizes,
+            batch_idx, inputs.test_images, inputs.test_labels, draw, fade,
+            **extra)
+        if flush:
+            self.ph.flush(state)
+        return state, out
 
     def _lead(self) -> tuple:
         return () if self.lanes is None else (self.lanes,)
@@ -897,6 +988,14 @@ class TracedProgram:
         return torch.zeros(self._lead() + (2, self.pad), dtype=torch.bool,
                            device=self.device)
 
+    def _positions(self) -> tuple:
+        """The devices the carry spans: the plane's blocks' (a
+        column-block plane), else this program's."""
+        plane = self.state.client_params
+        if isinstance(plane, ColumnBlocks):
+            return plane.devices
+        return (self.device,)
+
     def capture(self, state: RoundState, inputs: RoundInputs) -> None:
         """Capture the round over static copies of ``state`` and
         ``inputs`` (whose values the warm-up and the capture overwrite)."""
@@ -908,21 +1007,70 @@ class TracedProgram:
         self.churn = self._churn_input()
         self.fault = self._fault_input()
         t0 = time.perf_counter()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side), eager_solves():
-            self.round_body(self.state, self.inputs, self.batch, self.draw,
-                            self.fade, self.churn, self.fault)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            _, self.out = self.round_body(self.state, self.inputs, self.batch,
-                                          self.draw, self.fade, self.churn,
-                                          self.fault)
-        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side), eager_solves():
+                # a column-block plane's partials first: the round reads
+                # them in its selection
+                self.ph.flush(self.state, write=False)
+                self.round_body(self.state, self.inputs, self.batch,
+                                self.draw, self.fade, self.churn, self.fault)
+            current.wait_stream(side)
+            for dev in self._positions():
+                torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            # a capture stream of this program's own device (the graph
+            # class's default stream lives on the device of its first use)
+            with torch.cuda.graph(graph,
+                                  stream=torch.cuda.Stream(self.device)):
+                _, self.out = self.round_body(
+                    self.state, self.inputs, self.batch, self.draw,
+                    self.fade, self.churn, self.fault, flush=False)
+            if isinstance(self.state.client_params, ColumnBlocks):
+                self._capture_shards()
+            for dev in self._positions():
+                torch.cuda.synchronize(dev)
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def _capture_shards(self) -> None:
+        """One graph a position of its flush (its write and its partial
+        divergence) over static hand-off buffers on its device, captured
+        on its own stream; ``_pending`` keeps the lead graph's staged
+        rows, which every replay hands on."""
+        plane = self.state.client_params
+        self._pending = plane.pending
+        self.shards = []
+        for i, dev in enumerate(plane.devices):
+            stage = [torch.empty_like(x, device=dev) for x in
+                     plane.handoff(i, self.state.params, self._pending)]
+            stream = torch.cuda.Stream(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.graph(graph,
+                                                          stream=stream):
+                out = self.ph.shard_step(plane, i, *stage)
+            self.shards.append((graph, stream, stage, out))
+
+    def _replay_shards(self) -> None:
+        """Each position's flush after the lead's round: its stream waits
+        for the lead's, copies the hand-off in, replays its graph and
+        copies its partial to the lead; the lead's stream then waits for
+        every position's. Nothing waits on the host."""
+        plane = self.state.client_params
+        lead = torch.cuda.current_stream(self.device)
+        for i, (graph, stream, stage, out) in enumerate(self.shards):
+            stream.wait_stream(lead)
+            with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+                for dst, src in zip(stage, plane.handoff(
+                        i, self.state.params, self._pending)):
+                    dst.copy_(src)
+                graph.replay()
+                if out is not None:
+                    plane.partials[i].copy_(out)
+        for _, stream, _, _ in self.shards:
+            lead.wait_stream(stream)
 
     def load(self, state: RoundState, inputs: RoundInputs) -> None:
         """Copy ``state`` and ``inputs`` into the graph's static tensors
@@ -935,14 +1083,17 @@ class TracedProgram:
         """One captured round on the static carry, every lane at once:
         load ``batch_idx`` (and a stochastic selector's ``draw``, a fading
         channel's ``fade``, a churning tick's ``churn``, a faulty round's
-        ``fault``), replay; the outputs are the graph's (the next replay
-        overwrites them)."""
+        ``fault``), replay (and each position's flush of a column-block
+        plane); the outputs are the graph's (the next replay overwrites
+        them)."""
         self.batch.copy_(batch_idx)
         for static, value in ((self.draw, draw), (self.fade, fade),
                               (self.churn, churn), (self.fault, fault)):
             if static is not None:
                 static.copy_(value)
         self.graph.replay()
+        if self.shards is not None:
+            self._replay_shards()
         return self.out
 
     def _round_draws(self, lane_draws, n_samples: int):
@@ -975,10 +1126,13 @@ class TracedProgram:
         return (lanes(batches), lanes(draws), lanes(fades), lanes(churns),
                 lanes(faults))
 
-    def __call__(self, state: RoundState, images, labels, sizes, arr,
-                 test_images, test_labels, *, draws, rounds: int,
-                 with_init: bool,
-                 transfer_guard: bool = False) -> TracedRunResult:
+    def steps(self, state: RoundState, images, labels, sizes, arr,
+              test_images, test_labels, *, draws, rounds: int,
+              with_init: bool):
+        """The run of a call, in steps, for :func:`run_programs`: a
+        generator that yields after the set-up (the capture on the first
+        call, the loads), after the initial round and after each round,
+        and returns the :class:`TracedRunResult`."""
         ph = self.ph
         inputs = RoundInputs(images, labels, sizes, dict(arr), test_images,
                              test_labels)
@@ -1006,39 +1160,78 @@ class TracedProgram:
             self.load(state, inputs)
             state, inputs = self.state, self.inputs
         n_samples = inputs.images.shape[len(self._lead()) + 1]
-        guard = contextlib.ExitStack()
-        if transfer_guard:
-            guard.enter_context(sync_guard(self.device))
-            guard.enter_context(eager_solves())
-        with guard:
-            init = None
-            if with_init:
-                batch0 = [d.batch_indices(ph.N, ph.local_iters,
-                                          ph.batch_size, n_samples)
-                          for d in lane_draws]
-                arr0 = dict(inputs.arr)
-                xgain = arr0.pop("xgain", None)
-                state, init = ph.init_round(
-                    state, inputs.images, inputs.labels, inputs.sizes,
-                    batch0[0] if self.lanes is None else torch.stack(batch0),
-                    arr0, inputs.test_images, inputs.test_labels,
-                    draws, xgain)
-            per_round = [self._round_draws(lane_draws, n_samples)
-                         for _ in range(rounds)]
-            outs = []
-            for batch_idx, draw, fade, churn, fault in per_round:
-                if self.graph is not None:
-                    out = _clone(self.replay(batch_idx, draw, fade, churn,
-                                             fault))
-                else:
-                    state, out = self.round_body(state, inputs, batch_idx,
-                                                 draw, fade, churn, fault)
-                outs.append(out)
-            stacked = (RoundOutputs(*(None if v[0] is None
-                                      else torch.stack(v)
-                                      for v in zip(*outs)))
-                       if outs else None)
+        yield
+        init = None
+        if with_init:
+            batch0 = [d.batch_indices(ph.N, ph.local_iters, ph.batch_size,
+                                      n_samples)
+                      for d in lane_draws]
+            arr0 = dict(inputs.arr)
+            xgain = arr0.pop("xgain", None)
+            state, init = ph.init_round(
+                state, inputs.images, inputs.labels, inputs.sizes,
+                batch0[0] if self.lanes is None else torch.stack(batch0),
+                arr0, inputs.test_images, inputs.test_labels, draws, xgain)
+        else:
+            # a column-block plane's partial divergences, against the
+            # carry's own row (no staged write)
+            ph.flush(state, write=False)
+        per_round = [self._round_draws(lane_draws, n_samples)
+                     for _ in range(rounds)]
+        yield
+        outs = []
+        for batch_idx, draw, fade, churn, fault in per_round:
+            if self.graph is not None:
+                out = _clone(self.replay(batch_idx, draw, fade, churn, fault))
+            else:
+                state, out = self.round_body(state, inputs, batch_idx, draw,
+                                             fade, churn, fault)
+            outs.append(out)
+            yield
+        stacked = (RoundOutputs(*(None if v[0] is None else torch.stack(v)
+                                  for v in zip(*outs)))
+                   if outs else None)
         return TracedRunResult(state=state, rounds=stacked, init=init)
+
+    def __call__(self, state: RoundState, images, labels, sizes, arr,
+                 test_images, test_labels, *, draws, rounds: int,
+                 with_init: bool,
+                 transfer_guard: bool = False) -> TracedRunResult:
+        return run_programs(
+            [(self, (state, images, labels, sizes, arr, test_images,
+                     test_labels),
+              dict(draws=draws, rounds=rounds, with_init=with_init))],
+            transfer_guard=transfer_guard)[0]
+
+
+def run_programs(runs, transfer_guard: bool = False) -> list:
+    """Several programs' runs side by side — ``runs``: ``(program, args,
+    kwargs)`` of a :class:`TracedProgram` call each, one a mesh position —
+    and their :class:`TracedRunResult` s in order: every set-up first (the
+    captures, the loads), then every initial round, then each round of
+    every program before the next round of any, with nothing between
+    that waits for a card, so programs on distinct cards run at once.
+    ``transfer_guard`` raises on any host sync after the set-ups."""
+    gens = [prog.steps(*args, **kwargs) for prog, args, kwargs in runs]
+    for gen in gens:
+        next(gen)
+    guard = contextlib.ExitStack()
+    if transfer_guard:
+        guard.enter_context(sync_guard(runs[0][0].device))
+        guard.enter_context(eager_solves())
+    results = [None] * len(gens)
+    with guard:
+        live = list(enumerate(gens))
+        while live:
+            going = []
+            for i, gen in live:
+                try:
+                    next(gen)
+                    going.append((i, gen))
+                except StopIteration as done:
+                    results[i] = done.value
+            live = going
+    return results
 
 
 # LRU-bounded: a captured program holds its graph's memory pool and static
@@ -1064,7 +1257,8 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                tctx: TracedContext, feature_layer: str, device,
                shapes: tuple, base=None, compressor=None, channel=None,
                cells: int = 1, churn=None, faults=None,
-               quarantine_after: int = 0, byzantine=None) -> TracedProgram:
+               quarantine_after: int = 0, byzantine=None, position: int = 0,
+               plane_devices: Optional[tuple] = None) -> TracedProgram:
     """The device-resident program for one strategy bundle on ``device``
     at ``shapes`` (the shapes of the data it reads,
     :meth:`RoundInputs.shapes`: a cohort's lane-stacked, its test set one
@@ -1088,6 +1282,12 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
     adversarial subset) arm the fault-tolerant round or tick
     (``build_round_phases``); its fault draw is a graph input beside the
     batch indices. With ``cells > 1`` they raise, as in the reference.
+
+    ``position``: the mesh position the program serves (a cohort split
+    over a mesh runs one program a position, each with its own static
+    carry, even where two positions name one device); ``plane_devices``:
+    the devices of a column-block plane's positions (``p_shards``), whose
+    program captures a flush a position.
     """
     churn = (0.0, 0.0) if churn is None else (float(churn[0]),
                                               float(churn[1]))
@@ -1120,7 +1320,8 @@ def run_rounds(cfg: EngineConfig, *, selector, allocator, aggregator,
                else np.asarray(byzantine, bool).tobytes())
     key = (cfg, selector, allocator, aggregator_cache_key(aggregator), tctx,
            feature_layer, device, shapes, base_key, compressor, channel,
-           cells, churn, faults, quarantine_after, byz_key)
+           cells, churn, faults, quarantine_after, byz_key, position,
+           plane_devices)
     prog = _RUN_FN_CACHE.get(key)
     if prog is None:
         arms = dict(faults=faults, quarantine_after=quarantine_after,

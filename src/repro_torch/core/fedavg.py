@@ -91,6 +91,7 @@ from repro_torch.kernels.chunked import (default_chunk_size,
                                          streaming_weighted_mean)
 from repro_torch.models.registry import model_def_for
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.blocks import ColumnBlocks
 from repro_torch.utils.trees import (flatten_stacked, flatten_vector,
                                      unflatten_rows_np)
 
@@ -267,6 +268,18 @@ class FLExperiment:
     checkpoint_every=, checkpoint_dir=)`` snapshots the host loops
     (:meth:`save_checkpoint`); :meth:`load_checkpoint` resumes a fresh
     experiment from one, bit for bit.
+
+    ``p_shards > 0`` lays the device-resident run's carry on a ``model``
+    mesh of ``min(p_shards, devices)`` positions (``sharding.specs.
+    plane_mesh``): the ``[N + S_pad, P]`` plane as ``plane_split`` column
+    blocks, one a position (``sharding.blocks.ColumnBlocks``), every
+    other leaf whole on the lead position. ``plane_split`` is 1 — the
+    plane whole on the lead — on one position, where ``P`` does not
+    divide (the reference's ``plane_spec`` replicates then), and for the
+    buffered-asynchronous tick, which reads its candidates' rows back
+    from the plane. The experiment keeps the blocks between runs; the
+    host loop, which ignores ``p_shards`` as the reference's does, joins
+    them first.
     """
 
     def __init__(self, model_cfg, fed: FederatedData, test_images: np.ndarray,
@@ -345,6 +358,7 @@ class FLExperiment:
                                        fl.local_iters, batch_size, fedprox_mu)
         self.flat_spec = spec = model_flat_spec(model_cfg)
         self._ph = None
+        self.program = None       # the last device-resident run's program
         self.batch_size = batch_size
 
         params = self.draws.init_params(model_cfg)
@@ -354,6 +368,15 @@ class FLExperiment:
         self.k_max = int(k_max or min(n, max(fl.devices_per_round, 256)))
         self._store = build_store(store, self.global_vec, n, self.chunk_size,
                                   stage_rows=self.k_max)
+        mesh = self.plane_mesh
+        split = mesh is not None and any(
+            e is not None for e in sh.plane_spec(
+                torch.empty((n, spec.total), device="meta"), mesh,
+                spec.total))
+        self.plane_split = (mesh.size if split and store == "dense"
+                            and not getattr(self.aggregator, "async_capable",
+                                            False)
+                            else 1)
         self._div_refresh_every = int(div_refresh_every)
         self._rounds_since_refresh = FORCE_REFRESH
         # the global row the stats table's drift is measured from
@@ -428,15 +451,26 @@ class FLExperiment:
     @property
     def client_plane(self) -> torch.Tensor:
         """The dense ``[N, P]`` plane on the device (updated in place by
-        the round loop). A paged store keeps none: gather the rows you need
-        through the store instead."""
+        the round loop). After a run with ``plane_split > 1`` the
+        experiment keeps the plane as its column blocks, and this is a
+        whole copy assembled on the lead. A paged store keeps none: gather
+        the rows you need through the store instead."""
         if self._store.kind != "dense":
             raise AttributeError(
                 "store='paged' keeps no [N, P] client buffer; gather "
                 "active rows with exp.store.gather(idx), page the cold "
                 "store with iter_client_trees()/iter_client_features(), "
                 "or read the O(N) exp.stats table")
-        return self._store.buffer
+        buf = self._store.buffer
+        return buf.assemble() if isinstance(buf, ColumnBlocks) else buf
+
+    def _whole_plane(self) -> torch.Tensor:
+        """The dense plane as one tensor the host loop updates in place:
+        column blocks are joined on the lead first, and stay joined."""
+        buf = self._store.buffer
+        if isinstance(buf, ColumnBlocks):
+            buf = self._store.buffer = buf.assemble()
+        return buf
 
     @client_plane.setter
     def client_plane(self, value: torch.Tensor) -> None:
@@ -483,7 +517,7 @@ class FLExperiment:
         quarantine a device copy of the stats table (:meth:`_round`
         copies its counts back)."""
         return RoundState(params=self.global_vec,
-                          client_params=self.client_plane,
+                          client_params=self._whole_plane(),
                           opt_state=self.aggregator.init_flat_state(
                               self.global_vec),
                           labels=self._labels_tensor(),
@@ -1352,10 +1386,13 @@ class FLExperiment:
         plane = None
         if self._store.kind == "dense":
             pad = selector.pad_size(self.traced_context())
-            plane = torch.zeros((n + pad, self.client_plane.shape[1]),
-                                dtype=self.client_plane.dtype,
-                                device=self.device)
-            plane[:n] = self.client_plane
+            buf = self._store.buffer
+            if isinstance(buf, ColumnBlocks):
+                plane = buf.padded(pad)
+            else:
+                plane = torch.zeros((n + pad, buf.shape[1]), dtype=buf.dtype,
+                                    device=self.device)
+                plane[:n] = buf
         gvec = self.global_vec.clone()
         sched = (self.stats.device(self.device)
                  if (getattr(self.aggregator, "async_capable", False)
@@ -1383,7 +1420,9 @@ class FLExperiment:
         asynchronous carry's stats table is copied into the store's."""
         n = self.fed.num_clients
         self.global_vec = state.params.clone()
-        self.client_plane = state.client_params[:n].clone()
+        plane = state.client_params
+        self.client_plane = (plane.head(n) if isinstance(plane, ColumnBlocks)
+                             else plane[:n].clone())
         self.aggregator.load_flat_state(state.opt_state, self.flat_spec)
         if state.sched is not None:
             self.stats.load(state.sched)
@@ -1410,22 +1449,36 @@ class FLExperiment:
                 "(FLExperiment.run() takes the host loop for it)")
         with_init = include_initial_round or self.clusters is None
         inputs = self.traced_inputs()
+        blocks = (tuple(self.plane_mesh.devices.flat)
+                  if self.plane_split > 1 else None)
         prog = run_rounds(
             self.engine_cfg, selector=selector, allocator=self.allocator,
             aggregator=self.aggregator, tctx=self.traced_context(),
             feature_layer=self.fl.feature_layer, device=self.device,
             shapes=inputs.shapes(), base=self.base,
             compressor=self.compressor, channel=self.channel,
-            churn=self.churn, **self._fault_args())
+            churn=self.churn, plane_devices=blocks, **self._fault_args())
+        self.program = prog
         state = self.traced_state(selector)
         if self.plane_mesh is not None:
-            # the carry's P-sized dims over the `model` mesh: on its one
-            # device, replication (the carry as it is)
-            state = sh.device_put(state, sh.plane_shardings(
-                state, self.plane_mesh, int(state.params.shape[0])))
+            state = self._place_carry(state)
         return prog(state, *inputs,
                     draws=self.draws if draws is None else draws,
                     rounds=rounds, with_init=with_init)
+
+    def _place_carry(self, state: RoundState) -> RoundState:
+        """The carry on the plane's mesh: the plane by its ``plane_spec``
+        (the reference's: its column axis over ``model``) where
+        ``plane_split > 1``, else whole on the lead position; every other
+        leaf whole on the lead, the ``[P]`` row and the server state
+        included, which training, the compressor, the fold and
+        evaluation read whole."""
+        mesh, plane = self.plane_mesh, state.client_params
+        rest = state._replace(client_params=None)
+        rest = sh.device_put(rest, sh.lead_shardings(rest, mesh))
+        shards = (sh.plane_shardings(plane, mesh, self.flat_spec.total)
+                  if self.plane_split > 1 else sh.lead_shardings(plane, mesh))
+        return rest._replace(client_params=sh.device_put(plane, shards))
 
     def _run_traced(self, selector, rounds: int,
                     include_initial_round: bool = True,

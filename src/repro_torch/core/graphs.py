@@ -64,7 +64,10 @@ class CapturedSolve:
             body(self.arr, self.scalars, self.mask)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # a capture stream of the solve's own device (the graph class's
+        # default stream lives on the device of its first use)
+        with torch.cuda.device(dev), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(dev)):
             self.out = body(self.arr, self.scalars, self.mask)
 
     def _load(self, arr, scalars, mask):

@@ -5,9 +5,14 @@ A ``Mesh`` is what the partition rules read (``axis_names``, ``shape``)
 and the devices it spans. Building one touches no device: the production
 meshes are logical (a 256- or 512-card layout the rules are held to), and
 a host mesh names the cards or the CPU this process may use. The port has
-no SPMD partitioner: a step runs whole on one device, so a host mesh of
-more than one device is refused where a step would need the split
-(``lower_fl_round``, ``p_shards``, the cohort mesh).
+no SPMD partitioner: a logical mesh is never run. Over a host mesh of
+several positions the port splits three paths by hand: a seed cohort's
+lanes (``core.cohort``), the ``[N, P]`` plane's columns (``p_shards``,
+``sharding.blocks``) and ``lower_fl_round``'s clients. Work is keyed by a
+device's position in ``devices``, never by the device itself, so a mesh
+may name one device more than once (as the reference's tests force
+several host devices out of one CPU) and runs the code a mesh over
+distinct cards runs.
 """
 from __future__ import annotations
 
@@ -22,21 +27,24 @@ import torch
 class Mesh:
     """``axis_names`` in order, ``shape`` (``{name: size}``) and
     ``devices``: an object array of ``torch.device`` of the mesh's
-    shape."""
+    shape. ``logical``: a pod's layout whose devices this host need not
+    have (:func:`make_logical_mesh`): rules and counts read it, nothing
+    runs on it."""
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     devices: np.ndarray
+    logical: bool = False
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
 
-def _mesh(devices, sizes, axes) -> Mesh:
+def _mesh(devices, sizes, axes, logical: bool = False) -> Mesh:
     arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
     return Mesh(tuple(axes), dict(zip(axes, sizes)),
-                arr.reshape(tuple(sizes)))
+                arr.reshape(tuple(sizes)), logical)
 
 
 def make_logical_mesh(shape, axes) -> Mesh:
@@ -44,7 +52,7 @@ def make_logical_mesh(shape, axes) -> Mesh:
     ``cuda:0 …`` of a logical pod: no device is touched."""
     n = int(np.prod(shape))
     return _mesh([torch.device("cuda", i) for i in range(n)], tuple(shape),
-                 tuple(axes))
+                 tuple(axes), logical=True)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

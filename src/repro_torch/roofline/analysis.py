@@ -318,16 +318,21 @@ class Lowered:
     :meth:`cost_analysis` counts one run on the structs,
     :meth:`partitioned` runs them partitioned over the mesh (collectives
     and peak memory); :meth:`compile` gives the callable that runs on
-    real tensors."""
+    real tensors. ``split``: ``host mesh -> (step, positions)``, the
+    step's hand-written split over a host mesh of several positions
+    (``None``: the step has none)."""
 
     def __init__(self, fn: Callable, args: tuple, in_shardings: tuple,
-                 out_shardings, *, mesh: Mesh, donate: tuple = ()):
+                 out_shardings, *, mesh: Mesh, donate: tuple = (),
+                 split: Optional[Callable] = None):
         self.fn = fn
         self.args = args
         self.in_shardings = in_shardings
         self.out_shardings = out_shardings
         self.mesh = mesh
         self.donate = donate
+        self.split = split
+        self.positions: Optional[int] = None
         self.step_count: Optional[StepCount] = None
         self._partitioned = None
 
@@ -385,17 +390,26 @@ class Lowered:
         return float(args + _held(self.count().outputs, self.out_shardings))
 
     def compile(self, device) -> Callable:
-        """The step on real tensors on ``device``: the function itself on
-        a one-device mesh of that device. A mesh of more than one device
-        raises: the port has no SPMD partitioner."""
-        if self.mesh.size > 1:
+        """The step on real tensors, its lead on ``device``: the function
+        itself on a one-device mesh of that device; on a host mesh of
+        several positions the step's own split (``split``), which sets
+        ``positions`` (1 where it runs whole on the lead). A logical mesh,
+        and a host mesh the step has no split for, raise: the port has no
+        SPMD partitioner."""
+        if self.mesh.logical or (self.mesh.size > 1 and self.split is None):
             raise NotImplementedError(
-                f"a step over a {self.mesh.size}-device mesh: the port has "
-                "no SPMD partitioner (one device runs the step whole)")
+                f"a step over a {self.mesh.size}-device "
+                f"{'logical ' if self.mesh.logical else ''}mesh: the port "
+                "has no SPMD partitioner (one device runs the step whole; "
+                "the FL round splits its clients over a host mesh)")
         dev, own = torch.device(device), self.mesh.devices.flat[0]
         if (dev.type, dev.index or 0) != (own.type, own.index or 0):
             raise ValueError(f"compile({dev}): the mesh's device is {own}")
-        return self.fn
+        if self.mesh.size == 1:
+            self.positions = 1
+            return self.fn
+        step, self.positions = self.split(self.mesh)
+        return step
 
 
 def _no_collectives() -> Dict:

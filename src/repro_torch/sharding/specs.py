@@ -11,8 +11,11 @@ The rules read a mesh's ``axis_names`` and ``shape`` only
 (a tensor, on ``meta`` or not). A spec is a :class:`PartitionSpec`, a
 tuple of axis names, tuples of them, or ``None``; a :class:`NamedSharding`
 pairs it with a mesh and gives the per-device shard shape. The port has
-no SPMD partitioner: on one device every spec is replication, and nothing
-places a tensor across cards.
+no SPMD partitioner: on one device every spec is replication; over a mesh
+of several positions :func:`device_put` splits a leaf's last dim into
+column blocks (``sharding.blocks.ColumnBlocks``), which the FL round body
+reads and writes by hand (``p_shards``), and puts a replicated leaf whole
+on the lead position.
 
 Parameter trees are the port's flat dicts (``"blocks/attn/wq"``); the
 path a rule reads is the name split at ``/``, as the reference's tree
@@ -25,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.sharding.blocks import ColumnBlocks
 from repro_torch.train.optimizer import OptState
 
 MODEL_AXIS = "model"
@@ -279,32 +283,53 @@ def plane_spec(leaf, mesh: Mesh, p: int) -> PartitionSpec:
 
 def plane_shardings(tree, mesh: Mesh, p: int):
     """A ``NamedSharding`` for every tensor of a flat-plane carry (a
-    tensor, or a dict, list, tuple or named tuple of them; other leaves,
-    ``None`` included, stay as they are)."""
+    tensor — a :class:`ColumnBlocks` too —, or a dict, list, tuple or
+    named tuple of them; other leaves, ``None`` included, stay as they
+    are)."""
+    return _map_tensors(
+        tree, lambda t: NamedSharding(mesh, plane_spec(t, mesh, p)))
+
+
+def _map_tensors(tree, fn):
     if hasattr(tree, "shape"):
-        return NamedSharding(mesh, plane_spec(tree, mesh, p))
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: plane_shardings(v, mesh, p) for k, v in tree.items()}
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(plane_shardings(v, mesh, p) for v in tree))
+        return type(tree)(*(_map_tensors(v, fn) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(plane_shardings(v, mesh, p) for v in tree)
+        return type(tree)(_map_tensors(v, fn) for v in tree)
     return tree
 
 
 def device_put(tree, shardings):
     """Each tensor of ``tree`` laid out as its ``NamedSharding`` in
     ``shardings`` (a tree that mirrors it: dicts by key, tuples and named
-    tuples by position; other leaves stay as they are). The port places
-    a tensor on one device: on a one-device mesh a sharding is
-    replication, so the tensor goes to that device (itself when it lies
-    there); a mesh of more than one device raises."""
+    tuples by position; other leaves stay as they are). A replicated
+    spec, or any spec on a one-device mesh, puts the tensor whole on the
+    mesh's first (lead) position (itself when it lies there). Over a mesh
+    of several positions a spec that splits the last dim over the mesh's
+    one axis of more than one position gives a :class:`ColumnBlocks`, a
+    contiguous block a position, each copied to its position's device
+    (a ``ColumnBlocks`` already laid out so is itself); any other split
+    raises."""
     if isinstance(shardings, NamedSharding):
-        if shardings.mesh.size > 1:
+        mesh = shardings.mesh
+        devices = list(mesh.devices.flat)
+        split = [i for i, e in enumerate(shardings.spec) if e is not None]
+        if isinstance(tree, ColumnBlocks):
+            if split and tree.same_layout(devices):
+                return tree
+            tree = tree.assemble()
+        if mesh.size == 1 or not split:
+            return tree.to(devices[0])
+        axes = [a for a, n in mesh.shape.items() if n > 1]
+        if (split != [tree.dim() - 1] or len(axes) != 1
+                or shardings.spec[split[0]] not in (axes[0], (axes[0],))):
             raise NotImplementedError(
-                f"a tensor over a {shardings.mesh.size}-device mesh: the port "
-                "places each tensor on one device")
-        return tree.to(shardings.mesh.devices.flat[0])
+                f"spec {shardings.spec} over the mesh {mesh.shape}: the port "
+                "splits only a leaf's last dim over a mesh's one axis")
+        return ColumnBlocks.split(tree, devices)
     if isinstance(tree, dict):
         return {k: device_put(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -315,18 +340,22 @@ def device_put(tree, shardings):
     return tree
 
 
+def lead_shardings(tree, mesh: Mesh):
+    """A replicated ``NamedSharding`` for every tensor of ``tree`` (the
+    walk of :func:`plane_shardings`): :func:`device_put` puts each whole
+    on the mesh's lead position."""
+    return _map_tensors(tree, lambda t: NamedSharding(mesh, P()))
+
+
 def plane_mesh(p_shards: int, device="cuda") -> Optional[Mesh]:
     """A 1-axis ``model`` mesh over ``min(p_shards, devices)`` devices of
-    ``device``'s kind (``None`` when sharding is off). A one-device mesh
-    is valid: its shardings are replication, so the path runs anywhere. A
-    mesh of more than one card raises: splitting the plane's columns
-    across cards is not ported."""
+    ``device``'s kind (``None`` when sharding is off): the cards this
+    host sees, in order, or the one CPU device. A one-device mesh is
+    valid: its shardings are replication, so the path runs anywhere.
+    Over several positions the plane's columns split (``FLExperiment``),
+    one block a position."""
     if p_shards <= 0:
         return None
     host = make_host_mesh(1, p_shards, device=device)
-    if host.size > 1:
-        raise NotImplementedError(
-            f"p_shards={p_shards} over {host.size} cards: the column split "
-            "of the [N, P] plane across cards is not ported (one card, or "
-            "p_shards=1, runs the plane replicated)")
-    return Mesh((MODEL_AXIS,), {MODEL_AXIS: 1}, host.devices.reshape(1))
+    return Mesh((MODEL_AXIS,), {MODEL_AXIS: host.size},
+                host.devices.reshape(host.size))

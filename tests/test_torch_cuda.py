@@ -1188,3 +1188,77 @@ def test_p_shards_on_the_card_is_the_unsharded_run(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(h1.selected,
                                                     h0.selected))
     assert torch.equal(e1.global_vec, e0.global_vec)
+
+
+def _card_positions(monkeypatch, m):
+    """``plane_mesh`` and ``cohort_mesh`` over ``m`` positions that all
+    name this card (the code a mesh over distinct cards runs)."""
+    import repro_torch.core.cohort as cohort
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import specs as sh
+
+    def mesh(axis, k):
+        arr = np.empty(k, dtype=object)
+        arr[:] = [torch.device("cuda", 0)] * k
+        return Mesh((axis,), {axis: k}, arr)
+    monkeypatch.setattr(sh, "plane_mesh", lambda p, device="cuda": (
+        None if p <= 0 else mesh("model", min(p, m))))
+    monkeypatch.setattr(cohort, "cohort_mesh", lambda n, device="cuda": (
+        None if min(n, m) <= 1 else mesh("cohort", min(n, m))))
+
+
+def test_p_shards_over_positions_on_the_card(cuda, monkeypatch):
+    """``ExperimentSpec(p_shards=2)`` with the plane's mesh naming the
+    card twice: the captured round (a lead graph and a flush graph a
+    position) ≡ the ``p_shards=0`` run bit for bit, the plane kept as
+    two column blocks."""
+    from repro_torch.api import ExperimentSpec, build_experiment
+    from repro_torch.sharding.blocks import ColumnBlocks
+    tiny = dict(dataset="mnist", clients=8, samples_per_client=16,
+                train_samples=160, test_samples=80, local_iters=2,
+                batch_size=8, rounds=3, devices_per_round=4, num_clusters=4)
+    e0 = build_experiment(ExperimentSpec(**tiny), device="cuda")
+    h0 = e0.run()
+    _card_positions(monkeypatch, 2)
+    e2 = build_experiment(ExperimentSpec(**tiny, p_shards=2), device="cuda")
+    h2 = e2.run()
+    assert e2.plane_split == 2 and len(e2.program.shards) == 2
+    assert isinstance(e2.store.buffer, ColumnBlocks)
+    assert h2.accuracy == h0.accuracy
+    assert h2.T_k == h0.T_k and h2.E_k == h0.E_k
+    assert all(np.array_equal(a, b) for a, b in zip(h2.selected,
+                                                    h0.selected))
+    assert torch.equal(e2.global_vec, e0.global_vec)
+    assert torch.equal(e2.client_plane, e0.client_plane)
+    # a round more from the kept blocks: no host sync in the lead's replay
+    # or the positions' flushes
+    e2.program(e2._place_carry(e2.traced_state()), *e2.traced_inputs(),
+               draws=e2.draws, rounds=1, with_init=False,
+               transfer_guard=True)
+
+
+def test_cohort_over_positions_on_the_card(cuda, monkeypatch):
+    """A cohort of 3 over 2 positions naming the card twice (one program
+    a position, a pad lane): every lane its seed's single run bit for
+    bit, under the transfer guard."""
+    from repro_torch.api import ExperimentSpec, build_cohort, build_experiment
+    tiny = dict(dataset="fashion", clients=8, samples_per_client=16,
+                train_samples=160, test_samples=80, local_iters=2,
+                batch_size=8, rounds=2, devices_per_round=4, num_clusters=4)
+    spec = ExperimentSpec(**tiny, cohort=3)
+    singles = []
+    for seed in (0, 1, 2):
+        exp = build_experiment(spec.replace(seed=seed), device="cuda")
+        singles.append((exp, exp.run()))
+    _card_positions(monkeypatch, 2)
+    runner = build_cohort(spec, device="cuda")
+    ch = runner.run(transfer_guard=True)
+    assert len(runner.programs) == 2
+    for i, (single, h) in enumerate(singles):
+        hi = ch.history(i)
+        assert hi.accuracy == h.accuracy
+        assert hi.T_k == h.T_k and hi.E_k == h.E_k
+        assert all(np.array_equal(a, b) for a, b in zip(hi.selected,
+                                                        h.selected))
+        assert torch.equal(runner.experiments[i].global_vec,
+                           single.global_vec)

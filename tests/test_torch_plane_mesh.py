@@ -1,5 +1,8 @@
 """``ExperimentSpec.p_shards`` and the cohort mesh on one device
-(``repro_torch.sharding.specs.plane_mesh``, ``repro_torch.core.cohort``):
+(``repro_torch.sharding.specs.plane_mesh``, ``repro_torch.core.cohort``);
+over meshes of several positions (the plane's columns in blocks, a
+cohort's lanes split, ``lower_fl_round`` on ``data > 1``):
+``tests/test_torch_multi_device.py``. On one device:
 
 (a) the spec field as the reference's: default 0, the JSON form, and
     ``p_shards=-1`` refused with the reference's words;
