@@ -1,6 +1,6 @@
-// Causal / sliding-window GQA attention, forward, fp32 or bf16 in and out
-// (fp32 inside), with an online softmax over key tiles: out[b, i, h, :] = softmax_j(q_i . k_j / sqrt(D)) v_j
-// over the unmasked keys j of query i.
+// Causal / sliding-window GQA attention, forward, fp32 in and out, with an
+// online softmax over key tiles: out[b, i, h, :] = softmax_j(q_i . k_j /
+// sqrt(D)) v_j over the unmasked keys j of query i.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention / _flash_kernel) and keeps its semantics: the 1/sqrt(D)
@@ -42,32 +42,27 @@
 //   kernel adds the chunks in a fixed order. A chunk with no unmasked key
 //   carries m = -1e30, l = 0.
 // No atomics, so the result is the same bit for bit on every run.
-// - bf16 (flash_attention_bf16): q, k, v are read as bf16 (4 a load, or 1
-//   where the rows are not 8-byte aligned) and widened exactly into the
-//   same fp32 tiles, synchronously in place of cp.async; everything after
-//   the load is the fp32 instance's, and the output is its fp32 result
-//   rounded once to bf16 (round to nearest even), so it equals the fp32
-//   instance's on the widened inputs, rounded, bit for bit.
 // - D is 16, 32, 64, 96 (phi-3-vision) or 128: D / 8 output n-tiles, rows
 //   of D + 4 floats (the same bank pattern at every D).
-// The wrapper's plan (kernels/flash_attention.py: plan_attention,
-// block_key_tiles) mirrors BM, BN, kMaxChunks and key_tiles() below.
+// bf16 q, k, v take flash_attention_bf16.cu (bf16 tensor cores, 64-key
+// tiles); the arguments, key_tiles(), the entry point's checks, the launch
+// and the split-KV combine are shared (flash_common.cuh). The wrapper's plan
+// (kernels/flash_attention.py: plan_attention, block_key_tiles) mirrors BM,
+// BN, kMaxChunks and key_tiles().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
+using namespace flash;
 using namespace tf32;
 
 constexpr int kThreads = 128;         // 4 warps, 16 packed rows each
 constexpr int BM = 64;                // packed rows a block
 constexpr int BN = 32;                // keys a tile
-constexpr int kMaxChunks = 132;       // the wrapper's SPLIT_BLOCKS
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Shared memory, in floats: Q as (hi, lo) pairs [BM][DP], then two K/V
 // stages, each K [BN][DP] then V [BN][DP]. Rows are padded to DP = D + 4 so
@@ -80,50 +75,19 @@ struct Tile {
     static constexpr int smem_floats = 2 * BM * DP + 2 * stage;
 };
 
-template <typename In>
-struct Args {
-    const In* q;
-    const In* k;
-    const In* v;
-    In* out;
-    float* part_acc;                  // [chunks, B, Sq, H, D] when chunks > 1
-    float* part_ml;                   // [chunks, B, Sq, H, 2]
-    int B, Sq, Sk, H, K, G;
-    long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-    int causal, has_window, window;
-    float scale;
-    int row_tiles, chunks, tiles_per_chunk, first_tile;
-    int q_vec, kv_vec;                // 4-element copies allowed
-};
-
-// The key tiles holding an unmasked key of some query in [qlo, qhi]; an
-// empty range is lo = 0, hi = -1.
-template <typename In>
-__device__ __forceinline__ void key_tiles(const Args<In>& A, long long qlo,
-                                          long long qhi, int& lo, int& hi) {
-    long long klo = 0, khi = A.Sk - 1;
-    if (A.causal) khi = min(khi, qhi);
-    if (A.has_window) klo = max(klo, qlo - A.window + 1);
-    if (khi < klo) {
-        lo = 0;
-        hi = -1;
-        return;
-    }
-    lo = (int)(klo / BN);
-    hi = (int)(khi / BN);
-}
+using Args = flash::Args<float>;
 
 // The block's packed rows of q (unscaled) into Qraw [BM][DP], zero past the
 // last row.
-template <int D, typename In>
-__device__ __forceinline__ void load_q(const Args<In>& A, float* Qraw, int b, int kh,
+template <int D>
+__device__ __forceinline__ void load_q(const Args& A, float* Qraw, int b, int kh,
                                        int r0, int rows) {
     constexpr int DP = Tile<D>::DP;
     const int step = A.q_vec ? 4 : 1, per_row = D / step;
     for (int e = threadIdx.x; e < BM * per_row; e += kThreads) {
         const int r = e / per_row, c = (e % per_row) * step, pr = r0 + r;
         const bool in = pr < rows;
-        const In* src = A.q;
+        const float* src = A.q;
         if (in)
             src += b * A.q_sb + (pr / A.G) * A.q_ss + (kh * A.G + pr % A.G) * A.q_sh + c;
         if (A.q_vec)
@@ -134,9 +98,9 @@ __device__ __forceinline__ void load_q(const Args<In>& A, float* Qraw, int b, in
 }
 
 // K and V rows [k0, k0 + BN) into a stage, zero past Sk.
-template <int D, typename In>
-__device__ __forceinline__ void load_kv(const Args<In>& A, float* stage,
-                                        const In* kb, const In* vb, int k0) {
+template <int D>
+__device__ __forceinline__ void load_kv(const Args& A, float* stage,
+                                        const float* kb, const float* vb, int k0) {
     constexpr int DP = Tile<D>::DP;
     float* Ks = stage;
     float* Vs = stage + BN * DP;
@@ -144,8 +108,8 @@ __device__ __forceinline__ void load_kv(const Args<In>& A, float* stage,
     for (int e = threadIdx.x; e < BN * per_row; e += kThreads) {
         const int r = e / per_row, c = (e % per_row) * step, kj = k0 + r;
         const bool in = kj < A.Sk;
-        const In* ks = in ? kb + kj * A.k_ss + c : kb;
-        const In* vs = in ? vb + kj * A.v_ss + c : vb;
+        const float* ks = in ? kb + kj * A.k_ss + c : kb;
+        const float* vs = in ? vb + kj * A.v_ss + c : vb;
         if (A.kv_vec) {
             copy4(Ks + r * DP + c, ks, in);
             copy4(Vs + r * DP + c, vs, in);
@@ -156,8 +120,8 @@ __device__ __forceinline__ void load_kv(const Args<In>& A, float* stage,
     }
 }
 
-template <int D, typename In>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const Args<In> A) {
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const Args A) {
     constexpr int DP = Tile<D>::DP;
     constexpr int NS = BN / 8;        // score n-tiles (8 keys each)
     constexpr int NO = D / 8;         // output n-tiles (8 columns each)
@@ -184,8 +148,8 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const
     int kt_lo, kt_hi;
     {
         const int last = min(r0 + BM, rows) - 1;
-        key_tiles(A, (long long)(r0 / A.G) + shift, (long long)(last / A.G) + shift,
-                  kt_lo, kt_hi);
+        key_tiles<BN>(A, (long long)(r0 / A.G) + shift,
+                      (long long)(last / A.G) + shift, kt_lo, kt_hi);
         const int c_lo = A.first_tile + chunk * A.tiles_per_chunk;
         kt_lo = max(kt_lo, c_lo);
         kt_hi = min(kt_hi, c_lo + A.tiles_per_chunk - 1);
@@ -195,13 +159,13 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const
     const long long wq_lo = (long long)(wr0 / A.G) + shift;
     const long long wq_hi = (long long)((min(wr0 + 16, rows) - 1) / A.G) + shift;
     int wkt_lo = 0, wkt_hi = -1;
-    if (wr0 < rows) key_tiles(A, wq_lo, wq_hi, wkt_lo, wkt_hi);
+    if (wr0 < rows) key_tiles<BN>(A, wq_lo, wq_hi, wkt_lo, wkt_hi);
     const int prA = wr0 + g, prB = prA + 8;           // this thread's two rows
     const long long qposA = (long long)(prA / A.G) + shift;
     const long long qposB = (long long)(prB / A.G) + shift;
 
-    const In* kb = A.k + b * A.k_sb + kh * A.k_sh;
-    const In* vb = A.v + b * A.v_sb + kh * A.v_sh;
+    const float* kb = A.k + b * A.k_sb + kh * A.k_sh;
+    const float* vb = A.v + b * A.v_sb + kh * A.v_sh;
 
     float o[NO][4];
 #pragma unroll
@@ -361,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const
         const float m = half ? mB : mA, l = half ? lB : lA;
         if (A.chunks == 1) {
             const float denom = fmaxf(l, 1e-30f);
-            In* dst = A.out + row * D + 2 * t;
+            float* dst = A.out + row * D + 2 * t;
 #pragma unroll
             for (int n = 0; n < NO; ++n)
                 store2(dst + n * 8, o[n][2 * half] / denom, o[n][2 * half + 1] / denom);
@@ -378,119 +342,11 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3) flash_kernel(const
     }
 }
 
-// One block per output row: the chunks' weights f_c = exp(m_c - max m) and
-// l = sum f_c l_c (one warp), then sum f_c acc_c over (chunk slice, 4
-// columns) threads, the slices added in slice order. Where D / 4 does not
-// divide the block (D = 96: 24 columns, 10 slices), the threads past the
-// last whole slice sit out.
-constexpr int kCombineThreads = 256;
-
-template <typename In>
-__global__ void __launch_bounds__(kCombineThreads) combine_kernel(
-        const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-        In* __restrict__ out, long long n_rows, int D, int chunks) {
-    __shared__ float f_s[kMaxChunks];
-    __shared__ __align__(16) float red_s[4 * kCombineThreads];
-    __shared__ float denom_s;
-    const long long row = blockIdx.x;
-    const int tid = threadIdx.x;
-    if (tid < 32) {
-        float m = kNegInf;
-        for (int c = tid; c < chunks; c += 32)
-            m = fmaxf(m, part_ml[(c * n_rows + row) * 2]);
-        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-        float l = 0.f;
-        for (int c = tid; c < chunks; c += 32) {
-            const float2 ml =
-                *reinterpret_cast<const float2*>(part_ml + (c * n_rows + row) * 2);
-            const float f = exp2f((ml.x - m) * kLog2e);
-            f_s[c] = f;
-            l = fmaf(ml.y, f, l);
-        }
-        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(kFull, l, off);
-        if (tid == 0) denom_s = fmaxf(l, 1e-30f);
-    }
-    __syncthreads();
-    const int cols = D / 4, slices = kCombineThreads / cols;
-    const int col = tid % cols, slice = tid / cols;
-    if (slice < slices) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int c = slice; c < chunks; c += slices) {
-            const float4 x = *reinterpret_cast<const float4*>(
-                part_acc + (c * n_rows + row) * D + 4 * col);
-            const float f = f_s[c];
-            acc = make_float4(fmaf(f, x.x, acc.x), fmaf(f, x.y, acc.y),
-                              fmaf(f, x.z, acc.z), fmaf(f, x.w, acc.w));
-        }
-        *reinterpret_cast<float4*>(red_s + slice * D + 4 * col) = acc;
-    }
-    __syncthreads();
-    if (tid < D) {
-        float sum = red_s[tid];
-        for (int sl = 1; sl < slices; ++sl) sum += red_s[sl * D + tid];
-        store1(out + row * D + tid, sum / denom_s);
-    }
-}
-
-template <int D, typename In>
-int launch(const Args<In>& a, cudaStream_t s) {
-    constexpr int bytes = Tile<D>::smem_floats * (int)sizeof(float);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_kernel<D, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const int blocks = a.row_tiles * a.B * a.K * a.chunks;
-    flash_kernel<D, In><<<blocks, kThreads, bytes, s>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || a.chunks == 1) return static_cast<int>(err);
-    const long long n_rows = (long long)a.B * a.Sq * a.H;
-    combine_kernel<In><<<(unsigned)n_rows, kCombineThreads, 0, s>>>(
-        a.part_acc, a.part_ml, a.out, n_rows, D, a.chunks);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// rows of 4 elements start on whole 4-element vectors
-template <typename In>
-bool aligned4(const In* p, long long sb, long long ss, long long sh) {
-    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(In)) == 0 && sb % 4 == 0 &&
-           ss % 4 == 0 && sh % 4 == 0;
-}
-
-template <typename In>
-int run(const In* q, const In* k, const In* v, In* out, float* part_acc,
-        float* part_ml, int B, int Sq, int Sk, int H, int K, int D, long long q_sb,
-        long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-        long long v_sb, long long v_ss, long long v_sh, int causal, int has_window,
-        int window, float scale, int row_tiles, int chunks, int tiles_per_chunk,
-        int first_tile, void* stream) {
-    if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-    const int invalid = static_cast<int>(cudaErrorInvalidValue);
-    if (K <= 0 || H % K || row_tiles != (Sq * (H / K) + BM - 1) / BM ||
-        chunks < 1 || chunks > kMaxChunks || tiles_per_chunk < 1 || first_tile < 0 ||
-        (chunks > 1 && (part_acc == nullptr || part_ml == nullptr)))
-        return invalid;
-    Args<In> a{q, k, v, out, part_acc, part_ml, B, Sq, Sk, H, K, H / K,
-               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               causal, has_window, window, scale,
-               row_tiles, chunks, tiles_per_chunk, first_tile,
-               aligned4(q, q_sb, q_ss, q_sh),
-               aligned4(k, k_sb, k_ss, k_sh) && aligned4(v, v_sb, v_ss, v_sh)};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 16: return launch<16>(a, s);
-        case 32: return launch<32>(a, s);
-        case 64: return launch<64>(a, s);
-        case 96: return launch<96>(a, s);
-        case 128: return launch<128>(a, s);
-        default: return invalid;
-    }
-}
-
 }  // namespace
 
-// q: [B, Sq, H, D], k and v: [B, Sk, K, D] fp32 (flash_attention_f32) or
-// bf16 (flash_attention_bf16) with unit stride over D and the given element
-// strides over batch, sequence and head; out: [B, Sq, H, D] contiguous, of
-// the inputs' type. D is 16, 32, 64, 96 or 128; H is a multiple of K.
+// q: [B, Sq, H, D], k and v: [B, Sk, K, D] fp32 with unit stride over D
+// and the given element strides over batch, sequence and head; out: [B, Sq,
+// H, D] fp32 contiguous. D is 16, 32, 64, 96 or 128; H is a multiple of K.
 // window <= 0 with has_window masks every key. The plan (row tiles of 64
 // packed rows; key tiles of 32 keys; chunks of tiles_per_chunk key tiles
 // from first_tile) comes from the wrapper; with chunks > 1, part_acc and
@@ -506,22 +362,15 @@ extern "C" int flash_attention_f32(
         long long v_sh, int causal, int has_window, int window, float scale,
         int row_tiles, int chunks, int tiles_per_chunk, int first_tile,
         void* stream) {
-    return run(q, k, v, out, part_acc, part_ml, B, Sq, Sk, H, K, D, q_sb, q_ss, q_sh,
-               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, has_window, window, scale,
-               row_tiles, chunks, tiles_per_chunk, first_tile, stream);
-}
-
-extern "C" int flash_attention_bf16(
-        const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* out,
-        float* part_acc, float* part_ml, int B, int Sq, int Sk, int H, int K,
-        int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-        long long v_sh, int causal, int has_window, int window, float scale,
-        int row_tiles, int chunks, int tiles_per_chunk, int first_tile,
-        void* stream) {
-    return run(q, k, v, out, part_acc, part_ml, B, Sq, Sk, H, K, D, q_sb, q_ss, q_sh,
-               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, has_window, window, scale,
-               row_tiles, chunks, tiles_per_chunk, first_tile, stream);
+    return flash::run(q, k, v, out, part_acc, part_ml, B, Sq, Sk, H, K, D, q_sb, q_ss,
+                      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, has_window,
+                      window, scale, row_tiles, chunks, tiles_per_chunk, first_tile,
+                      stream, [](auto d, const auto& a, cudaStream_t s) {
+                          constexpr int D = decltype(d)::value;
+                          return flash::launch<D>(flash_kernel<D>, BM, kThreads,
+                                                  Tile<D>::smem_floats * (int)sizeof(float),
+                                                  a, s);
+                      });
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -9,14 +9,22 @@
 // m = 1 global row over f = P) it does 3 flops per 8 bytes read. Design: the
 // direct sum of (x - c)^2, not the TPU body's |x|^2 + |c|^2 - 2 x.c
 // expansion, which cancels badly when a client row is close to the global
-// row. One block per ((i, j) pair, slab of f) strides over its slab with
-// float4 loads (four loads of each operand in flight per thread), then a
-// fixed-shape warp-shuffle and shared-memory tree reduction. Few pairs (the
-// divergence: m = 1, n = 10 or 40) leave most SMs idle with one block a
-// pair, so the wrapper cuts f into slabs (a count that depends on n, m and
-// f alone, kernels/pairwise_l2.py: plan_slabs) and a second kernel adds
+// row. F is cut into slabs. A block of pairwise_l2_kernel owns one (pair,
+// slab) and strides over it with float4 loads (four loads of each operand
+// in flight a thread), then a fixed-shape warp-shuffle and shared-memory
+// tree reduction. Where the (lane, centroid, slab) blocks alone fill the
+// card (the divergence of a large leaf: m = 1, thousands of slabs; the
+// wrapper's plan_rows), a block of pairwise_l2_walk_kernel owns one slab of
+// c_j and walks up to 64 rows of x, its threads holding their first 8
+// float4 of the slab in registers, so each slab of c leaves HBM once, not
+// once a row (16 x 0.262 GB at the LM round's lm_head). Few pairs (the
+// divergence: m = 1, n = 10 or 40) leave most SMs idle without slabs, so
+// the wrapper cuts f into slabs (a count that depends on n, m and f
+// alone, kernels/pairwise_l2.py: plan_slabs) and a second kernel adds
 // each pair's slab partials in a fixed order, one warp a pair. With one
-// slab the first kernel writes out directly. No atomics, so the result is
+// slab the first kernel writes out directly. Both kernels give a (pair,
+// slab) partial the same columns in the same order through the same tree,
+// and no atomics are used, so the result is
 // the same bit for bit on every run. A sum of squares needs no clamp at
 // zero, and a NaN input stays NaN. The batch folds into the pairs: pair
 // (b, i, j) reads row i of entry b of x and row j of entry b of c, each
@@ -25,7 +33,7 @@
 // that entry alone, so each entry's sums run in that call's order.
 //
 // bf16 x (pairwise_l2_bf16: a bf16 client plane; c stays fp32, the wrapper
-// widens its few rows): the same kernel with four bf16 (8 bytes) or one a
+// widens its few rows): the same kernels with four bf16 (8 bytes) or one a
 // load, widened exactly to fp32 before the subtraction; a thread takes the
 // same columns in the same order, so the result is the fp32 instance's on
 // the widened x, bit for bit.
@@ -39,6 +47,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSumWarps = 8;          // pairs a block of the second pass
+constexpr int kCached = 8;            // float4 of c a thread keeps in registers
+constexpr int kMaxRows = 64;          // rows of x a block walks at most
+                                      // (the wrapper's MAX_ROWS)
 
 __device__ __forceinline__ float sq_diff4(float acc, float4 a, float4 b) {
     float d = a.x - b.x;
@@ -63,6 +74,8 @@ __device__ __forceinline__ float load1(const uint16_t* p) {
     return bf16x1_to_float(__ldg(p));
 }
 
+// One block per (pair, slab): four float4 of x and of c in flight a
+// thread, then the warp-shuffle and shared-memory tree.
 template <typename X>
 __global__ void __launch_bounds__(kThreads)
 pairwise_l2_kernel(const X* __restrict__ x, const float* __restrict__ c,
@@ -114,6 +127,79 @@ pairwise_l2_kernel(const X* __restrict__ x, const float* __restrict__ c,
     }
 }
 
+// One block per (lane b, group of rows, centroid j, slab), the slabs
+// innermost: the block's threads load their float4 columns of c's slab
+// once (the first kCached into registers) and walk the group's rows of x,
+// each row's partial taking thread t's columns t, t + kThreads, ... in
+// that order and then the same tree as pairwise_l2_kernel: its bits.
+template <typename X>
+__global__ void __launch_bounds__(kThreads)
+pairwise_l2_walk_kernel(const X* __restrict__ x, const float* __restrict__ c,
+                        float* __restrict__ out, int n, int m, int f, long long x_stride,
+                        long long c_stride, int slabs, int width, int rows, int groups,
+                        bool vec) {
+    int blk = blockIdx.x;
+    const int slab = blk % slabs;
+    blk /= slabs;
+    const int j = blk % m;
+    blk /= m;
+    const int group = blk % groups, b = blk / groups;
+    const int i0 = group * rows, count = min(rows, n - i0);
+    const int f0 = slab * width, fl = min(width, f - f0);   // the slab
+    const X* xb = x + b * x_stride + f0;
+    const float* cr = c + b * c_stride + (size_t)j * f + f0;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    __shared__ float warp_sums[kMaxRows][kWarps];
+    if (vec) {
+        const float4* c4 = reinterpret_cast<const float4*>(cr);
+        const int f4 = fl / 4;
+        float4 cc[kCached];
+#pragma unroll
+        for (int q = 0; q < kCached; ++q) {
+            const int k = t + q * kThreads;
+            cc[q] = k < f4 ? __ldg(c4 + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        for (int r = 0; r < count; ++r) {
+            const X* xr = xb + (size_t)(i0 + r) * f;
+            float4 a[kCached];
+#pragma unroll
+            for (int q = 0; q < kCached; ++q) {
+                const int k = t + q * kThreads;
+                if (k < f4) a[q] = load4(xr + 4 * k);
+            }
+            float acc = 0.f;
+#pragma unroll
+            for (int q = 0; q < kCached; ++q)
+                if (t + q * kThreads < f4) acc = sq_diff4(acc, a[q], cc[q]);
+            for (int k = t + kCached * kThreads; k < f4; k += kThreads)
+                acc = sq_diff4(acc, load4(xr + 4 * k), __ldg(c4 + k));
+            for (int off = 16; off > 0; off >>= 1)
+                acc += __shfl_down_sync(0xffffffffu, acc, off);
+            if (lane == 0) warp_sums[r][warp] = acc;
+        }
+    } else {
+        for (int r = 0; r < count; ++r) {
+            const X* xr = xb + (size_t)(i0 + r) * f;
+            float acc = 0.f;
+            for (int k = t; k < fl; k += kThreads) {
+                const float d = load1(xr + k) - __ldg(cr + k);
+                acc = fmaf(d, d, acc);
+            }
+            for (int off = 16; off > 0; off >>= 1)
+                acc += __shfl_down_sync(0xffffffffu, acc, off);
+            if (lane == 0) warp_sums[r][warp] = acc;
+        }
+    }
+    __syncthreads();
+    for (int r = warp; r < count; r += kWarps) {
+        float acc = lane < kWarps ? warp_sums[r][lane] : 0.f;
+        for (int off = 16; off > 0; off >>= 1)
+            acc += __shfl_down_sync(0xffffffffu, acc, off);
+        if (lane == 0)
+            out[((size_t)(b * n + i0 + r) * m + j) * slabs + slab] = acc;
+    }
+}
+
 // out[pair] = the sum of part[pair, 0 .. slabs), one warp a pair: lane l
 // adds slabs l, l + 32, ... in order, then a fixed shuffle tree.
 __global__ void __launch_bounds__(kSumWarps * 32)
@@ -132,19 +218,25 @@ slab_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int pai
 // x and c start on whole vectors (16 bytes of c, 4 x elements).
 template <typename X>
 int launch(const X* x, const float* c, float* out, float* part, int batch, int n, int m,
-           int f, long long x_stride, long long c_stride, int slabs, int width,
+           int f, long long x_stride, long long c_stride, int slabs, int width, int rows,
            void* stream) {
     if (batch <= 0 || n <= 0 || m <= 0) return 0;
     if (slabs < 1 || width < 1 || width % 4 || (long long)slabs * width < f ||
-        (long long)(slabs - 1) * width >= (f > 0 ? f : 1) || (slabs > 1 && part == nullptr))
+        (long long)(slabs - 1) * width >= (f > 0 ? f : 1) || (slabs > 1 && part == nullptr) ||
+        rows < 1 || rows > kMaxRows)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool vec = f % 4 == 0 && x_stride % 4 == 0 && c_stride % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(X)) == 0 &&
                      reinterpret_cast<uintptr_t>(c) % 16 == 0;
-    const int pairs = batch * n * m;
-    pairwise_l2_kernel<X><<<pairs * slabs, kThreads, 0, s>>>(
-        x, c, slabs > 1 ? part : out, n, m, f, x_stride, c_stride, slabs, width, vec);
+    const int pairs = batch * n * m, groups = (n + rows - 1) / rows;
+    float* dst = slabs > 1 ? part : out;
+    if (rows > 1)
+        pairwise_l2_walk_kernel<X><<<batch * groups * m * slabs, kThreads, 0, s>>>(
+            x, c, dst, n, m, f, x_stride, c_stride, slabs, width, rows, groups, vec);
+    else
+        pairwise_l2_kernel<X><<<pairs * slabs, kThreads, 0, s>>>(
+            x, c, dst, n, m, f, x_stride, c_stride, slabs, width, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
     slab_sum_kernel<<<(pairs + kSumWarps - 1) / kSumWarps, kSumWarps * 32, 0, s>>>(
@@ -159,21 +251,23 @@ int launch(const X* x, const float* c, float* out, float* part, int batch, int n
 // x_stride and of c at c + b c_stride (elements); out: [batch, n, m] fp32
 // (batch = 1: the plain [n, f] x [m, f] -> [n, m]). f is cut into `slabs`
 // slabs of `width` columns (a multiple of 4; the last may be shorter); with
-// slabs > 1, part is scratch of batch n m slabs floats. Launches on `stream`
-// (one kernel, or two with slabs > 1) and returns cudaGetLastError() (0 on
-// success); cudaErrorInvalidValue for slabs that do not cover f.
+// slabs > 1, part is scratch of batch n m slabs floats. A block takes
+// `rows` rows of x (1 to 64). Launches on `stream` (one kernel, or two with
+// slabs > 1) and returns cudaGetLastError() (0 on success);
+// cudaErrorInvalidValue for slabs that do not cover f or rows out of range.
 extern "C" int pairwise_l2_f32(const float* x, const float* c, float* out, float* part,
                                int batch, int n, int m, int f, long long x_stride,
-                               long long c_stride, int slabs, int width, void* stream) {
-    return launch(x, c, out, part, batch, n, m, f, x_stride, c_stride, slabs, width,
+                               long long c_stride, int slabs, int width, int rows,
+                               void* stream) {
+    return launch(x, c, out, part, batch, n, m, f, x_stride, c_stride, slabs, width, rows,
                   stream);
 }
 
 extern "C" int pairwise_l2_bf16(const uint16_t* x, const float* c, float* out,
                                 float* part, int batch, int n, int m, int f,
                                 long long x_stride, long long c_stride, int slabs,
-                                int width, void* stream) {
-    return launch(x, c, out, part, batch, n, m, f, x_stride, c_stride, slabs, width,
+                                int width, int rows, void* stream) {
+    return launch(x, c, out, part, batch, n, m, f, x_stride, c_stride, slabs, width, rows,
                   stream);
 }
 

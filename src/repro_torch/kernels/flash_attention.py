@@ -1,31 +1,37 @@
 """Causal / sliding-window GQA attention, forward, fp32 or bf16 in and out
-(fp32 inside) — the self-attention of every block of the LM stacks
+— the self-attention of every block of the LM stacks
 (``models.transformer``).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``flash_attention`` / ``_flash_kernel``) with the hand-written CUDA kernel
-``csrc/flash_attention.cu``. It keeps the TPU kernel's semantics — scale on
-q, queries right-aligned to keys, masked scores at -1e30 with p forced to
-0, the denominator clamped at 1e-30 so a fully masked row gives 0 — and
-reads KV head ``h // (H / K)`` in place of the reference wrapper's repeat.
+(``flash_attention`` / ``_flash_kernel``) with two hand-written CUDA
+kernels, ``csrc/flash_attention.cu`` (fp32) and
+``csrc/flash_attention_bf16.cu`` (bf16). Both keep the TPU kernel's
+semantics — scale on q, queries right-aligned to keys, masked scores at
+-1e30 with p forced to 0, the denominator clamped at 1e-30 so a fully
+masked row gives 0 — and read KV head ``h // (H / K)`` in place of the
+reference wrapper's repeat.
 
-On the card it is bound by operations at long sequences (4·D flops per
-unmasked (q, k) pair, run on the tensor cores in 3xTF32: 495/3 TFLOP/s)
-and by bytes and latency at the FL path's 32 tokens. The kernel computes
-both products with ``mma.sync`` TF32 in 3xTF32 (hi·hi + hi·lo + lo·hi,
-about fp32's accuracy), keeps the score tile in registers, packs the
-(q-head, query) rows of one KV head into 64-row tiles so one K/V tile
-serves the whole group, double-buffers K/V with ``cp.async``, and splits
-the key tiles over several blocks when rows are few and keys many (one
-query against a long cache), adding the chunks in a fixed order in a
-second small kernel. :func:`plan_attention` is that grid plan, in Python so
-that the CPU tests can check it; no atomics, so the result is the same bit
-for bit on every run. bf16 q, k, v (a bf16 model) launch the bf16
-instance: it widens them exactly into the fp32 tiles and rounds the fp32
-result once, so it gives the fp32 instance's output on the widened inputs,
-rounded to bf16, bit for bit. The output is in ``q.dtype``, as the
-reference's kernel and oracle give it. Head dims: 16, 32, 64, 96
-(phi-3-vision) and 128.
+On the card attention is bound by operations at long sequences (4·D
+flops per unmasked (q, k) pair) and by bytes and latency at the FL path's
+32 tokens. Both kernels keep the score tile in registers, pack the
+(q-head, query) rows of one KV head into row tiles so one K/V tile serves
+the whole group, stage K/V with ``cp.async``, and split the key tiles
+over several blocks when rows are few and keys many (one query against a
+long cache), adding the chunks in a fixed order in a second small kernel.
+The fp32 kernel computes both products with ``mma.sync`` TF32 in 3xTF32
+(hi·hi + hi·lo + lo·hi, about fp32's accuracy: 495/3 TFLOP/s) over
+64-row blocks and 32-key tiles. The bf16 kernel keeps q, k, v in bf16 in
+shared memory and runs both products on the bf16 tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulators, 989 TFLOP/s) over 64-key
+tiles and 128-row blocks at D <= 64 (two 16-row m-tiles a warp; 64 rows
+above), the online softmax in fp32, P rounded to bf16 for P·V and the
+output rounded once; it is held to the plain version within the
+reference's bf16 tolerance (2e-2), not to the fp32 instance's bits.
+:func:`plan_attention` is the grid plan of either (its sizes:
+:func:`block_shape`), in Python so that the CPU tests can check it; no
+atomics, so the result is the same bit for bit on every run. The output
+is in ``q.dtype``, as the reference's kernel and oracle give it. Head
+dims: 16, 32, 64, 96 (phi-3-vision) and 128.
 
 The JAX package gives the kernel no gradient of its own, so none is owed
 here: :class:`_FlashAttention`'s forward launches the kernel, its backward
@@ -47,32 +53,45 @@ from repro_torch.kernels.build import (error_string, load_function,
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's template instances
 BLOCK_ROWS = 64                    # packed (query, q-head) rows a block
-BLOCK_KEYS = 32                    # keys a tile
+BLOCK_KEYS = 32                    # keys a tile of the fp32 kernel
+BLOCK_ROWS_BF16 = 128              # rows a block of the bf16 kernel, D <= 64
+BLOCK_KEYS_BF16 = 64               # keys a tile of the bf16 kernel
 SPLIT_BLOCKS = 132                 # split key tiles under this many blocks,
                                    # into about as many (the H100's SMs)
 _ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
              + (ctypes.c_longlong,) * 9 + (ctypes.c_int,) * 3
              + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _INT_MAX = 2 ** 31 - 1
-_SYMBOLS = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}
+# dtype -> (library, C symbol)
+_KERNELS = {torch.float32: ("flash_attention", "flash_attention_f32"),
+            torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16")}
+
+
+def block_shape(dtype, d: int):
+    """``(rows, keys)``: the packed rows a block and the keys a tile of the
+    kernel that takes ``dtype`` at head dim ``d``. fp32: 64 × 32. bf16: 128
+    × 64 at ``d`` <= 64 (two 16-row m-tiles a warp), 64 × 64 above."""
+    if dtype == torch.bfloat16:
+        return (BLOCK_ROWS_BF16 if d <= 64 else BLOCK_ROWS), BLOCK_KEYS_BF16
+    return BLOCK_ROWS, BLOCK_KEYS
 
 
 class AttentionPlan(NamedTuple):
-    """The kernel's grid: ``row_tiles`` tiles of ``BLOCK_ROWS`` packed rows
-    for each (b, KV head), each cut into ``chunks`` chunks of
-    ``tiles_per_chunk`` key tiles of ``BLOCK_KEYS`` keys from
-    ``first_tile`` on; one block per (row tile, b, KV head, chunk)."""
+    """The kernel's grid: ``row_tiles`` tiles of packed rows for each (b,
+    KV head), each cut into ``chunks`` chunks of ``tiles_per_chunk`` key
+    tiles from ``first_tile`` on (the sizes: :func:`block_shape`); one
+    block per (row tile, b, KV head, chunk)."""
     row_tiles: int
     chunks: int
     tiles_per_chunk: int
     first_tile: int
 
 
-def key_tile_range(q_lo: int, q_hi: int, sk: int, causal: bool, window):
-    """The key tiles ``(lo, hi)`` that hold an unmasked key of some query
-    position in ``[q_lo, q_hi]``; ``(0, -1)`` when there is none. The
-    kernel's ``key_tiles``."""
+def key_tile_range(q_lo: int, q_hi: int, sk: int, causal: bool, window,
+                   keys: int = BLOCK_KEYS):
+    """The tiles of ``keys`` keys ``(lo, hi)`` that hold an unmasked key of
+    some query position in ``[q_lo, q_hi]``; ``(0, -1)`` when there is
+    none. The kernels' ``key_tiles``."""
     k_lo, k_hi = 0, sk - 1
     if causal:
         k_hi = min(k_hi, q_hi)
@@ -80,18 +99,21 @@ def key_tile_range(q_lo: int, q_hi: int, sk: int, causal: bool, window):
         k_lo = max(k_lo, q_lo - window + 1)
     if k_hi < k_lo:
         return 0, -1
-    return k_lo // BLOCK_KEYS, k_hi // BLOCK_KEYS
+    return k_lo // keys, k_hi // keys
 
 
 def plan_attention(B: int, Sq: int, Sk: int, H: int, K: int,
-                   causal: bool = True, window=None) -> AttentionPlan:
-    """The grid for q ``[B, Sq, H, D]`` over k, v ``[B, Sk, K, D]``: a
-    function of the shape alone. Key tiles are split into chunks only when
-    the (row tile, b, KV head) blocks number fewer than ``SPLIT_BLOCKS``,
-    into about ``SPLIT_BLOCKS`` blocks, each chunk at least two key tiles
-    (so its double buffer overlaps something)."""
-    row_tiles = -(-Sq * (H // K) // BLOCK_ROWS)
-    lo, hi = key_tile_range(Sk - Sq, Sk - 1, Sk, causal, window)
+                   causal: bool = True, window=None, keys: int = BLOCK_KEYS,
+                   rows: int = BLOCK_ROWS) -> AttentionPlan:
+    """The grid for q ``[B, Sq, H, D]`` over k, v ``[B, Sk, K, D]`` in
+    blocks of ``rows`` packed rows and tiles of ``keys`` keys (the fp32
+    kernel's by default; :func:`block_shape`): a function of the shape
+    alone. Key tiles are split into chunks only when the (row tile, b, KV
+    head) blocks number fewer than ``SPLIT_BLOCKS``, into about
+    ``SPLIT_BLOCKS`` blocks, each chunk at least two key tiles (so its
+    double buffer overlaps something)."""
+    row_tiles = -(-Sq * (H // K) // rows)
+    lo, hi = key_tile_range(Sk - Sq, Sk - 1, Sk, causal, window, keys)
     tiles = hi - lo + 1
     base = B * K * row_tiles
     chunks = 1
@@ -103,16 +125,18 @@ def plan_attention(B: int, Sq: int, Sk: int, H: int, K: int,
 
 
 def block_key_tiles(plan: AttentionPlan, Sq: int, Sk: int, g: int,
-                    causal: bool, window, row_tile: int, chunk: int) -> range:
-    """The key tiles the block (``row_tile``, ``chunk``) visits (the same
-    for every b and KV head): its rows' unmasked range, cut to its chunk.
-    Rows ``r`` of the tile are the pairs (query ``r // g``, q-head
-    ``r % g`` of the group)."""
-    r0 = row_tile * BLOCK_ROWS
-    last = min(r0 + BLOCK_ROWS, Sq * g) - 1
+                    causal: bool, window, row_tile: int, chunk: int,
+                    keys: int = BLOCK_KEYS, rows: int = BLOCK_ROWS) -> range:
+    """The key tiles (of ``keys`` keys, the plan's) the block
+    (``row_tile``, ``chunk``) of ``rows`` packed rows visits (the same for
+    every b and KV head): its rows' unmasked range, cut to its chunk. Rows
+    ``r`` of the tile are the pairs (query ``r // g``, q-head ``r % g`` of
+    the group)."""
+    r0 = row_tile * rows
+    last = min(r0 + rows, Sq * g) - 1
     shift = Sk - Sq
     lo, hi = key_tile_range(r0 // g + shift, last // g + shift, Sk, causal,
-                            window)
+                            window, keys)
     c_lo = plan.first_tile + chunk * plan.tiles_per_chunk
     return range(max(lo, c_lo), min(hi, c_lo + plan.tiles_per_chunk - 1) + 1)
 
@@ -158,7 +182,7 @@ def _check(q, k, v):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel is built for head "
                          f"dims {HEAD_DIMS}; got {D}")
-    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: the kernel takes q, k, v all "
                         f"float32 or all bfloat16; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -181,7 +205,9 @@ def _meta_launch(q, k, causal: bool, window) -> torch.Tensor:
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     # a shard whose q heads do not cover its KV heads has no plan of its
     # own (a device would take the KV heads its q heads read): one chunk
-    chunks = (plan_attention(B, Sq, Sk, H, K, causal, window).chunks
+    rows, keys = block_shape(q.dtype, D)
+    chunks = (plan_attention(B, Sq, Sk, H, K, causal, window, keys,
+                             rows).chunks
               if K and H % K == 0 and B * H * Sq else 1)
     if chunks > 1:
         part = [torch.empty_like(q, dtype=torch.float32)
@@ -198,7 +224,9 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
         return _meta_launch(q, k, causal, window)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    plan = plan_attention(B, Sq, Sk, H, K, causal, window)
+    library, symbol = _KERNELS[q.dtype]
+    rows, keys = block_shape(q.dtype, D)
+    plan = plan_attention(B, Sq, Sk, H, K, causal, window, keys, rows)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     part_acc = part_ml = None
     if plan.chunks > 1:
@@ -207,7 +235,7 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
         part_ml = torch.empty((plan.chunks, B, Sq, H, 2), dtype=torch.float32,
                               device=q.device)
     win = 0 if window is None else max(min(int(window), _INT_MAX), -_INT_MAX)
-    fn = load_function("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+    fn = load_function(library, symbol, _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -219,7 +247,7 @@ def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
                  plan.tiles_per_chunk, plan.first_tile, stream)
     if err:
         raise RuntimeError("flash_attention: kernel launch failed: "
-                           + error_string("flash_attention", err))
+                           + error_string(library, err))
     flash_attention.launches += 1
     return out
 

@@ -13,9 +13,11 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/pairwise_l2.py``
 kernel ``csrc/pairwise_l2.cu``. On the card it is bound by bytes (three
 flops per eight bytes read). The kernel computes the direct ``Σ(x−c)²``
 — not the TPU body's per-slab ``‖x‖²+‖c‖²−2x·c``, which cancels badly
-for a client row close to the global row — with one block per ``(n, m)``
-pair and slab of F and a fixed-shape tree reduction. When the pairs are
-few F is cut into slabs (:func:`plan_slabs`, a function of the shapes
+for a client row close to the global row — with one block per slab of F,
+centroid and group of rows (:func:`plan_rows`: all the rows of a large
+leaf's divergence, so each slab of the centroid is read once; else one)
+and a fixed-shape tree reduction for each (pair, slab). When the pairs
+are few F is cut into slabs (:func:`plan_slabs`, a function of the shapes
 alone, not of the card) and a second launch adds each pair's slab
 partials in a fixed order: no atomics, deterministic. The divergence
 (M = 1, :func:`divergence_sq`) cuts F into slabs of a fixed width
@@ -36,9 +38,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
 
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-             + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 2
+             + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 3
              + (ctypes.c_void_p,))
 TARGET_BLOCKS = 528                # about four blocks an SM of an H100
+MAX_ROWS = 64                      # rows of x a block walks at most (the
+                                   # kernel's kMaxRows)
 MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
 DIVERGENCE_SLAB = 8128             # the divergence's slab: plan_slabs(40, 1,
                                    # 113744)'s width, the main path's plan
@@ -72,6 +76,16 @@ def plan_divergence(f: int):
     plane."""
     width = min(DIVERGENCE_SLAB, max(4, -(-f // 4) * 4))
     return max(1, -(-f // width)), width
+
+
+def plan_rows(lanes: int, n: int, m: int, slabs: int,
+              target: int = TARGET_BLOCKS) -> int:
+    """Rows of x a block takes: all ``n`` (at most ``MAX_ROWS``) where the
+    ``lanes·m·slabs`` (lane, centroid, slab) blocks alone reach ``target``,
+    so that each slab of c leaves HBM once, not once a row; else one. The
+    rows a block change which block adds a (pair, slab) partial, not how,
+    so the bits do not depend on them."""
+    return min(n, MAX_ROWS) if lanes * m * slabs >= target else 1
 
 
 def _rows_contiguous(t: torch.Tensor) -> bool:
@@ -152,7 +166,7 @@ def _launch(x, c, slabs: int, width: int):
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(),
                  None if part is None else part.data_ptr(), b, n, m, f,
-                 *strides, slabs, width, stream)
+                 *strides, slabs, width, plan_rows(b, n, m, slabs), stream)
     if err:
         raise RuntimeError("pairwise_l2: kernel launch failed: "
                            + error_string("pairwise_l2", err))

@@ -21,8 +21,9 @@ from repro_torch.core.clustering import (_chunk_assign_stats, kmeans_fit,
                                          kmeans_fit_minibatch)
 from repro_torch.core.store import PagedStore
 from repro_torch.kernels import chunked, ops
-from repro_torch.kernels.pairwise_l2 import (DIVERGENCE_SLAB,
-                                             plan_divergence, plan_slabs)
+from repro_torch.kernels.pairwise_l2 import (DIVERGENCE_SLAB, MAX_ROWS,
+                                             TARGET_BLOCKS, plan_divergence,
+                                             plan_rows, plan_slabs)
 
 P_MNIST = 113_744
 N = 23
@@ -196,3 +197,27 @@ def test_divergence_plan_depends_on_f_alone(f):
     assert slabs == {2240: 1, P_MNIST: 14, 563_200: 70}[f]
     assert plan_divergence(P_MNIST) == plan_slabs(40, 1, P_MNIST)
     assert plan_divergence(616_704)[0] == 76
+
+
+@pytest.mark.parametrize("lanes,n,m,f,rows", [
+    (1, 40, 10, 2240, 1),               # K-means: a block a (pair, slab)
+    (1, 40, 1, P_MNIST, 1),             # the paper CNN's divergence
+    (8, 40, 1, P_MNIST, 1),             # a cohort of 8 seeds
+    (1, 16, 1, 2048 * 32_000, 16),      # the LM round's lm_head leaf
+    (1, 16, 1, 22 * 2048 * 5632, 16),   # its largest stacked leaf
+    (1, 1000, 1, 16_777_216, MAX_ROWS),  # more rows than a block walks
+    (1, 16, 1, 2048 * 2048, 1),         # 517 slabs: under the target
+])
+def test_rows_a_block_walk_only_where_the_slabs_fill_the_card(
+        lanes, n, m, f, rows):
+    """``plan_rows``: a block walks every row of its slab (at most
+    ``MAX_ROWS``) where the (lane, centroid, slab) blocks alone reach
+    ``TARGET_BLOCKS``, so each slab of c is read once; else one row a
+    block, as many blocks as (pair, slab) partials. The groups cover the
+    rows exactly once."""
+    slabs = (plan_divergence(f) if m == 1 else plan_slabs(n, m, f))[0]
+    got = plan_rows(lanes, n, m, slabs)
+    assert got == rows
+    assert (got > 1) == (lanes * m * slabs >= TARGET_BLOCKS)
+    groups = -(-n // got)
+    assert 1 <= got <= MAX_ROWS and (groups - 1) * got < n <= groups * got
