@@ -51,13 +51,13 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.engine import (EngineConfig, RoundOutputs,
                                      build_round_phases, lane_rows)
 from repro_torch.core.faults import chan_outage_threshold
 from repro_torch.core.wireless import completion_times, masked_max, masked_sum
 from repro_torch.kernels import ops
+from repro_torch.utils.spans import span
 
 __all__ = ["build_async_phases", "build_paged_async", "parse_churn"]
 
@@ -310,14 +310,15 @@ def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
              fault=None):
         sched0 = state.sched
         state, arr_f, idx, mask = tm.schedule(state, arr, draw, fade, churn)
-        with record_function("fl.allocate"):
+        dev = state.params.device
+        with span("fl.allocate", dev):
             T, E, band, t_done, sched, good = tm.dispatch(
                 state, state.sched, arr_f, idx, mask, fault)
-        with record_function("fl.train"):
+        with span("fl.train", dev):
             rows = ph.train_rows(state, idx, images, labels, batch_idx)
             if ph.byzantine:
                 rows = ph.byz_transform(idx, state.params, rows)
-        with record_function("fl.aggregate"):
+        with span("fl.aggregate", dev):
             ph.store_rows(state, idx, mask, rows,
                           good if ph.faults_on else None)
             plan = tm.fire_plan(sched, t_done, sizes)
@@ -347,7 +348,7 @@ def build_async_phases(cfg: EngineConfig, aggregator, selector, allocator,
             state.params.copy_(new_gvec)
             if opt is not None:
                 state.opt_state.copy_(opt)
-        with record_function("fl.evaluate"):
+        with span("fl.evaluate", dev):
             acc, per_class = ph.evaluate_rows(state.params, test_images,
                                               test_labels, images)
         part, stale, active = plan.traces
@@ -421,11 +422,11 @@ def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
     tm = _tick_math(ph, aggregator, churn)
 
     def sched(state, arr, draw=None, churn=None):
-        with record_function("fl.select"):
+        with span("fl.select", state.params.device):
             return tm.schedule(state, arr, draw, None, churn)
 
     def plan(state, arr_f, idx, mask, sizes, fault=None):
-        with record_function("fl.allocate"):
+        with span("fl.allocate", state.params.device):
             T, E, band, t_done, sched, good = tm.dispatch(
                 state, state.sched, arr_f, idx, mask, fault)
             p = tm.fire_plan(sched, t_done, sizes)
@@ -434,7 +435,7 @@ def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
                 p.traces)
 
     def train(state, images_sel, labels_sel, batch_idx, idx=None):
-        with record_function("fl.train"):
+        with span("fl.train", state.params.device):
             rows = ph.train_gathered(state, images_sel, labels_sel,
                                      batch_idx)
             if ph.byzantine:
@@ -443,7 +444,7 @@ def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
 
     def fire(state, cand, cand_rows, w_cand, fired_cand, test_images,
              test_labels):
-        with record_function("fl.aggregate"):
+        with span("fl.aggregate", state.params.device):
             live = ok_cand = fired_cand
             if ph.track_faults:
                 sched, w_cand, ok_cand, _ = tm.guard(
@@ -453,7 +454,7 @@ def build_paged_async(cfg: EngineConfig, aggregator, selector, allocator,
             new_gvec, opt, g_delta = tm.fold(state, cand_rows, w_cand, live)
             div_cand = ops.client_divergence(cand_rows, new_gvec)
             state = state._replace(params=new_gvec, opt_state=opt)
-        with record_function("fl.evaluate"):
+        with span("fl.evaluate", state.params.device):
             acc, per_class = ph.evaluate_row(new_gvec, test_images,
                                              test_labels)
         return state, acc, per_class, div_cand, g_delta, ok_cand

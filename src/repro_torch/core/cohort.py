@@ -68,6 +68,7 @@ from repro_torch.core.fedavg import (FLExperiment, FLHistory, history_parts,
                                      rounds_by_name, to_host)
 from repro_torch.core.wireless import fleet_arrays
 from repro_torch.launch.mesh import Mesh
+from repro_torch.utils.spans import span
 
 __all__ = ["CohortHistory", "CohortRunner"]
 
@@ -255,6 +256,13 @@ class CohortRunner:
             seeds = [self.spec.seed + i
                      for i in range(max(int(self.spec.cohort), 1))]
         seeds = [int(s) for s in seeds]
+        with span("fl.call", lanes=len(seeds) * self.num_cells,
+                  rounds=rounds or self.spec.rounds):
+            return self._run(seeds, rounds, reuse_experiments,
+                             transfer_guard)
+
+    def _run(self, seeds, rounds, reuse_experiments, transfer_guard):
+        """:meth:`run`'s body, inside its ``fl.call`` span."""
         cells = self.num_cells
         lanes = [(s, c) for s in seeds for c in range(cells)]
         lane_seeds = [s for s, _ in lanes]
@@ -301,19 +309,20 @@ class CohortRunner:
         for pos, (dev, share) in enumerate(zip(devices, shares)):
             own = exps[at:at + len(share) * prog_cells]
             at += len(own)
-            state = type(e0.traced_state())(*(
-                _stack_lanes(parts)
-                for parts in zip(*(e.traced_state() for e in own))))
-            ins = [e.traced_inputs() for e in own]
-            inputs = RoundInputs(
-                images=_stack(x.images for x in ins),
-                labels=_stack(x.labels for x in ins),
-                sizes=_stack(x.sizes for x in ins),
-                arr=fleet_arrays([e.fleet for e in own], dev),
-                test_images=(ins[0].test_images if shared
-                             else _stack(x.test_images for x in ins)),
-                test_labels=(ins[0].test_labels if shared
-                             else _stack(x.test_labels for x in ins)))
+            with span("fl.stack", position=pos):
+                state = type(e0.traced_state())(*(
+                    _stack_lanes(parts)
+                    for parts in zip(*(e.traced_state() for e in own))))
+                ins = [e.traced_inputs() for e in own]
+                inputs = RoundInputs(
+                    images=_stack(x.images for x in ins),
+                    labels=_stack(x.labels for x in ins),
+                    sizes=_stack(x.sizes for x in ins),
+                    arr=fleet_arrays([e.fleet for e in own], dev),
+                    test_images=(ins[0].test_images if shared
+                                 else _stack(x.test_images for x in ins)),
+                    test_labels=(ins[0].test_labels if shared
+                                 else _stack(x.test_labels for x in ins)))
             prog = run_rounds(
                 e0.engine_cfg, selector=e0.selector, allocator=e0.allocator,
                 aggregator=e0.aggregator, tctx=e0.traced_context(),
@@ -331,7 +340,9 @@ class CohortRunner:
         # each position's history and K-means labels in one transfer,
         # joined in lane order, the pad lanes stripped
         n_init = len(results[0].init)
-        per = [to_host(history_parts(r) + [r.state.labels]) for r in results]
+        with span("fl.history"):
+            per = [to_host(history_parts(r) + [r.state.labels])
+                   for r in results]
         joined = []
         for k, parts in enumerate(zip(*per)):
             # the initial round's values and the labels are [B, ...], a
@@ -343,8 +354,9 @@ class CohortRunner:
         *vals, lane_labels = joined
         views = [lane_view(r.state, b) for r in results
                  for b in range(r.state.params.shape[0])]
-        for i, e in enumerate(self.experiments):
-            e.load_traced_state(views[i], labels=lane_labels[i])
+        with span("fl.unstack"):
+            for i, e in enumerate(self.experiments):
+                e.load_traced_state(views[i], labels=lane_labels[i])
         return self._history(lane_seeds, results[0], vals,
                              e0.fed.num_clients, cells)
 

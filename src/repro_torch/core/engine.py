@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -79,7 +80,6 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.api.protocols import RoundState, TracedContext
 from repro_torch.core.clustering import (extract_features_flat, kmeans_fit,
@@ -91,6 +91,8 @@ from repro_torch.core.wireless import completion_times, masked_sum
 from repro_torch.kernels import ops
 from repro_torch.models.registry import model_def_for
 from repro_torch.sharding.blocks import ColumnBlocks
+from repro_torch.utils import spans
+from repro_torch.utils.spans import span
 from repro_torch.utils.trees import (StackFlattenSpec, flatten_stacked,
                                      stack_flatten_spec, unflatten_vector)
 
@@ -618,9 +620,10 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                         **arms):
         """Train ``idx``, then :func:`fold` (``arms``: its fault
         arguments). Returns ``(state, kept)``."""
-        with record_function("fl.train"):
+        dev = state.params.device
+        with span("fl.train", dev):
             rows = train_rows(state, idx, images, labels, batch_idx)
-        with record_function("fl.aggregate"):
+        with span("fl.aggregate", dev):
             return fold(state, idx, mask, rows, sizes, **arms)
 
     def cluster_round(state, images, labels, sizes, batch_idx, draws):
@@ -637,7 +640,9 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                                   else cols, N)
         else:
             feats = extract_features_flat(plane[:N], feature_layer, spec)
-        _, k_labels, _ = kmeans_fit(feats, tctx.num_clusters, draws=draws)
+        with span("fl.kmeans", feats.device):
+            _, k_labels, _ = kmeans_fit(feats, tctx.num_clusters,
+                                        draws=draws)
         state.labels.copy_(k_labels)
         return state
 
@@ -728,7 +733,7 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         ``fade`` the channel's. Under quarantine a client with
         ``quarantine_after`` strikes leaves the selection like an
         unavailable one (its lane masked, at the sentinel N)."""
-        with record_function("fl.select"):
+        with span("fl.select", state.params.device):
             arr = step_channel(state, arr, fade)
             if selector.needs_divergence and plane == "stats":
                 div = state.sched.divergence
@@ -760,7 +765,8 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
         ``fault`` is the round's fault draw, the deadline reads the
         round's completion times, ``clients`` the lanes' global ids where
         ``idx`` indexes an active plane."""
-        with record_function("fl.allocate"):
+        dev = state.params.device
+        with span("fl.allocate", dev):
             t = clamp(idx)
             arr_sel = add_inr({k: lane_rows(v, t) for k, v in arr.items()},
                               inr)
@@ -774,7 +780,7 @@ def build_round_phases(cfg: EngineConfig, aggregator, selector, allocator,
                 arms["d"] = completion_times(arr_sel, b, f, mask)
         state, kept = train_aggregate(state, idx, mask, images, labels,
                                       sizes, batch_idx, **arms)
-        with record_function("fl.evaluate"):
+        with span("fl.evaluate", dev):
             acc, per_class = evaluate_rows(state.params, test_images,
                                            test_labels, images)
         return state, RoundOutputs(accuracy=acc, T=T, E=E, selected=idx,
@@ -907,6 +913,13 @@ class TracedProgram:
     never on a replay. On the CPU the round body runs eagerly on the
     caller's tensors.
 
+    Each phase of the captured round (``fl.select``, ``fl.allocate``,
+    ``fl.train``, ``fl.aggregate``, ``fl.evaluate``; a tick's) carries a
+    device stamp at its start and end (``repro_torch.utils.spans``,
+    ``stamps``), so every replay writes its phases' times to the device's
+    stamp ring and nothing else; a call's host stages are spans
+    (``fl.call`` … ``fl.replay``), kept while a profiler records.
+
     A carry whose plane is a :class:`ColumnBlocks` (``p_shards``) is
     captured as one graph for the lead position's round and one a
     position for its flush (``shards``: each on its device's own stream),
@@ -914,6 +927,8 @@ class TracedProgram:
     each position, and its partial divergence back, by device copies
     ordered by the streams' events.
     """
+
+    _serials = itertools.count()
 
     def __init__(self, ph, device: torch.device, pad: int,
                  draw_kind: Optional[str] = None):
@@ -925,6 +940,8 @@ class TracedProgram:
         self.graph = None
         self.shards = None              # a column-block plane's flushes
         self.capture_ms = None
+        self.stamps = None              # the phases' stamps in the graph
+        self.serial = next(TracedProgram._serials)
 
     def round_body(self, state, inputs: RoundInputs, batch_idx, draw=None,
                    fade=None, churn=None, fault=None, flush: bool = True):
@@ -1007,7 +1024,8 @@ class TracedProgram:
         self.churn = self._churn_input()
         self.fault = self._fault_input()
         t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
+        with span("fl.capture", program=self.serial), \
+                torch.cuda.device(self.device):
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
@@ -1023,8 +1041,9 @@ class TracedProgram:
             graph = torch.cuda.CUDAGraph()
             # a capture stream of this program's own device (the graph
             # class's default stream lives on the device of its first use)
-            with torch.cuda.graph(graph,
-                                  stream=torch.cuda.Stream(self.device)):
+            with spans.capture(self.device) as self.stamps, \
+                    torch.cuda.graph(graph,
+                                     stream=torch.cuda.Stream(self.device)):
                 _, self.out = self.round_body(
                     self.state, self.inputs, self.batch, self.draw,
                     self.fade, self.churn, self.fault, flush=False)
@@ -1092,6 +1111,7 @@ class TracedProgram:
             if static is not None:
                 static.copy_(value)
         self.graph.replay()
+        spans.replayed(self.stamps, program=self.serial)
         if self.shards is not None:
             self._replay_shards()
         return self.out
@@ -1157,35 +1177,42 @@ class TracedProgram:
         if self.device.type == "cuda":
             if self.graph is None:
                 self.capture(state, inputs)
-            self.load(state, inputs)
+            with span("fl.load", program=self.serial):
+                self.load(state, inputs)
             state, inputs = self.state, self.inputs
         n_samples = inputs.images.shape[len(self._lead()) + 1]
         yield
         init = None
         if with_init:
-            batch0 = [d.batch_indices(ph.N, ph.local_iters, ph.batch_size,
-                                      n_samples)
-                      for d in lane_draws]
-            arr0 = dict(inputs.arr)
-            xgain = arr0.pop("xgain", None)
-            state, init = ph.init_round(
-                state, inputs.images, inputs.labels, inputs.sizes,
-                batch0[0] if self.lanes is None else torch.stack(batch0),
-                arr0, inputs.test_images, inputs.test_labels, draws, xgain)
+            with span("fl.initial_round", program=self.serial):
+                batch0 = [d.batch_indices(ph.N, ph.local_iters,
+                                          ph.batch_size, n_samples)
+                          for d in lane_draws]
+                arr0 = dict(inputs.arr)
+                xgain = arr0.pop("xgain", None)
+                state, init = ph.init_round(
+                    state, inputs.images, inputs.labels, inputs.sizes,
+                    batch0[0] if self.lanes is None else torch.stack(batch0),
+                    arr0, inputs.test_images, inputs.test_labels, draws,
+                    xgain)
         else:
             # a column-block plane's partial divergences, against the
             # carry's own row (no staged write)
             ph.flush(state, write=False)
-        per_round = [self._round_draws(lane_draws, n_samples)
-                     for _ in range(rounds)]
+        with span("fl.draws", program=self.serial):
+            per_round = [self._round_draws(lane_draws, n_samples)
+                         for _ in range(rounds)]
         yield
         outs = []
-        for batch_idx, draw, fade, churn, fault in per_round:
+        for r, (batch_idx, draw, fade, churn, fault) in enumerate(per_round):
             if self.graph is not None:
-                out = _clone(self.replay(batch_idx, draw, fade, churn, fault))
+                with span("fl.replay", program=self.serial, round=r + 1):
+                    out = _clone(self.replay(batch_idx, draw, fade, churn,
+                                             fault))
             else:
-                state, out = self.round_body(state, inputs, batch_idx, draw,
-                                             fade, churn, fault)
+                with span("fl.round", program=self.serial, round=r + 1):
+                    state, out = self.round_body(state, inputs, batch_idx,
+                                                 draw, fade, churn, fault)
             outs.append(out)
             yield
         stacked = (RoundOutputs(*(None if v[0] is None else torch.stack(v)
@@ -1197,11 +1224,12 @@ class TracedProgram:
                  test_images, test_labels, *, draws, rounds: int,
                  with_init: bool,
                  transfer_guard: bool = False) -> TracedRunResult:
-        return run_programs(
-            [(self, (state, images, labels, sizes, arr, test_images,
-                     test_labels),
-              dict(draws=draws, rounds=rounds, with_init=with_init))],
-            transfer_guard=transfer_guard)[0]
+        with span("fl.call", rounds=rounds):
+            return run_programs(
+                [(self, (state, images, labels, sizes, arr, test_images,
+                         test_labels),
+                  dict(draws=draws, rounds=rounds, with_init=with_init))],
+                transfer_guard=transfer_guard)[0]
 
 
 def run_programs(runs, transfer_guard: bool = False) -> list:

@@ -62,7 +62,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 import repro_torch.strategies  # noqa: F401  (populate the registries)
 from repro_torch.api.protocols import (Allocation, RoundState,
@@ -92,6 +91,7 @@ from repro_torch.kernels.chunked import (default_chunk_size,
 from repro_torch.models.registry import model_def_for
 from repro_torch.sharding import specs as sh
 from repro_torch.sharding.blocks import ColumnBlocks
+from repro_torch.utils.spans import span
 from repro_torch.utils.trees import (flatten_stacked, flatten_vector,
                                      unflatten_rows_np)
 
@@ -798,14 +798,15 @@ class FLExperiment:
     def round(self, method=None) -> RoundResult:
         """One full FL round: select on the host, then the round body's
         ``finish_phase`` (allocate → train → fold → evaluate) eagerly on
-        the experiment's state, each phase a profiler span (``fl.select``
-        …). ``method`` picks the selector as in :meth:`select`. On the
+        the experiment's state, each phase a span (``fl.select`` …,
+        ``repro_torch.utils.spans``: a profiler range, kept with its device
+        stamps while a profiler records). ``method`` picks the selector as in :meth:`select`. On the
         paged store the selection keeps only the clients the stats table
         marks available, and the round runs on their active plane
         (:meth:`_paged_round`). A selection that comes back empty (or
         churned out) is an explicit no-op round: nothing trains,
         T_k = E_k = 0."""
-        with record_function("fl.select"):
+        with span("fl.select", self.device):
             idx = self.select(method)
         paged = self._store.kind == "paged"
         if paged:

@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.utils.spans import span
+
 _eager_depth = 0
 
 
@@ -117,7 +119,9 @@ class GraphCache:
             self.seen[key] = None
             _trim(self.seen, self.max_seen)
             return body(arr, scalars, mask)
-        graph = self.graphs[key] = CapturedSolve(body, arr, scalars, mask)
+        with span("fl.capture", solve=getattr(body, "__name__", "solve")):
+            graph = self.graphs[key] = CapturedSolve(body, arr, scalars,
+                                                     mask)
         _trim(self.graphs, self.max_graphs)
         return graph(arr, scalars, mask)
 

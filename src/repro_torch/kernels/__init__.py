@@ -6,6 +6,8 @@ plain PyTorch oracles in ref.py and the dispatching wrappers in ops.py
   flat_aggregate  — eq.-(4) aggregation over the [N, P] client plane
   flash_attention — online-softmax attention (causal / SWA / GQA)
   ssd_scan        — Mamba2 SSD chunked scan
+  stamp           — a device timestamp for the phase spans
+                    (``repro_torch.utils.spans``)
 
 The kernel functions shadow their modules' names as package attributes,
 as in the reference; reach a module as ``from

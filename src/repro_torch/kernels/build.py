@@ -26,6 +26,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from repro_torch.utils.spans import span
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -129,8 +131,10 @@ def load_function(name: str, symbol: str, argtypes: Tuple) -> ctypes._CFuncPtr:
     """``symbol`` of library ``name`` with its ``argtypes`` declared (a
     pointer passed without them is cut to 32 bits) and an ``int`` result,
     building the library first if needed."""
-    build([name])
-    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+    with span("fl.kernel_load", kernel=name, symbol=symbol,
+              nvcc=not library_path(name).exists()):
+        build([name])
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -37,6 +37,7 @@ from repro_torch.launch import shapes as shp
 from repro_torch.launch.mesh import Mesh
 from repro_torch.roofline.analysis import Lowered
 from repro_torch.sharding import specs as sh
+from repro_torch.utils.spans import span
 from repro_torch.utils.trees import tree_order
 
 Params = Dict[str, torch.Tensor]
@@ -60,20 +61,26 @@ def fl_round_step(client_params: Params, global_params: Params,
     fold's weight sum clamped at 1e-9."""
     names = tree_order(client_params)
     n = client_params[names[0]].shape[0]
+    dev = client_params[names[0]].device
 
     # 1. weight divergence over every leaf, in the reference's leaf order
-    div = _divergence(client_params, global_params, names, n)
+    with span("fl.divergence", dev):
+        div = _divergence(client_params, global_params, names, n)
 
     # 2. K-means assignment on the feature layer
-    labels = _labels(_features(client_params, n, feature_slice), centroids)
+    with span("fl.kmeans", dev):
+        labels = _labels(_features(client_params, n, feature_slice),
+                         centroids)
 
     # 3.-4. the top-1 divergence of each cluster; eq. (4) over them
-    w = _round_weights(div, labels, sizes, num_clusters)
-    new_global = {
-        k: ops.flat_aggregate(client_params[k].reshape(n, -1), w,
-                              normalize=False)
-        .reshape(global_params[k].shape).to(global_params[k].dtype)
-        for k in names}
+    with span("fl.select", dev):
+        w = _round_weights(div, labels, sizes, num_clusters)
+    with span("fl.fold", dev):
+        new_global = {
+            k: ops.flat_aggregate(client_params[k].reshape(n, -1), w,
+                                  normalize=False)
+            .reshape(global_params[k].shape).to(global_params[k].dtype)
+            for k in names}
     return new_global, div, labels
 
 
