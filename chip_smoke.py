@@ -417,7 +417,7 @@ def kernel_phase(torch, timer):
                                                     flat_aggregate_plain)
     from repro_torch.kernels.pairwise_l2 import (_launch, divergence_sq,
                                                  pairwise_l2, plan_divergence,
-                                                 plan_slabs)
+                                                 plan_kernel, plan_slabs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
@@ -502,14 +502,16 @@ def kernel_phase(torch, timer):
             # the plan of the rows in the call, which the divergence ran on
             # until its bits had to be the same at every row count
             r["rows_plan_ms"] = timer(
-                lambda: _launch(x, c, *plan_slabs(n, m, f)))
+                lambda: _launch(x, c, *plan_kernel(1, n, m,
+                                                   *plan_slabs(n, m, f))))
             sweep = (f" plan_slabs(n) ({plan_slabs(n, m, f)[0]} slabs) "
                      f"ms={r['rows_plan_ms']:.4f}")
         else:
             # the slab plan's block target, swept in this call
             # (TARGET_BLOCKS is the one the wrapper uses)
             r["slab_target_ms"] = {
-                t: timer(lambda t=t: _launch(x, c, *plan_slabs(n, m, f, t)))
+                t: timer(lambda t=t: _launch(x, c, *plan_kernel(
+                    1, n, m, *plan_slabs(n, m, f, t))))
                 for t in SLAB_TARGETS}
             sweep = " slab target sweep ms: " + ", ".join(
                 f"{t} blocks ({plan_slabs(n, m, f, t)[0]} slabs)={ms:.4f}"
@@ -4442,6 +4444,7 @@ BF16_SERVE = ("phi-3-vision-4.2b", "minitron-8b", "qwen2-1.5b",
               "tinyllama-1.1b")
 P_LM_HEAD = 2048 * 32_000        # tinyllama's lm_head (the round's K-means)
 P_MLP_LEAF = 22 * 2048 * 5632    # its largest stacked leaf (an MLP matrix)
+P_QWEN2_EMBED = 151_936 * 1536   # qwen2-1.5b's tied embed (its K-means)
 FL_ROUND = dict(clients=16, clusters=4, noise=1e-3)
 
 
@@ -4570,9 +4573,10 @@ def attention_by_queries(torch, q, k, v, step):
 
 def bf16_kernel_rows(torch, timer):
     """(a) Each kernel's bf16 instance at the FL and LM shapes of phase 2
-    (and the round's lm_head and largest leaf, phi-3-vision's D = 96 and
-    17(b)'s train and prefill attention) against its fp32 instance on the
-    widened inputs (bit for bit, but attention: within 2e-2), against its
+    (and the round's lm_head and largest leaf, the K-means over the
+    round's lm_head and over qwen2's tied embed, phi-3-vision's D = 96
+    and 17(b)'s train and prefill attention) against its fp32 instance on
+    the widened inputs (bit for bit, but attention: within 2e-2), against its
     plain bf16 version within the reference's bf16 tolerances, and D = 96
     in fp32 against its plain version within 2e-5. Returns the rows, by
     kernel. The bytes of a bound count bf16 operands at 2 bytes."""
@@ -4603,13 +4607,17 @@ def bf16_kernel_rows(torch, timer):
             lambda: torch.mv(wide.t(), w), n * p * 2 + n * 4 + p * 4,
             2 * n * p, FP32_FLOP_PER_S))
         del flat, wide
+    # (16, 4, P_LM_HEAD), 16(e)'s K-means, and (16, 4, P_QWEN2_EMBED):
+    # pairwise_l2's centroid walk
     for n, m, f in ((40, 10, 2240), (40, 1, P_MNIST), (10, 1, P_TINYLLAMA),
-                    (16, 1, P_LM_HEAD), (16, 4, 4096), (16, 1, P_MLP_LEAF)):
+                    (16, 1, P_LM_HEAD), (16, 4, 4096), (16, 1, P_MLP_LEAF),
+                    (16, 4, P_LM_HEAD), (16, 4, P_QWEN2_EMBED)):
         x = torch.randn((n, f), generator=gen, device=DEVICE).to(bf)
         c = torch.randn((m, f), generator=gen, device=DEVICE)
         fn = divergence_sq if m == 1 else pairwise_l2
         wide = x.float()
-        big = f == P_MLP_LEAF     # the plain version two rows at a time
+        big = f in (P_MLP_LEAF, P_QWEN2_EMBED) or (m > 1 and f == P_LM_HEAD)
+        # the plain version two rows at a time where it is big
         plain = ((lambda: by_rows(torch, ref.pairwise_l2_ref, x, c, 2))
                  if big else (lambda: ref.pairwise_l2_ref(x, c)))
         rows["pairwise_l2"].append(bf16_row(
@@ -4982,7 +4990,10 @@ def fl_round_phase(torch):
     a larger scale for later clients), 4 clusters whose centroids are
     clients 0, 4, 8, 12's features, at ``feature_slice`` 0 and 4096: the
     selection equals the top divergence of each cluster recomputed from
-    the returned divergences and labels; the fold of one leaf equals the
+    the returned divergences and labels; the labels are the nearest
+    centroids by the plain ``pairwise_l2_ref`` (two rows at a time), at
+    ``feature_slice`` 0 through ``pairwise_l2``'s centroid walk (one
+    launch; none at 4096); the fold of one leaf equals the
     sizes-weighted mean of the winners computed in float64 on the host,
     within one bf16 rounding; the last client's divergence and the fold
     of the largest leaf (16 × 254 M elements: past 2^31, rows addressed
@@ -4990,6 +5001,8 @@ def fl_round_phase(torch):
     peak memory of the round (the clients held, not their making). The
     round's results at ``feature_slice`` 0 are kept for 17(c)."""
     import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_l2 import pairwise_l2
     from repro_torch.launch.fl_round import fl_round_step
 
     n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
@@ -5005,11 +5018,21 @@ def fl_round_phase(torch):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        walks = pairwise_l2.centroid_walks
         (new_g, div, labels), launches = counted(
             torch, lambda: fl_round_step(clients, g, cen, sizes,
                                          num_clusters=c, feature_slice=fs))
         ms = (time.perf_counter() - t0) * 1e3
+        walks = pairwise_l2.centroid_walks - walks
         peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        feats = clients["lm_head"].reshape(n, -1)[:, :fs or None]
+        plain = by_rows(torch, ref.pairwise_l2_ref, feats, cen, 2)
+        check(torch.equal(labels, plain.argmin(1)),
+              f"fl_round (feature_slice {fs}): labels {labels.tolist()}, "
+              f"the plain version's {plain.argmin(1).tolist()}")
+        check(walks == (fs == 0), f"fl_round (feature_slice {fs}): "
+                                  f"{walks} centroid walks")
+        del feats, plain
         d, lab = div.cpu().numpy(), labels.cpu().numpy()
         winners = sorted(int(np.flatnonzero(lab == k)[np.argmax(
             d[lab == k])]) for k in np.unique(lab))
@@ -5062,7 +5085,8 @@ def fl_round_phase(torch):
               f"{tuple(clients[big].shape)} against float64 on the card "
               f"{big_err:.3e} (each within one bf16 rounding); client "
               f"{n - 1}'s divergence {float(d[n - 1]):.6f} against float64 "
-              f"{last:.6f}; launches {launches}")
+              f"{last:.6f}; launches {launches}, {walks} of pairwise_l2 "
+              f"on the centroid walk; labels ≡ the plain version's")
         del new_g, div, labels
     print(f"  fl_round peak allocated {peak:.2f} GiB (the clients, the "
           f"global model and the centroids held, and the round)")
@@ -5402,7 +5426,9 @@ def lower_fl_round_phase(torch, round16):
     host mesh: the clients made again from 16(e)'s seed, in the lowered
     layout, through ``compile("cuda")``: 16(e)'s ``fl_round_step`` results
     bit for bit (every leaf of the new global model, the divergences, the
-    labels), ms beside the roofline of its count."""
+    labels; its K-means one centroid walk), ms beside the roofline of
+    its count."""
+    from repro_torch.kernels.pairwise_l2 import pairwise_l2
     from repro_torch.launch.fl_round import lower_fl_round
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.roofline.analysis import RooflineReport
@@ -5414,8 +5440,11 @@ def lower_fl_round_phase(torch, round16):
     cost = lowered.cost_analysis()
     step = lowered.compile(DEVICE)
     same_layout((clients, g, cent, sizes), lowered.args, "lower_fl_round")
+    walks = pairwise_l2.centroid_walks
     (new_g, div, labels), launches = counted(
         torch, lambda: step(clients, g, cent, sizes))
+    walks = pairwise_l2.centroid_walks - walks
+    check(walks == 1, f"lower_fl_round: {walks} centroid walks")
     want_g, want_div, want_labels = round16
     check(set(new_g) == set(want_g)
           and all(torch.equal(new_g[k], want_g[k]) for k in want_g)
@@ -5437,7 +5466,8 @@ def lower_fl_round_phase(torch, round16):
           f"roofline {report.step_time_s * 1e3:.3f} ms ({report.bottleneck}:"
           f" compute {report.compute_s * 1e3:.4f}, memory "
           f"{report.memory_s * 1e3:.3f}; counted {cost['flops']:.4e} FLOP, "
-          f"{cost['bytes accessed']:.4e} B); launches {launches}")
+          f"{cost['bytes accessed']:.4e} B); launches {launches}, "
+          f"{walks} on the centroid walk")
     del clients, g, cent, new_g
     torch.cuda.empty_cache()
     return launches, dict(ms=ms, roofline_ms=report.step_time_s * 1e3)
@@ -5814,8 +5844,9 @@ def split_fl_round_phase(torch, round16):
     ``data = 2`` host mesh naming the card twice: ``compile`` splits the
     clients 8 a position; the divergences and labels are 16(e)'s bit for
     bit, the new global model within the bf16 fold's bands (rtol 3e-2,
-    atol 3e-1); ``pairwise_l2`` 2 a leaf + 1, ``flat_aggregate`` 2 a
-    leaf."""
+    atol 3e-1); ``pairwise_l2`` 2 a leaf + 1 (the K-means, a centroid
+    walk), ``flat_aggregate`` 2 a leaf."""
+    from repro_torch.kernels.pairwise_l2 import pairwise_l2
     from repro_torch.launch.fl_round import lower_fl_round
 
     n, c = FL_ROUND["clients"], FL_ROUND["clusters"]
@@ -5826,8 +5857,11 @@ def split_fl_round_phase(torch, round16):
     step = lowered.compile(DEVICE)
     check(lowered.positions == 2, f"lower_fl_round on data = 2: "
           f"{lowered.positions} positions")
+    walks = pairwise_l2.centroid_walks
     (new_g, div, labels), launches = counted(
         torch, lambda: step(clients, g, cent, sizes))
+    walks = pairwise_l2.centroid_walks - walks
+    check(walks == 1, f"lower_fl_round on data = 2: {walks} centroid walks")
     want_g, want_div, want_labels = round16
     check(torch.equal(div, want_div) and torch.equal(labels, want_labels),
           "lower_fl_round on data = 2: divergences or labels differ from "
@@ -5850,7 +5884,8 @@ def split_fl_round_phase(torch, round16):
           f"for bit; the new global model within the bf16 bands (max abs "
           f"diff {worst:.3e}, {differ} of "
           f"{sum(v.numel() for v in want_g.values())} elements differ: the "
-          f"fold's two partial sums); {ms:.3f} ms; launches {launches}")
+          f"fold's two partial sums); {ms:.3f} ms; launches {launches}, "
+          f"{walks} on the centroid walk")
     del clients, g, cent, new_g
     torch.cuda.empty_cache()
     return launches, dict(ms=ms, differ=differ, worst=worst)

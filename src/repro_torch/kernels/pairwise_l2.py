@@ -5,28 +5,40 @@ and, with the global row as the one centroid, the divergence signal
 × [B, M, F] -> [B, N, M]`` in one launch (plus its ``slab_sum``), each
 lane's operands at their own lane stride, so the divergence reads the
 first N rows of each lane of a ``[B, N + pad, P]`` plane in place. Each
-lane keeps the slab plan of its one-lane call (:func:`plan_slabs` of N,
-M and F), so it sums in the same order and gives that call's bits.
+lane keeps the slab plan of its one-lane call (a function of N, M and F),
+so it sums in the same order and gives that call's bits.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/pairwise_l2.py``
 (``pairwise_l2`` / ``_pairwise_l2_kernel``) with the hand-written CUDA
-kernel ``csrc/pairwise_l2.cu``. On the card it is bound by bytes (three
-flops per eight bytes read). The kernel computes the direct ``Σ(x−c)²``
+kernels of ``csrc/pairwise_l2.cu``. On the card they are bound by bytes
+(three flops per eight bytes read). They compute the direct ``Σ(x−c)²``
 — not the TPU body's per-slab ``‖x‖²+‖c‖²−2x·c``, which cancels badly
-for a client row close to the global row — with one block per slab of F,
-centroid and group of rows (:func:`plan_rows`: all the rows of a large
-leaf's divergence, so each slab of the centroid is read once; else one)
-and a fixed-shape tree reduction for each (pair, slab). When the pairs
-are few F is cut into slabs (:func:`plan_slabs`, a function of the shapes
-alone, not of the card) and a second launch adds each pair's slab
-partials in a fixed order: no atomics, deterministic. The divergence
-(M = 1, :func:`divergence_sq`) cuts F into slabs of a fixed width
-(:func:`plan_divergence`, a function of F alone), so a row's bits do not
-depend on how many rows share its call: a plane reduced in chunks gives
-the bits of one call over all its rows. A bf16 x (a bf16 model's plane)
-launches the bf16 instance, which reads x at half the bytes and widens
-each element exactly before the subtraction; c, only M rows, is widened
-here. Its result is the fp32 instance's on the widened x, bit for bit.
+for a client row close to the global row — over slabs of F, each (pair,
+slab) partial through a fixed-shape tree; when F is cut into slabs a
+second launch adds each pair's partials in a fixed order: no atomics,
+deterministic. :func:`plan_pairwise` picks the kernel and its plan from
+the call's shapes alone:
+
+- ``pairwise_l2_centroid_walk_kernel`` (:func:`plan_centroids`): 2 to
+  ``MAX_CENTROIDS`` centroids over an F that holds ``TARGET_BLOCKS``
+  slabs of ``CENTROID_SLAB`` columns (an LM's whole embedding table). A
+  block walks a group of rows against every centroid on its slab, so
+  each slab of x and of c leaves HBM once.
+- else F is cut by :func:`plan_slabs` (about ``TARGET_BLOCKS`` (pair,
+  slab) blocks, a function of N, M and F) and a block takes one (pair,
+  slab), ``pairwise_l2_kernel``; or, where the (lane, centroid, slab)
+  blocks alone fill the card, ``pairwise_l2_walk_kernel`` walks all the
+  rows of a slab of one centroid (:func:`plan_rows`), so each slab of the
+  centroid is read once.
+
+The divergence (M = 1, :func:`divergence_sq`) cuts F into slabs of a
+fixed width (:func:`plan_divergence`, a function of F alone), so a row's
+bits do not depend on how many rows share its call: a plane reduced in
+chunks gives the bits of one call over all its rows. A bf16 x (a bf16
+model's plane) launches the bf16 instance, which reads x at half the
+bytes and widens each element exactly before the subtraction; c, only M
+rows, is widened here. Its result is the fp32 instance's on the widened
+x, bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import error_string, load_function
 
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-             + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 3
+             + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 4
              + (ctypes.c_void_p,))
 TARGET_BLOCKS = 528                # about four blocks an SM of an H100
 MAX_ROWS = 64                      # rows of x a block walks at most (the
@@ -46,8 +58,19 @@ MAX_ROWS = 64                      # rows of x a block walks at most (the
 MIN_SLAB = 2048                    # floats of F a slab at least (8 a thread)
 DIVERGENCE_SLAB = 8128             # the divergence's slab: plan_slabs(40, 1,
                                    # 113744)'s width, the main path's plan
+MAX_CENTROIDS = 16                 # centroids the centroid walk takes at
+                                   # most (the kernel's kMaxCentroids)
+MAX_SUMS = 64                      # (row, centroid) sums a thread of it
+                                   # holds (kMaxSums)
+GROUP_ROWS = 16                    # rows of x a block of it takes at most
+                                   # (kGroupRows; the launch refuses a plan
+                                   # whose rows differ from the kernel's)
+CENTROID_SLAB = 4096               # floats of F its slab at least
+CENTROID_SLABS = 4096              # its slabs at most
 _SYMBOLS = {torch.float32: "pairwise_l2_f32",
             torch.bfloat16: "pairwise_l2_bf16"}
+KERNELS = ("pairwise_l2_kernel", "pairwise_l2_walk_kernel",
+           "pairwise_l2_centroid_walk_kernel")
 
 
 def plan_slabs(n: int, m: int, f: int, target: int = TARGET_BLOCKS):
@@ -88,6 +111,46 @@ def plan_rows(lanes: int, n: int, m: int, slabs: int,
     return min(n, MAX_ROWS) if lanes * m * slabs >= target else 1
 
 
+def plan_centroids(n: int, m: int, f: int):
+    """``(slabs, width, rows)`` of the centroid walk, or None where the
+    call keeps the other kernels: 2 to ``MAX_CENTROIDS`` centroids, and F
+    wide enough for ``TARGET_BLOCKS`` slabs of ``CENTROID_SLAB`` columns.
+    F is cut into that many slabs, at most ``CENTROID_SLABS`` (the second
+    pass adds a few thousand partials a pair), each column in one slab. A
+    block takes ``rows`` rows of x against every centroid: ``GROUP_ROWS``,
+    or fewer so that rows × (m up to 4, 8 or 16) ≤ ``MAX_SUMS``. A
+    function of the shapes alone — not of the lanes, so each lane of a
+    call keeps its one-lane plan, nor of N for the slabs."""
+    want = min(CENTROID_SLABS, f // CENTROID_SLAB)
+    if not 2 <= m <= MAX_CENTROIDS or want < TARGET_BLOCKS:
+        return None
+    per = -(-f // want)                     # columns a slab, then
+    width = -(-per // 4) * 4                # up to a multiple of 4
+    slots = max(4, 1 << (m - 1).bit_length())
+    return -(-f // width), width, min(n, GROUP_ROWS, MAX_SUMS // slots)
+
+
+def plan_kernel(lanes: int, n: int, m: int, slabs: int, width: int):
+    """``(kernel, slabs, width, rows)`` on a slab plan of the first two
+    ``KERNELS``: the walk of one centroid's slab where :func:`plan_rows`
+    gives more than one row, else a block a (pair, slab)."""
+    rows = plan_rows(lanes, n, m, slabs)
+    return KERNELS[1 if rows > 1 else 0], slabs, width, rows
+
+
+def plan_pairwise(lanes: int, n: int, m: int, f: int):
+    """``(kernel, slabs, width, rows)`` of a :func:`pairwise_l2` call over
+    ``lanes`` lanes of ``[n, f] × [m, f]``: the kernel of ``KERNELS`` that
+    runs it (the centroid walk where :func:`plan_centroids` takes the
+    shapes, else :func:`plan_kernel` on :func:`plan_slabs`), F's slab plan
+    and the rows a block takes: what the launch is given. The slab plan,
+    and so the bits, are the same at any number of lanes."""
+    walk = plan_centroids(n, m, f)
+    if walk is not None:
+        return (KERNELS[2], *walk)
+    return plan_kernel(lanes, n, m, *plan_slabs(n, m, f))
+
+
 def _rows_contiguous(t: torch.Tensor) -> bool:
     """Each lane of ``t`` (``[.., R, F]``) is a row-major ``[R, F]`` block;
     the lanes may lie at any stride."""
@@ -104,8 +167,9 @@ def pairwise_l2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return ref.pairwise_l2_ref(x, c)
     c = _check(x, c)
-    *_, n, f = x.shape
-    return _launch(x, c, *plan_slabs(n, c.shape[-2], f))
+    *lanes, n, f = x.shape
+    return _launch(x, c, *plan_pairwise(lanes[0] if lanes else 1, n,
+                                        c.shape[-2], f))
 
 
 def divergence_sq(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -118,7 +182,9 @@ def divergence_sq(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.shape[-2] != 1:
         raise ValueError(f"divergence_sq: want one centroid; got "
                          f"{tuple(g.shape)}")
-    return _launch(x, g, *plan_divergence(x.shape[-1]))
+    *lanes, n, f = x.shape
+    return _launch(x, g, *plan_kernel(lanes[0] if lanes else 1, n, 1,
+                                      *plan_divergence(f)))
 
 
 def _check(x, c) -> torch.Tensor:
@@ -147,9 +213,9 @@ def _check(x, c) -> torch.Tensor:
     return c.to(torch.float32)
 
 
-def _launch(x, c, slabs: int, width: int):
-    """The kernel over ``slabs`` slabs of ``width`` columns of F (c in
-    fp32)."""
+def _launch(x, c, kernel: str, slabs: int, width: int, rows: int):
+    """``kernel`` of ``KERNELS`` over ``slabs`` slabs of ``width`` columns
+    of F, ``rows`` rows of x a block (c in fp32)."""
     *lanes, n, f = x.shape
     b, m = (lanes[0] if lanes else 1), c.shape[-2]
     if b * n * m * slabs >= 2 ** 31:
@@ -166,13 +232,16 @@ def _launch(x, c, slabs: int, width: int):
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(),
                  None if part is None else part.data_ptr(), b, n, m, f,
-                 *strides, slabs, width, plan_rows(b, n, m, slabs), stream)
+                 *strides, slabs, width, rows, KERNELS.index(kernel), stream)
     if err:
         raise RuntimeError("pairwise_l2: kernel launch failed: "
                            + error_string("pairwise_l2", err))
     pairwise_l2.launches += 1
+    pairwise_l2.centroid_walks += kernel == KERNELS[2]
     return out
 
 
-#: kernel calls so far (a plain count, reset by whoever reads it)
+#: kernel calls so far, and those of them on the centroid walk (plain
+#: counts, reset by whoever reads them)
 pairwise_l2.launches = 0
+pairwise_l2.centroid_walks = 0

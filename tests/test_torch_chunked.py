@@ -21,11 +21,16 @@ from repro_torch.core.clustering import (_chunk_assign_stats, kmeans_fit,
                                          kmeans_fit_minibatch)
 from repro_torch.core.store import PagedStore
 from repro_torch.kernels import chunked, ops
-from repro_torch.kernels.pairwise_l2 import (DIVERGENCE_SLAB, MAX_ROWS,
-                                             TARGET_BLOCKS, plan_divergence,
-                                             plan_rows, plan_slabs)
+from repro_torch.kernels.pairwise_l2 import (CENTROID_SLAB, CENTROID_SLABS,
+                                             DIVERGENCE_SLAB, GROUP_ROWS,
+                                             KERNELS, MAX_CENTROIDS, MAX_ROWS,
+                                             MAX_SUMS, TARGET_BLOCKS,
+                                             plan_centroids, plan_divergence,
+                                             plan_pairwise, plan_rows,
+                                             plan_slabs)
 
 P_MNIST = 113_744
+F_QWEN2_EMBED = 151_936 * 1536          # the LM cell's tied embed
 N = 23
 
 
@@ -221,3 +226,99 @@ def test_rows_a_block_walk_only_where_the_slabs_fill_the_card(
     assert (got > 1) == (lanes * m * slabs >= TARGET_BLOCKS)
     groups = -(-n // got)
     assert 1 <= got <= MAX_ROWS and (groups - 1) * got < n <= groups * got
+
+
+PAIRS, WALK, CENTROID_WALK = KERNELS
+
+
+@pytest.mark.parametrize("lanes,n,m,f,kernel", [
+    (1, 16, 4, F_QWEN2_EMBED, CENTROID_WALK),   # the LM round's K-means
+    (1, 16, 2, F_QWEN2_EMBED, CENTROID_WALK),
+    (1, 16, MAX_CENTROIDS, F_QWEN2_EMBED, CENTROID_WALK),
+    (2, 16, 4, F_QWEN2_EMBED, CENTROID_WALK),   # lanes keep the plan
+    (1, 16, 4, TARGET_BLOCKS * CENTROID_SLAB, CENTROID_WALK),  # the least F
+    (1, 16, 4, TARGET_BLOCKS * CENTROID_SLAB - 1, PAIRS),
+    (1, 16, MAX_CENTROIDS + 1, F_QWEN2_EMBED, PAIRS),
+    (1, 40, 10, 2240, PAIRS),           # the paper CNN's K-means
+    (8, 40, 10, 2240, PAIRS),           # a cohort of 8 seeds
+    (1, 147, 10, 2240, PAIRS),          # a minibatch K-means chunk
+    (1, 10, 4, 22_528, PAIRS),          # tinyllama's K-means
+    (1, 147, 10, P_MNIST, PAIRS),       # the paged store's chunks over P
+    (1, 128, 10, P_MNIST, PAIRS),
+    (1, 31, 10, P_MNIST, PAIRS),
+    (1, 16, 4, 4096, PAIRS),            # feature_slice 4096
+    (1, 16, 1, F_QWEN2_EMBED, PAIRS),   # one centroid: never the walk
+    (16, 16, 1, 2048 * 32_000, WALK),   # 16 lanes of one centroid
+    (8, 40, 1, P_MNIST, PAIRS),
+])
+def test_the_centroid_walk_engages_on_wide_k_means_alone(
+        lanes, n, m, f, kernel):
+    """``plan_pairwise`` picks the centroid walk from the shapes alone: 2
+    to ``MAX_CENTROIDS`` centroids over an F of at least ``TARGET_BLOCKS``
+    slabs of ``CENTROID_SLAB`` columns (the LM round's K-means over its
+    whole tied embedding). Every other call keeps its kernel and its
+    plan."""
+    got = plan_pairwise(lanes, n, m, f)
+    assert got[0] == kernel
+    walk = plan_centroids(n, m, f)
+    assert (walk is not None) == (kernel == CENTROID_WALK)
+    if walk is None:
+        slabs, width = plan_slabs(n, m, f)
+        assert got == (kernel, slabs, width, plan_rows(lanes, n, m, slabs))
+    else:
+        assert got == (kernel, *walk)
+
+
+@pytest.mark.parametrize("f", [TARGET_BLOCKS * CENTROID_SLAB,
+                               TARGET_BLOCKS * CENTROID_SLAB + 1,
+                               4_194_307,                  # ragged
+                               8_388_608, F_QWEN2_EMBED, 2 ** 31 - 1])
+def test_the_centroid_walk_covers_each_column_once(f):
+    """Its slabs cover F once each, whole vectors of at least
+    ``CENTROID_SLAB`` columns, between ``TARGET_BLOCKS`` and
+    ``CENTROID_SLABS`` of them (the second pass stays a few thousand
+    partials a pair)."""
+    slabs, width, _ = plan_centroids(16, 4, f)
+    assert width % 4 == 0 and width >= CENTROID_SLAB
+    cover = np.zeros(f + width, dtype=np.int8) if f < 10 ** 8 else None
+    if cover is not None:
+        for s in range(slabs):
+            cover[s * width:min(f, (s + 1) * width)] += 1
+        assert (cover[:f] == 1).all()
+    assert (slabs - 1) * width < f <= slabs * width
+    assert TARGET_BLOCKS <= slabs <= CENTROID_SLABS
+
+
+@pytest.mark.parametrize("m", range(2, MAX_CENTROIDS + 1))
+@pytest.mark.parametrize("n", [1, 5, 16, 23, 64])
+def test_the_centroid_walk_keeps_its_sums_in_registers(n, m):
+    """A block takes ``rows`` rows against every centroid: rows × m, and
+    rows × the centroid slots the kernel compiles (m up to 4, 8 or 16),
+    stay within ``MAX_SUMS`` registers; at most ``GROUP_ROWS`` rows, and
+    the groups cover the rows once."""
+    rows = plan_centroids(n, m, F_QWEN2_EMBED)[2]
+    slots = 4 if m <= 4 else 8 if m <= 8 else 16
+    assert 1 <= rows <= min(n, GROUP_ROWS)
+    assert rows * m <= rows * slots <= MAX_SUMS
+    assert rows == min(n, GROUP_ROWS, MAX_SUMS // slots)
+    groups = -(-n // rows)
+    assert (groups - 1) * rows < n <= groups * rows
+
+
+@pytest.mark.parametrize("n,m,f", [(16, 4, F_QWEN2_EMBED),
+                                   (7, 3, 4_194_307),
+                                   (5, 16, 8_388_608),
+                                   (40, 10, 2240), (10, 4, 22_528)])
+def test_the_kernel_plan_is_a_function_of_the_shapes(n, m, f):
+    """The same kernel and slab plan at every call and at any number of
+    lanes (a lane of a cohort's call sums as its one-lane call does); the
+    centroid walk's rows too, and its slabs at any number of rows."""
+    one = plan_pairwise(1, n, m, f)
+    for lanes in (1, 2, 8, 1):
+        got = plan_pairwise(lanes, n, m, f)
+        assert got[1:3] == one[1:3]
+        if one[0] == CENTROID_WALK:
+            assert got == one
+    if one[0] == CENTROID_WALK:
+        assert {plan_centroids(k, m, f)[:2] for k in (1, 2, n, 64)} == {
+            one[1:3]}

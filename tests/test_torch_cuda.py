@@ -1064,6 +1064,185 @@ def test_pairwise_l2_bf16_is_the_widened_fp32(cuda, n, m, f):
                        ops.client_divergence(x.float(), g))
 
 
+# ---------------------------------------------------------------------------
+# pairwise_l2's centroid walk: 2 to 16 centroids over a wide F
+# ---------------------------------------------------------------------------
+
+WALK_F = 4_194_308      # 1024 slabs of 4100 columns, the last of 8
+WALK_TOL = dict(rtol=1e-5, atol=0.0)   # fp32 sums of 4 M terms, float64 ref
+
+
+def _float64_ref(x, c):
+    """``[.., n, m]`` squared distances in float64, a row at a time."""
+    c = c.double()
+    return torch.stack([((x[..., i:i + 1, :].double() - c) ** 2).sum(-1)
+                        for i in range(x.shape[-2])], dim=-2)
+
+
+def _walk_inputs(seed, shape, dtype, device, bits=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if bits:       # 0 or 1: every partial sum an exact integer below 2^24
+        t = torch.randint(0, 2, shape, generator=gen, device=device)
+        return t.to(dtype)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("n,m,f", [
+    (16, 4, WALK_F),            # the LM round's K-means, one group of rows
+    (7, 2, WALK_F),             # fewer rows than a group
+    (23, 4, WALK_F),            # two groups: 16 and 7 rows
+    (9, 5, WALK_F),             # 8 centroid slots, groups of 8
+    (6, 16, WALK_F),            # the most centroids: groups of 4 rows
+    (5, 3, WALK_F - 1),         # f % 4 != 0: one column a load
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_centroid_walk_matches_float64(cuda, n, m, f, dtype):
+    """The centroid walk (one launch a call on the counter, ``launches``
+    too) against float64: exactly on 0/1 operands, whose sums are
+    integers (each column counted once, slab edges included), and within
+    fp32 rounding on normal ones; a second call is the same bits."""
+    from repro_torch.kernels.pairwise_l2 import plan_pairwise
+    assert plan_pairwise(1, n, m, f)[0] == "pairwise_l2_centroid_walk_kernel"
+    for bits, tol in ((True, dict(rtol=0.0, atol=0.0)), (False, WALK_TOL)):
+        x = _walk_inputs(n + m, (n, f), dtype, cuda, bits)
+        c = _walk_inputs(n + m + 1, (m, f), torch.float32, cuda, bits)
+        before = (pairwise_l2.launches, pairwise_l2.centroid_walks)
+        got = pairwise_l2(x, c)
+        torch.cuda.synchronize()
+        assert (pairwise_l2.launches, pairwise_l2.centroid_walks) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got.double(), _float64_ref(x, c), **tol)
+        assert torch.equal(pairwise_l2(x, c), got)
+
+
+def test_centroid_walk_misaligned_view(cuda):
+    """Rows that do not start on a whole vector take one column a load."""
+    n, m, f = 5, 4, WALK_F
+    base = _walk_inputs(3, (n * f + 1,), torch.float32, cuda)
+    x = base[1:].view(n, f)
+    c = _walk_inputs(4, (m, f), torch.float32, cuda)
+    before = pairwise_l2.centroid_walks
+    got = pairwise_l2(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2.centroid_walks == before + 1
+    torch.testing.assert_close(got.double(), _float64_ref(x, c), **WALK_TOL)
+    assert torch.equal(pairwise_l2(x, c), got)
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_centroid_walk_bf16_is_the_widened_fp32(cuda, m):
+    x = _walk_inputs(m, (16, WALK_F), torch.bfloat16, cuda)
+    c = _walk_inputs(m + 1, (m, WALK_F), torch.float32, cuda)
+    before = pairwise_l2.centroid_walks
+    got = pairwise_l2(x, c)
+    assert torch.equal(got, pairwise_l2(x.float(), c))
+    torch.cuda.synchronize()
+    assert pairwise_l2.centroid_walks == before + 2
+
+
+@pytest.mark.parametrize("b,n,rows,m", [(2, 16, 18, 4), (3, 5, 5, 9)])
+def test_centroid_walk_lanes_are_their_one_lane_calls(cuda, b, n, rows, m):
+    """``[B, N, F]`` (the first N rows of each lane of a ``[B, rows, F]``
+    plane) in one launch: each lane the bits of its one-lane call."""
+    plane = _walk_inputs(b, (b, rows, WALK_F), torch.bfloat16, cuda)
+    x = plane[:, :n]
+    c = _walk_inputs(b + 1, (b, m, WALK_F), torch.float32, cuda)
+    before = pairwise_l2.centroid_walks
+    got = pairwise_l2(x, c)
+    torch.cuda.synchronize()
+    assert pairwise_l2.centroid_walks == before + 1 and got.shape == (b, n, m)
+    for i in range(b):
+        assert torch.equal(got[i], pairwise_l2(x[i], c[i]))
+    torch.testing.assert_close(got.double(), _float64_ref(x, c), **WALK_TOL)
+
+
+def test_centroid_walk_keeps_a_nan_row_in_its_pairs(cuda):
+    x = _walk_inputs(5, (16, WALK_F), torch.bfloat16, cuda)
+    c = _walk_inputs(6, (4, WALK_F), torch.float32, cuda)
+    clean = pairwise_l2(x, c)
+    x[3, WALK_F // 2] = float("nan")
+    got = pairwise_l2(x, c)
+    torch.cuda.synchronize()
+    assert got[3].isnan().all()
+    keep = torch.arange(16, device=cuda) != 3
+    assert torch.equal(got[keep], clean[keep])
+
+
+@pytest.mark.parametrize("n,m,kernel,rows", [
+    (16, 4, 2, 15),             # the centroid walk's group is 16 rows
+    (23, 5, 2, 16),             # 8 centroid slots: groups of 8
+    (5, 3, 2, 16),              # fewer rows than a group: rows = n
+    (16, 17, 2, 4),             # more centroids than it compiles
+    (16, 4, 0, 2),              # a block a (pair, slab) takes one row
+    (16, 4, 1, 1),              # the walk of one centroid takes several
+])
+def test_the_launch_refuses_rows_its_kernel_does_not_take(
+        cuda, n, m, kernel, rows):
+    """The plan's rows reach the launch, which holds them to the kernel it
+    names (the centroid walk's compiled group of rows): another plan
+    raises, and launches nothing."""
+    from repro_torch.kernels.pairwise_l2 import (KERNELS, MAX_CENTROIDS,
+                                                 _launch, plan_pairwise)
+    x = _walk_inputs(n, (n, WALK_F), torch.bfloat16, cuda)
+    c = _walk_inputs(m, (m, WALK_F), torch.float32, cuda)
+    _, slabs, width, _ = plan_pairwise(1, n, min(m, MAX_CENTROIDS), WALK_F)
+    before = (pairwise_l2.launches, pairwise_l2.centroid_walks)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _launch(x, c, KERNELS[kernel], slabs, width, rows)
+    assert (pairwise_l2.launches, pairwise_l2.centroid_walks) == before
+
+
+@pytest.mark.parametrize("n,m,f", [(16, 1, WALK_F), (40, 10, 2240),
+                                   (10, 4, 22_528), (16, 17, WALK_F),
+                                   (147, 10, 113_744)])
+def test_other_calls_keep_their_kernels(cuda, n, m, f):
+    """One centroid, the paper CNN's and tinyllama's K-means, more
+    centroids than the walk takes, the paged store's chunk: no walk."""
+    from repro_torch.kernels.pairwise_l2 import divergence_sq
+    x = _walk_inputs(n, (n, f), torch.bfloat16, cuda)
+    c = _walk_inputs(m, (m, f), torch.float32, cuda)
+    before = (pairwise_l2.launches, pairwise_l2.centroid_walks)
+    pairwise_l2(x, c)
+    if m == 1:
+        divergence_sq(x, c)
+    torch.cuda.synchronize()
+    assert (pairwise_l2.launches, pairwise_l2.centroid_walks) == (
+        before[0] + 1 + (m == 1), before[1])
+
+
+def test_centroid_walk_at_the_lm_round_is_near_its_bound(cuda):
+    """The LM round's K-means, bf16 ``[16, 233,373,696]`` against 4 fp32
+    centroids (11.2 GB), within twice its least time at 3.35 TB/s: the
+    median of 5 calls, CUDA events, L2 flushed before each. Skips where
+    the card lacks the memory."""
+    n, m, f = 16, 4, 151_936 * 1536
+    need = n * f * 2 + m * f * 4
+    if torch.cuda.mem_get_info()[0] < need + 2 ** 30:
+        pytest.skip(f"needs {need / 1e9:.1f} GB free on the card")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.empty((n, f), dtype=torch.bfloat16, device=cuda)
+    for i in range(n):
+        x[i] = torch.randn(f, generator=gen, device=cuda)
+    c = x[::4].float()
+    flush = torch.empty(64 * 2 ** 20, device=cuda)
+    before = pairwise_l2.centroid_walks
+    got = pairwise_l2(x, c)
+    times = []
+    for _ in range(5):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pairwise_l2(x, c)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    assert pairwise_l2.centroid_walks == before + 6
+    assert torch.equal(got[::4].diagonal(), torch.zeros(m, device=cuda))
+    bound_ms = (need + n * m * 4) / 3.35e12 * 1e3
+    assert sorted(times)[2] <= 2 * bound_ms, (times, bound_ms)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
     (8, 32, 32, 32, 4, 64, True, None),        # the FL path (tinyllama)
     (8, 128, 128, 32, 4, 64, True, None),      # launch.train's batch
